@@ -1,18 +1,20 @@
 """specenh_torch — the PyTorch/CUDA port of specenh for NVIDIA Hopper.
 
-The JAX package ``specenh`` stays the reference; this package runs the same
-serving path (raw shot -> STFT -> depth-2 conv-AE -> restitch) on an H100,
-with every TPU kernel of that path rewritten by hand in CUDA C++
+The JAX package ``specenh`` stays the reference; this package runs the
+serving path (raw shot -> STFT -> depth-2 conv-AE -> restitch) and the
+training path (``train.fit`` on the kernel engine) on an H100, with every
+TPU kernel of those paths rewritten by hand in CUDA C++
 (``specenh_torch/csrc``).  Each kernel wrapper launches its kernel for a
 CUDA tensor and runs its plain PyTorch twin for a CPU tensor.
 
-Only ``specenh.config`` is shared with the JAX package: it is plain
-dataclasses, and ``specenh/__init__.py`` guards its jax import, so this
-package imports on a machine without jax.
+The package imports torch, numpy and scipy, and nothing of ``specenh``: it
+keeps its own copies of what it needs (``config``, ``bench.reference``).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from specenh.config import ModelConfig, PatchSpec, SpecParams  # noqa: F401
+from specenh_torch.config import (MODEL_PRESETS, ModelConfig,  # noqa: F401
+                                  PatchSpec, SpecParams, TrainConfig)
 
-__all__ = ["ModelConfig", "PatchSpec", "SpecParams"]
+__all__ = ["ModelConfig", "PatchSpec", "SpecParams", "TrainConfig",
+           "MODEL_PRESETS"]

@@ -16,7 +16,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from specenh.config import ModelConfig, PatchSpec, SpecParams
+from specenh_torch.config import ModelConfig, PatchSpec, SpecParams
 from specenh_torch.data.tiles import n_tiles_for
 from specenh_torch.models.autoencoder import ConvAutoencoder
 from specenh_torch.ops import ae_kernel, stft_fused

@@ -37,106 +37,24 @@
 // as warp-wide broadcasts.  Kernel size is a template argument (1, 3, 5,
 // 7), channel counts are runtime: every geometry ae_kernel.supports()
 // accepts.  No tensor cores yet: wgmma, TMA and fusing the stages with
-// halo recompute are later work.
+// halo recompute are later work.  The kernel templates live in
+// ae_conv.cuh, shared with the training stages (ae_train.cu).
 
-#include "common.cuh"
+#include "ae_conv.cuh"
 
 namespace {
 
-constexpr int NT = 128;  // threads per block, one output position each
-constexpr int CC = 8;    // input channels per shared-memory weight stage
-constexpr int COB = 16;  // output channels per thread (pool / convT stages)
-
-// Element (b, ch, y, x) of a stage's input or output lies at
-// base(b) + ch * chan + y * ld + x, with tile b = (b / kt, b % kt).
-struct Plane {
-  long long outer, inner, chan, ld;
-  int kt;
-  __device__ __forceinline__ long long base(int b) const {
-    return (long long)(b / kt) * outer + (long long)(b % kt) * inner;
-  }
-};
-
-enum Epilogue { EPI_POOL = 0, EPI_SIGMOID = 1 };
-
-// Stage the float weights of input channels [c0, c0 + nc) and output
-// channels [co0, co0 + cob) from w (Cin, K, K, Cout).
-template <typename TW, int K, int CB>
-__device__ __forceinline__ void stage_weights(float (&ws)[CC][K * K][CB],
-                                              const TW* __restrict__ w, int c0,
-                                              int nc, int co0, int Cout) {
-  for (int e = threadIdx.x; e < nc * K * K * CB; e += NT) {
-    const int co = e % CB, rest = e / CB;
-    ws[rest / (K * K)][rest % (K * K)][co] =
-        sx_load(w + ((long long)c0 * K * K + rest) * Cout + co0 + co);
-  }
-}
-
-// 'same' K x K convolution (stride 1) of the quad (2m+a, 2n+b), a, b in
-// {0, 1}, for CB output channels; then either bias + relu + 2x2 max pool
-// (EPI_POOL, output (m, n) in TOUT) or, with one output channel, bias +
-// sigmoid of each quad pixel (EPI_SIGMOID, float output).
-template <typename TIN, typename TACT, typename TOUT, int K, int CB, int EPI>
-__global__ void __launch_bounds__(NT) conv_quad_kernel(
-    const TIN* __restrict__ in, Plane src, const TACT* __restrict__ w,
-    const float* __restrict__ bias, TOUT* __restrict__ out, Plane dst,
-    int Cin, int Cout, int H, int W) {
-  constexpr int R = (K - 1) / 2;
-  constexpr int P = K + 1;
-  __shared__ float ws[CC][K * K][CB];
-
-  const int wq = W / 2;
-  const int pos = blockIdx.x * NT + threadIdx.x;
-  const bool active = pos < (H / 2) * wq;
-  const int m = pos / wq, n = pos % wq;
-  const int co0 = blockIdx.y * CB;
-  const int b = blockIdx.z;
-  const TIN* inb = in + src.base(b);
-
-  float acc[4][CB];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int co = 0; co < CB; ++co) acc[q][co] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    const int nc = min(CC, Cin - c0);
-    __syncthreads();
-    stage_weights<TACT, K, CB>(ws, w, c0, nc, co0, Cout);
-    __syncthreads();
-    if (!active) continue;
-    for (int cc = 0; cc < nc; ++cc) {
-      const TIN* pl = inb + (long long)(c0 + cc) * src.chan;
-      float p[P][P];
-#pragma unroll
-      for (int r = 0; r < P; ++r) {
-        const int y = 2 * m - R + r;
-#pragma unroll
-        for (int s = 0; s < P; ++s) {
-          const int xx = 2 * n - R + s;
-          p[r][s] = (y >= 0 && y < H && xx >= 0 && xx < W)
-                        ? sx_round<TACT>(sx_load(pl + (long long)y * src.ld + xx))
-                        : 0.f;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i)
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-#pragma unroll
-          for (int co = 0; co < CB; ++co) {
-            const float wv = ws[cc][i * K + j][co];
-            acc[0][co] = fmaf(p[i][j], wv, acc[0][co]);
-            acc[1][co] = fmaf(p[i][j + 1], wv, acc[1][co]);
-            acc[2][co] = fmaf(p[i + 1][j], wv, acc[2][co]);
-            acc[3][co] = fmaf(p[i + 1][j + 1], wv, acc[3][co]);
-          }
-    }
-  }
-  if (!active) return;
-
-  TOUT* ob = out + dst.base(b);
-  if constexpr (EPI == EPI_POOL) {
+// S1 / S2: bias + relu + 2x2 max pool of the quad, output (m, n) in TOUT.
+template <typename TOUT, int CB>
+struct PoolEpi {
+  TOUT* out;
+  Plane dst;
+  __device__ __forceinline__ void operator()(float (&acc)[4][CB],
+                                             const float* bias, bool active,
+                                             int b, int m, int n,
+                                             int co0) const {
+    if (!active) return;
+    TOUT* ob = out + dst.base(b);
 #pragma unroll
     for (int co = 0; co < CB; ++co) {
       // max(z_q + bias) == max(z_q) + bias, and relu commutes with max
@@ -145,151 +63,27 @@ __global__ void __launch_bounds__(NT) conv_quad_kernel(
       ob[(long long)(co0 + co) * dst.chan + (long long)m * dst.ld + n] =
           sx_cast<TOUT>(fmaxf(z, 0.f));
     }
-  } else {
+  }
+};
+
+// S4: one output channel, bias + sigmoid of each quad pixel, float output.
+struct SigmoidEpi {
+  float* out;
+  Plane dst;
+  __device__ __forceinline__ void operator()(float (&acc)[4][1],
+                                             const float* bias, bool active,
+                                             int b, int m, int n, int) const {
+    if (!active) return;
+    float* ob = out + dst.base(b);
     const float bv = bias[0];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const float z = acc[q][0] + bv;
       ob[(long long)(2 * m + q / 2) * dst.ld + 2 * n + q % 2] =
-          sx_cast<TOUT>(1.f / (1.f + expf(-z)));
+          1.f / (1.f + expf(-z));
     }
   }
-}
-
-// Flax nn.ConvTranspose (transpose_kernel=False), stride 2, 'SAME', + bias
-// + relu: out[y] = sum_i x[(y + i - PA) / 2] * w[i] over the taps i where
-// y + i - PA is even and the source row exists, PA = jax.lax's pad_a.  One
-// thread per input position (m, n) computes the output quad (2m+a, 2n+b):
-// every tap lands on exactly one quad pixel, and the sources lie in rows
-// and columns m + DMIN .. m + DMAX.
-template <typename T, int K>
-__global__ void __launch_bounds__(NT) convt_relu_kernel(
-    const T* __restrict__ in, const T* __restrict__ w,
-    const float* __restrict__ bias, T* __restrict__ out, int Cin, int Cout,
-    int H, int W) {
-  constexpr int PA = (2 > K - 1) ? K - 1 : (K + 1) / 2;
-  constexpr int DMIN = -(PA / 2);
-  constexpr int DMAX = (K - PA) / 2;
-  constexpr int NR = DMAX - DMIN + 1;
-  __shared__ float ws[CC][K * K][COB];
-
-  const int pos = blockIdx.x * NT + threadIdx.x;
-  const bool active = pos < H * W;
-  const int m = pos / W, n = pos % W;
-  const int co0 = blockIdx.y * COB;
-  const int b = blockIdx.z;
-  const T* inb = in + (long long)b * Cin * H * W;
-
-  float acc[4][COB];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int co = 0; co < COB; ++co) acc[q][co] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    const int nc = min(CC, Cin - c0);
-    __syncthreads();
-    stage_weights<T, K, COB>(ws, w, c0, nc, co0, Cout);
-    __syncthreads();
-    if (!active) continue;
-    for (int cc = 0; cc < nc; ++cc) {
-      const T* pl = inb + (long long)(c0 + cc) * H * W;
-      float p[NR][NR];
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const int y = m + DMIN + r;
-#pragma unroll
-        for (int s = 0; s < NR; ++s) {
-          const int xx = n + DMIN + s;
-          p[r][s] = (y >= 0 && y < H && xx >= 0 && xx < W)
-                        ? sx_load(pl + (long long)y * W + xx)
-                        : 0.f;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-          if ((a + i - PA) & 1) continue;
-          const int r = (a + i - PA) / 2 - DMIN;
-#pragma unroll
-          for (int bb = 0; bb < 2; ++bb)
-#pragma unroll
-            for (int j = 0; j < K; ++j) {
-              if ((bb + j - PA) & 1) continue;
-              const int s = (bb + j - PA) / 2 - DMIN;
-#pragma unroll
-              for (int co = 0; co < COB; ++co)
-                acc[a * 2 + bb][co] =
-                    fmaf(p[r][s], ws[cc][i * K + j][co], acc[a * 2 + bb][co]);
-            }
-        }
-    }
-  }
-  if (!active) return;
-
-  const int ho = 2 * H, wo = 2 * W;
-#pragma unroll
-  for (int co = 0; co < COB; ++co) {
-    const float bv = bias[co0 + co];
-    T* oc = out + ((long long)b * Cout + co0 + co) * ho * wo;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      oc[(long long)(2 * m + q / 2) * wo + 2 * n + q % 2] =
-          sx_cast<T>(fmaxf(acc[q][co] + bv, 0.f));
-  }
-}
-
-template <typename TIN, typename TACT, typename TOUT, int CB, int EPI>
-int launch_conv_quad(const void* in, Plane src, const void* w,
-                     const float* bias, void* out, Plane dst, int B, int Cin,
-                     int Cout, int H, int W, int K, cudaStream_t st) {
-  if (Cout % CB != 0 || H % 2 != 0 || W % 2 != 0 || B < 1 || B > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid(((H / 2) * (W / 2) + NT - 1) / NT, Cout / CB, B);
-  const auto* i = static_cast<const TIN*>(in);
-  const auto* wt = static_cast<const TACT*>(w);
-  auto* o = static_cast<TOUT*>(out);
-  switch (K) {
-#define SX_CASE(KK)                                                          \
-  case KK:                                                                   \
-    conv_quad_kernel<TIN, TACT, TOUT, KK, CB, EPI>                           \
-        <<<grid, NT, 0, st>>>(i, src, wt, bias, o, dst, Cin, Cout, H, W);    \
-    break;
-    SX_CASE(1) SX_CASE(3) SX_CASE(5) SX_CASE(7)
-#undef SX_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch_convt(const void* in, const void* w, const float* bias, void* out,
-                 int B, int Cin, int Cout, int H, int W, int K,
-                 cudaStream_t st) {
-  if (Cout % COB != 0 || B < 1 || B > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((H * W + NT - 1) / NT, Cout / COB, B);
-  const auto* i = static_cast<const T*>(in);
-  const auto* wt = static_cast<const T*>(w);
-  auto* o = static_cast<T*>(out);
-  switch (K) {
-#define SX_CASE(KK)                                                          \
-  case KK:                                                                   \
-    convt_relu_kernel<T, KK><<<grid, NT, 0, st>>>(i, wt, bias, o, Cin, Cout, \
-                                                  H, W);                     \
-    break;
-    SX_CASE(1) SX_CASE(3) SX_CASE(5) SX_CASE(7)
-#undef SX_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-Plane nchw(int C, int H, int W) {
-  return Plane{(long long)C * H * W, 0, (long long)H * W, W, 1};
-}
+};
 
 }  // namespace
 
@@ -304,29 +98,38 @@ extern "C" int ae_tile_in(const float* specs, int kt, long long spec_outer,
   const Plane dst = nchw(Cout, H / 2, W / 2);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
-    return launch_conv_quad<float, float, float, COB, EPI_POOL>(
-        specs, src, w, bias, out, dst, B, 1, Cout, H, W, K, st);
+    return launch_conv_quad<float, COB>(
+        PlaneSrc<float, float>{specs, src}, w, bias,
+        PoolEpi<float, COB>{static_cast<float*>(out), dst}, B, 1, Cout, H, W,
+        K, st);
   if (dtype == SX_BF16)
-    return launch_conv_quad<float, __nv_bfloat16, __nv_bfloat16, COB, EPI_POOL>(
-        specs, src, w, bias, out, dst, B, 1, Cout, H, W, K, st);
+    return launch_conv_quad<__nv_bfloat16, COB>(
+        PlaneSrc<float, __nv_bfloat16>{specs, src}, w, bias,
+        PoolEpi<__nv_bfloat16, COB>{static_cast<__nv_bfloat16*>(out), dst}, B,
+        1, Cout, H, W, K, st);
   return cudaErrorInvalidValue;
 }
 
 // S2.  in: (B, Cin, H, W), out: (B, Cout, H/2, W/2), w: (Cin, K, K, Cout),
 // all in dtype.
+template <typename T>
+int conv_pool(const void* in, const void* w, const float* bias, void* out,
+              int B, int Cin, int Cout, int H, int W, int K, cudaStream_t st) {
+  return launch_conv_quad<T, COB>(
+      PlaneSrc<T, T>{static_cast<const T*>(in), nchw(Cin, H, W)}, w, bias,
+      PoolEpi<T, COB>{static_cast<T*>(out), nchw(Cout, H / 2, W / 2)}, B, Cin,
+      Cout, H, W, K, st);
+}
+
 extern "C" int ae_conv_pool(const void* in, const void* w, const float* bias,
                             void* out, int dtype, int B, int Cin, int Cout,
                             int H, int W, int K, void* stream) {
-  const Plane src = nchw(Cin, H, W);
-  const Plane dst = nchw(Cout, H / 2, W / 2);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
-    return launch_conv_quad<float, float, float, COB, EPI_POOL>(
-        in, src, w, bias, out, dst, B, Cin, Cout, H, W, K, st);
+    return conv_pool<float>(in, w, bias, out, B, Cin, Cout, H, W, K, st);
   if (dtype == SX_BF16)
-    return launch_conv_quad<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, COB,
-                            EPI_POOL>(in, src, w, bias, out, dst, B, Cin, Cout,
-                                      H, W, K, st);
+    return conv_pool<__nv_bfloat16>(in, w, bias, out, B, Cin, Cout, H, W, K,
+                                    st);
   return cudaErrorInvalidValue;
 }
 
@@ -347,19 +150,23 @@ extern "C" int ae_convt_relu(const void* in, const void* w, const float* bias,
 // S4.  in: (B, Cin, H, W) in dtype, w: (Cin, K, K, 1) in dtype.  out:
 // float32 (B / kt, H, >= kt*W) restitched, channel and row strides
 // out_outer / out_ld; tile b lands at columns (b % kt) * W ..
+template <typename T>
+int tile_out(const void* in, const void* w, const float* bias, float* out,
+             Plane dst, int B, int Cin, int H, int W, int K, cudaStream_t st) {
+  return launch_conv_quad<T, 1>(
+      PlaneSrc<T, T>{static_cast<const T*>(in), nchw(Cin, H, W)}, w, bias,
+      SigmoidEpi{out, dst}, B, Cin, 1, H, W, K, st);
+}
+
 extern "C" int ae_tile_out(const void* in, const void* w, const float* bias,
                            float* out, int kt, long long out_outer,
                            long long out_ld, int dtype, int B, int Cin, int H,
                            int W, int K, void* stream) {
-  const Plane src = nchw(Cin, H, W);
   const Plane dst{out_outer, W, 0, out_ld, kt};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
-    return launch_conv_quad<float, float, float, 1, EPI_SIGMOID>(
-        in, src, w, bias, out, dst, B, Cin, 1, H, W, K, st);
+    return tile_out<float>(in, w, bias, out, dst, B, Cin, H, W, K, st);
   if (dtype == SX_BF16)
-    return launch_conv_quad<__nv_bfloat16, __nv_bfloat16, float, 1,
-                            EPI_SIGMOID>(in, src, w, bias, out, dst, B, Cin, 1,
-                                         H, W, K, st);
+    return tile_out<__nv_bfloat16>(in, w, bias, out, dst, B, Cin, H, W, K, st);
   return cudaErrorInvalidValue;
 }

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from specenh.config import PatchSpec
+from specenh_torch.config import PatchSpec
 
 __all__ = ["n_tiles_for", "patch", "unpatch"]
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from specenh.config import ModelConfig
+from specenh_torch.config import ModelConfig
 
 __all__ = ["ConvAutoencoder", "make_model", "param_count", "convt_pad_before",
            "conv_transpose_same"]
@@ -110,13 +110,19 @@ class ConvAutoencoder(nn.Module):
             _glorot_(conv.weight, cin_ * kh * kw, cout * kh * kw, generator)
             nn.init.zeros_(conv.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x[:, None].to(self.out_conv.weight.dtype)
+    def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
+        """(B, H, W) or the JAX layout (B, H, W, 1) -> the same layout,
+        float32: sigmoid probabilities, or the logits with ``logits=True``
+        (as Flax's ``__call__(x, logits)``)."""
+        nhwc = x.ndim == 4
+        x = (x[..., 0] if nhwc else x)[:, None].to(self.out_conv.weight.dtype)
         for conv in self.enc_convs:
             x = F.max_pool2d(F.relu(conv(x)), 2)
         for i in reversed(range(self.cfg.depth)):
             x = F.relu(self.dec_deconvs[i](x))
-        return torch.sigmoid(self.out_conv(x))[:, 0].float()
+        z = self.out_conv(x)[:, 0].float()
+        z = z if logits else torch.sigmoid(z)
+        return z[..., None] if nhwc else z
 
 
 def make_model(cfg: ModelConfig = ModelConfig(), *,

@@ -18,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from specenh.config import ModelConfig
+from specenh_torch.config import ModelConfig
 
 __all__ = ["state_dict_from_flax"]
 

@@ -29,7 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from specenh.config import ModelConfig, PatchSpec
+from specenh_torch.config import ModelConfig, PatchSpec
 from specenh_torch._build import CudaKernel
 from specenh_torch.data.tiles import patch, unpatch
 from specenh_torch.models.autoencoder import ConvAutoencoder, conv_transpose_same

@@ -1,0 +1,634 @@
+"""K5 + K5b, depth-2 conv-AE training: the CUDA stage kernels' wrappers,
+their plain twins, the gradient as a ``torch.autograd.Function``, and the
+epoch engines (the counterpart of ``specenh.ops.ae_train_kernel``).
+
+One step (``kernel_loss_grad_sums``) runs the stages of ``csrc/ae_train.cu``:
+
+  forward   ae_train_in        conv1 + relu + pool -> p1, pool routing bits
+            ae_train_conv_pool conv2 + relu + pool -> p2, routing bits
+            ae_convt (ae.cu)   the two transposed convs + relu -> d4, e
+            ae_train_loss      out-conv -> logits, BCE sum, dz5, db5
+  backward  ae_train_wgrad / ae_train_dgrad_conv / ae_train_dgrad_convt,
+            layer by layer down to conv1 (ae_train_wgrad_x)
+
+K5 (``pre=False``) reads float32 tiles and rounds x and y to the kernel
+dtype as it loads them; K5b (``pre=True``, ``pre_layout=True`` in the epoch
+engine) reads tiles cast to the kernel dtype once per epoch, through its
+own entry points ``ae_train_in_pre`` and ``ae_train_loss_pre`` (conv1's
+weight gradient then runs on the generic ``ae_train_wgrad``).  The cast is
+value-exact, so both give the same sums bit for bit.
+
+Rounding follows the TPU kernel: x, y, weights and every stored activation
+and dz in the kernel dtype; sums, biases, logits and bias gradients float32;
+each dz rounded once, before both of its products.  dz5 is UNNORMALISED:
+the wrapper divides by mask_sum * 256 * 128.  The pool backward routes to
+every maximal phase of a window whose max is > 0 (4 bits per pooled value);
+this is not ``F.max_pool2d``'s backward, which picks one.
+
+Each stage wrapper launches its kernel for CUDA tensors and runs its plain
+twin (``*_plain``, the same math in float32 on values rounded where the
+kernel rounds, its sums accumulated in float64) for CPU tensors.  An unsupported geometry raises; a kernel
+that fails to build or launch raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from specenh_torch.config import ModelConfig, PatchSpec
+from specenh_torch._build import CudaKernel
+from specenh_torch.models.autoencoder import ConvAutoencoder, convt_pad_before
+from specenh_torch.ops import ae_kernel as AK
+from specenh_torch.ops.ae_kernel import supports
+
+__all__ = [
+    "TrainWeights", "supports", "build_train_weights",
+    "ae_train_in", "ae_train_conv_pool", "ae_train_loss",
+    "ae_train_dgrad_conv", "ae_train_dgrad_convt", "ae_train_wgrad",
+    "ae_train_sum", "ae_train_in_plain", "ae_train_conv_pool_plain",
+    "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
+    "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
+    "route_bits", "route_expand", "kernel_loss_grad_sums",
+    "kernel_loss_grad_sums_plain", "kernel_bce_sum", "kernel_value_and_grad",
+    "masked_bce_from_logits", "make_kernel_train_step",
+    "kernel_train_epoch_fn", "TRAIN_KERNELS",
+]
+
+TILE_F, TILE_T = PatchSpec().tile_freq, PatchSpec().tile_time  # 256, 128
+NQ = 128  # threads of a quad / position block in ae_train.cu (NT)
+_DT = {torch.float32: 0, torch.bfloat16: 1}
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+TRAIN_IN = CudaKernel("ae_train", "ae_train_in", [_p, _p, _p, _p, _p] + [_i] * 6)
+TRAIN_IN_PRE = CudaKernel("ae_train", "ae_train_in_pre", [_p, _p, _p, _p, _p] + [_i] * 6)
+TRAIN_CONV_POOL = CudaKernel("ae_train", "ae_train_conv_pool",
+                             [_p, _p, _p, _p, _p] + [_i] * 7)
+TRAIN_LOSS = CudaKernel("ae_train", "ae_train_loss", [_p] * 8 + [_i] * 7)
+TRAIN_LOSS_PRE = CudaKernel("ae_train", "ae_train_loss_pre", [_p] * 8 + [_i] * 7)
+DGRAD_CONV = CudaKernel("ae_train", "ae_train_dgrad_conv", [_p] * 6 + [_i] * 8)
+DGRAD_CONVT = CudaKernel("ae_train", "ae_train_dgrad_convt",
+                         [_p, _p, _p, _i, _p, _p] + [_i] * 8)
+WGRAD = CudaKernel("ae_train", "ae_train_wgrad", [_p] * 4 + [_i] * 11)
+WGRAD_X = CudaKernel("ae_train", "ae_train_wgrad_x", [_p] * 4 + [_i] * 6)
+TRAIN_SUM = CudaKernel("ae_train", "ae_train_sum", [_p, _p, _i, _i])
+TRAIN_KERNELS = (TRAIN_IN, TRAIN_IN_PRE, TRAIN_CONV_POOL, TRAIN_LOSS,
+                 TRAIN_LOSS_PRE, DGRAD_CONV, DGRAD_CONVT, WGRAD, WGRAD_X,
+                 TRAIN_SUM)
+
+# kernel layer i (conv1, conv2, convT2, convT1, out) -> the module's
+# parameter names
+_LAYER_PARAMS = ("enc_convs.0", "enc_convs.1", "dec_deconvs.1",
+                 "dec_deconvs.0", "out_conv")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainWeights:
+    """The forward weights (``ae_kernel.AEKernelWeights``) and, for layers 1
+    to 4, the input-gradient operands ``bwd[i]`` (Cout, K, K, Cin) in the
+    kernel dtype: the kernel transposed, and for the stride-1 convs also
+    flipped in space."""
+
+    fwd: AK.AEKernelWeights
+    bwd: Tuple[torch.Tensor | None, ...]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.fwd.dtype
+
+
+def build_train_weights(model: ConvAutoencoder, dtype=torch.bfloat16
+                        ) -> TrainWeights:
+    """The kernels' weights from the module (raises for a geometry the
+    kernels do not run)."""
+    fwd = AK.build_kernel_weights(model, dtype)
+    bwd = [None]
+    for i in (1, 2, 3, 4):
+        w = fwd.w[i]
+        w = w if i in (2, 3) else w.flip(1, 2)
+        bwd.append(w.permute(3, 1, 2, 0).contiguous())
+    return TrainWeights(fwd, tuple(bwd))
+
+
+def grads_to_torch(gw, gb) -> Dict[str, torch.Tensor]:
+    """Kernel-layout gradients (per layer: (Cin, K, K, Cout), (Cout,)) ->
+    a dict keyed like ``model.named_parameters()``."""
+    out = {}
+    for i, name in enumerate(_LAYER_PARAMS):
+        g = gw[i]
+        g = g.permute(0, 3, 1, 2).flip(2, 3) if i in (2, 3) else g.permute(3, 0, 1, 2)
+        out[f"{name}.weight"] = g.contiguous()
+        out[f"{name}.bias"] = gb[i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# pool routing and input checks
+# ---------------------------------------------------------------------------
+
+
+def route_bits(r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Routing bits of a 2x2 max pool: bit a*2+b of out[m, n] is set where
+    r[2m+a, 2n+b] == p[m, n] and p[m, n] > 0; uint8 (B, C, H/2, W/2)."""
+    b, c, h, w = r.shape
+    rq = r.reshape(b, c, h // 2, 2, w // 2, 2)
+    hit = (rq == p[:, :, :, None, :, None]) & (p > 0)[:, :, :, None, :, None]
+    weight = torch.tensor([[1, 2], [4, 8]], dtype=torch.int32, device=r.device)
+    return (hit.int() * weight[:, None, :]).sum((3, 5)).to(torch.uint8)
+
+
+def route_expand(v: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) pooled gradient -> (B, C, 2H, 2W) at every routed pixel."""
+    b, c, h, w = v.shape
+    out = torch.zeros(b, c, h, 2, w, 2, dtype=v.dtype, device=v.device)
+    for a in (0, 1):
+        for bb in (0, 1):
+            hit = ((bits >> (a * 2 + bb)) & 1).to(v.dtype)
+            out[:, :, :, a, :, bb] = v * hit
+    return out.reshape(b, c, 2 * h, 2 * w)
+
+
+def _popcount(bits: torch.Tensor) -> torch.Tensor:
+    return sum(((bits >> q) & 1).float() for q in range(4))
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_tiles(x: torch.Tensor, name: str, dtypes) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected one of {dtypes}")
+    if x.ndim != 3 or x.shape[0] < 1 or tuple(x.shape[1:]) != (TILE_F, TILE_T):
+        raise ValueError(f"{name}: expected (B, {TILE_F}, {TILE_T}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_device(x: torch.Tensor, tw: TrainWeights) -> None:
+    if any(t.device != x.device for t in (*tw.fwd.w, *tw.fwd.b, *tw.bwd[1:])):
+        raise ValueError(f"weights are not on {x.device}")
+
+
+def _act_shape(tw: TrainWeights, layer: int, b: int):
+    """Shape of the activation a layer reads: (B, Cin, H, W)."""
+    cin = tw.fwd.w[layer].shape[0]
+    hw = {0: (TILE_F, TILE_T), 1: (TILE_F // 2, TILE_T // 2),
+          2: (TILE_F // 4, TILE_T // 4), 3: (TILE_F // 2, TILE_T // 2),
+          4: (TILE_F, TILE_T)}[layer]
+    return (b, cin, *hw)
+
+
+def _rows(b: int, h: int, w: int, quad: bool) -> int:
+    n = (h // 2) * (w // 2) if quad else h * w
+    return b * ((n + NQ - 1) // NQ)
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+
+
+def _conv_pool_mask(x: torch.Tensor, tw: TrainWeights, i: int):
+    r = F.relu(F.conv2d(x, AK._conv_w(tw.fwd, i), tw.fwd.b[i],
+                        padding=tw.fwd.k(i) // 2))
+    p = F.max_pool2d(r, 2)
+    return p.to(tw.dtype), route_bits(r, p)
+
+
+def ae_train_in_plain(tw: TrainWeights, x: torch.Tensor):
+    return _conv_pool_mask(x.to(tw.dtype).float()[:, None], tw, 0)
+
+
+def ae_train_conv_pool_plain(tw: TrainWeights, p1: torch.Tensor):
+    return _conv_pool_mask(p1.float(), tw, 1)
+
+
+def ae_train_loss_plain(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
+                        mask: torch.Tensor):
+    z = F.conv2d(e.float(), AK._conv_w(tw.fwd, 4), tw.fwd.b[4],
+                 padding=tw.fwd.k(4) // 2)[:, 0]
+    # elementwise in float64: torch's vectorised float32 exp / log1p may
+    # differ by an ulp with the tensor's alignment, which would make two
+    # calls on the same values disagree
+    zd, yr, m = z.double(), y.to(tw.dtype).double(), mask.double()[:, None, None]
+    dz = ((torch.sigmoid(zd) - yr) * m).float()
+    per = zd.clamp_min(0) - zd * yr + torch.log1p(torch.exp(-zd.abs()))
+    return (z, dz.to(tw.dtype)[:, None], _sum64(per * m).reshape(1),
+            _sum64(dz).reshape(1))
+
+
+def _sum64(t: torch.Tensor, dims=None) -> torch.Tensor:
+    """A sum accumulated in float64, returned as float32: the twins' sums
+    do not depend on the order a reduction takes."""
+    t = t.double()
+    return (t.sum() if dims is None else t.sum(dims)).float()
+
+
+def _gate(v: torch.Tensor, gate: torch.Tensor, dtype):
+    """(stored output, float32 dz whose sum is the bias gradient)."""
+    if gate.dtype == torch.uint8:
+        return v.to(dtype).contiguous(), v * _popcount(gate)
+    g = v * (gate.float() > 0)
+    return g.to(dtype).contiguous(), g
+
+
+def ae_train_dgrad_conv_plain(tw: TrainWeights, layer: int, dz: torch.Tensor,
+                              gate: torch.Tensor, dz_bits=None):
+    d = dz.float() if dz_bits is None else route_expand(dz.float(), dz_bits)
+    v = F.conv_transpose2d(d, AK._conv_w(tw.fwd, layer), padding=tw.fwd.k(layer) // 2)
+    out, g = _gate(v, gate, tw.dtype)
+    return out, _sum64(g, (0, 2, 3))
+
+
+def _convt_dz_taps(dz: torch.Tensor, k: int, h: int, w: int) -> torch.Tensor:
+    """dz[..., 2m + PA - i, 2n + PA - j] as (B, C, K, K, H, W), zero outside."""
+    pa = convt_pad_before(k)
+    lead = k - 1 - pa
+    dzp = F.pad(dz, (lead, pa + 1, lead, pa + 1))
+    b, c = dz.shape[:2]
+    cols = F.unfold(dzp, k, stride=2)            # (B, C*K*K, (H+1)*(W+1))
+    cols = cols.reshape(b, c, k, k, h + 1, w + 1)[..., :h, :w]
+    return cols.flip(2, 3)                        # index t = K-1-i -> i
+
+
+def ae_train_dgrad_convt_plain(tw: TrainWeights, layer: int, dz: torch.Tensor,
+                               gate: torch.Tensor):
+    k = tw.fwd.k(layer)
+    h, w = dz.shape[2] // 2, dz.shape[3] // 2
+    taps = _convt_dz_taps(dz.float(), k, h, w)
+    v = torch.einsum("bcijmn,oijc->bomn", taps, tw.fwd.w[layer].float())
+    out, g = _gate(v, gate, tw.dtype)
+    return out, _sum64(g, (0, 2, 3))
+
+
+def ae_train_wgrad_plain(tw: TrainWeights, layer: int, inp: torch.Tensor,
+                         dz: torch.Tensor, dz_bits=None):
+    """(Cin, K, K, Cout) float32 weight gradient of one layer."""
+    k = tw.fwd.k(layer)
+    x = inp.to(tw.dtype).float()
+    x = x[:, None] if x.ndim == 3 else x
+    d = dz.float() if dz_bits is None else route_expand(dz.float(), dz_bits)
+    b, cin, h, w = x.shape
+    x, d = x.double(), d.double()
+    if layer in (2, 3):
+        taps = _convt_dz_taps(d, k, h, w)
+        return torch.einsum("bcmn,boijmn->cijo", x, taps).float()
+    cols = F.unfold(x, k, padding=k // 2).reshape(b, cin, k, k, h * w)
+    return torch.einsum("bcijp,bop->cijo", cols, d.flatten(2)).float()
+
+
+# ---------------------------------------------------------------------------
+# stage wrappers
+# ---------------------------------------------------------------------------
+
+
+def ae_train_sum(part: torch.Tensor) -> torch.Tensor:
+    """(n, m) float32 partials -> (m,) sums, in a fixed order."""
+    _check(part, "partials", torch.float32, part.shape)
+    if part.ndim != 2:
+        raise ValueError(f"partials must be (n, m), got {tuple(part.shape)}")
+    if not part.is_cuda:
+        return _sum64(part, 0)
+    out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
+    TRAIN_SUM(part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1])
+    return out
+
+
+def ae_train_in(tw: TrainWeights, x: torch.Tensor, pre: bool = False):
+    """conv1 + relu + pool: (B, 256, 128) tiles, float32 (K5) or in the
+    kernel dtype (K5b, ``pre=True``) -> p1 (B, C1, 128, 64), bits (uint8)."""
+    _check_tiles(x, "tiles", (tw.dtype,) if pre else (torch.float32,))
+    if not x.is_cuda:
+        return ae_train_in_plain(tw, x)
+    _on_device(x, tw)
+    b, c1 = x.shape[0], tw.fwd.cout(0)
+    out = torch.empty(b, c1, TILE_F // 2, TILE_T // 2, dtype=tw.dtype, device=x.device)
+    bits = torch.empty(out.shape, dtype=torch.uint8, device=x.device)
+    (TRAIN_IN_PRE if pre else TRAIN_IN)(
+        x.data_ptr(), tw.fwd.w[0].data_ptr(), tw.fwd.b[0].data_ptr(),
+        out.data_ptr(), bits.data_ptr(), _DT[tw.dtype], b, c1, TILE_F, TILE_T,
+        tw.fwd.k(0))
+    return out, bits
+
+
+def ae_train_conv_pool(tw: TrainWeights, p1: torch.Tensor):
+    """conv2 + relu + pool: p1 (B, C1, 128, 64) -> p2 (B, C2, 64, 32), bits."""
+    _check(p1, "p1", tw.dtype, _act_shape(tw, 1, p1.shape[0]))
+    if not p1.is_cuda:
+        return ae_train_conv_pool_plain(tw, p1)
+    _on_device(p1, tw)
+    b, cin, h, w = p1.shape
+    cout = tw.fwd.cout(1)
+    out = torch.empty(b, cout, h // 2, w // 2, dtype=tw.dtype, device=p1.device)
+    bits = torch.empty(out.shape, dtype=torch.uint8, device=p1.device)
+    TRAIN_CONV_POOL(p1.data_ptr(), tw.fwd.w[1].data_ptr(), tw.fwd.b[1].data_ptr(),
+                    out.data_ptr(), bits.data_ptr(), _DT[tw.dtype], b, cin,
+                    cout, h, w, tw.fwd.k(1))
+    return out, bits
+
+
+def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
+                  mask: torch.Tensor, pre: bool = False):
+    """out-conv + masked sigmoid-BCE: e (B, C1, 256, 128), labels y
+    (B, 256, 128) float32 (K5) or in the kernel dtype (K5b), tile mask (B,)
+    float32 -> (logits (B, 256, 128) float32, dz5 (B, 1, 256, 128) in the
+    kernel dtype, BCE sum (1,), db5 (1,))."""
+    b = e.shape[0]
+    _check(e, "e", tw.dtype, _act_shape(tw, 4, b))
+    _check_tiles(y, "labels", (tw.dtype,) if pre else (torch.float32,))
+    _check(mask, "mask", torch.float32, (b,))
+    if y.shape[0] != b or y.device != e.device or mask.device != e.device:
+        raise ValueError("labels and mask must match the batch and device of e")
+    if not e.is_cuda:
+        return ae_train_loss_plain(tw, e, y, mask)
+    _on_device(e, tw)
+    logits = torch.empty(b, TILE_F, TILE_T, dtype=torch.float32, device=e.device)
+    dz = torch.empty(b, 1, TILE_F, TILE_T, dtype=tw.dtype, device=e.device)
+    rows = _rows(b, TILE_F, TILE_T, quad=True)
+    part = torch.empty(rows, 2, dtype=torch.float32, device=e.device)
+    (TRAIN_LOSS_PRE if pre else TRAIN_LOSS)(
+        e.data_ptr(), tw.fwd.w[4].data_ptr(), tw.fwd.b[4].data_ptr(),
+        y.data_ptr(), mask.data_ptr(), logits.data_ptr(), dz.data_ptr(),
+        part.data_ptr(), rows, _DT[tw.dtype], b, e.shape[1], TILE_F, TILE_T,
+        tw.fwd.k(4))
+    sums = ae_train_sum(part)
+    return logits, dz, sums[0:1], sums[1:2]
+
+
+def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
+                        gate: torch.Tensor, dz_bits=None):
+    """Input gradient of a stride-1 conv, gated, and the bias gradient of
+    the layer below.  Layer 4 (out-conv): dz5 (B, 1, 256, 128), gate = e ->
+    (dz4, db4).  Layer 1 (conv2): dz routed from dp2 (B, C2, 64, 32) and
+    its bits, gate = conv1's bits (B, C1, 128, 64) -> (dp1, db1)."""
+    if layer not in (1, 4):
+        raise ValueError(f"stride-1 input gradients are of layers 1 and 4, not {layer}")
+    cout = tw.fwd.w[layer].shape[0]
+    b = dz.shape[0]
+    shape = _act_shape(tw, layer, b)
+    if layer == 4:
+        _check(dz, "dz", tw.dtype, (b, 1, *shape[2:]))
+        _check(gate, "gate", tw.dtype, shape)
+    else:
+        cz = tw.fwd.cout(1)
+        _check(dz, "dz", tw.dtype, (b, cz, shape[2] // 2, shape[3] // 2))
+        if dz_bits is None:
+            raise ValueError("conv2's input gradient reads dz through its routing bits")
+        _check(dz_bits, "dz bits", torch.uint8, dz.shape)
+        _check(gate, "gate", torch.uint8, shape)
+    if not dz.is_cuda:
+        return ae_train_dgrad_conv_plain(tw, layer, dz, gate, dz_bits)
+    _on_device(dz, tw)
+    h, w = shape[2:]
+    out = torch.empty(shape, dtype=tw.dtype, device=dz.device)
+    rows = _rows(b, h, w, quad=True)
+    part = torch.empty(rows, cout, dtype=torch.float32, device=dz.device)
+    DGRAD_CONV(dz.data_ptr(), 0 if dz_bits is None else dz_bits.data_ptr(),
+               tw.bwd[layer].data_ptr(), gate.data_ptr(), out.data_ptr(),
+               part.data_ptr(), rows, _DT[tw.dtype], b, tw.bwd[layer].shape[0],
+               cout, h, w, tw.fwd.k(layer))
+    return out, ae_train_sum(part)
+
+
+def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
+                         gate: torch.Tensor):
+    """Input gradient of a stride-2 transposed conv, gated, and the bias
+    gradient of the layer below.  Layer 3 (convT1): dz4 (B, C1, 256, 128),
+    gate = d4 -> (dz3, db3).  Layer 2 (convT2): dz3 (B, C2, 128, 64), gate =
+    conv2's bits (B, C2, 64, 32) -> (dp2, db2)."""
+    if layer not in (2, 3):
+        raise ValueError(f"transposed-conv layers are 2 and 3, not {layer}")
+    b = dz.shape[0]
+    shape = _act_shape(tw, layer, b)
+    cz = tw.fwd.cout(layer)
+    _check(dz, "dz", tw.dtype, (b, cz, 2 * shape[2], 2 * shape[3]))
+    _check(gate, "gate", torch.uint8 if layer == 2 else tw.dtype, shape)
+    if not dz.is_cuda:
+        return ae_train_dgrad_convt_plain(tw, layer, dz, gate)
+    _on_device(dz, tw)
+    h, w = shape[2:]
+    out = torch.empty(shape, dtype=tw.dtype, device=dz.device)
+    rows = _rows(b, h, w, quad=False)
+    part = torch.empty(rows, shape[1], dtype=torch.float32, device=dz.device)
+    DGRAD_CONVT(dz.data_ptr(), tw.bwd[layer].data_ptr(), gate.data_ptr(),
+                int(layer == 2), out.data_ptr(), part.data_ptr(), rows,
+                _DT[tw.dtype], b, cz, shape[1], h, w, tw.fwd.k(layer))
+    return out, ae_train_sum(part)
+
+
+def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
+                   dz: torch.Tensor, dz_bits=None, pre: bool = False
+                   ) -> torch.Tensor:
+    """Weight gradient (Cin, K, K, Cout) float32 of one layer, summed over
+    the batch: ``inp`` is the layer's input (for conv1 the tiles: float32
+    through ``ae_train_wgrad_x``, K5, or with ``pre=True`` in the kernel
+    dtype, K5b), ``dz`` the gradient at its output, or for conv1 and conv2
+    the pooled gradient with its routing bits."""
+    if layer not in range(5):
+        raise ValueError(f"layers are 0..4, not {layer}")
+    b = inp.shape[0]
+    shape = _act_shape(tw, layer, b)
+    cout, k = tw.fwd.cout(layer), tw.fwd.k(layer)
+    h, w = shape[2:]
+    hz, wz = (2 * h, 2 * w) if layer in (2, 3) else (h, w)
+    if layer == 0:
+        _check_tiles(inp, "tiles", (tw.dtype,) if pre else (torch.float32,))
+    else:
+        _check(inp, "input", tw.dtype, shape)
+    if layer in (0, 1):
+        if dz_bits is None:
+            raise ValueError(f"layer {layer}'s dz is read through its routing bits")
+        _check(dz, "dz", tw.dtype, (b, cout, hz // 2, wz // 2))
+        _check(dz_bits, "dz bits", torch.uint8, dz.shape)
+    else:
+        _check(dz, "dz", tw.dtype, (b, cout, hz, wz))
+    if not inp.is_cuda:
+        return ae_train_wgrad_plain(tw, layer, inp, dz, dz_bits)
+    _on_device(inp, tw)
+    cin = shape[1]
+    part = torch.empty(b, cin * k * k * cout, dtype=torch.float32, device=inp.device)
+    bits = 0 if dz_bits is None else dz_bits.data_ptr()
+    if layer == 0 and not pre:
+        WGRAD_X(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
+                _DT[tw.dtype], b, cout, h, w, k)
+    else:
+        off = convt_pad_before(k) if layer in (2, 3) else k // 2
+        WGRAD(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
+              _DT[tw.dtype], b, cin, cout, h, w, hz, wz, k,
+              2 if layer in (2, 3) else 1, off)
+    return ae_train_sum(part).reshape(cin, k, k, cout)
+
+
+# ---------------------------------------------------------------------------
+# one step: forward stages, backward stages, sums
+# ---------------------------------------------------------------------------
+
+_KERNEL = dict(in_=ae_train_in, conv_pool=ae_train_conv_pool, convt=AK.ae_convt,
+               loss=ae_train_loss, wgrad=ae_train_wgrad,
+               dgrad_conv=ae_train_dgrad_conv, dgrad_convt=ae_train_dgrad_convt)
+_PLAIN = dict(in_=lambda tw, x, pre: ae_train_in_plain(tw, x),
+              conv_pool=ae_train_conv_pool_plain, convt=AK.ae_convt_plain,
+              loss=lambda tw, e, y, m, pre: ae_train_loss_plain(tw, e, y, m),
+              wgrad=lambda tw, i, a, d, bits=None, pre=False:
+                  ae_train_wgrad_plain(tw, i, a, d, bits),
+              dgrad_conv=ae_train_dgrad_conv_plain,
+              dgrad_convt=ae_train_dgrad_convt_plain)
+
+
+def _forward(tw: TrainWeights, x, y, mask, pre: bool, f=_KERNEL):
+    """Forward stages; returns (what the backward reads, logits, BCE sum)."""
+    p1, pm1 = f["in_"](tw, x, pre)
+    p2, pm2 = f["conv_pool"](tw, p1)
+    d4 = f["convt"](tw.fwd, p2, 2)
+    e = f["convt"](tw.fwd, d4, 3)
+    logits, dz5, bce, db5 = f["loss"](tw, e, y, mask, pre)
+    saved = dict(x=x, p1=p1, pm1=pm1, p2=p2, pm2=pm2, d4=d4, e=e, dz5=dz5, db5=db5)
+    return saved, logits, bce
+
+
+def _backward(tw: TrainWeights, s, pre: bool, f=_KERNEL):
+    """Backward stages; returns the kernel-layout gradient sums (gw, gb)."""
+    gw, gb = [None] * 5, [None] * 5
+    gb[4] = s["db5"]
+    gw[4] = f["wgrad"](tw, 4, s["e"], s["dz5"])
+    dz4, gb[3] = f["dgrad_conv"](tw, 4, s["dz5"], s["e"])
+    gw[3] = f["wgrad"](tw, 3, s["d4"], dz4)
+    dz3, gb[2] = f["dgrad_convt"](tw, 3, dz4, s["d4"])
+    gw[2] = f["wgrad"](tw, 2, s["p2"], dz3)
+    dp2, gb[1] = f["dgrad_convt"](tw, 2, dz3, s["pm2"])
+    gw[1] = f["wgrad"](tw, 1, s["p1"], dp2, s["pm2"])
+    dp1, gb[0] = f["dgrad_conv"](tw, 1, dp2, s["pm1"], s["pm2"])
+    gw[0] = f["wgrad"](tw, 0, s["x"], dp1, s["pm1"], pre=pre)
+    return gw, gb
+
+
+def _tiles(t: torch.Tensor) -> torch.Tensor:
+    """(B, 256, 128) or the JAX layout (B, 256, 128, 1), contiguous."""
+    return (t[..., 0] if t.ndim == 4 else t).contiguous()
+
+
+def _inputs(tw, x, y, mask, pre):
+    x, y = _tiles(x), _tiles(y)
+    if pre:
+        x, y = x.to(tw.dtype), y.to(tw.dtype)
+    return x, y, mask.to(torch.float32).contiguous()
+
+
+def kernel_loss_grad_sums(model: ConvAutoencoder, x, y, mask,
+                          dtype=torch.bfloat16, pre: bool = False):
+    """UNNORMALISED (bce_sum, mask_sum, grad_sums) of one batch from the
+    stage kernels: the building block of data-parallel training (sum all
+    three over the devices, then divide by mask_sum * 256 * 128).
+    ``grad_sums`` is keyed like ``model.named_parameters()``."""
+    tw = build_train_weights(model, dtype)
+    x, y, mask = _inputs(tw, x, y, mask, pre)
+    saved, _, bce = _forward(tw, x, y, mask, pre)
+    return bce[0], mask.sum(), grads_to_torch(*_backward(tw, saved, pre))
+
+
+def kernel_loss_grad_sums_plain(model: ConvAutoencoder, x, y, mask,
+                                dtype=torch.bfloat16):
+    """The plain twin of ``kernel_loss_grad_sums``, from the stage twins, on
+    any device."""
+    tw = build_train_weights(model, dtype)
+    x, y, mask = _inputs(tw, x, y, mask, False)
+    saved, _, bce = _forward(tw, x, y, mask, False, _PLAIN)
+    return bce[0], mask.sum(), grads_to_torch(*_backward(tw, saved, False, _PLAIN))
+
+
+class _KernelBCE(torch.autograd.Function):
+    """The masked BCE sum of a batch through the stage kernels.  forward
+    runs the forward stages, which keep what the backward reads; backward
+    runs the backward stages and returns the parameters' gradients, moved
+    from the kernels' weight layout to torch's and scaled by the incoming
+    gradient (for the mean loss: 1 / (mask_sum * 256 * 128))."""
+
+    @staticmethod
+    def forward(ctx, x, y, mask, tw, pre, names, *params):
+        saved, _, bce = _forward(tw, x, y, mask, pre)
+        ctx.tw, ctx.pre, ctx.names, ctx.saved = tw, pre, names, saved
+        return bce.reshape(())
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = grads_to_torch(*_backward(ctx.tw, ctx.saved, ctx.pre))
+        ctx.saved = None
+        return (None,) * 6 + tuple(grads[n] * g for n in ctx.names)
+
+
+def kernel_bce_sum(model: ConvAutoencoder, x, y, mask, dtype=torch.bfloat16,
+                   pre: bool = False) -> torch.Tensor:
+    """The masked BCE sum as a differentiable scalar: ``.backward()`` writes
+    the module's ``.grad``s from the backward stage kernels."""
+    tw = build_train_weights(model, dtype)
+    x, y, mask = _inputs(tw, x, y, mask, pre)
+    names, params = zip(*model.named_parameters())
+    return _KernelBCE.apply(x, y, mask, tw, pre, names, *params)
+
+
+def kernel_value_and_grad(model: ConvAutoencoder, x, y, mask,
+                          dtype=torch.bfloat16, pre: bool = False):
+    """(mean masked BCE, gradients keyed like ``named_parameters``) from
+    the stage kernels: the sums over mask_sum * 256 * 128."""
+    bce, msum, sums = kernel_loss_grad_sums(model, x, y, mask, dtype, pre)
+    denom = msum * float(TILE_F * TILE_T)
+    return bce / denom, {k: g / denom for k, g in sums.items()}
+
+
+def masked_bce_from_logits(logits: torch.Tensor, y: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """Mean BCE over the real tiles of (B, 256, 128) float32 logits."""
+    per = logits.clamp_min(0) - logits * y + torch.log1p(torch.exp(-logits.abs()))
+    w = mask.float()[:, None, None]
+    return (per * w).sum() / (w.sum() * per[0].numel())
+
+
+def make_kernel_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
+                           pre: bool = False):
+    """``step(state, x, y, mask) -> (state, loss)``: the stage kernels'
+    forward and backward, then the state's optimizer (Adam); the drop-in
+    for ``train.train_step`` on the geometries ``supports`` accepts."""
+    if not supports(cfg):
+        raise NotImplementedError(f"no training kernel covers this geometry: {cfg}")
+
+    def step(state, x, y, mask):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = (kernel_bce_sum(state.model, x, y, mask, dtype, pre)
+                / (mask.sum() * float(TILE_F * TILE_T)))
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, loss.detach()
+
+    return step
+
+
+def kernel_train_epoch_fn(cfg: ModelConfig, dtype=torch.bfloat16,
+                          pre_layout: bool = False):
+    """``epoch(state, x, y, batch_idx, batch_mask) -> (state, losses)`` on
+    the stage kernels, the ``train.train_epoch`` equivalent.  Each batch
+    gathers its tiles by index.  ``pre_layout=True`` (K5b) casts the whole
+    of x and y to the kernel dtype once per call and gathers from that."""
+    step = make_kernel_train_step(cfg, dtype, pre=pre_layout)
+
+    def epoch(state, x, y, batch_idx, batch_mask):
+        x, y = _tiles(x), _tiles(y)
+        if pre_layout:
+            x, y = x.to(dtype), y.to(dtype)
+        losses = []
+        for idx, m in zip(batch_idx, batch_mask):
+            state, loss = step(state, x[idx], y[idx], m)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return epoch

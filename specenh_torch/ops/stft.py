@@ -25,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from specenh.config import SpecParams
+from specenh_torch.config import SpecParams
 
 __all__ = [
     "hamming_periodic",

@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from specenh.config import SpecParams
+from specenh_torch.config import SpecParams
 from specenh_torch._build import CudaKernel
 from specenh_torch.ops.stft import _basis_np, psd_weights, stft_psd
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain twins, on a GPU (marker ``gpu``;
+"""The CUDA kernels (serving and training) against their plain twins, on a GPU (marker ``gpu``;
 skipped where no CUDA device is present).  This file imports no jax, so it
 runs where only torch is installed:
 
@@ -12,6 +12,7 @@ import torch
 from specenh_torch import ModelConfig, SpecParams
 from specenh_torch.models.autoencoder import make_model
 from specenh_torch.ops import ae_kernel as tak
+from specenh_torch.ops import ae_train_kernel as ttk
 from specenh_torch.ops import stft_fused as tsf
 
 pytestmark = pytest.mark.gpu
@@ -68,3 +69,67 @@ def test_weights_on_another_device_raise(traces):
     wts = tak.build_kernel_weights(make_model(ModelConfig(), generator=torch.Generator()))
     with pytest.raises(ValueError):
         tak.ae_tile_in(wts, tsf.spectrogram_fused(traces, SP), 3)
+
+
+def _train_setup(cuda, cfg, n=3):
+    model = make_model(cfg, generator=torch.Generator().manual_seed(2), device=cuda)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random((n, 256, 128)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((n, 256, 128)).astype(np.float32)).to(cuda)
+    mask = torch.ones(n, device=cuda)
+    mask[-1] = 0.0
+    return model, x, y, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", GEOMETRIES, ids=["k3", "k1", "k5", "k7", "manual", "64x64k7"])
+def test_train_stages_match_twins(cuda, cfg, dtype):
+    """Every training stage against its twin on the same stored inputs:
+    activations within one ulp of the dtype, routing bits equal except on
+    ties (<= 1e-4 of them), gradient sums to 1e-4 of their scale (f32 sums
+    in another order)."""
+    model, x, y, mask = _train_setup(cuda, cfg)
+    tw = ttk.build_train_weights(model, dtype)
+    s, logits, bce = ttk._forward(tw, x, y, mask, False)
+    p, plog, pbce = ttk._forward(tw, x, y, mask, False, ttk._PLAIN)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
+    for k in ("p1", "p2", "d4", "e", "dz5"):
+        bound = ulp * p[k].float().abs() + 1e-5
+        assert bool(((s[k].float() - p[k].float()).abs() <= bound).all()), k
+    for k in ("pm1", "pm2"):
+        assert float((s[k] != p[k]).float().mean()) <= 1e-4, k
+    torch.testing.assert_close(logits, plog, rtol=0, atol=1e-3)
+    torch.testing.assert_close(bce, pbce, rtol=1e-5, atol=0)
+    gw, gb = ttk._backward(tw, s, False)
+    pw, pb = ttk._backward(tw, s, False, ttk._PLAIN)
+    for a, b in zip(gw + gb, pw + pb):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1.0)
+
+
+def test_k5_and_k5b_bit_identical(cuda):
+    model, x, y, mask = _train_setup(cuda, ModelConfig())
+    a = ttk.kernel_loss_grad_sums(model, x, y, mask, torch.bfloat16)
+    b = ttk.kernel_loss_grad_sums(model, x, y, mask, torch.bfloat16, pre=True)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+
+
+def test_kernel_grads_match_autograd(cuda):
+    """float32 kernels against their whole plain twin and against autograd
+    of the module (TF32 off): 1e-4 of the largest gradient, loss to rtol
+    1e-5 (float32 sums in other orders)."""
+    model, x, y, mask = _train_setup(cuda, ModelConfig())
+    sums = ttk.kernel_loss_grad_sums(model, x, y, mask, torch.float32)
+    plain = ttk.kernel_loss_grad_sums_plain(model, x, y, mask, torch.float32)
+    torch.testing.assert_close(sums[0], plain[0], rtol=1e-5, atol=0)
+    for k in sums[2]:
+        assert float((sums[2][k] - plain[2][k]).abs().max()) <= \
+            1e-4 * max(float(plain[2][k].abs().max()), 1.0), k
+    loss, grads = ttk.kernel_value_and_grad(model, x, y, mask, torch.float32)
+    model.zero_grad()
+    ref = ttk.masked_bce_from_logits(model(x, logits=True), y, mask)
+    ref.backward()
+    scale = max(float(p.grad.abs().max()) for p in model.parameters())
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
+    for name, p in model.named_parameters():
+        assert float((grads[name] - p.grad).abs().max()) <= 1e-4 * scale, name

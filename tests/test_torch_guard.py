@@ -1,19 +1,31 @@
-"""Guards of the port: it imports and serves without jax, flax or h5py;
-``chip_smoke.py`` fails where there is no GPU; the kernel wrappers check
-their inputs before either path."""
+"""Guards of the port: it imports nothing of the JAX package and serves
+and trains without jax, flax, h5py or ``specenh``, also from a tree that
+has no ``specenh/``; its own copies of the JAX package's config and
+references equal the originals; ``chip_smoke.py`` fails where there is no
+GPU; the kernel wrappers check their inputs before either path."""
 
 import ast
+import dataclasses
+import functools
 import os
+import re
 import shutil
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+import specenh.config as jconfig
+from specenh.bench.reference_cpu import spectrogram_ref as jspectrogram_ref
+from specenh.utils.metrics import ssim as jssim
+from specenh_torch import config as tconfig
+from specenh_torch.bench.reference import spectrogram_ref, ssim
 from specenh_torch.ops import ae_kernel as tak
+from specenh_torch.ops import ae_train_kernel as ttk
 from specenh_torch.ops import stft_fused as tsf
 from specenh_torch import ModelConfig, SpecParams
 from specenh_torch.models.autoencoder import make_model
@@ -32,7 +44,7 @@ def _env():
 def test_port_serves_without_jax():
     code = textwrap.dedent("""
         import sys
-        for name in ("jax", "flax", "h5py"):
+        for name in ("jax", "flax", "h5py", "specenh"):
             sys.modules[name] = None
         import torch
         from specenh_torch import ModelConfig, SpecParams
@@ -48,7 +60,7 @@ def test_port_serves_without_jax():
         assert torch.isfinite(enhanced).all()
         assert ssim(specs[0].numpy(), spectrogram_ref(shot[0], sp)) > 0.99
         loaded = [m for m, v in sys.modules.items() if v is not None]
-        assert not [m for m in loaded if m.split(".")[0] in ("jax", "flax", "h5py")]
+        assert not [m for m in loaded if m.split(".")[0] in ("jax", "flax", "h5py", "specenh")]
         print("served")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -57,7 +69,14 @@ def test_port_serves_without_jax():
     assert "served" in res.stdout
 
 
+# a citation of the TPU kernel a CUDA kernel replaces, file:line
+_CITATION = re.compile(r"specenh/[\w/]+\.py:\d+")
+
+
 def test_no_jax_imports_in_the_port():
+    """No import of jax, flax, h5py or anything of ``specenh``, and no path
+    into ``specenh/`` (a string naming it, other than a file:line
+    citation), in the package or ``chip_smoke.py``."""
     files = sorted((ROOT / "specenh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -66,10 +85,78 @@ def test_no_jax_imports_in_the_port():
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
+            elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and not _CITATION.fullmatch(node.value)):
+                assert re.search(r"(^|[/\\\s\"'])specenh([/\\\"'.]|$)", node.value) is None \
+                    or "\n" in node.value, (f, node.value)  # docstrings may name it
             for n in names:
-                assert n.split(".")[0] not in ("jax", "flax", "h5py"), (f, n)
-                # of the JAX package only its jax-free config is imported
-                assert not n.startswith("specenh.") or n == "specenh.config", (f, n)
+                assert n.split(".")[0] not in ("jax", "flax", "h5py", "specenh"), (f, n)
+
+
+def test_port_runs_without_the_jax_package(tmp_path):
+    """``specenh_torch/`` and ``chip_smoke.py`` copied into a tree without
+    ``specenh/``: the port serves one short shot and trains one step (the
+    kernel engine's twins and autograd) on the CPU."""
+    shutil.copytree(ROOT / "specenh_torch", tmp_path / "specenh_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "flax", "h5py"):
+            sys.modules[name] = None
+        import importlib.util
+        assert importlib.util.find_spec("specenh") is None
+        import torch
+        from specenh_torch import ModelConfig, SpecParams, TrainConfig
+        from specenh_torch.bench.harness import example_shot, make_enhance_shot_fn
+        from specenh_torch.train import create_state, fit, kernel_epoch_for
+        sp = SpecParams(cut_shot=0.07)
+        fn = make_enhance_shot_fn(ModelConfig(), sp, device="cpu")
+        state = create_state(ModelConfig(), TrainConfig(), device="cpu")
+        specs, enhanced = fn(state.model, example_shot(sp, n_channels=1))
+        assert enhanced.shape == (1, 256, 128) and torch.isfinite(enhanced).all()
+        x = specs[:, :, :128]
+        tc = TrainConfig(batch_size=1, epochs=1)
+        for engine in (None, kernel_epoch_for(ModelConfig(), tc)):
+            state, hist = fit(state, x, x.clamp(0, 1), cfg=tc, epoch_fn=engine)
+            assert hist["new_epochs"] == 1 and hist["loss"][0] > 0
+        assert state.step == 2
+        print("trained")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(tmp_path)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "trained" in res.stdout
+
+
+@pytest.mark.parametrize("name", ["SpecParams", "PatchSpec", "ModelConfig", "TrainConfig"])
+def test_config_copy_equals_jax_config(name):
+    """The port's copy has the JAX package's fields, defaults and derived
+    properties."""
+    a, b = getattr(tconfig, name), getattr(jconfig, name)
+    assert [(f.name, f.default) for f in dataclasses.fields(a)] == \
+        [(f.name, f.default) for f in dataclasses.fields(b)]
+    props = [k for k, v in vars(b).items() if isinstance(v, property)]
+    assert props == [k for k, v in vars(a).items() if isinstance(v, property)]
+    for k in props:
+        assert getattr(a(), k) == getattr(b(), k), k
+    if name == "ModelConfig":
+        assert {k: dataclasses.asdict(v) for k, v in tconfig.MODEL_PRESETS.items()} == \
+            {k: dataclasses.asdict(v) for k, v in jconfig.MODEL_PRESETS.items()}
+        assert [c.depth for c in tconfig.MODEL_PRESETS.values()] == \
+            [c.depth for c in jconfig.MODEL_PRESETS.values()]
+
+
+def test_reference_copies_equal_jax_references():
+    """spectrogram_ref and ssim give exactly the JAX package's numbers."""
+    sp = SpecParams(cut_shot=0.05)
+    sig = np.random.default_rng(3).standard_normal(sp.n_samples + 11).astype(np.float32)
+    np.testing.assert_array_equal(spectrogram_ref(sig, sp), jspectrogram_ref(sig, sp)[0])
+    rng = np.random.default_rng(4)
+    a, b = rng.random((40, 30)), rng.random((40, 30))
+    assert ssim(a, b) == jssim(a, b)
+    assert ssim(a, a) == jssim(a, a) == pytest.approx(1.0)
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
@@ -110,7 +197,33 @@ CASES = {
     "convt-rank": (lambda w: tak.ae_convt(w, _specs(32, 64, 32, dtype=torch.bfloat16), 2), ValueError),
     "tile-out-shape": (lambda w: tak.ae_tile_out(w, _specs(6, 32, 128, 128, dtype=torch.bfloat16), 3), ValueError),
     "tile-out-batch": (lambda w: tak.ae_tile_out(w, _specs(5, 32, 256, 128, dtype=torch.bfloat16), 3), ValueError),
+    "train-in-dtype": (lambda w: ttk.ae_train_in(_tw(), _specs(2, 256, 128, dtype=torch.bfloat16)), TypeError),
+    "train-in-pre-dtype": (lambda w: ttk.ae_train_in(_tw(), _specs(2, 256, 128), pre=True), TypeError),
+    "train-in-shape": (lambda w: ttk.ae_train_in(_tw(), _specs(2, 128, 128)), ValueError),
+    "train-conv-pool-channels": (lambda w: ttk.ae_train_conv_pool(_tw(), _specs(2, 16, 128, 64, dtype=torch.bfloat16)), ValueError),
+    "train-loss-mask": (lambda w: ttk.ae_train_loss(_tw(), _bf(2, 32, 256, 128), _specs(2, 256, 128), _specs(3)), ValueError),
+    "train-loss-labels-dtype": (lambda w: ttk.ae_train_loss(_tw(), _bf(2, 32, 256, 128), _bf(2, 256, 128), _specs(2)), TypeError),
+    "train-dgrad-conv-layer": (lambda w: ttk.ae_train_dgrad_conv(_tw(), 2, _bf(2, 1, 256, 128), _bf(2, 32, 256, 128)), ValueError),
+    "train-dgrad-conv-bits": (lambda w: ttk.ae_train_dgrad_conv(_tw(), 1, _bf(2, 32, 64, 32), _u8(2, 32, 128, 64)), ValueError),
+    "train-dgrad-convt-gate": (lambda w: ttk.ae_train_dgrad_convt(_tw(), 2, _bf(2, 32, 128, 64), _bf(2, 32, 64, 32)), TypeError),
+    "train-wgrad-layer": (lambda w: ttk.ae_train_wgrad(_tw(), 5, _bf(2, 32, 256, 128), _bf(2, 1, 256, 128)), ValueError),
+    "train-wgrad-strided": (lambda w: ttk.ae_train_wgrad(_tw(), 4, _bf(2, 32, 128, 256).transpose(2, 3), _bf(2, 1, 256, 128)), ValueError),
+    "train-sum-rank": (lambda w: ttk.ae_train_sum(_specs(8)), ValueError),
 }
+
+
+@functools.cache
+def _tw():
+    return ttk.build_train_weights(
+        make_model(ModelConfig(), generator=torch.Generator().manual_seed(0)), torch.bfloat16)
+
+
+def _bf(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _u8(*shape):
+    return torch.zeros(shape, dtype=torch.uint8)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
