@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU.
+NVIDIA GPU, for the flagship depth-2 AE and the deep3 depth-3 AE.
 
     python3 chip_smoke.py          # from the repo root, on a machine with an H100
 
@@ -8,7 +8,8 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
 
 1. the device: a CUDA device must be present; prints its name and power
    limit and turns TF32 off, so the plain float32 references are float32;
-2. builds every kernel from ``specenh_torch/csrc`` with nvcc;
+2. builds every kernel from ``specenh_torch/csrc`` with nvcc, in parallel,
+   and prints each library's ptxas registers and spills;
 3. each kernel against its plain PyTorch twin at the serving path's shapes
    (a 20-channel, 2 s shot; the flagship AE), and the whole AE in float32
    and bf16, plus the k7 and (64, 32)/k5 geometries on one channel;
@@ -18,14 +19,21 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    on every channel; every kernel must have launched during it;
 5. CUDA-event timings of each kernel and its twin, ms/shot, spectrograms/s
    and peak device memory;
-6. (phase 2 builds ``ae_train.cu`` with the others and prints its ptxas
-   registers and spills) the training data: 20 synthetic shots x 20
-   channels through the STFT kernel and ``patch``, 12 000 tiles split
-   60/25/15, stand-in labels clip(0.8 x + 0.1, 0, 1), all on the card;
-7. each training kernel (K5 and K5b entry points) against its plain twin,
+6. phases 3-5 for the deep3 preset (filters (16, 32, 64), k5): every stage
+   against its twin in bf16 and float32 at the same shapes, the whole AE
+   (and (64, 32, 64)/k7 on one channel), the bf16 service on three shots
+   with both gates, and its timings;
+7. the training data: 20 synthetic shots x 20 channels through the STFT
+   kernel and ``patch``, 12 000 tiles split 60/25/15, stand-in labels
+   clip(0.8 x + 0.1, 0, 1), all on the card;
+8. each training kernel (K5 and K5b entry points) against its plain twin,
    stage by stage on the same inputs, on one 128-tile batch of the
    flagship in bf16 and float32, and k5, k7 and (64, 32)/k5 on 4 tiles;
-8. the kernels' loss and gradients against torch autograd of the module;
+   for each in float32 the whole kernel chain against the twins' whole
+   chain, the twins' backward on their own forward and on the kernels'
+   (the pool windows and relu gates the forwards gate differently are
+   counted); the kernels' loss and gradients against torch autograd of
+   the module;
 9. ``train.fit`` on the reference recipe: 3 epochs on the kernel engine
    (bf16, K5), 1 epoch of K5 and 1 of K5b (``pre_layout=True``) from the
    same weights, which must agree bit for bit, then 3 epochs on the
@@ -33,11 +41,17 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    training kernel must have launched in the kernel runs;
 10. timings: each training kernel per 128-tile step beside its twin, the
    one PyTorch call that computes the same function and its bound; s/epoch,
-   tiles/s and the peak memory of a step for each engine.
+   tiles/s and the peak memory of a step for each engine;
+11. phases 8-10 for deep3 (K7): its stages against their twins on one
+   128-tile batch in bf16 and float32, (64, 32, 64)/k7 and (48, 48, 64)/k3
+   on 4 tiles, the whole chains, gradients against autograd; 2 epochs of
+   ``fit`` on the kernel engine (bf16) and on autograd (float32) from the
+   same weights, gated on the loss curve; the timings.
 
-Prints a JSON line of the kernels, the card's name and power limit, then as
-its last line ``{"ok": true, "device": {...}}``.  Weights are
-glorot-initialised from a seeded ``torch.Generator``.
+Prints a JSON line of the kernels, one row per pair of CUDA entry point and
+TPU kernel it replaces, the card's name and power limit, then as its last
+line ``{"ok": true, "device": {...}}``.  Weights are glorot-initialised
+from a seeded ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -56,9 +70,11 @@ from specenh_torch import ModelConfig, SpecParams, TrainConfig, _build
 from specenh_torch.bench.harness import (enhance_shot_plain, example_shot,
                                          make_enhance_shot_fn, time_cuda)
 from specenh_torch.bench.reference import spectrogram_ref, ssim
+from specenh_torch.config import MODEL_PRESETS
 from specenh_torch.data.dataset import split_tiles, synthetic_shot_batch
 from specenh_torch.data.tiles import patch
 from specenh_torch.models.autoencoder import convt_pad_before, make_model
+from specenh_torch.ops import ae3_train_kernel as TK3
 from specenh_torch.ops import ae_kernel as AK
 from specenh_torch.ops import ae_train_kernel as TK
 from specenh_torch.ops import stft_fused as SF
@@ -82,6 +98,7 @@ GATE_ENH_SSIM = 0.999
 # training
 N_SHOTS = 20         # hyperparam_scan.py:176-184: 20 shots x 20 channels
 EPOCHS = 3
+EPOCHS3 = 2          # deep3
 BATCH = 128          # one step of the recipe
 TOL_GRAD_SUM = 1e-4  # a gradient sum vs its twin on the same inputs: f32 order
 TOL_F32_REL = 1e-5   # a float32 stage vs its twin, relative to its scale
@@ -97,21 +114,38 @@ PEAK = {torch.bfloat16: (989e12, "bf16 tensor 989 TFLOP/s"),
         torch.float32: (67e12, "fp32 67 TFLOP/s")}
 HBM = 3.35e12
 
-_AE, _TR = "specenh_torch/csrc/ae.cu", "specenh_torch/csrc/ae_train.cu"
-_K5, _K5B = "specenh/ops/ae_train_kernel.py:745", "specenh/ops/ae_train_kernel.py:819"
-SERVE_KERNELS = (SF.STFT_KERNEL, AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
-REPLACES = {
-    SF.STFT_KERNEL: ("specenh_torch/csrc/stft.cu", "specenh/ops/stft_fused.py:198"),
-    AK.TILE_IN: (_AE, "specenh/ops/parity_turn.py:131"),
-    AK.CONV_POOL: (_AE, "specenh/ops/ae_kernel.py:534"),
-    AK.CONVT: (_AE, "specenh/ops/ae_kernel.py:534"),
-    AK.TILE_OUT: (_AE, "specenh/ops/parity_turn.py:224"),
-    TK.TRAIN_IN: (_TR, _K5), TK.TRAIN_IN_PRE: (_TR, _K5B),
-    TK.TRAIN_CONV_POOL: (_TR, _K5), TK.TRAIN_LOSS: (_TR, _K5),
-    TK.TRAIN_LOSS_PRE: (_TR, _K5B), TK.DGRAD_CONV: (_TR, _K5),
-    TK.DGRAD_CONVT: (_TR, _K5), TK.WGRAD: (_TR, _K5), TK.WGRAD_X: (_TR, _K5),
-    TK.TRAIN_SUM: (_TR, _K5),
+FLAGSHIP = ModelConfig()
+DEEP3 = MODEL_PRESETS["deep3"]
+# the TPU kernel (its pl.pallas_call) each id names
+TPU_KERNELS = {
+    "K1": "specenh/ops/stft_fused.py:198",
+    "K2": "specenh/ops/parity_turn.py:131",
+    "K3": "specenh/ops/ae_kernel.py:534",
+    "K4": "specenh/ops/parity_turn.py:224",
+    "K5": "specenh/ops/ae_train_kernel.py:745",
+    "K5b": "specenh/ops/ae_train_kernel.py:819",
+    "K6": "specenh/ops/ae3_kernel.py:499",
+    "K7": "specenh/ops/ae3_train_kernel.py:659",
+    "K8-in": "specenh/ops/parity_turn.py:324",
+    "K8-out": "specenh/ops/parity_turn.py:401",
 }
+STAGES = (AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
+SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
+             3: dict(zip(STAGES, ("K8-in", "K6", "K6", "K8-out")))}
+SERVE_KERNELS = (SF.STFT_KERNEL, *STAGES)
+K5B_KERNELS = (TK.TRAIN_IN_PRE, TK.TRAIN_LOSS_PRE)
+TRAIN3_KERNELS = tuple(k for k in TK.TRAIN_KERNELS if k not in K5B_KERNELS)
+ROW_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+ROWS: dict = {}  # (CudaKernel, TPU kernel id) -> the row's numbers
+
+
+def row(kern, kid) -> dict:
+    return ROWS.setdefault((kern, kid), {})
+
+
+def train_id(kern, depth: int) -> str:
+    return "K7" if depth == 3 else ("K5b" if kern in K5B_KERNELS else "K5")
 
 
 def log(msg: str) -> None:
@@ -133,6 +167,12 @@ def check_bf16_stage(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     worst = float((d - bound).max())
     check(worst <= 0, f"{name}: |err| exceeds one bf16 ulp by {worst:.3g}")
     return float(d.max())
+
+
+def check_f32_stage(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    e = max_err(got, ref)
+    check(e <= TOL_F32, f"{name}: |err| {e:.3g} > {TOL_F32}")
+    return e
 
 
 def gpu_line() -> str:
@@ -165,9 +205,14 @@ def ptxas_summary() -> list:
     return rows
 
 
-def check_kernels(dev, sp, cfg, traces):
-    """Phase 3: every kernel against its plain twin; returns the inputs
-    each kernel saw on the serving path and its max |err|."""
+def conv_flops(w: AK.AEKernelWeights, i: int, b: int, h: int, wd: int) -> float:
+    """FLOPs of layer i on b inputs of h x wd: a stride-1 conv's output
+    positions, or a transposed conv's input positions, times its taps."""
+    return 2.0 * b * h * wd * w.w[i].shape[0] * w.cout(i) * w.k(i) ** 2
+
+
+def check_stft(sp, traces) -> float:
+    """Phase 3, K1: the log-PSD, min/max and normalized spectrograms."""
     out, mn, mx = SF.stft_ft_log(traces, sp)
     ref, rmn, rmx = SF.stft_ft_log_plain(traces, sp)
     check(out.shape == (traces.shape[0], sp.n_freqs_onesided, sp.n_frames),
@@ -181,40 +226,57 @@ def check_kernels(dev, sp, cfg, traces):
     check(err_specs <= TOL_SPECS, f"normalized specs |err| {err_specs:.3g}")
     log(f"K1 stft_logpsd: log-PSD max|err| {err_k1:.3g}, min/max {err_mm:.3g}, "
         f"normalized {err_specs:.3g} (tol {TOL_LOGPSD}, {TOL_SPECS})")
+    return err_k1
 
+
+def serve_chain(wts, specs, k):
+    """The stage kernels over the layer table, each on the previous
+    kernel's output: (the 2d activations, the restitched output)."""
+    xs = [AK.ae_tile_in(wts, specs, k)]
+    for i in range(1, wts.depth):
+        xs.append(AK.ae_conv_pool(wts, xs[-1], i))
+    for i in range(wts.depth, wts.out):
+        xs.append(AK.ae_convt(wts, xs[-1], i))
+    return xs, AK.ae_tile_out(wts, xs[-1], k)
+
+
+def check_serve_stages(wts, specs, k, tag):
+    """Every serving stage against its twin on the same input; returns the
+    max |err| per entry point and the stage outputs."""
+    act = check_bf16_stage if wts.dtype == torch.bfloat16 else check_f32_stage
+    xs, y = serve_chain(wts, specs, k)
+    errs = {AK.TILE_IN: act(f"{tag} ae_tile_in", xs[0], AK.ae_tile_in_plain(wts, specs, k))}
+    for i in range(1, wts.out):
+        kern = AK.CONVT if wts.is_convt(i) else AK.CONV_POOL
+        plain = (AK.ae_convt_plain if kern is AK.CONVT else AK.ae_conv_pool_plain)
+        e = act(f"{tag} {kern.symbol} {i}", xs[i], plain(wts, xs[i - 1], i))
+        errs[kern] = max(errs.get(kern, 0.0), e)
+    errs[AK.TILE_OUT] = max_err(y, AK.ae_tile_out_plain(wts, xs[-1], k))
+    check(errs[AK.TILE_OUT] <= TOL_F32, f"{tag} ae_tile_out |err| {errs[AK.TILE_OUT]:.3g}")
+    for kern, e in errs.items():
+        log(f"{tag} {kern.symbol} ({tuple(specs.shape)} specs): max|err| {e:.3g}")
+    return errs, xs
+
+
+def check_kernels(dev, cfg, specs, k, dtypes, geometries):
+    """Phases 3 and 6: every stage against its twin in each of ``dtypes``,
+    then the whole AE of each (name, channels, config) in ``geometries``
+    against the module.  Returns the module, the bf16 stages' max |err|
+    and the inputs each stage saw on the serving path."""
     gen = torch.Generator().manual_seed(SEED)
     model = make_model(cfg, generator=gen, device=dev).eval()
-    k = sp.n_frames // 128
-    wts = AK.build_kernel_weights(model, torch.bfloat16)
-    x1 = AK.ae_tile_in(wts, specs, k)
-    x2 = AK.ae_conv_pool(wts, x1)
-    x3 = AK.ae_convt(wts, x2, 2)
-    x4 = AK.ae_convt(wts, x3, 3)
-    y = AK.ae_tile_out(wts, x4, k)
-    errs = {
-        AK.TILE_IN: check_bf16_stage("ae_tile_in", x1, AK.ae_tile_in_plain(wts, specs, k)),
-        AK.CONV_POOL: check_bf16_stage("ae_conv_pool", x2, AK.ae_conv_pool_plain(wts, x1)),
-        AK.CONVT: max(check_bf16_stage("ae_convt 2", x3, AK.ae_convt_plain(wts, x2, 2)),
-                      check_bf16_stage("ae_convt 3", x4, AK.ae_convt_plain(wts, x3, 3))),
-    }
-    errs[AK.TILE_OUT] = max_err(y, AK.ae_tile_out_plain(wts, x4, k))
-    check(errs[AK.TILE_OUT] <= TOL_F32, f"ae_tile_out |err| {errs[AK.TILE_OUT]:.3g}")
-    for kern, e in errs.items():
-        log(f"{kern.symbol} (bf16, {tuple(specs.shape)} specs): max|err| {e:.3g}")
-    errs[SF.STFT_KERNEL] = err_k1
-    stage_inputs = dict(specs=specs, x1=x1, x2=x2, x3=x3, x4=x4, k=k, wts=wts)
-
-    for name, c, gcfg in (
-        ("flagship k3", traces.shape[0], cfg),
-        ("k7", 1, ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
-        ("manual (64,32)/k5", 1, ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
-                                             out_kernel=(5, 5))),
-    ):
+    for dt in dtypes:
+        wts = AK.build_kernel_weights(model, dt)
+        e, xs = check_serve_stages(wts, specs, k, f"d{cfg.depth} {dt}")
+        if dt == torch.bfloat16:
+            errs, stage_inputs = e, dict(specs=specs, xs=xs, k=k, wts=wts)
+    for name, c, gcfg in geometries:
         m = model if gcfg == cfg else make_model(gcfg, generator=gen, device=dev).eval()
         s = specs[:c]
         with torch.no_grad():
             want = AK.ae_kernel_enhance_specs_plain(m, s, k)
-        e32 = max_err(AK.ae_kernel_enhance_specs(AK.build_kernel_weights(m, torch.float32), s, k), want)
+        e32 = max_err(AK.ae_kernel_enhance_specs(AK.build_kernel_weights(m, torch.float32), s, k),
+                      want)
         d16 = (AK.ae_kernel_enhance_specs(AK.build_kernel_weights(m, torch.bfloat16), s, k)
                - want).abs()
         e16, m16 = float(d16.max()), float(d16.mean())
@@ -226,8 +288,8 @@ def check_kernels(dev, sp, cfg, traces):
 
 
 def run_service(dev, sp, cfg, model, n_channels):
-    """Phase 4: the bf16 service on three shots, gated; returns the launch
-    counts of that run."""
+    """Phases 4 and 6: the bf16 service on three shots, gated; returns the
+    launch counts of that run."""
     fn = make_enhance_shot_fn(cfg, sp, dtype=torch.bfloat16, device=dev)
     wts = fn.prepare(model)
     shots = [example_shot(sp, n_channels, seed) for seed in (0, 1, 2)]
@@ -239,7 +301,8 @@ def run_service(dev, sp, cfg, model, n_channels):
     launches = {kern: kern.launches for kern in _build.KERNELS}
     for kern in SERVE_KERNELS:
         check(launches[kern] > 0, f"{kern.symbol} was not launched by the service")
-    log("service launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in SERVE_KERNELS))
+    log(f"depth-{cfg.depth} service launches: "
+        + ", ".join(f"{k.symbol}={launches[k]}" for k in SERVE_KERNELS))
     k = sp.n_frames // 128
     for seed, host, t, (specs, enh) in zip((0, 1, 2), shots, traces, outs):
         check(specs.shape == (n_channels, sp.n_freqs_kept, sp.n_frames), f"specs {tuple(specs.shape)}")
@@ -249,9 +312,9 @@ def run_service(dev, sp, cfg, model, n_channels):
         _, enh32 = enhance_shot_plain(model, t, sp)
         e_host, r_host = enh.cpu().numpy(), enh32.cpu().numpy()
         e_ssim = min(ssim(e_host[c], r_host[c]) for c in range(n_channels))
-        log(f"shot seed {seed}: spectrogram SSIM vs SciPy {s_ssim:.6f} (gate {GATE_SPEC_SSIM}), "
-            f"enhanced SSIM vs f32 plain service, min over {n_channels} ch {e_ssim:.6f} "
-            f"(gate {GATE_ENH_SSIM})")
+        log(f"depth {cfg.depth}, shot seed {seed}: spectrogram SSIM vs SciPy {s_ssim:.6f} "
+            f"(gate {GATE_SPEC_SSIM}), enhanced SSIM vs f32 plain service, min over "
+            f"{n_channels} ch {e_ssim:.6f} (gate {GATE_ENH_SSIM})")
         check(s_ssim >= GATE_SPEC_SSIM, f"spectrogram SSIM {s_ssim:.6f}")
         check(e_ssim >= GATE_ENH_SSIM, f"enhanced SSIM {e_ssim:.6f}")
     return fn, wts, traces[0], launches
@@ -276,88 +339,107 @@ def pair_times(gpu, name, kf, pf):
     return min(k1, k2), min(p1, p2)
 
 
-def time_all(sp, gpu, model, fn, wts, traces, st):
-    """Phase 5: each kernel, its twin, the one PyTorch call computing the
-    same function and its bound; then the service."""
-    x1, x2, x3, x4, k, specs = st["x1"], st["x2"], st["x3"], st["x4"], st["k"], st["specs"]
-    w = st["wts"]
-    bf = torch.bfloat16
-    tiles = patch(specs[:, :, : k * 128]).to(bf)[:, None].contiguous()
-    cw = [AK._conv_w(w, i).to(bf) for i in (0, 1, 4)]
-    tw = [w.w[i].permute(0, 3, 1, 2).flip(2, 3).to(bf).contiguous() for i in (2, 3)]
-    b16 = [b.to(bf) for b in w.b]
-    pads = [w.k(i) // 2 for i in range(5)]
-    convt_pad = [w.k(i) - 1 - convt_pad_before(w.k(i)) for i in range(5)]
-    window = torch.hamming_window(sp.nperseg, periodic=True, device=traces.device)
-    library = {
-        SF.STFT_KERNEL: lambda: torch.stft(traces, sp.nperseg, sp.hop, window=window,
-                                           center=False, return_complex=True),
-        AK.TILE_IN: lambda: F.conv2d(tiles, cw[0], b16[0], padding=pads[0]),
-        AK.CONV_POOL: lambda: F.conv2d(x1, cw[1], b16[1], padding=pads[1]),
-        AK.CONVT: lambda: (F.conv_transpose2d(x2, tw[0], b16[2], stride=2, padding=convt_pad[2],
-                                              output_padding=1),
-                           F.conv_transpose2d(x3, tw[1], b16[3], stride=2, padding=convt_pad[3],
-                                              output_padding=1)),
-        AK.TILE_OUT: lambda: F.conv2d(x4, cw[2], b16[4], padding=pads[4]),
-    }
-    c, b = traces.shape[0], x1.shape[0]
-    nf, n = sp.n_freqs_onesided, sp.nperseg
-    out_specs = c * 256 * k * 128 * 4
-    # K1's function needs no more than an FFT's work per frame: detrend and
-    # window (~7 n), a real FFT (2.5 n log2 n), the PSD, its log and the
-    # min/max (~6 per bin); the kernel's dense DFT GEMM is its own choice.
-    stft_ops = c * sp.n_frames * (7 * n + 2.5 * n * np.log2(n) + 6 * nf)
-    work = {  # (FLOPs, bytes, operand type) of each kernel at these shapes
-        SF.STFT_KERNEL: (stft_ops, c * sp.n_samples * 4 + c * nf * sp.n_frames * 4,
-                         torch.float32),
-        AK.TILE_IN: (2 * b * 256 * 128 * w.cout(0) * w.k(0) ** 2, out_specs + nbytes(x1), bf),
-        AK.CONV_POOL: (2 * b * 128 * 64 * w.cout(0) * w.cout(1) * w.k(1) ** 2,
-                       nbytes(x1, x2), bf),
-        AK.CONVT: (2 * b * (64 * 32 * w.cout(1) * w.cout(2) * w.k(2) ** 2
-                            + 128 * 64 * w.cout(2) * w.cout(3) * w.k(3) ** 2),
-                   nbytes(x2, x3, x3, x4), bf),
-        AK.TILE_OUT: (2 * b * 256 * 128 * w.cout(3) * w.k(4) ** 2, nbytes(x4) + out_specs, bf),
-    }
-    pairs = {
-        SF.STFT_KERNEL: (lambda: SF.stft_ft_log(traces, sp),
-                         lambda: SF.stft_ft_log_plain(traces, sp)),
-        AK.TILE_IN: (lambda: AK.ae_tile_in(w, specs, k),
-                     lambda: AK.ae_tile_in_plain(w, specs, k)),
-        AK.CONV_POOL: (lambda: AK.ae_conv_pool(w, x1),
-                       lambda: AK.ae_conv_pool_plain(w, x1)),
-        AK.CONVT: (lambda: (AK.ae_convt(w, x2, 2), AK.ae_convt(w, x3, 3)),
-                   lambda: (AK.ae_convt_plain(w, x2, 2), AK.ae_convt_plain(w, x3, 3))),
-        AK.TILE_OUT: (lambda: AK.ae_tile_out(w, x4, k),
-                      lambda: AK.ae_tile_out_plain(w, x4, k)),
-    }
+def time_entries(gpu, entries, dtype, per=""):
+    """Each entry's kernel and twin in turns, its library call and bound:
+    entries {kernel: (kernel fn, plain fn, library fn, FLOPs, bytes)}."""
     times = {}
-    for kern, (kf, pf) in pairs.items():
-        ms, plain_ms = pair_times(gpu, kern.symbol, kf, pf)
-        lib_ms = time_cuda(library[kern])
-        b_ms, b_by = bound(*work[kern])
+    for kern, (kf, pf, lf, flops, nb) in entries.items():
+        ms, plain_ms = pair_times(gpu, kern.symbol + per, kf, pf)
+        with torch.no_grad():
+            lib_ms = time_cuda(lf)
+        dt = dtype if kern is not TK.TRAIN_SUM else torch.float32
+        b_ms, b_by = bound(flops, nb, dt)
         times[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                            bound_by=b_by)
         log(f"[{gpu}] {kern.symbol}: library call {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {work[kern][0] / 1e9:.3f} GFLOP, {work[kern][1] / 1e6:.1f} MB, "
-            f"{PEAK[work[kern][2]][1]}, 3.35 TB/s)")
+            f"({b_by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.1f} MB, "
+            f"{PEAK[dt][1]}, 3.35 TB/s), achieved {flops / ms / 1e9:.2f} TFLOP/s")
+    return times
+
+
+def time_stft(sp, gpu, traces):
+    """Phase 5, K1: the kernel, its twin, ``torch.stft`` and the bound.
+    K1's function needs no more than an FFT's work per frame: detrend and
+    window (~7 n), a real FFT (2.5 n log2 n), the PSD, its log and the
+    min/max (~6 per bin); the kernel's dense DFT GEMM is its own choice."""
+    c, nf, n = traces.shape[0], sp.n_freqs_onesided, sp.nperseg
+    window = torch.hamming_window(sp.nperseg, periodic=True, device=traces.device)
+    ops = c * sp.n_frames * (7 * n + 2.5 * n * np.log2(n) + 6 * nf)
+    entry = (lambda: SF.stft_ft_log(traces, sp), lambda: SF.stft_ft_log_plain(traces, sp),
+             lambda: torch.stft(traces, sp.nperseg, sp.hop, window=window, center=False,
+                                return_complex=True),
+             ops, c * sp.n_samples * 4 + c * nf * sp.n_frames * 4)
+    return time_entries(gpu, {SF.STFT_KERNEL: entry}, torch.float32)[SF.STFT_KERNEL]
+
+
+def time_serving(sp, gpu, model, fn, wts, traces, st):
+    """Phases 5 and 6: each stage entry point over its launches in one
+    AE pass, its twin, the PyTorch calls computing the same function and
+    its bound; then the whole AE and the service."""
+    xs, k, specs, w = st["xs"], st["k"], st["specs"], st["wts"]
+    bf = torch.bfloat16
+    b, o = xs[0].shape[0], w.out
+    tiles = patch(specs[:, :, : k * 128]).to(bf)[:, None].contiguous()
+    ins = [tiles] + xs  # ins[i]: layer i's input
+    cw = [AK._conv_w(w, i).to(bf) for i in range(o + 1)]
+    tw = [w.w[i].permute(0, 3, 1, 2).flip(2, 3).to(bf).contiguous() for i in range(o + 1)]
+    b16 = [bb.to(bf) for bb in w.b]
+    enc, dec = range(1, w.depth), range(w.depth, o)
+    out_specs = specs.shape[0] * 256 * k * 128 * 4
+
+    def flops(layers):
+        return sum(conv_flops(w, i, b, *ins[i].shape[2:]) for i in layers)
+
+    entries = {
+        AK.TILE_IN: (lambda: AK.ae_tile_in(w, specs, k), lambda: AK.ae_tile_in_plain(w, specs, k),
+                     lambda: F.conv2d(tiles, cw[0], b16[0], padding=w.k(0) // 2),
+                     flops([0]), out_specs + nbytes(xs[0])),
+        AK.CONV_POOL: (lambda: [AK.ae_conv_pool(w, ins[i], i) for i in enc],
+                       lambda: [AK.ae_conv_pool_plain(w, ins[i], i) for i in enc],
+                       lambda: [F.conv2d(ins[i], cw[i], b16[i], padding=w.k(i) // 2) for i in enc],
+                       flops(enc), sum(nbytes(ins[i], xs[i]) for i in enc)),
+        AK.CONVT: (lambda: [AK.ae_convt(w, ins[i], i) for i in dec],
+                   lambda: [AK.ae_convt_plain(w, ins[i], i) for i in dec],
+                   lambda: [F.conv_transpose2d(ins[i], tw[i], b16[i], stride=2, output_padding=1,
+                                               padding=w.k(i) - 1 - convt_pad_before(w.k(i)))
+                            for i in dec],
+                   flops(dec), sum(nbytes(ins[i], xs[i]) for i in dec)),
+        AK.TILE_OUT: (lambda: AK.ae_tile_out(w, xs[-1], k), lambda: AK.ae_tile_out_plain(w, xs[-1], k),
+                      lambda: F.conv2d(xs[-1], cw[o], b16[o], padding=w.k(o) // 2),
+                      flops([o]), nbytes(xs[-1]) + out_specs),
+    }
+    times = time_entries(gpu, entries, bf, f" (depth {w.depth})")
     with torch.no_grad():
         ae_k = time_cuda(lambda: AK.ae_kernel_enhance_specs(w, specs, k))
         ae_p = time_cuda(lambda: AK.ae_kernel_enhance_specs_plain(model, specs, k))
         m16 = make_model(model.cfg, generator=torch.Generator().manual_seed(SEED),
                          device=specs.device).to(torch.bfloat16).eval()
         ae_p16 = time_cuda(lambda: AK.ae_kernel_enhance_specs_plain(m16, specs, k))
-    log(f"[{gpu}] whole AE, {specs.shape[0]} ch: kernels (bf16) {ae_k:.4f} ms, plain module "
-        f"f32 {ae_p:.4f} ms, plain module bf16 {ae_p16:.4f} ms")
+    log(f"[{gpu}] whole AE depth {w.depth}, {specs.shape[0]} ch: kernels (bf16) {ae_k:.4f} ms "
+        f"({flops(range(o + 1)) / ae_k / 1e9:.2f} TFLOP/s), plain module f32 {ae_p:.4f} ms, "
+        f"plain module bf16 {ae_p16:.4f} ms")
 
     torch.cuda.reset_peak_memory_stats()
     ms = time_cuda(fn, wts, traces, warmup=3, iters=20)
     peak = torch.cuda.max_memory_allocated()
     ms_plain = time_cuda(enhance_shot_plain, model, traces, sp, warmup=2, iters=10)
     c = traces.shape[0]
-    log(f"[{gpu}] service bf16: {ms:.4f} ms/shot (median of 20), {c / ms * 1e3:.2f} "
-        f"spectrograms/s, peak device memory {peak / 2**30:.3f} GiB; plain f32 service "
-        f"{ms_plain:.4f} ms/shot")
+    log(f"[{gpu}] service depth {w.depth} bf16: {ms:.4f} ms/shot (median of 20), "
+        f"{c / ms * 1e3:.2f} spectrograms/s, peak device memory {peak / 2**30:.3f} GiB; "
+        f"plain f32 service {ms_plain:.4f} ms/shot")
     return times
+
+
+def serve_family(dev, sp, gpu, cfg, specs, dtypes, geometries):
+    """Phases 3-5 (flagship) or 6 (deep3) after K1: stage checks, the gated
+    service (its launches are the rows'), the timings."""
+    k = sp.n_frames // 128
+    model, errs, st = check_kernels(dev, cfg, specs, k, dtypes, geometries)
+    fn, wts, traces, launches = run_service(dev, sp, cfg, model, N_CHANNELS)
+    times = time_serving(sp, gpu, model, fn, wts, traces, st)
+    for kern, kid in SERVE_IDS[cfg.depth].items():
+        row(kern, kid).update(launches=launches[kern], max_abs_err=errs[kern], **times[kern])
+    return launches
 
 
 def check_f32(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -379,7 +461,7 @@ def check_sum(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def make_data(dev, sp):
-    """Phase 6: the recipe's tiles on the card (hyperparam_scan.py:126-149):
+    """Phase 7: the recipe's tiles on the card (hyperparam_scan.py:126-149):
     synthetic shots through the STFT kernel, patched, split 60/25/15."""
     t0 = time.perf_counter()
     shots = synthetic_shot_batch(N_SHOTS, N_CHANNELS, sp.n_samples, sp.fs, seed=SEED)
@@ -396,103 +478,152 @@ def make_data(dev, sp):
 
 
 def check_train_stages(tw, x, y, mask, tag):
-    """Phase 7: every training kernel against its twin, stage by stage on
-    the same inputs (the kernels' own outputs feed the next stage); the K5b
-    entry points must equal K5's bit for bit.  Returns the max |err| of
-    each kernel and the stage tensors."""
-    dt = tw.dtype
-    act = check_bf16_stage if dt == torch.bfloat16 else check_f32
+    """Phases 8 and 11: every training kernel against its twin, stage by
+    stage on the same inputs (the kernels' own outputs feed the next
+    stage), over the layer table from conv 0 to the out-conv and back; at
+    depth 2 the K5b entry points must equal K5's bit for bit.  Returns the
+    max |err| of each kernel and the stage tensors: ``act[i]`` layer i's
+    input, ``bits[i]`` encoder conv i's routing bits, ``dz[i]`` the
+    gradient at layer i's output (pooled for the encoder convs)."""
+    dt, d, o = tw.dtype, tw.fwd.depth, tw.fwd.out
+    pre = d == 2
+    act_ = check_bf16_stage if dt == torch.bfloat16 else check_f32
     errs = {}
 
     def note(kern, e):
         errs[kern] = max(errs.get(kern, 0.0), e)
 
     x16, y16 = x.to(dt), y.to(dt)
-    p1, pm1 = TK.ae_train_in(tw, x)
-    r1, rm1 = TK.ae_train_in_plain(tw, x)
-    note(TK.TRAIN_IN, act(f"{tag} ae_train_in", p1, r1))
-    check_mask(f"{tag} pool-1 routing", pm1, rm1)
-    q1, qm1 = TK.ae_train_in(tw, x16, pre=True)
-    check(torch.equal(q1, p1) and torch.equal(qm1, pm1), f"{tag} ae_train_in_pre != ae_train_in")
-    note(TK.TRAIN_IN_PRE, act(f"{tag} ae_train_in_pre", q1, r1))
-    p2, pm2 = TK.ae_train_conv_pool(tw, p1)
-    r2, rm2 = TK.ae_train_conv_pool_plain(tw, p1)
-    note(TK.TRAIN_CONV_POOL, act(f"{tag} ae_train_conv_pool", p2, r2))
-    fr = check_mask(f"{tag} pool-2 routing", pm2, rm2)
-    d4 = AK.ae_convt(tw.fwd, p2, 2)
-    rd4 = AK.ae_convt_plain(tw.fwd, p2, 2)
-    act(f"{tag} convT2", d4, rd4)
-    e = AK.ae_convt(tw.fwd, d4, 3)
-    re_ = AK.ae_convt_plain(tw.fwd, d4, 3)
-    act(f"{tag} convT1", e, re_)
-    fr = max(fr, check_mask(f"{tag} relu d4", d4 > 0, rd4 > 0),
-             check_mask(f"{tag} relu e", e > 0, re_ > 0))
-    logits, dz5, bce, db5 = TK.ae_train_loss(tw, e, y, mask)
-    rl, rdz5, rbce, rdb5 = TK.ae_train_loss_plain(tw, e, y, mask)
+    p, pm = TK.ae_train_in(tw, x)
+    r, rm = TK.ae_train_in_plain(tw, x)
+    note(TK.TRAIN_IN, act_(f"{tag} ae_train_in", p, r))
+    fr = check_mask(f"{tag} pool-0 routing", pm, rm)
+    if pre:
+        q, qm = TK.ae_train_in(tw, x16, pre=True)
+        check(torch.equal(q, p) and torch.equal(qm, pm), f"{tag} ae_train_in_pre != ae_train_in")
+        note(TK.TRAIN_IN_PRE, act_(f"{tag} ae_train_in_pre", q, r))
+    act, bits = [x, p], [pm]
+    for i in range(1, d):
+        p, pm = TK.ae_train_conv_pool(tw, act[-1], i)
+        r, rm = TK.ae_train_conv_pool_plain(tw, act[-1], i)
+        note(TK.TRAIN_CONV_POOL, act_(f"{tag} ae_train_conv_pool {i}", p, r))
+        fr = max(fr, check_mask(f"{tag} pool-{i} routing", pm, rm))
+        act.append(p)
+        bits.append(pm)
+    for i in range(d, o):
+        a = AK.ae_convt(tw.fwd, act[-1], i)
+        r = AK.ae_convt_plain(tw.fwd, act[-1], i)
+        note(AK.CONVT, act_(f"{tag} convT {i}", a, r))
+        fr = max(fr, check_mask(f"{tag} relu {i}", a > 0, r > 0))
+        act.append(a)
+    e = act[o]
+    logits, dz_o, bce, db_o = TK.ae_train_loss(tw, e, y, mask)
+    rl, rdz, rbce, rdb = TK.ae_train_loss_plain(tw, e, y, mask)
     note(TK.TRAIN_LOSS, max(check_f32(f"{tag} logits", logits, rl),
-                            act(f"{tag} dz5", dz5, rdz5),
+                            act_(f"{tag} dz{o}", dz_o, rdz),
                             check_sum(f"{tag} BCE sum", bce, rbce),
-                            check_sum(f"{tag} db5", db5, rdb5)))
-    pre = TK.ae_train_loss(tw, e, y16, mask, pre=True)
-    check(all(torch.equal(a, b) for a, b in zip(pre, (logits, dz5, bce, db5))),
-          f"{tag} ae_train_loss_pre != ae_train_loss")
-    note(TK.TRAIN_LOSS_PRE, errs[TK.TRAIN_LOSS])
+                            check_sum(f"{tag} db{o}", db_o, rdb)))
+    if pre:
+        got = TK.ae_train_loss(tw, e, y16, mask, pre=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, (logits, dz_o, bce, db_o))),
+              f"{tag} ae_train_loss_pre != ae_train_loss")
+        note(TK.TRAIN_LOSS_PRE, errs[TK.TRAIN_LOSS])
 
-    def wgrad(i, a, d, bits=None, pre=False):
-        got = TK.ae_train_wgrad(tw, i, a, d, bits, pre=pre)
-        note(TK.WGRAD_X if i == 0 and not pre else TK.WGRAD,
-             check_sum(f"{tag} dW{i}", got, TK.ae_train_wgrad_plain(tw, i, a, d, bits)))
+    def wgrad(i, a, dz, bits_=None, pre_=False):
+        got = TK.ae_train_wgrad(tw, i, a, dz, bits_, pre=pre_)
+        note(TK.WGRAD_X if i == 0 and not pre_ else TK.WGRAD,
+             check_sum(f"{tag} dW{i}", got, TK.ae_train_wgrad_plain(tw, i, a, dz, bits_)))
         return got
 
-    def dgrad(fn, plain, kern, i, d, gate, *bits):
-        out, db = fn(tw, i, d, gate, *bits)
-        rout, rdb = plain(tw, i, d, gate, *bits)
-        note(kern, max(act(f"{tag} dgrad {i}", out, rout), check_sum(f"{tag} db{i}", db, rdb)))
+    def dgrad(fn, plain, kern, i, dz, gate, *bits_):
+        out, db = fn(tw, i, dz, gate, *bits_)
+        rout, rdb = plain(tw, i, dz, gate, *bits_)
+        note(kern, max(act_(f"{tag} dgrad {i}", out, rout), check_sum(f"{tag} db{i - 1}", db, rdb)))
         return out
 
-    wgrad(4, e, dz5)
-    dz4 = dgrad(TK.ae_train_dgrad_conv, TK.ae_train_dgrad_conv_plain, TK.DGRAD_CONV, 4, dz5, e)
-    wgrad(3, d4, dz4)
-    dz3 = dgrad(TK.ae_train_dgrad_convt, TK.ae_train_dgrad_convt_plain, TK.DGRAD_CONVT, 3, dz4, d4)
-    wgrad(2, p2, dz3)
-    dp2 = dgrad(TK.ae_train_dgrad_convt, TK.ae_train_dgrad_convt_plain, TK.DGRAD_CONVT, 2, dz3, pm2)
-    wgrad(1, p1, dp2, pm2)
-    dp1 = dgrad(TK.ae_train_dgrad_conv, TK.ae_train_dgrad_conv_plain, TK.DGRAD_CONV, 1, dp2, pm1, pm2)
-    g0 = wgrad(0, x, dp1, pm1)
-    check(torch.equal(wgrad(0, x16, dp1, pm1, pre=True), g0), f"{tag} dW0 of K5b != K5")
+    dz = {o: dz_o}
+    wgrad(o, e, dz_o)
+    dz[o - 1] = dgrad(TK.ae_train_dgrad_conv, TK.ae_train_dgrad_conv_plain, TK.DGRAD_CONV,
+                      o, dz_o, e)
+    for i in range(o - 1, d - 1, -1):
+        wgrad(i, act[i], dz[i])
+        dz[i - 1] = dgrad(TK.ae_train_dgrad_convt, TK.ae_train_dgrad_convt_plain,
+                          TK.DGRAD_CONVT, i, dz[i], act[i] if i > d else bits[d - 1])
+    for i in range(d - 1, 0, -1):
+        wgrad(i, act[i], dz[i], bits[i])
+        dz[i - 1] = dgrad(TK.ae_train_dgrad_conv, TK.ae_train_dgrad_conv_plain, TK.DGRAD_CONV,
+                          i, dz[i], bits[i - 1], bits[i])
+    g0 = wgrad(0, x, dz[0], bits[0])
+    if pre:
+        check(torch.equal(wgrad(0, x16, dz[0], bits[0], pre_=True), g0), f"{tag} dW0 of K5b != K5")
     part = torch.randn(4096, 288, generator=torch.Generator().manual_seed(SEED)).to(x.device)
     note(TK.TRAIN_SUM, check_sum(f"{tag} ae_train_sum", TK.ae_train_sum(part), part.sum(0)))
-    log(f"{tag}: every training stage within tolerance (masks differ on {fr:.3g} of entries; "
-        "K5b entry points equal K5 bit for bit); max|err| " + ", ".join(
-            f"{k.symbol} {v:.3g}" for k, v in errs.items()))
-    return errs, dict(x=x, x16=x16, y=y, y16=y16, mask=mask, p1=p1, pm1=pm1, p2=p2, pm2=pm2,
-                      d4=d4, e=e, dz5=dz5, dz4=dz4, dz3=dz3, dp2=dp2, dp1=dp1)
+    log(f"{tag}: every training stage within tolerance (masks differ on {fr:.3g} of entries"
+        + ("; K5b entry points equal K5 bit for bit" if pre else "") + "); max|err| "
+        + ", ".join(f"{k.symbol} {v:.3g}" for k, v in errs.items()))
+    return errs, dict(x=x, x16=x16, y=y, y16=y16, mask=mask, act=act, bits=bits, dz=dz)
 
 
-def check_autograd(model, x, y, mask):
-    """Phase 8: the kernels' loss and gradients against torch autograd of
-    the module in float32 (TF32 off)."""
+def check_chain(tw, x, y, mask, tag):
+    """Phases 8 and 11, float32: the kernels' whole chain against the
+    twins' whole chain, which runs its own forward.  Where a pool window's
+    two largest values, or a transposed conv's output, lie within float32
+    rounding of each other or of 0, the two forwards may gate the gradient
+    differently (a routing bit, a relu), and the gradient below moves.  So
+    the twins' backward runs on its own forward and again on the kernels':
+    on the kernels' forward every gradient sum must agree to TOL_GRAD_SUM;
+    on its own, unless some gate differs.  Returns (pool windows routed
+    differently, relu gates that differ, the largest relative error on the
+    twins' own forward, on the kernels')."""
+    s, _, _ = TK._forward(tw, x, y, mask, False)
+    gk = TK._backward(tw, s, False)
+    p, _, _ = TK._forward(tw, x, y, mask, False, TK._PLAIN)
+    n_route = sum(int((a != b).sum()) for a, b in zip(s["bits"], p["bits"]))
+    d, o = tw.fwd.depth, tw.fwd.out
+    n_relu = sum(int(((s["act"][i] > 0) != (p["act"][i] > 0)).sum()) for i in range(d + 1, o + 1))
+
+    def rel(g):
+        return max(max_err(a, b) / max(float(b.abs().max()), 1e-6)
+                   for a, b in zip(gk[0] + gk[1], g[0] + g[1]))
+
+    own = rel(TK._backward(tw, p, False, TK._PLAIN))
+    fed = rel(TK._backward(tw, s, False, TK._PLAIN))
+    log(f"{tag}: whole chain vs the twins' chain: {n_route} pool windows routed differently, "
+        f"{n_relu} relu gates differ; gradient sums off by {own:.3g} of their scale on the "
+        f"twins' own forward, {fed:.3g} on the kernels' (tol {TOL_GRAD_SUM})")
+    check(fed <= TOL_GRAD_SUM, f"{tag}: the twins' backward on the kernels' forward off by {fed:.3g}")
+    check(own <= TOL_GRAD_SUM or n_route + n_relu > 0,
+          f"{tag}: whole chain off by {own:.3g} with every gate alike")
+    return n_route, n_relu, own, fed
+
+
+def check_autograd(model, x, y, mask, value_and_grad):
+    """Phases 8 and 11: the kernels' loss and gradients against torch
+    autograd of the module in float32 (TF32 off)."""
     model.zero_grad()
     ref = TK.masked_bce_from_logits(model(x, logits=True), y, mask)
     ref.backward()
     ref = float(ref.detach())
     scale = max(float(p.grad.abs().max()) for p in model.parameters())
     for dt, tol in ((torch.float32, TOL_AUTOGRAD_F32), (torch.bfloat16, TOL_AUTOGRAD_BF16)):
-        loss, grads = TK.kernel_value_and_grad(model, x, y, mask, dt)
+        loss, grads = value_and_grad(model, x, y, mask, dt)
         rel = max(float((grads[n] - p.grad).abs().max()) for n, p in model.named_parameters()) / scale
         lrel = abs(float(loss) - ref) / abs(ref)
-        log(f"kernel grads ({dt}) vs f32 autograd, {x.shape[0]} tiles: max|dg|/max|g| {rel:.3g} "
-            f"(tol {tol}), loss {float(loss):.7f} vs {ref:.7f} (rel {lrel:.3g})")
+        log(f"depth {model.cfg.depth} kernel grads ({dt}) vs f32 autograd, {x.shape[0]} tiles: "
+            f"max|dg|/max|g| {rel:.3g} (tol {tol}), loss {float(loss):.7f} vs {ref:.7f} "
+            f"(rel {lrel:.3g})")
         check(rel <= tol, f"{dt} gradients off autograd by {rel:.3g}")
         if dt == torch.float32:
             check(lrel <= 1e-5, f"f32 loss off autograd by {lrel:.3g}")
     model.zero_grad()
 
 
-def train_runs(dev, cfg, data):
-    """Phase 9: fit on the recipe; returns the training kernels' launches
-    and the two loss histories."""
+def train_runs(dev, cfg, data, epochs):
+    """Phases 9 and 11: fit on the recipe; returns the training kernels'
+    launches.  Depth 2 also runs one epoch of K5 and one of K5b from the
+    same weights, which must agree bit for bit."""
     tc = TrainConfig()
+    depth2 = cfg.depth == 2
 
     def state():
         return TR.create_state(cfg, tc, generator=torch.Generator().manual_seed(SEED), device=dev)
@@ -501,135 +632,145 @@ def train_runs(dev, cfg, data):
     for kern in _build.KERNELS:
         kern.launches = 0
     t0 = time.perf_counter()
-    _, hk = TR.fit(state(), *args, cfg=tc, epochs=EPOCHS, epoch_fn=TR.kernel_epoch_for(cfg, tc))
-    s5, _ = TR.fit(state(), *args, cfg=tc, epochs=1, epoch_fn=TR.kernel_epoch_for(cfg, tc))
-    s5b, _ = TR.fit(state(), *args, cfg=tc, epochs=1,
-                    epoch_fn=TR.kernel_epoch_for(cfg, tc, pre_layout=True))
+    _, hk = TR.fit(state(), *args, cfg=tc, epochs=epochs, epoch_fn=TR.kernel_epoch_for(cfg, tc))
+    if depth2:
+        s5, _ = TR.fit(state(), *args, cfg=tc, epochs=1, epoch_fn=TR.kernel_epoch_for(cfg, tc))
+        s5b, _ = TR.fit(state(), *args, cfg=tc, epochs=1,
+                        epoch_fn=TR.kernel_epoch_for(cfg, tc, pre_layout=True))
     torch.cuda.synchronize(dev)
     launches = {kern: kern.launches for kern in _build.KERNELS}
     t_kernel = time.perf_counter() - t0
-    log("training launches: " + ", ".join(f"{k.symbol}={n}" for k, n in launches.items()
-                                          if n))
-    for kern in (*TK.TRAIN_KERNELS, AK.CONVT):
+    log(f"depth-{cfg.depth} training launches: " + ", ".join(
+        f"{k.symbol}={n}" for k, n in launches.items() if n))
+    for kern in (*(TK.TRAIN_KERNELS if depth2 else TRAIN3_KERNELS), AK.CONVT):
         check(launches[kern] > 0, f"{kern.symbol} was not launched by training")
     t0 = time.perf_counter()
-    _, ha = TR.fit(state(), *args, cfg=tc, epochs=EPOCHS)
+    _, ha = TR.fit(state(), *args, cfg=tc, epochs=epochs)
     t_auto = time.perf_counter() - t0
-    log(f"fit kernel bf16 (K5): loss {hk['loss']}, val_loss {hk['val_loss']}")
-    log(f"fit autograd f32:     loss {ha['loss']}, val_loss {ha['val_loss']}")
-    log(f"wall: kernel runs ({EPOCHS} + 1 + 1 epochs) {t_kernel:.1f} s, autograd run {t_auto:.1f} s")
+    name = "K5" if depth2 else "K7"
+    log(f"depth {cfg.depth} fit kernel bf16 ({name}): loss {hk['loss']}, val_loss {hk['val_loss']}")
+    log(f"depth {cfg.depth} fit autograd f32:     loss {ha['loss']}, val_loss {ha['val_loss']}")
+    log(f"wall: kernel runs ({epochs}{' + 1 + 1' if depth2 else ''} epochs) {t_kernel:.1f} s, "
+        f"autograd run {t_auto:.1f} s")
     for i, (a, b) in enumerate(zip(hk["loss"], ha["loss"])):
         check(abs(a - b) <= TOL_LOSS_CURVE * b, f"epoch {i} loss {a} vs f32 autograd {b}")
     check(hk["loss"][-1] < hk["loss"][0], f"loss did not fall: {hk['loss']}")
     check(all(np.isfinite(hk["val_loss"] + ha["val_loss"])), "non-finite val_loss")
-    same = all(torch.equal(a, b) for a, b in zip(s5.model.state_dict().values(),
-                                                 s5b.model.state_dict().values()))
-    check(same, "after one epoch the K5b run's parameters differ from K5's")
-    log(f"gates: per-epoch loss within {TOL_LOSS_CURVE:.1%} of f32 autograd, falling, val finite; "
-        "K5b parameters == K5 parameters bit for bit after one epoch")
+    if depth2:
+        same = all(torch.equal(a, b) for a, b in zip(s5.model.state_dict().values(),
+                                                     s5b.model.state_dict().values()))
+        check(same, "after one epoch the K5b run's parameters differ from K5's")
+    log(f"gates: per-epoch loss within {TOL_LOSS_CURVE:.1%} of f32 autograd, falling, val finite"
+        + ("; K5b parameters == K5 parameters bit for bit after one epoch" if depth2 else ""))
     return launches
 
 
 def time_training(gpu, cfg, data, tw, st):
-    """Phase 10: each training kernel per 128-tile step, its twin, the one
-    PyTorch call that computes the same function, its bound; then the
-    engines' s/epoch, tiles/s and the peak memory of a step."""
+    """Phases 10 and 11: each training kernel over its launches in a
+    128-tile step, its twin, the PyTorch calls that compute the same
+    function, its bound; then the engines' s/epoch, tiles/s and the peak
+    memory of a step."""
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     bf, w = torch.bfloat16, tw.fwd
-    b = st["x"].shape[0]
-    c1, c2 = w.cout(0), w.cout(1)
-    kk = [w.k(i) for i in range(5)]
-    cw = [AK._conv_w(w, i).to(bf) for i in range(5)]       # (out, in, k, k)
-    kflip = [w.w[i].flip(1, 2).permute(0, 3, 1, 2).to(bf).contiguous() for i in range(5)]
-    dz2 = TK.route_expand(st["dp2"], st["pm2"]).to(bf)
-    dz1 = TK.route_expand(st["dp1"], st["pm1"]).to(bf)
-    x1 = st["x16"][:, None]
-    plain = dict(wgrad=TK.ae_train_wgrad_plain, dgrad_conv=TK.ae_train_dgrad_conv_plain,
-                 dgrad_convt=TK.ae_train_dgrad_convt_plain)
+    d, o = w.depth, w.out
+    s, act, bits, dz = st, st["act"], st["bits"], st["dz"]
+    b = s["x"].shape[0]
+    depth2 = d == 2
+    cw = [AK._conv_w(w, i).to(bf) for i in range(o + 1)]       # (out, in, k, k)
+    kflip = [w.w[i].flip(1, 2).permute(0, 3, 1, 2).to(bf).contiguous() for i in range(o + 1)]
+    tflip = [w.w[i].permute(0, 3, 1, 2).flip(2, 3).to(bf).contiguous() for i in range(o + 1)]
+    dzx = {i: TK.route_expand(dz[i], bits[i]).to(bf) for i in range(d)}  # full-res encoder dz
+    x1 = s["x16"][:, None]
+    ins = [x1] + act[1:]
+    enc, dec = range(1, d), range(d, o)
+    gate = {i: act[i] if i > d else bits[d - 1] for i in dec}
 
-    def fl(h, wd, ci, co, k):
-        return 2 * b * h * wd * ci * co * k * k
+    def fl(layers):
+        return sum(conv_flops(w, i, b, *ins[i].shape[2:]) for i in layers)
 
-    s = st
-    wg = [(4, s["e"], s["dz5"], None), (3, s["d4"], s["dz4"], None), (2, s["p2"], s["dz3"], None),
-          (1, s["p1"], s["dp2"], s["pm2"])]
-    parts = [(b * ((64 * 128 + 127) // 128), 2), (b * 64, c1), (b * 16, c1),
-             (b * 64, c2), (b * 16, c2)] + [(b, tw.fwd.w[i].numel()) for i in range(5)]
-    parts = [torch.rand(n, m, device=s["x"].device) for n, m in parts]
-    wparts = 4 * sum(b * w.w[i].numel() for i in range(1, 5))
-    entries = {  # kernel: (kernel launches, plain, library call, FLOPs, bytes, dtype)
+    def pad(i):
+        return w.k(i) // 2
+
+    # the partials a step sums: the loss's, each input gradient's bias
+    # partials, each layer's weight-gradient partials
+    shapes = [(TK._rows(b, 256, 128, quad=True), 2)]
+    shapes += [(TK._rows(b, *act[i].shape[2:], quad=True), act[i].shape[1]) for i in (*enc, o)]
+    shapes += [(TK._rows(b, *act[i].shape[2:], quad=False), act[i].shape[1]) for i in dec]
+    shapes += [(b, w.w[i].numel()) for i in range(o + 1)]
+    parts = [torch.rand(n, m, device=s["x"].device) for n, m in shapes]
+    wg = [(o, act[o], dz[o], None)] + [(i, act[i], dz[i], None) for i in reversed(dec)] \
+        + [(i, act[i], dz[i], bits[i]) for i in reversed(enc)]
+    # kernel: (kernel launches, plain, library call, FLOPs, bytes); the
+    # bytes are the function's: each input read once, each output written
+    # once (the weight gradients' per-tile partials are the kernels' choice)
+    entries = {
         TK.TRAIN_IN: (lambda: TK.ae_train_in(tw, s["x"]), lambda: TK.ae_train_in_plain(tw, s["x"]),
-                      lambda: F.conv2d(x1, cw[0], padding=kk[0] // 2),
-                      fl(256, 128, 1, c1, kk[0]), nbytes(s["x"], s["p1"], s["pm1"])),
-        TK.TRAIN_IN_PRE: (lambda: TK.ae_train_in(tw, s["x16"], pre=True),
-                          lambda: TK.ae_train_in_plain(tw, s["x16"]),
-                          lambda: F.conv2d(x1, cw[0], padding=kk[0] // 2),
-                          fl(256, 128, 1, c1, kk[0]), nbytes(s["x16"], s["p1"], s["pm1"])),
-        TK.TRAIN_CONV_POOL: (lambda: TK.ae_train_conv_pool(tw, s["p1"]),
-                             lambda: TK.ae_train_conv_pool_plain(tw, s["p1"]),
-                             lambda: F.conv2d(s["p1"], cw[1], padding=kk[1] // 2),
-                             fl(128, 64, c1, c2, kk[1]), nbytes(s["p1"], s["p2"], s["pm2"])),
-        TK.TRAIN_LOSS: (lambda: TK.ae_train_loss(tw, s["e"], s["y"], s["mask"]),
-                        lambda: TK.ae_train_loss_plain(tw, s["e"], s["y"], s["mask"]),
-                        lambda: F.conv2d(s["e"], cw[4], padding=kk[4] // 2),
-                        fl(256, 128, c1, 1, kk[4]),
-                        nbytes(s["e"], s["y"], s["y"], s["dz5"], s["mask"])),
-        TK.TRAIN_LOSS_PRE: (lambda: TK.ae_train_loss(tw, s["e"], s["y16"], s["mask"], pre=True),
-                            lambda: TK.ae_train_loss_plain(tw, s["e"], s["y16"], s["mask"]),
-                            lambda: F.conv2d(s["e"], cw[4], padding=kk[4] // 2),
-                            fl(256, 128, c1, 1, kk[4]),
-                            nbytes(s["e"], s["y16"], s["y"], s["dz5"], s["mask"])),
+                      lambda: F.conv2d(x1, cw[0], padding=pad(0)),
+                      fl([0]), nbytes(s["x"], act[1], bits[0])),
+        TK.TRAIN_CONV_POOL: (
+            lambda: [TK.ae_train_conv_pool(tw, act[i], i) for i in enc],
+            lambda: [TK.ae_train_conv_pool_plain(tw, act[i], i) for i in enc],
+            lambda: [F.conv2d(act[i], cw[i], padding=pad(i)) for i in enc],
+            fl(enc), sum(nbytes(act[i], act[i + 1], bits[i]) for i in enc)),
+        AK.CONVT: (lambda: [AK.ae_convt(w, act[i], i) for i in dec],
+                   lambda: [AK.ae_convt_plain(w, act[i], i) for i in dec],
+                   lambda: [F.conv_transpose2d(act[i], tflip[i], w.b[i].to(bf), stride=2,
+                                               padding=w.k(i) - 1 - convt_pad_before(w.k(i)),
+                                               output_padding=1) for i in dec],
+                   fl(dec), sum(nbytes(act[i], act[i + 1]) for i in dec)),
+        TK.TRAIN_LOSS: (lambda: TK.ae_train_loss(tw, act[o], s["y"], s["mask"]),
+                        lambda: TK.ae_train_loss_plain(tw, act[o], s["y"], s["mask"]),
+                        lambda: F.conv2d(act[o], cw[o], padding=pad(o)),
+                        fl([o]), nbytes(act[o], s["y"], s["y"], dz[o], s["mask"])),
         TK.DGRAD_CONV: (
-            lambda: (TK.ae_train_dgrad_conv(tw, 4, s["dz5"], s["e"]),
-                     TK.ae_train_dgrad_conv(tw, 1, s["dp2"], s["pm1"], s["pm2"])),
-            lambda: (plain["dgrad_conv"](tw, 4, s["dz5"], s["e"]),
-                     plain["dgrad_conv"](tw, 1, s["dp2"], s["pm1"], s["pm2"])),
-            lambda: (conv2d_input(s["e"].shape, cw[4], s["dz5"], padding=kk[4] // 2),
-                     conv2d_input(s["p1"].shape, cw[1], dz2, padding=kk[1] // 2)),
-            fl(256, 128, 1, c1, kk[4]) + fl(128, 64, c2, c1, kk[1]),
-            nbytes(s["dz5"], s["e"], s["dz4"], s["dp2"], s["pm2"], s["pm1"], s["dp1"])),
+            lambda: [TK.ae_train_dgrad_conv(tw, o, dz[o], act[o])]
+            + [TK.ae_train_dgrad_conv(tw, i, dz[i], bits[i - 1], bits[i]) for i in enc],
+            lambda: [TK.ae_train_dgrad_conv_plain(tw, o, dz[o], act[o])]
+            + [TK.ae_train_dgrad_conv_plain(tw, i, dz[i], bits[i - 1], bits[i]) for i in enc],
+            lambda: [conv2d_input(act[o].shape, cw[o], dz[o], padding=pad(o))]
+            + [conv2d_input(act[i].shape, cw[i], dzx[i], padding=pad(i)) for i in enc],
+            fl([o, *enc]), nbytes(dz[o], act[o], dz[o - 1])
+            + sum(nbytes(dz[i], bits[i], bits[i - 1], dz[i - 1]) for i in enc)),
         TK.DGRAD_CONVT: (
-            lambda: (TK.ae_train_dgrad_convt(tw, 3, s["dz4"], s["d4"]),
-                     TK.ae_train_dgrad_convt(tw, 2, s["dz3"], s["pm2"])),
-            lambda: (plain["dgrad_convt"](tw, 3, s["dz4"], s["d4"]),
-                     plain["dgrad_convt"](tw, 2, s["dz3"], s["pm2"])),
-            lambda: (F.conv2d(s["dz4"], kflip[3], stride=2, padding=kk[3] // 2),
-                     F.conv2d(s["dz3"], kflip[2], stride=2, padding=kk[2] // 2)),
-            fl(128, 64, c1, c2, kk[3]) + fl(64, 32, c2, c2, kk[2]),
-            nbytes(s["dz4"], s["d4"], s["dz3"], s["dz3"], s["pm2"], s["dp2"])),
+            lambda: [TK.ae_train_dgrad_convt(tw, i, dz[i], gate[i]) for i in dec],
+            lambda: [TK.ae_train_dgrad_convt_plain(tw, i, dz[i], gate[i]) for i in dec],
+            lambda: [F.conv2d(dz[i], kflip[i], stride=2, padding=pad(i)) for i in dec],
+            fl(dec), sum(nbytes(dz[i], gate[i], dz[i - 1]) for i in dec)),
         TK.WGRAD: (
-            lambda: [TK.ae_train_wgrad(tw, i, a, d, bits) for i, a, d, bits in wg],
-            lambda: [plain["wgrad"](tw, i, a, d, bits) for i, a, d, bits in wg],
-            lambda: (conv2d_weight(s["e"], cw[4].shape, s["dz5"], padding=kk[4] // 2),
-                     conv2d_weight(s["dz4"], kflip[3].shape, s["d4"], stride=2, padding=kk[3] // 2),
-                     conv2d_weight(s["dz3"], kflip[2].shape, s["p2"], stride=2, padding=kk[2] // 2),
-                     conv2d_weight(s["p1"], cw[1].shape, dz2, padding=kk[1] // 2)),
-            fl(256, 128, c1, 1, kk[4]) + fl(128, 64, c2, c1, kk[3]) + fl(64, 32, c2, c2, kk[2])
-            + fl(128, 64, c1, c2, kk[1]),
-            nbytes(s["e"], s["dz5"], s["d4"], s["dz4"], s["p2"], s["dz3"], s["p1"], s["dp2"],
-                   s["pm2"]) + wparts),
-        TK.WGRAD_X: (lambda: TK.ae_train_wgrad(tw, 0, s["x"], s["dp1"], s["pm1"]),
-                     lambda: plain["wgrad"](tw, 0, s["x"], s["dp1"], s["pm1"]),
-                     lambda: conv2d_weight(x1, cw[0].shape, dz1, padding=kk[0] // 2),
-                     fl(256, 128, 1, c1, kk[0]),
-                     nbytes(s["x"], s["dp1"], s["pm1"]) + 4 * b * w.w[0].numel()),
+            lambda: [TK.ae_train_wgrad(tw, i, a, g, bb) for i, a, g, bb in wg],
+            lambda: [TK.ae_train_wgrad_plain(tw, i, a, g, bb) for i, a, g, bb in wg],
+            lambda: [conv2d_weight(act[o], cw[o].shape, dz[o], padding=pad(o))]
+            + [conv2d_weight(dz[i], kflip[i].shape, act[i], stride=2, padding=pad(i))
+               for i in dec]
+            + [conv2d_weight(act[i], cw[i].shape, dzx[i], padding=pad(i)) for i in enc],
+            fl(range(1, o + 1)),
+            sum(nbytes(a, g) for _, a, g, _ in wg) + sum(nbytes(bits[i]) for i in enc)
+            + 4 * sum(w.w[i].numel() for i in range(1, o + 1))),
+        TK.WGRAD_X: (lambda: TK.ae_train_wgrad(tw, 0, s["x"], dz[0], bits[0]),
+                     lambda: TK.ae_train_wgrad_plain(tw, 0, s["x"], dz[0], bits[0]),
+                     lambda: conv2d_weight(x1, cw[0].shape, dzx[0], padding=pad(0)),
+                     fl([0]), nbytes(s["x"], dz[0], bits[0]) + 4 * w.w[0].numel()),
         TK.TRAIN_SUM: (lambda: [TK.ae_train_sum(p) for p in parts],
                        lambda: [p.sum(0) for p in parts],
                        lambda: [torch.sum(p, 0) for p in parts],
                        sum(p.numel() for p in parts), sum(nbytes(p) for p in parts)),
     }
-    times = {}
-    for kern, (kf, pf, lf, flops, nb) in entries.items():
-        ms, plain_ms = pair_times(gpu, f"{kern.symbol} per {b}-tile step", kf, pf)
-        with torch.no_grad():
-            lib_ms = time_cuda(lf)
-        b_ms, b_by = bound(flops, nb, tw.dtype if kern is not TK.TRAIN_SUM else torch.float32)
-        times[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                           bound_by=b_by)
-        log(f"[{gpu}] {kern.symbol}: library call {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"{flops / 1e9:.3f} GFLOP, {nb / 1e6:.1f} MB), achieved "
-            f"{flops / ms / 1e9:.2f} TFLOP/s")
+    if depth2:
+        entries[TK.TRAIN_IN_PRE] = (
+            lambda: TK.ae_train_in(tw, s["x16"], pre=True),
+            lambda: TK.ae_train_in_plain(tw, s["x16"]),
+            lambda: F.conv2d(x1, cw[0], padding=pad(0)),
+            fl([0]), nbytes(s["x16"], act[1], bits[0]))
+        entries[TK.TRAIN_LOSS_PRE] = (
+            lambda: TK.ae_train_loss(tw, act[o], s["y16"], s["mask"], pre=True),
+            lambda: TK.ae_train_loss_plain(tw, act[o], s["y16"], s["mask"]),
+            lambda: F.conv2d(act[o], cw[o], padding=pad(o)),
+            fl([o]), nbytes(act[o], s["y16"], s["y"], dz[o], s["mask"]))
+    times = time_entries(gpu, entries, tw.dtype, f" per {b}-tile step (depth {d})")
+    # forward and weight gradients of every layer, input gradients of all
+    # but conv 0
+    flops_step = 2 * fl(range(o + 1)) + fl(range(1, o + 1))
 
     # one step of each engine, and one epoch of each
     tc = TrainConfig()
@@ -637,10 +778,13 @@ def time_training(gpu, cfg, data, tw, st):
     n = x.shape[0]
     bi, bm = TR._epoch_batches(n, BATCH, np.random.default_rng(SEED).permutation(n))
     bi, bm = torch.from_numpy(bi).to(x.device), torch.from_numpy(bm).to(x.device)
-    for name, epoch_fn in (("kernel bf16 (K5)", TR.kernel_epoch_for(cfg, tc)),
-                           ("kernel bf16 (K5b)", TR.kernel_epoch_for(cfg, tc, pre_layout=True)),
-                           ("kernel f32", TR.kernel_epoch_for(cfg, tc, dtype=torch.float32)),
-                           ("autograd f32", TR.train_epoch)):
+    kname = "K5" if depth2 else "K7"
+    engines = [(f"kernel bf16 ({kname})", TR.kernel_epoch_for(cfg, tc))]
+    if depth2:
+        engines.append(("kernel bf16 (K5b)", TR.kernel_epoch_for(cfg, tc, pre_layout=True)))
+    engines += [("kernel f32", TR.kernel_epoch_for(cfg, tc, dtype=torch.float32)),
+                ("autograd f32", TR.train_epoch)]
+    for name, epoch_fn in engines:
         state = TR.create_state(cfg, tc, generator=torch.Generator().manual_seed(SEED),
                                 device=x.device)
         epoch_fn(state, x, y, bi[:2], bm[:2])  # warm-up: two steps
@@ -653,22 +797,48 @@ def time_training(gpu, cfg, data, tw, st):
         epoch_fn(state, x, y, bi, bm)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        log(f"[{gpu}] {name}: {sec:.4f} s/epoch ({bi.shape[0]} steps of {BATCH}), "
+        log(f"[{gpu}] depth {d} {name}: {sec:.4f} s/epoch ({bi.shape[0]} steps of {BATCH}), "
             f"{n / sec:.1f} tiles/s; step {step_ms:.4f} ms (CUDA events, median of 10, "
-            f"with the optimizer{'; K5b casts all tiles once per call' if 'K5b' in name else ''}); "
-            f"peak device memory of a step {peak / 2**30:.3f} GiB above the "
+            f"with the optimizer{'; K5b casts all tiles once per call' if 'K5b' in name else ''}"
+            f"; {flops_step / step_ms / 1e9:.2f} TFLOP/s of the step's {flops_step / 1e9:.1f} "
+            f"GFLOP); peak device memory of a step {peak / 2**30:.3f} GiB above the "
             f"{base / 2**30:.3f} GiB resident")
-    # a K5 step's kernels; the stage wrappers' times include their
+    # a step's kernels; the stage wrappers' times include their
     # ae_train_sum launches, so the sums' own row is left out here
     step = {k.symbol: t["ms"] for k, t in times.items()
-            if k not in (TK.TRAIN_IN_PRE, TK.TRAIN_LOSS_PRE, TK.TRAIN_SUM)}
-    step[f"{AK.CONVT.symbol} (forward)"] = time_cuda(
-        lambda: (AK.ae_convt(w, s["p2"], 2), AK.ae_convt(w, s["d4"], 3)))
+            if k not in (*K5B_KERNELS, TK.TRAIN_SUM)}
     k_sum = sum(step.values())
-    log(f"[{gpu}] K5 step, sum of its kernels' times: {k_sum:.4f} ms: " + ", ".join(
+    log(f"[{gpu}] {kname} step, sum of its kernels' times: {k_sum:.4f} ms: " + ", ".join(
         f"{name} {ms:.4f} ms ({ms / k_sum:.1%})"
         for name, ms in sorted(step.items(), key=lambda kv: -kv[1])))
     return times
+
+
+def train_family(dev, gpu, cfg, data, extra, epochs, value_and_grad, build_train):
+    """Phases 8-10 (flagship) or 11 (deep3): stage checks on one batch and
+    on ``extra`` geometries (4 tiles), gradients against autograd, fit
+    (its launches are the rows'), timings."""
+    xb, yb = data.x_train[:BATCH], data.y_train[:BATCH]
+    mb = torch.ones(BATCH, device=dev)
+    model = make_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        tw = build_train(model, dt)
+        e, st = check_train_stages(tw, xb, yb, mb, f"depth {cfg.depth} {dt}, {BATCH} tiles")
+        if dt == torch.bfloat16:
+            errs, tw16, tstate = e, tw, st
+    check_chain(tw, xb, yb, mb, f"depth {cfg.depth} f32, {BATCH} tiles")
+    for name, gcfg in extra:
+        m = make_model(gcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            tw = build_train(m, dt)
+            check_train_stages(tw, xb[:4], yb[:4], mb[:4], f"{name} {dt}, 4 tiles")
+        check_chain(tw, xb[:4], yb[:4], mb[:4], f"{name} f32, 4 tiles")
+    check_autograd(model, xb, yb, mb, value_and_grad)
+    launches = train_runs(dev, cfg, data, epochs)
+    times = time_training(gpu, cfg, data, tw16, tstate)
+    for kern, t in times.items():
+        row(kern, train_id(kern, cfg.depth)).update(
+            launches=launches[kern], max_abs_err=errs[kern], **t)
 
 
 def main() -> int:
@@ -698,44 +868,50 @@ def main() -> int:
             f"registers, {sum(r[3] for r in mine)} B spill stores in all (each kernel: "
             f"{listing})")
 
-    sp, cfg = SpecParams(), ModelConfig()
+    sp = SpecParams()
     traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)
-    model, errs, st = check_kernels(dev, sp, cfg, traces)
-    fn, wts, traces, launches = run_service(dev, sp, cfg, model, N_CHANNELS)
-    times = time_all(sp, gpu, model, fn, wts, traces, st)
-    del fn, wts, traces, st, model
+    err_k1 = check_stft(sp, traces)
+    specs = SF.spectrogram_fused(traces, sp)
+    launches = serve_family(
+        dev, sp, gpu, FLAGSHIP, specs, (torch.bfloat16,),
+        (("flagship k3", N_CHANNELS, FLAGSHIP),
+         ("k7", 1, ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
+         ("manual (64,32)/k5", 1, ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
+                                              out_kernel=(5, 5)))))
+    row(SF.STFT_KERNEL, "K1").update(launches=launches[SF.STFT_KERNEL], max_abs_err=err_k1,
+                                     **time_stft(sp, gpu, traces))
+    serve_family(
+        dev, sp, gpu, DEEP3, specs, (torch.bfloat16, torch.float32),
+        (("deep3 (16,32,64)/k5", N_CHANNELS, DEEP3),
+         ("(64,32,64)/k7", 1, ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3,
+                                          out_kernel=(7, 7)))))
+    del traces, specs
 
     data = make_data(dev, sp)
-    xb, yb = data.x_train[:BATCH], data.y_train[:BATCH]
-    mb = torch.ones(BATCH, device=dev)
-    tmodel = make_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
-    for dt in (torch.bfloat16, torch.float32):
-        tw = TK.build_train_weights(tmodel, dt)
-        e_, st_ = check_train_stages(tw, xb, yb, mb, f"flagship {dt}, {BATCH} tiles")
-        if dt == torch.bfloat16:
-            errs.update(e_)
-            tw16, tstate = tw, st_
-    for name, gcfg in (("k5", ModelConfig(kernels=((5, 5), (5, 5)), out_kernel=(5, 5))),
-                       ("k7", ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
-                       ("manual (64,32)/k5", ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
-                                                         out_kernel=(5, 5)))):
-        m = make_model(gcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
-        for dt in (torch.bfloat16, torch.float32):
-            check_train_stages(TK.build_train_weights(m, dt), xb[:4], yb[:4], mb[:4],
-                               f"{name} {dt}, 4 tiles")
-    check_autograd(tmodel, xb, yb, mb)
-    launches.update({k: n for k, n in train_runs(dev, cfg, data).items()
-                     if k in TK.TRAIN_KERNELS})
-    times.update(time_training(gpu, cfg, data, tw16, tstate))
+    train_family(dev, gpu, FLAGSHIP, data,
+                 (("k5", ModelConfig(kernels=((5, 5), (5, 5)), out_kernel=(5, 5))),
+                  ("k7", ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
+                  ("manual (64,32)/k5", ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
+                                                    out_kernel=(5, 5)))),
+                 EPOCHS, TK.kernel_value_and_grad, TK.build_train_weights)
+    train_family(dev, gpu, DEEP3, data,
+                 (("(64,32,64)/k7", ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3,
+                                                out_kernel=(7, 7))),
+                  ("(48,48,64)/k3", ModelConfig(filters=(48, 48, 64), kernels=((3, 3),) * 3,
+                                                out_kernel=(3, 3)))),
+                 EPOCHS3, TK3.kernel_value_and_grad3, TK3.build_train3_weights)
 
-    rows = []
+    out = []
+    for (kern, kid), r in ROWS.items():
+        check(set(r) == set(ROW_KEYS), f"{kern.symbol} ({kid}): row keys {sorted(r)}")
+        check(r["launches"] > 0, f"{kern.symbol} ({kid}) was not launched on its path")
+        out.append({"name": kern.symbol, "route": "cuda",
+                    "source": f"specenh_torch/csrc/{kern.source}.cu",
+                    "replaces": TPU_KERNELS[kid], **{k: r[k] for k in ROW_KEYS}})
     for kern in _build.KERNELS:
-        src, rep = REPLACES[kern]
-        rows.append({"name": kern.symbol, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[kern],
-                     "max_abs_err": errs[kern], **times[kern]})
+        check(any(k is kern for k, _ in ROWS), f"{kern.symbol} has no row")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": out}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 ``specenh.bench.harness``).
 
 ``make_enhance_shot_fn`` builds the serving path: a multi-channel raw shot
-goes through the STFT kernel (K1), then the conv-AE stage kernels (K2+K3+K4)
-on 256x128 tiles, and comes back restitched.  ``enhance_shot_plain`` is the
+goes through the STFT kernel (K1), then the conv-AE stage kernels on
+256x128 tiles (K2+K3+K4 at depth 2, K8-in+K6+K8-out at depth 3), and comes
+back restitched.  ``enhance_shot_plain`` is the
 same service composed of the plain twins (matmul STFT, the ``nn.Module``):
 the float32 reference the service is gated against.
 """
@@ -49,20 +50,24 @@ def make_enhance_shot_fn(
     The AE runs in ``dtype`` (bfloat16, or float32 for ``None``); the STFT
     is float32 either way.  ``fn.prepare(model)`` builds the kernels'
     weights once; a resident service passes that in place of the model.
-    On ``device="cpu"`` every kernel wrapper runs its plain twin.
+    On ``device="cpu"`` every kernel wrapper runs its plain twin.  A
+    geometry that no kernel family covers (``ae_kernel.kernel_depth``)
+    raises, and so do weights of another depth than ``cfg``'s.
     """
     dtype = torch.float32 if dtype is None else dtype
     device = torch.device(device)
     if not stft_fused.supported(sp):
         raise NotImplementedError(f"the STFT kernel needs nperseg=512/hop=256: {sp}")
-    if not ae_kernel.supports(cfg):
-        raise NotImplementedError(f"no AE kernel covers this geometry: {cfg}")
+    depth = ae_kernel.kernel_depth(cfg)
     k_tiles = _k_tiles(sp, ps)
 
     def prepare(model_or_weights):
         if isinstance(model_or_weights, ae_kernel.AEKernelWeights):
+            if model_or_weights.depth != depth:
+                raise ValueError(f"depth-{model_or_weights.depth} weights for a "
+                                 f"depth-{depth} service")
             return model_or_weights
-        return ae_kernel.build_kernel_weights(model_or_weights, dtype)
+        return ae_kernel.build_kernel_weights(model_or_weights, dtype, depth)
 
     def fn(model_or_weights, traces):
         wts = prepare(model_or_weights)

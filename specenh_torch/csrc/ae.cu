@@ -1,4 +1,5 @@
-// K2 + K3 + K4: depth-2 conv-autoencoder inference, for Hopper (sm_90a).
+// K2 + K3 + K4 and K8-in + K6 + K8-out: conv-autoencoder inference at depth
+// 2 and 3, for Hopper (sm_90a).
 //
 // Replaces, on the serving path (ae_kernel_enhance_specs):
 //   K2 specenh/ops/parity_turn.py:_make_turn_in_kernel  (specs_to_x16_2d:
@@ -7,6 +8,13 @@
 //      whole AE, activations resident in VMEM)
 //   K4 specenh/ops/parity_turn.py:_make_turn_out_kernel (o16_2d_to_specs:
 //      unpatch of the f32 output)
+// and their depth-3 counterparts (ops/ae3_kernel.py):
+//   K8-in  specenh/ops/parity_turn.py:_make_turn3_in_kernel (specs_to_x64_2d)
+//   K6     specenh/ops/ae3_kernel.py:_make_kernel3           (_pallas_ae3)
+//   K8-out specenh/ops/parity_turn.py:_make_turn3_out_kernel (o64_2d_to_specs)
+// The stages below are generic in channels and kernel size; the Python side
+// runs them over the layer table of either depth (one S1, d-1 S2, d S3, one
+// S4).
 //
 // The TPU kernel kept a tile's activations in up to 64 MiB of VMEM, in a
 // parity-plane layout built for Mosaic.  A Hopper block has 227 KB of
@@ -19,15 +27,18 @@
 //                 j*128 .. j*128+127, rounds to the service dtype; 'same'
 //                 zero padding at the tile's border (the reference patches
 //                 before it convolves, so no neighbour columns leak in).
-//   ae_conv_pool  S2 = conv2 + relu + maxpool2.
-//   ae_convt_relu S3 = Flax 'SAME' stride-2 transposed conv + relu (twice).
+//   ae_conv_pool  S2 = conv2 (and conv3 at depth 3) + relu + maxpool2.
+//   ae_convt_relu S3 = Flax 'SAME' stride-2 transposed conv + relu (once per
+//                 level).
 //   ae_tile_out   S4 = out-conv (C1 -> 1) + sigmoid, written straight into
 //                 the restitched (C, 256, k*128) float32 output: K4.
 //
 // What bounds it on this card: ~189 M MAC per 256x128 tile (conv2 and the
 // second transposed conv are 75 M each), 600 tiles a shot: ~226 GFLOP of
 // FMA on the CUDA cores, and ~3.5 GB of bf16 activation traffic (the
-// largest, the second convT output, is 1.26 GB).  Compute first.
+// largest, the second convT output, is 1.26 GB).  Compute first.  deep3
+// (16/32/64, k5) does ~498 M MAC per tile, ~598 GFLOP a shot, and moves
+// ~2.9 GB.
 //
 // Design: direct convolution, one thread per 2x2 quad of output pixels and
 // 16 output channels (64 float accumulators).  The thread loads the

@@ -1,23 +1,29 @@
-// K5 + K5b: depth-2 conv-autoencoder training (forward + backward), for
-// Hopper (sm_90a).
+// K5 + K5b + K7: conv-autoencoder training (forward + backward) at depth 2
+// and 3, for Hopper (sm_90a).
 //
 // Replaces specenh/ops/ae_train_kernel.py:_make_train_kernel, called as
 //   K5  _pallas_train      (per-batch conversion of f32 tiles), and
 //   K5b _pallas_train_pre  (tiles converted to the kernel dtype once per
-//                           epoch; pre_layout=True).
+//                           epoch; pre_layout=True),
+// and specenh/ops/ae3_train_kernel.py:_make_train_kernel3, called as
+//   K7  _pallas_train3     (the depth-3 family, f32 tiles).
+// The stages are the same at both depths; the Python side chains them over
+// the layer table (ops/ae_train_kernel.py _forward / _backward).
 // The TPU kernel ran a tile's whole forward and backward in VMEM.  Here, as
 // in the serving kernels (ae.cu), each stage is a kernel of its own on NCHW
 // activations in device memory, and what the backward needs is stored by
 // the forward stages in the kernel dtype (bf16 or float32):
 //
-//   forward   ae_train_in[_pre]   conv1 + relu + pool: p1, routing bits pm1
-//             ae_train_conv_pool  conv2 + relu + pool: p2, routing bits pm2
-//             (ae.cu ae_convt_relu twice: d4, then e)
+//   forward   ae_train_in[_pre]   conv 0 + relu + pool: p1, routing bits
+//             ae_train_conv_pool  the other encoder convs + relu + pool,
+//                                 with their routing bits
+//             (ae.cu ae_convt_relu, once per transposed conv, up to e)
 //             ae_train_loss[_pre] out-conv -> float32 logits; masked
 //                                 sigmoid-BCE sum; dz5 = (sigmoid(z) - y) *
 //                                 tile mask, UNNORMALISED; db5 partials
 //   backward  ae_train_dgrad_conv   stride-1 input gradient (out-conv,
-//                                   conv2), gated, + bias-gradient partials
+//                                   encoder convs 1..), gated, + bias-
+//                                   gradient partials
 //             ae_train_dgrad_convt  stride-2 transposed-conv input gradient
 //             ae_train_wgrad[_x]    weight-gradient partials, one per tile
 //             ae_train_sum          partials -> sums, in a fixed order
@@ -43,7 +49,10 @@
 // stages write ~7 MB per tile in bf16 and read it back: ~3 GB per step,
 // 0.9 ms at 3.35 TB/s.  So the step is bound by bytes.  That these stages
 // run their FMAs on the CUDA cores (67 TFLOP/s fp32, 2.2 ms for the step)
-// is a choice of this first design, not the bound.
+// is a choice of this first design, not the bound.  The deep3 preset
+// (16/32/64, k5) does ~0.5 G MAC per tile forward and twice that backward:
+// ~379 GFLOP per 128-tile step, 0.38 ms at the bf16 peak, about as long as
+// its ~1 GB of stored activations and gradients take at 3.35 TB/s.
 //
 // Design: the forward and input-gradient stages reuse conv_quad_kernel
 // (ae_conv.cuh) with new epilogues, or mirror convt_relu_kernel's
@@ -315,7 +324,27 @@ __global__ void __launch_bounds__(256) sum_rows_kernel(
 
 bool wgrad_channels_ok(int c) { return c == 1 || (c % 16 == 0 && c <= WC); }
 
-template <class SrcIn, class SrcDz>
+// One register tile NI x NO, NO chosen at run time.
+template <int NI, class SrcIn, class SrcDz>
+int launch_wgrad_ni(SrcIn in, SrcDz dz, float* part, int no, dim3 grid,
+                    int Cin, int Cout, int H, int W, int Hz, int Wz, int K,
+                    int S, int OFF, cudaStream_t st) {
+#define SX_NO(NO_)                                                          \
+  case NO_:                                                                 \
+    wgrad_kernel<NI, NO_, SrcIn, SrcDz><<<grid, WT, 0, st>>>(               \
+        in, dz, part, Cin, Cout, H, W, Hz, Wz, K, S, OFF);                  \
+    return cudaGetLastError();
+  switch (no) { SX_NO(1) SX_NO(2) SX_NO(3) SX_NO(4) }
+#undef SX_NO
+  return cudaErrorInvalidValue;
+}
+
+// The register tiles: NI, NO = channels / 16 (16 to 64 channels) or 1 (one
+// channel), each 1..4, every pair of which some depth-2 or depth-3
+// geometry runs (the 48-channel filters give 3).  MAXNI bounds NI where the
+// caller reads one input channel (conv 0's tiles), so that only the tiles
+// it can run are instantiated.
+template <int MAXNI, class SrcIn, class SrcDz>
 int launch_wgrad(SrcIn in, SrcDz dz, float* part, int B, int Cin, int Cout,
                  int H, int W, int Hz, int Wz, int K, int S, int OFF,
                  cudaStream_t st) {
@@ -324,17 +353,14 @@ int launch_wgrad(SrcIn in, SrcDz dz, float* part, int B, int Cin, int Cout,
     return cudaErrorInvalidValue;
   const int ni = Cin / min(16, Cin), no = Cout / min(16, Cout);
   const dim3 grid(1, K * K, B);
-  // the register tiles of the depth-2 family: conv1 (1 x C1/16), the
-  // out-conv (C1/16 x 1), and 32/64-channel layers between
-#define SX_TILE(NI_, NO_)                                                   \
-  if (ni == NI_ && no == NO_) {                                             \
-    wgrad_kernel<NI_, NO_, SrcIn, SrcDz><<<grid, WT, 0, st>>>(              \
-        in, dz, part, Cin, Cout, H, W, Hz, Wz, K, S, OFF);                  \
-    return cudaGetLastError();                                              \
-  }
-  SX_TILE(1, 2) SX_TILE(1, 4) SX_TILE(2, 1) SX_TILE(4, 1)
-  SX_TILE(2, 2) SX_TILE(2, 4) SX_TILE(4, 2) SX_TILE(4, 4)
-#undef SX_TILE
+#define SX_NI(NI_)                                                          \
+  case NI_:                                                                 \
+    if constexpr (NI_ <= MAXNI)                                             \
+      return launch_wgrad_ni<NI_>(in, dz, part, no, grid, Cin, Cout, H, W,  \
+                                  Hz, Wz, K, S, OFF, st);                   \
+    break;
+  switch (ni) { SX_NI(1) SX_NI(2) SX_NI(3) SX_NI(4) }
+#undef SX_NI
   return cudaErrorInvalidValue;
 }
 
@@ -395,16 +421,16 @@ int dgrad_convt(const void* dz, const void* w, const void* gate, void* out,
   return cudaGetLastError();
 }
 
-template <typename TIN, typename T>
+template <typename T>
 int wgrad(const void* in, const void* dz, const uint8_t* dz_bits, float* part,
           int B, int Cin, int Cout, int H, int W, int Hz, int Wz, int K,
           int S, int OFF, cudaStream_t st) {
-  const PlaneSrc<TIN, T> src{static_cast<const TIN*>(in), nchw(Cin, H, W)};
+  const PlaneSrc<T, T> src{static_cast<const T*>(in), nchw(Cin, H, W)};
   const auto* d = static_cast<const T*>(dz);
   if (dz_bits == nullptr)
-    return launch_wgrad(src, PlaneSrc<T, T>{d, nchw(Cout, Hz, Wz)}, part,
+    return launch_wgrad<4>(src, PlaneSrc<T, T>{d, nchw(Cout, Hz, Wz)}, part,
                            B, Cin, Cout, H, W, Hz, Wz, K, S, OFF, st);
-  return launch_wgrad(src, RouteSrc<T>{d, dz_bits, Cout, Hz / 2, Wz / 2},
+  return launch_wgrad<4>(src, RouteSrc<T>{d, dz_bits, Cout, Hz / 2, Wz / 2},
                          part, B, Cin, Cout, H, W, Hz, Wz, K, S, OFF, st);
 }
 
@@ -513,8 +539,8 @@ extern "C" int ae_train_wgrad(const void* in, const void* dz,
                               int B, int Cin, int Cout, int H, int W, int Hz,
                               int Wz, int K, int S, int OFF, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  SX_DTYPE(dtype, (wgrad<T, T>(in, dz, dz_bits, part, B, Cin, Cout, H, W, Hz,
-                               Wz, K, S, OFF, st)));
+  SX_DTYPE(dtype, (wgrad<T>(in, dz, dz_bits, part, B, Cin, Cout, H, W, Hz,
+                            Wz, K, S, OFF, st)));
 }
 
 // conv1's weight gradient partials (K5): x (B, H, W) float32 tiles rounded
@@ -524,8 +550,11 @@ extern "C" int ae_train_wgrad_x(const float* x, const void* dz,
                                 int B, int Cout, int H, int W, int K,
                                 void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  SX_DTYPE(dtype, (wgrad<float, T>(x, dz, dz_bits, part, B, 1, Cout, H, W, H,
-                                   W, K, 1, (K - 1) / 2, st)));
+  if (dz_bits == nullptr) return cudaErrorInvalidValue;
+  SX_DTYPE(dtype, (launch_wgrad<1>(
+                      PlaneSrc<float, T>{x, nchw(1, H, W)},
+                      RouteSrc<T>{static_cast<const T*>(dz), dz_bits, Cout, H / 2, W / 2},
+                      part, B, 1, Cout, H, W, H, W, K, 1, (K - 1) / 2, st)));
 }
 
 // out (m,) = the sum of part's n rows (n, m), float32.

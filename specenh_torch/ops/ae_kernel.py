@@ -1,22 +1,29 @@
-"""K2 + K3 + K4, depth-2 conv-AE inference on the spectrograms: the CUDA
-stage kernels' wrappers and their plain twins (the counterpart of
+"""Conv-AE inference on the spectrograms, at depth 2 (K2 + K3 + K4) and at
+depth 3 (K8-in + K6 + K8-out; ``ops.ae3_kernel`` gives these functions the
+JAX package's depth-3 names): the CUDA stage kernels' wrappers and their plain twins (the counterpart of
 ``specenh.ops.ae_kernel`` and the tile turns of ``specenh.ops.parity_turn``).
 
-``ae_kernel_enhance_specs`` runs four stage kernels of ``csrc/ae.cu``:
+The kernels' layer table for depth d has 2d + 1 layers: the encoder convs
+0 .. d-1, the transposed convs d .. 2d-1 (``dec_deconvs[d-1]`` first) and
+the out-conv 2d.  ``ae_kernel_enhance_specs`` runs four stage kernels of
+``csrc/ae.cu`` over it:
 
-  ae_tile_in    S1  K2 (tile load + cast) fused with conv1 + relu + pool
-  ae_conv_pool  S2  conv2 + relu + pool
-  ae_convt      S3  stride-2 transposed conv + relu, twice
-  ae_tile_out   S4  out-conv + sigmoid fused with K4 (restitched store)
+  ae_tile_in    S1  the tile load + cast (K2, K8-in) fused with encoder
+                    conv 0 + relu + pool
+  ae_conv_pool  S2  encoder convs 1 .. d-1 + relu + pool
+  ae_convt      S3  stride-2 transposed conv + relu, d times
+  ae_tile_out   S4  out-conv + sigmoid fused with the restitched store
+                    (K4, K8-out)
 
 Each stage wrapper launches its kernel for CUDA tensors and runs its plain
 twin (``*_plain``: ``F.conv2d`` and friends on float32 copies of values
 rounded to the service dtype, the kernel's rounding points) for CPU
 tensors.  The whole AE's plain twin is ``ae_kernel_enhance_specs_plain``:
-``patch``, the ``nn.Module``, ``unpatch``.
+``patch``, the ``nn.Module``, ``unpatch``.  ``kernel_depth`` decides which
+family, if any, covers a geometry.
 
 Activations stay in the service dtype (bf16 or float32), NCHW per tile;
-sums are float32 and biases float32, as in the TPU kernel.  An unsupported
+sums are float32 and biases float32, as in the TPU kernels.  An unsupported
 geometry raises in ``build_kernel_weights``; there is no fallback.
 """
 
@@ -35,7 +42,8 @@ from specenh_torch.data.tiles import patch, unpatch
 from specenh_torch.models.autoencoder import ConvAutoencoder, conv_transpose_same
 
 __all__ = [
-    "AEKernelWeights", "supports", "build_kernel_weights",
+    "AEKernelWeights", "supports", "supports3", "kernel_depth",
+    "build_kernel_weights",
     "ae_tile_in", "ae_conv_pool", "ae_convt", "ae_tile_out",
     "ae_tile_in_plain", "ae_conv_pool_plain", "ae_convt_plain",
     "ae_tile_out_plain", "ae_kernel_enhance_specs", "ae_kernel_apply",
@@ -58,13 +66,26 @@ TILE_OUT = CudaKernel("ae", "ae_tile_out",
 
 @dataclasses.dataclass(frozen=True)
 class AEKernelWeights:
-    """The five layers in the kernels' layout: ``w[i]`` (Cin, kh, kw, Cout)
-    in the service dtype (transposed convs: the Flax kernel, unflipped),
-    ``b[i]`` (Cout,) float32.  Layers: conv1, conv2, convT2, convT1, out."""
+    """The 2d + 1 layers in the kernels' layout: ``w[i]`` (Cin, kh, kw,
+    Cout) in the service dtype (transposed convs: the Flax kernel,
+    unflipped), ``b[i]`` (Cout,) float32.  Layers: the encoder convs, the
+    transposed convs from the bottom up, the out-conv."""
 
     w: Tuple[torch.Tensor, ...]
     b: Tuple[torch.Tensor, ...]
     dtype: torch.dtype
+
+    @property
+    def depth(self) -> int:
+        return (len(self.w) - 1) // 2
+
+    @property
+    def out(self) -> int:
+        """The out-conv's layer index, 2d."""
+        return len(self.w) - 1
+
+    def is_convt(self, i: int) -> bool:
+        return self.depth <= i < self.out
 
     def k(self, i: int) -> int:
         return self.w[i].shape[1]
@@ -73,36 +94,57 @@ class AEKernelWeights:
         return self.w[i].shape[-1]
 
 
-def supports(cfg: ModelConfig) -> bool:
-    """Geometries the kernels run: depth 2, odd square kernels up to 7,
-    32 or 64 filters per layer, (256, 128, 1) tiles (as the JAX kernel)."""
+def _geometry(cfg: ModelConfig, filters_mod: int) -> bool:
     return (
-        cfg.depth == 2
-        and tuple(cfg.input_shape) == (TILE_F, TILE_T, 1)
+        tuple(cfg.input_shape) == (TILE_F, TILE_T, 1)
         and all(k[0] == k[1] and k[0] % 2 == 1 and k[0] <= 7
                 for k in (*cfg.kernels, cfg.out_kernel))
-        and all(c % 32 == 0 and c <= 64 for c in cfg.filters)
+        and all(c % filters_mod == 0 and c <= 64 for c in cfg.filters)
     )
 
 
-def build_kernel_weights(model: ConvAutoencoder, dtype=torch.bfloat16
-                         ) -> AEKernelWeights:
-    """The kernels' weights from the module, on the module's device."""
-    if not supports(model.cfg):
+def supports(cfg: ModelConfig) -> bool:
+    """Geometries the kernels run at depth 2: odd square kernels up to 7,
+    32 or 64 filters per layer, (256, 128, 1) tiles (as the JAX kernel)."""
+    return cfg.depth == 2 and _geometry(cfg, 32)
+
+
+def supports3(cfg: ModelConfig) -> bool:
+    """Geometries the kernels run at depth 3: odd square kernels up to 7,
+    filters multiples of 16 up to 64, (256, 128, 1) tiles (as the JAX
+    kernel)."""
+    return cfg.depth == 3 and _geometry(cfg, 16)
+
+
+def kernel_depth(cfg: ModelConfig, depth: int | None = None) -> int:
+    """The depth of the kernel family that covers ``cfg``: 2 (``supports``)
+    or 3 (``supports3``).  Raises ``NotImplementedError`` for a geometry
+    that neither covers, or, given ``depth``, that family does not."""
+    d = 2 if supports(cfg) else 3 if supports3(cfg) else None
+    if d is None or depth not in (None, d):
         raise NotImplementedError(
-            "the AE kernels run depth-2 geometries with odd square kernels "
-            f"<= 7 and 32/64-channel filters: {model.cfg}"
+            "the AE kernels run odd square kernels <= 7 with 32/64-channel "
+            "filters at depth 2 or filters that are multiples of 16 up to 64 "
+            f"at depth 3{'' if depth is None else f' (asked: depth {depth})'}: {cfg}"
         )
+    return d
+
+
+def build_kernel_weights(model: ConvAutoencoder, dtype=torch.bfloat16,
+                         depth: int | None = None) -> AEKernelWeights:
+    """The layer table of a module that a kernel family covers (of
+    ``depth``, if given; see ``kernel_depth``) in the kernels' layout, on
+    the module's device."""
+    d = kernel_depth(model.cfg, depth)
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"service dtype must be float32 or bfloat16: {dtype}")
-    enc, dec = model.enc_convs, model.dec_deconvs
-    layers = (enc[0], enc[1], dec[1], dec[0], model.out_conv)
+    layers = (*model.enc_convs, *model.dec_deconvs[::-1], model.out_conv)
     ws, bs = [], []
     for i, conv in enumerate(layers):
         w = conv.weight.detach().float()
-        if i in (2, 3):  # torch (in, out, kh, kw), flipped -> Flax, unflipped
+        if d <= i < 2 * d:  # torch (in, out, kh, kw), flipped -> Flax, unflipped
             w = w.flip(2, 3).permute(0, 2, 3, 1)
-        else:            # torch (out, in, kh, kw)
+        else:               # torch (out, in, kh, kw)
             w = w.permute(1, 2, 3, 0)
         ws.append(w.to(dtype).contiguous())
         bs.append(conv.bias.detach().float().contiguous())
@@ -163,8 +205,9 @@ def ae_tile_in_plain(wts: AEKernelWeights, specs: torch.Tensor, k_tiles: int
     return _conv_pool(tiles.to(wts.dtype).float(), wts, 0)
 
 
-def ae_conv_pool_plain(wts: AEKernelWeights, x: torch.Tensor) -> torch.Tensor:
-    return _conv_pool(x.float(), wts, 1)
+def ae_conv_pool_plain(wts: AEKernelWeights, x: torch.Tensor, layer: int = 1
+                       ) -> torch.Tensor:
+    return _conv_pool(x.float(), wts, layer)
 
 
 def ae_convt_plain(wts: AEKernelWeights, x: torch.Tensor, layer: int
@@ -176,7 +219,8 @@ def ae_convt_plain(wts: AEKernelWeights, x: torch.Tensor, layer: int
 
 def ae_tile_out_plain(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int
                       ) -> torch.Tensor:
-    y = F.conv2d(x.float(), _conv_w(wts, 4), wts.b[4], padding=wts.k(4) // 2)
+    o = wts.out
+    y = F.conv2d(x.float(), _conv_w(wts, o), wts.b[o], padding=wts.k(o) // 2)
     return unpatch(torch.sigmoid(y)[:, 0], tiles_per_spec=k_tiles)
 
 
@@ -202,26 +246,31 @@ def ae_tile_in(wts: AEKernelWeights, specs: torch.Tensor, k_tiles: int
     return out
 
 
-def ae_conv_pool(wts: AEKernelWeights, x: torch.Tensor) -> torch.Tensor:
-    """S2: (B, c1, H, W) -> (B, c2, H/2, W/2)."""
-    _check_act(x, wts, 1)
+def ae_conv_pool(wts: AEKernelWeights, x: torch.Tensor, layer: int = 1
+                 ) -> torch.Tensor:
+    """S2: encoder conv ``layer`` (1 .. d-1), (B, Cin, H, W) -> (B, Cout,
+    H/2, W/2)."""
+    if not 1 <= layer < wts.depth:
+        raise ValueError(f"pooled conv layers are 1..{wts.depth - 1}, not {layer}")
+    _check_act(x, wts, layer)
     if not x.is_cuda:
-        return ae_conv_pool_plain(wts, x)
+        return ae_conv_pool_plain(wts, x, layer)
     _on_device(x, wts)
     b, cin, h, w = x.shape
-    cout = wts.cout(1)
+    cout = wts.cout(layer)
     out = torch.empty(b, cout, h // 2, w // 2, dtype=wts.dtype, device=x.device)
-    CONV_POOL(x.data_ptr(), wts.w[1].data_ptr(), wts.b[1].data_ptr(),
+    CONV_POOL(x.data_ptr(), wts.w[layer].data_ptr(), wts.b[layer].data_ptr(),
               out.data_ptr(), _DTYPE_CODE[wts.dtype], b, cin, cout, h, w,
-              wts.k(1))
+              wts.k(layer))
     return out
 
 
 def ae_convt(wts: AEKernelWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
-    """S3: (B, Cin, H, W) -> (B, Cout, 2H, 2W), layer 2 (convT2) or 3
-    (convT1)."""
-    if layer not in (2, 3):
-        raise ValueError(f"transposed-conv layers are 2 and 3, not {layer}")
+    """S3: transposed conv ``layer`` (d .. 2d-1; at depth 2 layer 2 is
+    convT2, 3 convT1), (B, Cin, H, W) -> (B, Cout, 2H, 2W)."""
+    if not wts.is_convt(layer):
+        raise ValueError(f"transposed-conv layers are {wts.depth}..{wts.out - 1}, "
+                         f"not {layer}")
     _check_act(x, wts, layer)
     if not x.is_cuda:
         return ae_convt_plain(wts, x, layer)
@@ -239,7 +288,8 @@ def ae_tile_out(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int
                 ) -> torch.Tensor:
     """S4: (C*k, c1, 256, 128) -> (C, 256, k*128) float32 restitched
     sigmoid output."""
-    _check_act(x, wts, 4)
+    o = wts.out
+    _check_act(x, wts, o)
     b, cin, h, w = x.shape
     if (h, w) != (TILE_F, TILE_T) or b % k_tiles:
         raise ValueError(f"expected (C*{k_tiles}, {cin}, {TILE_F}, {TILE_T}), "
@@ -249,20 +299,21 @@ def ae_tile_out(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int
     _on_device(x, wts)
     out = torch.empty(b // k_tiles, h, k_tiles * w, dtype=torch.float32,
                       device=x.device)
-    TILE_OUT(x.data_ptr(), wts.w[4].data_ptr(), wts.b[4].data_ptr(),
+    TILE_OUT(x.data_ptr(), wts.w[o].data_ptr(), wts.b[o].data_ptr(),
              out.data_ptr(), k_tiles, out.stride(0), out.stride(1),
-             _DTYPE_CODE[wts.dtype], b, cin, h, w, wts.k(4))
+             _DTYPE_CODE[wts.dtype], b, cin, h, w, wts.k(o))
     return out
 
 
 def ae_kernel_enhance_specs(wts: AEKernelWeights, specs: torch.Tensor,
                             k_tiles: int) -> torch.Tensor:
     """(C, 256, T) spectrograms -> (C, 256, k*128) restitched enhancement:
-    patch -> AE -> unpatch, as the four stages."""
+    patch -> AE -> unpatch, as the stages: one S1, d-1 S2, d S3, one S4."""
     x = ae_tile_in(wts, specs, k_tiles)
-    x = ae_conv_pool(wts, x)
-    x = ae_convt(wts, x, 2)
-    x = ae_convt(wts, x, 3)
+    for i in range(1, wts.depth):
+        x = ae_conv_pool(wts, x, i)
+    for i in range(wts.depth, wts.out):
+        x = ae_convt(wts, x, i)
     return ae_tile_out(wts, x, k_tiles)
 
 

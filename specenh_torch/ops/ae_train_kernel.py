@@ -1,15 +1,20 @@
-"""K5 + K5b, depth-2 conv-AE training: the CUDA stage kernels' wrappers,
-their plain twins, the gradient as a ``torch.autograd.Function``, and the
-epoch engines (the counterpart of ``specenh.ops.ae_train_kernel``).
+"""Conv-AE training on the CUDA stage kernels: K5 + K5b at depth 2, K7 at
+depth 3 (``ops.ae3_train_kernel`` gives these functions the JAX package's
+depth-3 names).  The stage kernels'
+wrappers, their plain twins, the gradient as a ``torch.autograd.Function``,
+and the epoch engines (the counterpart of ``specenh.ops.ae_train_kernel``).
 
-One step (``kernel_loss_grad_sums``) runs the stages of ``csrc/ae_train.cu``:
+The stages are depth-generic, over the layer table of ``ops.ae_kernel``
+(depth d: encoder convs 0 .. d-1, transposed convs d .. 2d-1, out-conv 2d).
+One step (``kernel_loss_grad_sums``) runs the stages of
+``csrc/ae_train.cu``:
 
-  forward   ae_train_in        conv1 + relu + pool -> p1, pool routing bits
-            ae_train_conv_pool conv2 + relu + pool -> p2, routing bits
-            ae_convt (ae.cu)   the two transposed convs + relu -> d4, e
-            ae_train_loss      out-conv -> logits, BCE sum, dz5, db5
+  forward   ae_train_in        conv 0 + relu + pool -> p1, pool routing bits
+            ae_train_conv_pool convs 1 .. d-1 + relu + pool, routing bits
+            ae_convt (ae.cu)   the d transposed convs + relu
+            ae_train_loss      out-conv -> logits, BCE sum, dz, its db
   backward  ae_train_wgrad / ae_train_dgrad_conv / ae_train_dgrad_convt,
-            layer by layer down to conv1 (ae_train_wgrad_x)
+            layer by layer down to conv 0 (ae_train_wgrad_x)
 
 K5 (``pre=False``) reads float32 tiles and rounds x and y to the kernel
 dtype as it loads them; K5b (``pre=True``, ``pre_layout=True`` in the epoch
@@ -44,17 +49,19 @@ from specenh_torch.config import ModelConfig, PatchSpec
 from specenh_torch._build import CudaKernel
 from specenh_torch.models.autoencoder import ConvAutoencoder, convt_pad_before
 from specenh_torch.ops import ae_kernel as AK
-from specenh_torch.ops.ae_kernel import supports
+from specenh_torch.ops.ae_kernel import kernel_depth, supports
 
 __all__ = [
-    "TrainWeights", "supports", "build_train_weights",
+    "TrainWeights", "supports", "kernel_depth", "build_train_weights",
     "ae_train_in", "ae_train_conv_pool", "ae_train_loss",
     "ae_train_dgrad_conv", "ae_train_dgrad_convt", "ae_train_wgrad",
     "ae_train_sum", "ae_train_in_plain", "ae_train_conv_pool_plain",
     "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
     "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
-    "route_bits", "route_expand", "kernel_loss_grad_sums",
-    "kernel_loss_grad_sums_plain", "kernel_bce_sum", "kernel_value_and_grad",
+    "train_weights", "route_bits", "route_expand",
+    "loss_grad_sums", "bce_sum", "normalise",
+    "kernel_loss_grad_sums", "kernel_loss_grad_sums_plain",
+    "kernel_bce_sum", "kernel_value_and_grad",
     "masked_bce_from_logits", "make_kernel_train_step",
     "kernel_train_epoch_fn", "TRAIN_KERNELS",
 ]
@@ -80,16 +87,18 @@ TRAIN_KERNELS = (TRAIN_IN, TRAIN_IN_PRE, TRAIN_CONV_POOL, TRAIN_LOSS,
                  TRAIN_LOSS_PRE, DGRAD_CONV, DGRAD_CONVT, WGRAD, WGRAD_X,
                  TRAIN_SUM)
 
-# kernel layer i (conv1, conv2, convT2, convT1, out) -> the module's
-# parameter names
-_LAYER_PARAMS = ("enc_convs.0", "enc_convs.1", "dec_deconvs.1",
-                 "dec_deconvs.0", "out_conv")
+
+def _layer_params(depth: int) -> Tuple[str, ...]:
+    """Kernel layer i -> the module's parameter name prefix: the encoder
+    convs, the transposed convs from the bottom up, the out-conv."""
+    return (*(f"enc_convs.{i}" for i in range(depth)),
+            *(f"dec_deconvs.{i}" for i in reversed(range(depth))), "out_conv")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainWeights:
     """The forward weights (``ae_kernel.AEKernelWeights``) and, for layers 1
-    to 4, the input-gradient operands ``bwd[i]`` (Cout, K, K, Cin) in the
+    to 2d, the input-gradient operands ``bwd[i]`` (Cout, K, K, Cin) in the
     kernel dtype: the kernel transposed, and for the stride-1 convs also
     flipped in space."""
 
@@ -101,15 +110,20 @@ class TrainWeights:
         return self.fwd.dtype
 
 
-def build_train_weights(model: ConvAutoencoder, dtype=torch.bfloat16
-                        ) -> TrainWeights:
-    """The kernels' weights from the module (raises for a geometry the
-    kernels do not run)."""
-    fwd = AK.build_kernel_weights(model, dtype)
+def build_train_weights(model: ConvAutoencoder, dtype=torch.bfloat16,
+                        depth: int | None = None) -> TrainWeights:
+    """The kernels' weights from the module (raises for a geometry that no
+    kernel family, or not that of ``depth``, covers)."""
+    return train_weights(AK.build_kernel_weights(model, dtype, depth))
+
+
+def train_weights(fwd: AK.AEKernelWeights) -> TrainWeights:
+    """The forward weights of any depth with their input-gradient
+    operands."""
     bwd = [None]
-    for i in (1, 2, 3, 4):
+    for i in range(1, fwd.out + 1):
         w = fwd.w[i]
-        w = w if i in (2, 3) else w.flip(1, 2)
+        w = w if fwd.is_convt(i) else w.flip(1, 2)
         bwd.append(w.permute(3, 1, 2, 0).contiguous())
     return TrainWeights(fwd, tuple(bwd))
 
@@ -118,9 +132,11 @@ def grads_to_torch(gw, gb) -> Dict[str, torch.Tensor]:
     """Kernel-layout gradients (per layer: (Cin, K, K, Cout), (Cout,)) ->
     a dict keyed like ``model.named_parameters()``."""
     out = {}
-    for i, name in enumerate(_LAYER_PARAMS):
+    depth = (len(gw) - 1) // 2
+    for i, name in enumerate(_layer_params(depth)):
         g = gw[i]
-        g = g.permute(0, 3, 1, 2).flip(2, 3) if i in (2, 3) else g.permute(3, 0, 1, 2)
+        g = (g.permute(0, 3, 1, 2).flip(2, 3) if depth <= i < 2 * depth
+             else g.permute(3, 0, 1, 2))
         out[f"{name}.weight"] = g.contiguous()
         out[f"{name}.bias"] = gb[i]
     return out
@@ -180,12 +196,11 @@ def _on_device(x: torch.Tensor, tw: TrainWeights) -> None:
 
 
 def _act_shape(tw: TrainWeights, layer: int, b: int):
-    """Shape of the activation a layer reads: (B, Cin, H, W)."""
+    """Shape of the activation a layer reads: (B, Cin, H, W), at 1 / 2^s
+    of the tile with s = min(layer, 2d - layer)."""
     cin = tw.fwd.w[layer].shape[0]
-    hw = {0: (TILE_F, TILE_T), 1: (TILE_F // 2, TILE_T // 2),
-          2: (TILE_F // 4, TILE_T // 4), 3: (TILE_F // 2, TILE_T // 2),
-          4: (TILE_F, TILE_T)}[layer]
-    return (b, cin, *hw)
+    s = min(layer, tw.fwd.out - layer)
+    return (b, cin, TILE_F >> s, TILE_T >> s)
 
 
 def _rows(b: int, h: int, w: int, quad: bool) -> int:
@@ -209,14 +224,15 @@ def ae_train_in_plain(tw: TrainWeights, x: torch.Tensor):
     return _conv_pool_mask(x.to(tw.dtype).float()[:, None], tw, 0)
 
 
-def ae_train_conv_pool_plain(tw: TrainWeights, p1: torch.Tensor):
-    return _conv_pool_mask(p1.float(), tw, 1)
+def ae_train_conv_pool_plain(tw: TrainWeights, p: torch.Tensor, layer: int = 1):
+    return _conv_pool_mask(p.float(), tw, layer)
 
 
 def ae_train_loss_plain(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
                         mask: torch.Tensor):
-    z = F.conv2d(e.float(), AK._conv_w(tw.fwd, 4), tw.fwd.b[4],
-                 padding=tw.fwd.k(4) // 2)[:, 0]
+    o = tw.fwd.out
+    z = F.conv2d(e.float(), AK._conv_w(tw.fwd, o), tw.fwd.b[o],
+                 padding=tw.fwd.k(o) // 2)[:, 0]
     # elementwise in float64: torch's vectorised float32 exp / log1p may
     # differ by an ulp with the tensor's alignment, which would make two
     # calls on the same values disagree
@@ -280,7 +296,7 @@ def ae_train_wgrad_plain(tw: TrainWeights, layer: int, inp: torch.Tensor,
     d = dz.float() if dz_bits is None else route_expand(dz.float(), dz_bits)
     b, cin, h, w = x.shape
     x, d = x.double(), d.double()
-    if layer in (2, 3):
+    if tw.fwd.is_convt(layer):
         taps = _convt_dz_taps(d, k, h, w)
         return torch.einsum("bcmn,boijmn->cijo", x, taps).float()
     cols = F.unfold(x, k, padding=k // 2).reshape(b, cin, k, k, h * w)
@@ -321,19 +337,22 @@ def ae_train_in(tw: TrainWeights, x: torch.Tensor, pre: bool = False):
     return out, bits
 
 
-def ae_train_conv_pool(tw: TrainWeights, p1: torch.Tensor):
-    """conv2 + relu + pool: p1 (B, C1, 128, 64) -> p2 (B, C2, 64, 32), bits."""
-    _check(p1, "p1", tw.dtype, _act_shape(tw, 1, p1.shape[0]))
-    if not p1.is_cuda:
-        return ae_train_conv_pool_plain(tw, p1)
-    _on_device(p1, tw)
-    b, cin, h, w = p1.shape
-    cout = tw.fwd.cout(1)
-    out = torch.empty(b, cout, h // 2, w // 2, dtype=tw.dtype, device=p1.device)
-    bits = torch.empty(out.shape, dtype=torch.uint8, device=p1.device)
-    TRAIN_CONV_POOL(p1.data_ptr(), tw.fwd.w[1].data_ptr(), tw.fwd.b[1].data_ptr(),
-                    out.data_ptr(), bits.data_ptr(), _DT[tw.dtype], b, cin,
-                    cout, h, w, tw.fwd.k(1))
+def ae_train_conv_pool(tw: TrainWeights, p: torch.Tensor, layer: int = 1):
+    """Encoder conv ``layer`` (1 .. d-1) + relu + pool, with routing bits:
+    at depth 2, p1 (B, C1, 128, 64) -> p2 (B, C2, 64, 32)."""
+    if not 1 <= layer < tw.fwd.depth:
+        raise ValueError(f"pooled conv layers are 1..{tw.fwd.depth - 1}, not {layer}")
+    _check(p, f"input of layer {layer}", tw.dtype, _act_shape(tw, layer, p.shape[0]))
+    if not p.is_cuda:
+        return ae_train_conv_pool_plain(tw, p, layer)
+    _on_device(p, tw)
+    b, cin, h, w = p.shape
+    cout = tw.fwd.cout(layer)
+    out = torch.empty(b, cout, h // 2, w // 2, dtype=tw.dtype, device=p.device)
+    bits = torch.empty(out.shape, dtype=torch.uint8, device=p.device)
+    TRAIN_CONV_POOL(p.data_ptr(), tw.fwd.w[layer].data_ptr(),
+                    tw.fwd.b[layer].data_ptr(), out.data_ptr(), bits.data_ptr(),
+                    _DT[tw.dtype], b, cin, cout, h, w, tw.fwd.k(layer))
     return out, bits
 
 
@@ -343,8 +362,8 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
     (B, 256, 128) float32 (K5) or in the kernel dtype (K5b), tile mask (B,)
     float32 -> (logits (B, 256, 128) float32, dz5 (B, 1, 256, 128) in the
     kernel dtype, BCE sum (1,), db5 (1,))."""
-    b = e.shape[0]
-    _check(e, "e", tw.dtype, _act_shape(tw, 4, b))
+    b, o = e.shape[0], tw.fwd.out
+    _check(e, "e", tw.dtype, _act_shape(tw, o, b))
     _check_tiles(y, "labels", (tw.dtype,) if pre else (torch.float32,))
     _check(mask, "mask", torch.float32, (b,))
     if y.shape[0] != b or y.device != e.device or mask.device != e.device:
@@ -357,10 +376,10 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
     rows = _rows(b, TILE_F, TILE_T, quad=True)
     part = torch.empty(rows, 2, dtype=torch.float32, device=e.device)
     (TRAIN_LOSS_PRE if pre else TRAIN_LOSS)(
-        e.data_ptr(), tw.fwd.w[4].data_ptr(), tw.fwd.b[4].data_ptr(),
+        e.data_ptr(), tw.fwd.w[o].data_ptr(), tw.fwd.b[o].data_ptr(),
         y.data_ptr(), mask.data_ptr(), logits.data_ptr(), dz.data_ptr(),
         part.data_ptr(), rows, _DT[tw.dtype], b, e.shape[1], TILE_F, TILE_T,
-        tw.fwd.k(4))
+        tw.fwd.k(o))
     sums = ae_train_sum(part)
     return logits, dz, sums[0:1], sums[1:2]
 
@@ -368,22 +387,26 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
 def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
                         gate: torch.Tensor, dz_bits=None):
     """Input gradient of a stride-1 conv, gated, and the bias gradient of
-    the layer below.  Layer 4 (out-conv): dz5 (B, 1, 256, 128), gate = e ->
-    (dz4, db4).  Layer 1 (conv2): dz routed from dp2 (B, C2, 64, 32) and
-    its bits, gate = conv1's bits (B, C1, 128, 64) -> (dp1, db1)."""
-    if layer not in (1, 4):
-        raise ValueError(f"stride-1 input gradients are of layers 1 and 4, not {layer}")
+    the layer below.  The out-conv (layer 2d): its dz (B, 1, 256, 128),
+    gate = its input e -> (dz of the last transposed conv, its db).  An
+    encoder conv i (1 .. d-1): dz routed from the pooled gradient (B, Ci+1,
+    H/2, W/2) and layer i's bits, gate = layer i-1's bits (B, Ci, H, W) ->
+    (the pooled gradient of layer i-1, its db)."""
+    out_layer = layer == tw.fwd.out
+    if not (out_layer or 1 <= layer < tw.fwd.depth):
+        raise ValueError(f"stride-1 input gradients are of layers 1..{tw.fwd.depth - 1} "
+                         f"and {tw.fwd.out}, not {layer}")
     cout = tw.fwd.w[layer].shape[0]
     b = dz.shape[0]
     shape = _act_shape(tw, layer, b)
-    if layer == 4:
+    if out_layer:
         _check(dz, "dz", tw.dtype, (b, 1, *shape[2:]))
         _check(gate, "gate", tw.dtype, shape)
     else:
-        cz = tw.fwd.cout(1)
+        cz = tw.fwd.cout(layer)
         _check(dz, "dz", tw.dtype, (b, cz, shape[2] // 2, shape[3] // 2))
         if dz_bits is None:
-            raise ValueError("conv2's input gradient reads dz through its routing bits")
+            raise ValueError(f"layer {layer}'s input gradient reads dz through its routing bits")
         _check(dz_bits, "dz bits", torch.uint8, dz.shape)
         _check(gate, "gate", torch.uint8, shape)
     if not dz.is_cuda:
@@ -402,17 +425,22 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
 
 def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
                          gate: torch.Tensor):
-    """Input gradient of a stride-2 transposed conv, gated, and the bias
-    gradient of the layer below.  Layer 3 (convT1): dz4 (B, C1, 256, 128),
-    gate = d4 -> (dz3, db3).  Layer 2 (convT2): dz3 (B, C2, 128, 64), gate =
-    conv2's bits (B, C2, 64, 32) -> (dp2, db2)."""
-    if layer not in (2, 3):
-        raise ValueError(f"transposed-conv layers are 2 and 3, not {layer}")
+    """Input gradient of a stride-2 transposed conv (layer d .. 2d-1),
+    gated, and the bias gradient of the layer below: dz (B, Cout, 2H, 2W),
+    gate = the layer's input (B, Cin, H, W) -> (its dz, its db).  The
+    first one (layer d) reads the last encoder conv's pool: gate = its
+    routing bits -> (the pooled gradient, the encoder conv's db).  At depth
+    2, layer 3 (convT1) takes dz4 (B, C1, 256, 128) -> dz3 and layer 2
+    (convT2) dz3 (B, C2, 128, 64) -> dp2."""
+    if not tw.fwd.is_convt(layer):
+        raise ValueError(f"transposed-conv layers are {tw.fwd.depth}..{tw.fwd.out - 1}, "
+                         f"not {layer}")
+    routed = layer == tw.fwd.depth
     b = dz.shape[0]
     shape = _act_shape(tw, layer, b)
     cz = tw.fwd.cout(layer)
     _check(dz, "dz", tw.dtype, (b, cz, 2 * shape[2], 2 * shape[3]))
-    _check(gate, "gate", torch.uint8 if layer == 2 else tw.dtype, shape)
+    _check(gate, "gate", torch.uint8 if routed else tw.dtype, shape)
     if not dz.is_cuda:
         return ae_train_dgrad_convt_plain(tw, layer, dz, gate)
     _on_device(dz, tw)
@@ -421,7 +449,7 @@ def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
     rows = _rows(b, h, w, quad=False)
     part = torch.empty(rows, shape[1], dtype=torch.float32, device=dz.device)
     DGRAD_CONVT(dz.data_ptr(), tw.bwd[layer].data_ptr(), gate.data_ptr(),
-                int(layer == 2), out.data_ptr(), part.data_ptr(), rows,
+                int(routed), out.data_ptr(), part.data_ptr(), rows,
                 _DT[tw.dtype], b, cz, shape[1], h, w, tw.fwd.k(layer))
     return out, ae_train_sum(part)
 
@@ -430,22 +458,23 @@ def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
                    dz: torch.Tensor, dz_bits=None, pre: bool = False
                    ) -> torch.Tensor:
     """Weight gradient (Cin, K, K, Cout) float32 of one layer, summed over
-    the batch: ``inp`` is the layer's input (for conv1 the tiles: float32
+    the batch: ``inp`` is the layer's input (for conv 0 the tiles: float32
     through ``ae_train_wgrad_x``, K5, or with ``pre=True`` in the kernel
-    dtype, K5b), ``dz`` the gradient at its output, or for conv1 and conv2
-    the pooled gradient with its routing bits."""
-    if layer not in range(5):
-        raise ValueError(f"layers are 0..4, not {layer}")
+    dtype, K5b), ``dz`` the gradient at its output, or for the encoder
+    convs the pooled gradient with its routing bits."""
+    if layer not in range(tw.fwd.out + 1):
+        raise ValueError(f"layers are 0..{tw.fwd.out}, not {layer}")
+    convt = tw.fwd.is_convt(layer)
     b = inp.shape[0]
     shape = _act_shape(tw, layer, b)
     cout, k = tw.fwd.cout(layer), tw.fwd.k(layer)
     h, w = shape[2:]
-    hz, wz = (2 * h, 2 * w) if layer in (2, 3) else (h, w)
+    hz, wz = (2 * h, 2 * w) if convt else (h, w)
     if layer == 0:
         _check_tiles(inp, "tiles", (tw.dtype,) if pre else (torch.float32,))
     else:
         _check(inp, "input", tw.dtype, shape)
-    if layer in (0, 1):
+    if layer < tw.fwd.depth:
         if dz_bits is None:
             raise ValueError(f"layer {layer}'s dz is read through its routing bits")
         _check(dz, "dz", tw.dtype, (b, cout, hz // 2, wz // 2))
@@ -462,10 +491,10 @@ def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
         WGRAD_X(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
                 _DT[tw.dtype], b, cout, h, w, k)
     else:
-        off = convt_pad_before(k) if layer in (2, 3) else k // 2
+        off = convt_pad_before(k) if convt else k // 2
         WGRAD(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
               _DT[tw.dtype], b, cin, cout, h, w, hz, wz, k,
-              2 if layer in (2, 3) else 1, off)
+              2 if convt else 1, off)
     return ae_train_sum(part).reshape(cin, k, k, cout)
 
 
@@ -486,29 +515,42 @@ _PLAIN = dict(in_=lambda tw, x, pre: ae_train_in_plain(tw, x),
 
 
 def _forward(tw: TrainWeights, x, y, mask, pre: bool, f=_KERNEL):
-    """Forward stages; returns (what the backward reads, logits, BCE sum)."""
-    p1, pm1 = f["in_"](tw, x, pre)
-    p2, pm2 = f["conv_pool"](tw, p1)
-    d4 = f["convt"](tw.fwd, p2, 2)
-    e = f["convt"](tw.fwd, d4, 3)
-    logits, dz5, bce, db5 = f["loss"](tw, e, y, mask, pre)
-    saved = dict(x=x, p1=p1, pm1=pm1, p2=p2, pm2=pm2, d4=d4, e=e, dz5=dz5, db5=db5)
-    return saved, logits, bce
+    """Forward stages; returns (what the backward reads, logits, BCE sum).
+    ``act[i]`` is layer i's input (``act[0]`` the tiles), ``bits[i]`` the
+    routing bits of encoder conv i's pool; ``dz`` the out-conv's dz and
+    ``db`` its bias gradient."""
+    d = tw.fwd.depth
+    act, bits = [x], []
+    p, pm = f["in_"](tw, x, pre)
+    act.append(p)
+    bits.append(pm)
+    for i in range(1, d):
+        p, pm = f["conv_pool"](tw, p, i)
+        act.append(p)
+        bits.append(pm)
+    for i in range(d, 2 * d):
+        act.append(f["convt"](tw.fwd, act[-1], i))
+    logits, dz, bce, db = f["loss"](tw, act[-1], y, mask, pre)
+    return dict(act=act, bits=bits, dz=dz, db=db), logits, bce
 
 
 def _backward(tw: TrainWeights, s, pre: bool, f=_KERNEL):
-    """Backward stages; returns the kernel-layout gradient sums (gw, gb)."""
-    gw, gb = [None] * 5, [None] * 5
-    gb[4] = s["db5"]
-    gw[4] = f["wgrad"](tw, 4, s["e"], s["dz5"])
-    dz4, gb[3] = f["dgrad_conv"](tw, 4, s["dz5"], s["e"])
-    gw[3] = f["wgrad"](tw, 3, s["d4"], dz4)
-    dz3, gb[2] = f["dgrad_convt"](tw, 3, dz4, s["d4"])
-    gw[2] = f["wgrad"](tw, 2, s["p2"], dz3)
-    dp2, gb[1] = f["dgrad_convt"](tw, 2, dz3, s["pm2"])
-    gw[1] = f["wgrad"](tw, 1, s["p1"], dp2, s["pm2"])
-    dp1, gb[0] = f["dgrad_conv"](tw, 1, dp2, s["pm1"], s["pm2"])
-    gw[0] = f["wgrad"](tw, 0, s["x"], dp1, s["pm1"], pre=pre)
+    """Backward stages, from the out-conv down; returns the kernel-layout
+    gradient sums (gw, gb)."""
+    d, o = tw.fwd.depth, tw.fwd.out
+    act, bits, dz = s["act"], s["bits"], s["dz"]
+    gw, gb = [None] * (o + 1), [None] * (o + 1)
+    gb[o] = s["db"]
+    gw[o] = f["wgrad"](tw, o, act[o], dz)
+    dz, gb[o - 1] = f["dgrad_conv"](tw, o, dz, act[o])
+    for i in range(o - 1, d - 1, -1):  # the transposed convs, top down
+        gw[i] = f["wgrad"](tw, i, act[i], dz)
+        # the lowest one's input is the last pool's output: routed gate
+        dz, gb[i - 1] = f["dgrad_convt"](tw, i, dz, act[i] if i > d else bits[d - 1])
+    for i in range(d - 1, 0, -1):  # the encoder convs: dz is a pooled gradient
+        gw[i] = f["wgrad"](tw, i, act[i], dz, bits[i])
+        dz, gb[i - 1] = f["dgrad_conv"](tw, i, dz, bits[i - 1], bits[i])
+    gw[0] = f["wgrad"](tw, 0, act[0], dz, bits[0], pre=pre)
     return gw, gb
 
 
@@ -517,33 +559,45 @@ def _tiles(t: torch.Tensor) -> torch.Tensor:
     return (t[..., 0] if t.ndim == 4 else t).contiguous()
 
 
+def _check_pre(depth: int, pre: bool) -> None:
+    if pre and depth != 2:
+        raise NotImplementedError("the pre-cast entry points (K5b) are depth 2's; the "
+                                  "JAX package's depth-3 kernel has no pre-cast variant")
+
+
 def _inputs(tw, x, y, mask, pre):
+    _check_pre(tw.fwd.depth, pre)
     x, y = _tiles(x), _tiles(y)
     if pre:
         x, y = x.to(tw.dtype), y.to(tw.dtype)
     return x, y, mask.to(torch.float32).contiguous()
 
 
+def loss_grad_sums(tw: TrainWeights, x, y, mask, pre: bool = False,
+                   plain: bool = False):
+    """UNNORMALISED (bce_sum, mask_sum, grad_sums) of one batch, for
+    weights of any depth: from the stage kernels, or with ``plain=True``
+    from the stage twins on any device."""
+    f = _PLAIN if plain else _KERNEL
+    x, y, mask = _inputs(tw, x, y, mask, pre)
+    saved, _, bce = _forward(tw, x, y, mask, pre, f)
+    return bce[0], mask.sum(), grads_to_torch(*_backward(tw, saved, pre, f))
+
+
 def kernel_loss_grad_sums(model: ConvAutoencoder, x, y, mask,
                           dtype=torch.bfloat16, pre: bool = False):
     """UNNORMALISED (bce_sum, mask_sum, grad_sums) of one batch from the
-    stage kernels: the building block of data-parallel training (sum all
-    three over the devices, then divide by mask_sum * 256 * 128).
-    ``grad_sums`` is keyed like ``model.named_parameters()``."""
-    tw = build_train_weights(model, dtype)
-    x, y, mask = _inputs(tw, x, y, mask, pre)
-    saved, _, bce = _forward(tw, x, y, mask, pre)
-    return bce[0], mask.sum(), grads_to_torch(*_backward(tw, saved, pre))
+    stage kernels, at depth 2 or 3: the building block of data-parallel
+    training (sum all three over the devices, then divide by mask_sum * 256
+    * 128).  ``grad_sums`` is keyed like ``model.named_parameters()``."""
+    return loss_grad_sums(build_train_weights(model, dtype), x, y, mask, pre)
 
 
 def kernel_loss_grad_sums_plain(model: ConvAutoencoder, x, y, mask,
                                 dtype=torch.bfloat16):
     """The plain twin of ``kernel_loss_grad_sums``, from the stage twins, on
     any device."""
-    tw = build_train_weights(model, dtype)
-    x, y, mask = _inputs(tw, x, y, mask, False)
-    saved, _, bce = _forward(tw, x, y, mask, False, _PLAIN)
-    return bce[0], mask.sum(), grads_to_torch(*_backward(tw, saved, False, _PLAIN))
+    return loss_grad_sums(build_train_weights(model, dtype), x, y, mask, plain=True)
 
 
 class _KernelBCE(torch.autograd.Function):
@@ -566,23 +620,36 @@ class _KernelBCE(torch.autograd.Function):
         return (None,) * 6 + tuple(grads[n] * g for n in ctx.names)
 
 
+def bce_sum(tw: TrainWeights, model: ConvAutoencoder, x, y, mask,
+            pre: bool = False) -> torch.Tensor:
+    """The masked BCE sum as a differentiable scalar of ``model``'s
+    parameters, whose kernel weights ``tw`` are: ``.backward()`` writes the
+    ``.grad``s from the backward stage kernels."""
+    x, y, mask = _inputs(tw, x, y, mask, pre)
+    names, params = zip(*model.named_parameters())
+    return _KernelBCE.apply(x, y, mask, tw, pre, names, *params)
+
+
 def kernel_bce_sum(model: ConvAutoencoder, x, y, mask, dtype=torch.bfloat16,
                    pre: bool = False) -> torch.Tensor:
     """The masked BCE sum as a differentiable scalar: ``.backward()`` writes
     the module's ``.grad``s from the backward stage kernels."""
-    tw = build_train_weights(model, dtype)
-    x, y, mask = _inputs(tw, x, y, mask, pre)
-    names, params = zip(*model.named_parameters())
-    return _KernelBCE.apply(x, y, mask, tw, pre, names, *params)
+    return bce_sum(build_train_weights(model, dtype), model, x, y, mask, pre)
+
+
+def normalise(sums):
+    """(bce_sum, mask_sum, grad_sums) -> (mean masked BCE, gradients): the
+    sums over mask_sum * 256 * 128."""
+    bce, msum, grads = sums
+    denom = msum * float(TILE_F * TILE_T)
+    return bce / denom, {k: g / denom for k, g in grads.items()}
 
 
 def kernel_value_and_grad(model: ConvAutoencoder, x, y, mask,
                           dtype=torch.bfloat16, pre: bool = False):
     """(mean masked BCE, gradients keyed like ``named_parameters``) from
     the stage kernels: the sums over mask_sum * 256 * 128."""
-    bce, msum, sums = kernel_loss_grad_sums(model, x, y, mask, dtype, pre)
-    denom = msum * float(TILE_F * TILE_T)
-    return bce / denom, {k: g / denom for k, g in sums.items()}
+    return normalise(kernel_loss_grad_sums(model, x, y, mask, dtype, pre))
 
 
 def masked_bce_from_logits(logits: torch.Tensor, y: torch.Tensor,
@@ -594,16 +661,18 @@ def masked_bce_from_logits(logits: torch.Tensor, y: torch.Tensor,
 
 
 def make_kernel_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
-                           pre: bool = False):
+                           pre: bool = False, depth: int | None = None):
     """``step(state, x, y, mask) -> (state, loss)``: the stage kernels'
     forward and backward, then the state's optimizer (Adam); the drop-in
-    for ``train.train_step`` on the geometries ``supports`` accepts."""
-    if not supports(cfg):
-        raise NotImplementedError(f"no training kernel covers this geometry: {cfg}")
+    for ``train.train_step`` on the geometries ``kernel_depth`` accepts (of
+    ``depth``, if given)."""
+    depth = kernel_depth(cfg, depth)
+    _check_pre(depth, pre)
 
     def step(state, x, y, mask):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = (kernel_bce_sum(state.model, x, y, mask, dtype, pre)
+        tw = build_train_weights(state.model, dtype, depth)
+        loss = (bce_sum(tw, state.model, x, y, mask, pre)
                 / (mask.sum() * float(TILE_F * TILE_T)))
         loss.backward()
         state.optimizer.step()
@@ -614,12 +683,12 @@ def make_kernel_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 def kernel_train_epoch_fn(cfg: ModelConfig, dtype=torch.bfloat16,
-                          pre_layout: bool = False):
+                          pre_layout: bool = False, depth: int | None = None):
     """``epoch(state, x, y, batch_idx, batch_mask) -> (state, losses)`` on
     the stage kernels, the ``train.train_epoch`` equivalent.  Each batch
     gathers its tiles by index.  ``pre_layout=True`` (K5b) casts the whole
     of x and y to the kernel dtype once per call and gathers from that."""
-    step = make_kernel_train_step(cfg, dtype, pre=pre_layout)
+    step = make_kernel_train_step(cfg, dtype, pre=pre_layout, depth=depth)
 
     def epoch(state, x, y, batch_idx, batch_mask):
         x, y = _tiles(x), _tiles(y)

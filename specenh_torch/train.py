@@ -14,8 +14,9 @@
 
 The default engine (``train_epoch``) is torch autograd on the ``nn.Module``;
 ``kernel_epoch_for`` gives the engine on the hand-written CUDA training
-kernels (``ops.ae_train_kernel``).  Tiles are (N, 256, 128) or the JAX
-layout (N, 256, 128, 1); everything runs on ``state.device``.
+kernels (``ops.ae_train_kernel``: K5 at depth 2, K7 at depth 3).  Tiles
+are (N, 256, 128) or the JAX layout (N, 256, 128, 1); everything runs on
+``state.device``.
 """
 
 from __future__ import annotations
@@ -199,19 +200,18 @@ def restore_checkpoint(state: TrainState, checkpoint_dir: str, epoch: int) -> Tr
 
 def kernel_epoch_for(model_cfg: ModelConfig, train_cfg: TrainConfig,
                      dtype=None, pre_layout: bool = False):
-    """Epoch function on the hand-written CUDA training kernels (K5, or
-    K5b with ``pre_layout=True``): pass as ``fit(..., epoch_fn=...)``.
+    """Epoch function on the hand-written CUDA training kernels: pass as
+    ``fit(..., epoch_fn=...)``.  Depth 2 runs K5 (or K5b with
+    ``pre_layout=True``), depth 3 K7, which has no pre-cast variant
+    (``pre_layout=True`` raises there).
     ``dtype`` is the kernels' (bf16 by default).  The optimizer is the
-    state's (``create_state`` builds it from ``train_cfg``).  Depth 3 has
-    no training kernel yet and raises; a kernel that fails to build or
-    launch raises too (there is no fallback)."""
-    if model_cfg.depth == 3:
-        raise NotImplementedError("the depth-3 training kernel (K7) is not ported yet")
+    state's (``create_state`` builds it from ``train_cfg``).  A geometry
+    no kernel covers raises, and so does a kernel that fails to build or
+    launch (there is no fallback)."""
+    dtype = torch.bfloat16 if dtype is None else dtype
     from specenh_torch.ops.ae_train_kernel import kernel_train_epoch_fn
 
-    return kernel_train_epoch_fn(
-        model_cfg, dtype=torch.bfloat16 if dtype is None else dtype,
-        pre_layout=pre_layout)
+    return kernel_train_epoch_fn(model_cfg, dtype=dtype, pre_layout=pre_layout)
 
 
 def _as_tiles(a, device) -> torch.Tensor:

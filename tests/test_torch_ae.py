@@ -3,6 +3,8 @@ against the JAX package: the converted nn.Module vs Flax for every
 reference depth-2 geometry, the whole AE's plain twin vs the JAX Pallas AE
 kernel (interpret mode), and the stage wrappers' CPU twins vs the module."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -154,9 +156,19 @@ def test_supports_matches_jax():
 
 
 def test_build_kernel_weights_rejects():
+    """A geometry outside both families (128 filters, as
+    tests/test_ae3_kernel.py's) raises in both weight functions; deep3 is the
+    depth-3 family's, not the depth-2 one's."""
+    from specenh_torch.ops import ae3_kernel as tak3
+
     deep3 = ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(5, 5))
+    wide = make_model(dataclasses.replace(deep3, filters=(16, 32, 128)),
+                      generator=torch.Generator())
+    for build in (tak.build_kernel_weights, tak3.build_kernel3_weights):
+        with pytest.raises(NotImplementedError):
+            build(wide)
     with pytest.raises(NotImplementedError):
-        tak.build_kernel_weights(make_model(deep3, generator=torch.Generator()))
+        tak.build_kernel_weights(make_model(deep3, generator=torch.Generator()), depth=2)
     with pytest.raises(TypeError):
         tak.build_kernel_weights(make_model(ModelConfig(), generator=torch.Generator()),
                                  torch.float16)

@@ -1,4 +1,4 @@
-"""The CUDA kernels (serving and training) against their plain twins, on a GPU (marker ``gpu``;
+"""The CUDA kernels (serving and training, depth 2 and 3) against their plain twins, on a GPU (marker ``gpu``;
 skipped where no CUDA device is present).  This file imports no jax, so it
 runs where only torch is installed:
 
@@ -11,6 +11,9 @@ import torch
 
 from specenh_torch import ModelConfig, SpecParams
 from specenh_torch.models.autoencoder import make_model
+from specenh_torch.config import MODEL_PRESETS
+from specenh_torch.ops import ae3_kernel as tak3
+from specenh_torch.ops import ae3_train_kernel as ttk3
 from specenh_torch.ops import ae_kernel as tak
 from specenh_torch.ops import ae_train_kernel as ttk
 from specenh_torch.ops import stft_fused as tsf
@@ -18,6 +21,12 @@ from specenh_torch.ops import stft_fused as tsf
 pytestmark = pytest.mark.gpu
 
 SP = SpecParams(cut_shot=0.2)
+DEPTH3 = [
+    MODEL_PRESETS["deep3"],
+    ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
+    ModelConfig(filters=(48, 16, 48), kernels=((3, 3), (5, 5), (1, 1)), out_kernel=(3, 3)),
+]
+DEPTH3_IDS = ["deep3", "64-32-64k7", "48-16-48mixed"]
 GEOMETRIES = [
     ModelConfig(),
     ModelConfig(kernels=((1, 1), (1, 1)), out_kernel=(1, 1)),
@@ -82,22 +91,72 @@ def _train_setup(cuda, cfg, n=3):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("cfg", GEOMETRIES, ids=["k3", "k1", "k5", "k7", "manual", "64x64k7"])
+@pytest.mark.parametrize("cfg", GEOMETRIES + DEPTH3,
+                         ids=["k3", "k1", "k5", "k7", "manual", "64x64k7"] + DEPTH3_IDS)
 def test_train_stages_match_twins(cuda, cfg, dtype):
-    """Every training stage against its twin on the same stored inputs:
-    activations within one ulp of the dtype, routing bits equal except on
-    ties (<= 1e-4 of them), gradient sums to 1e-4 of their scale (f32 sums
-    in another order)."""
+    """Every training stage against its twin on the same stored inputs (the
+    kernel stage's own, as a step feeds them): activations and dz within one
+    ulp of the dtype, routing bits equal except on ties (<= 1e-4 of them),
+    logits to 1e-3, gradient sums to 1e-4 of their scale (f32 sums in
+    another order)."""
     model, x, y, mask = _train_setup(cuda, cfg)
     tw = ttk.build_train_weights(model, dtype)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
+    pairs = []
+
+    def both(name):
+        def call(*args, **kw):
+            out = ttk._KERNEL[name](*args, **kw)
+            pairs.append((name, out, ttk._PLAIN[name](*args, **kw)))
+            return out
+        return call
+
+    def act(name, a, b):
+        excess = float(((a.float() - b.float()).abs() - ulp * b.float().abs() - 1e-5).max())
+        assert excess <= 0, f"{name}: beyond one ulp by {excess:.3g}"
+
+    def sums(name, a, b):
+        err, scale = float((a - b).abs().max()), max(float(b.abs().max()), 1.0)
+        assert err <= 1e-4 * scale, f"{name}: |err| {err:.3g} of scale {scale:.3g}"
+
+    stages = {name: both(name) for name in ttk._KERNEL}
+    saved, _, _ = ttk._forward(tw, x, y, mask, False, stages)
+    ttk._backward(tw, saved, False, stages)
+    assert {n for n, _, _ in pairs} == set(ttk._KERNEL)
+    for i, (name, got, want) in enumerate(pairs):
+        name = f"{name} (stage {i})"
+        if name.startswith(("in_", "conv_pool")):
+            act(name, got[0], want[0])
+            assert float((got[1] != want[1]).float().mean()) <= 1e-4, name
+        elif name.startswith("convt"):
+            act(name, got, want)
+        elif name.startswith("loss"):
+            torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+            act(name, got[1], want[1])
+            torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+            sums(name, got[3], want[3])
+        elif name.startswith("wgrad"):
+            sums(name, got, want)
+        else:
+            act(name, got[0], want[0])
+            sums(name, got[1], want[1])
+
+
+@pytest.mark.parametrize("cfg", GEOMETRIES, ids=["k3", "k1", "k5", "k7", "manual", "64x64k7"])
+def test_train_chain_matches_twin_chain(cuda, cfg):
+    """float32, depth 2: the kernels' forward chain against the twins' own
+    chain (activations within 1e-6 relative, routing bits equal except on
+    ties, logits to 1e-3, BCE sum to rtol 1e-5), then the kernels' and the
+    twins' backward chains from the kernels' forward: gradient sums to 1e-4
+    of their scale."""
+    model, x, y, mask = _train_setup(cuda, cfg)
+    tw = ttk.build_train_weights(model, torch.float32)
     s, logits, bce = ttk._forward(tw, x, y, mask, False)
     p, plog, pbce = ttk._forward(tw, x, y, mask, False, ttk._PLAIN)
-    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
-    for k in ("p1", "p2", "d4", "e", "dz5"):
-        bound = ulp * p[k].float().abs() + 1e-5
-        assert bool(((s[k].float() - p[k].float()).abs() <= bound).all()), k
-    for k in ("pm1", "pm2"):
-        assert float((s[k] != p[k]).float().mean()) <= 1e-4, k
+    for i, (a, b) in enumerate(zip(s["act"][1:] + [s["dz"]], p["act"][1:] + [p["dz"]])):
+        assert bool(((a - b).abs() <= 1e-6 * b.abs() + 1e-5).all()), i
+    for a, b in zip(s["bits"], p["bits"]):
+        assert float((a != b).float().mean()) <= 1e-4
     torch.testing.assert_close(logits, plog, rtol=0, atol=1e-3)
     torch.testing.assert_close(bce, pbce, rtol=1e-5, atol=0)
     gw, gb = ttk._backward(tw, s, False)
@@ -133,3 +192,60 @@ def test_kernel_grads_match_autograd(cuda):
     assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
     for name, p in model.named_parameters():
         assert float((grads[name] - p.grad).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("cfg", DEPTH3, ids=DEPTH3_IDS)
+def test_ae3_kernels_match_module(cuda, traces, cfg):
+    """The depth-3 stage kernels, composed, against the module: float32 to
+    1e-4, bf16 to 2e-2 (the depth-2 bounds above)."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda).eval()
+    specs = tsf.spectrogram_fused(traces, SP)
+    with torch.no_grad():
+        want = tak3.ae3_kernel_enhance_specs_plain(model, specs, 3)
+    before = tak.CONVT.launches
+    got = tak3.ae3_kernel_enhance_specs(tak3.build_kernel3_weights(model, torch.float32), specs, 3)
+    assert tak.CONVT.launches == before + 3
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    got16 = tak3.ae3_kernel_enhance_specs(tak3.build_kernel3_weights(model, torch.bfloat16), specs, 3)
+    assert float((got16 - want).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("cfg", DEPTH3, ids=DEPTH3_IDS)
+def test_ae3_kernel_grads_match_autograd(cuda, cfg):
+    """float32 depth-3 kernels against their whole plain twin and against
+    autograd of the module (TF32 off), with the depth-2 bounds.  Where a
+    pool window's two largest values, or a transposed conv's output, lie
+    within float32 rounding of each other or of 0, each chain's own forward
+    may gate the gradient differently.  So the twins' backward also runs
+    on the kernels' forward and must agree there; the twins' own chain, and
+    autograd, must agree unless some gate differs between the forwards."""
+    model, x, y, mask = _train_setup(cuda, cfg)
+    sums = ttk3.kernel_loss_grad_sums3(model, x, y, mask, torch.float32)
+    plain = ttk3.kernel_loss_grad_sums3_plain(model, x, y, mask, torch.float32)
+    torch.testing.assert_close(sums[0], plain[0], rtol=1e-5, atol=0)
+    tw = ttk3.build_train3_weights(model, torch.float32)
+    s, _, _ = ttk._forward(tw, x, y, mask, False)
+    p, _, _ = ttk._forward(tw, x, y, mask, False, ttk._PLAIN)
+    routed_apart = sum(int((a != b).sum()) for a, b in zip(s["bits"], p["bits"]))
+    relu_apart = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(s["act"][4:], p["act"][4:]))
+    fed = ttk.grads_to_torch(*ttk._backward(tw, s, False, ttk._PLAIN))
+    own = 0.0
+    for k in sums[2]:
+        scale = max(float(plain[2][k].abs().max()), 1.0)
+        err_fed = float((sums[2][k] - fed[k]).abs().max())
+        assert err_fed <= 1e-4 * scale, (k, err_fed, scale)
+        own = max(own, float((sums[2][k] - plain[2][k]).abs().max()) / scale)
+    print(f"{cfg}: {routed_apart} pool windows and {relu_apart} relu gates differ between "
+          f"the forwards; the twins' own chain off by {own:.3g} of scale")
+    assert own <= 1e-4 or routed_apart + relu_apart > 0, own
+    if own > 1e-4:
+        return  # autograd's forward gates as it rounds, too
+    loss, grads = ttk3.kernel_value_and_grad3(model, x, y, mask, torch.float32)
+    model.zero_grad()
+    ref = ttk.masked_bce_from_logits(model(x, logits=True), y, mask)
+    ref.backward()
+    scale = max(float(p.grad.abs().max()) for p in model.parameters())
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref)), (float(loss), float(ref))
+    for name, p in model.named_parameters():
+        err = float((grads[name] - p.grad).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)

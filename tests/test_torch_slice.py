@@ -70,7 +70,7 @@ def test_bf16_service_passes_the_enhanced_gate(setup):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(cfg=ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3,
+    (dict(cfg=ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3,
                           out_kernel=(5, 5))), NotImplementedError),
     (dict(sp=SpecParams(nperseg=256, noverlap=128)), NotImplementedError),
     (dict(sp=SpecParams(cut_shot=0.05)), ValueError),

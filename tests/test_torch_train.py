@@ -167,9 +167,16 @@ def test_predict_save_load_and_layout(data, tmp_path):
 
 
 def test_kernel_epoch_for_depth3_raises():
+    """deep3 trains on K7; a depth-3 geometry outside the family (128
+    filters) raises, and so does deep3 with the pre-cast layout, which the
+    JAX package's depth-3 kernel does not have."""
     deep3 = ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(5, 5))
+    assert callable(ttrain.kernel_epoch_for(deep3, TrainConfig()))
     with pytest.raises(NotImplementedError):
-        ttrain.kernel_epoch_for(deep3, TrainConfig())
+        ttrain.kernel_epoch_for(ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3,
+                                            out_kernel=(5, 5)), TrainConfig())
+    with pytest.raises(NotImplementedError):
+        ttrain.kernel_epoch_for(deep3, TrainConfig(), pre_layout=True)
 
 
 def test_batches_and_epoch_mean_match_jax():

@@ -187,9 +187,19 @@ def test_cpu_runs_no_kernel(flagship):
 
 
 def test_geometries_outside_the_family_raise():
+    """(16, 32, 128)/k5 is in neither family: both steps raise; deep3 is
+    not the depth-2 family's, and has no pre-cast step."""
+    from specenh_torch.ops import ae3_train_kernel as ttk3
+
     deep3 = ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(5, 5))
+    wide3 = ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3, out_kernel=(5, 5))
+    for make in (ttk.make_kernel_train_step, ttk3.make_kernel_train_step3):
+        with pytest.raises(NotImplementedError):
+            make(wide3)
     with pytest.raises(NotImplementedError):
-        ttk.make_kernel_train_step(deep3)
+        ttk.make_kernel_train_step(deep3, depth=2)
+    with pytest.raises(NotImplementedError):
+        ttk.make_kernel_train_step(deep3, pre=True)
     wide = ModelConfig(filters=(16, 32))
     state = create_state(wide, TrainConfig(), device="cpu")
     with pytest.raises(NotImplementedError):
