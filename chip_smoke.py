@@ -47,6 +47,18 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    on 4 tiles, the whole chains, gradients against autograd; 2 epochs of
    ``fit`` on the kernel engine (bf16) and on autograd (float32) from the
    same weights, gated on the loss curve; the timings.
+12. (run after phase 5) the service's other STFT fronts on the flagship:
+   (a) K1 in the (T, F) layout against its twin and bit for bit the (F, T)
+   output transposed; (b) ``ae_tile_in_norm`` (K9 and K10) in both layouts,
+   bf16 and float32, against its twin and bit for bit ``ae_tile_in`` on
+   the normalized spectrograms, at the flagship and at k5, k7 and
+   (64, 32)/k5 on one channel; (c) the service in ``stft_mode`` "fused",
+   "fused_ft" and "xla" on phase 4's three shots, counted and gated as
+   "auto", "fused" and "fused_ft" bit for bit "auto", and K10's route (the
+   raw (F, T) log-PSD into ``ae_kernel_enhance_raw``); (d) the three K11
+   toolchain probes in process and through ``python -m
+   specenh_torch.probe_walls``; (e) the new entry points' times beside
+   their twins, library calls and bounds; (f) ms/shot per ``stft_mode``.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -78,6 +90,7 @@ from specenh_torch.ops import ae3_train_kernel as TK3
 from specenh_torch.ops import ae_kernel as AK
 from specenh_torch.ops import ae_train_kernel as TK
 from specenh_torch.ops import stft_fused as SF
+from specenh_torch import probe_walls as PW
 from specenh_torch import train as TR
 
 N_CHANNELS = 20
@@ -128,6 +141,11 @@ TPU_KERNELS = {
     "K7": "specenh/ops/ae3_train_kernel.py:659",
     "K8-in": "specenh/ops/parity_turn.py:324",
     "K8-out": "specenh/ops/parity_turn.py:401",
+    "K9": "specenh/ops/stft_fused.py:319",
+    "K10": "specenh/ops/stft_fused.py:373",
+    "K11a": "scripts/probe_mosaic_walls.py:32",
+    "K11b": "scripts/probe_mosaic_walls.py:43",
+    "K11c": "scripts/probe_mosaic_walls.py:54",
 }
 STAGES = (AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
 SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
@@ -135,6 +153,7 @@ SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
 SERVE_KERNELS = (SF.STFT_KERNEL, *STAGES)
 K5B_KERNELS = (TK.TRAIN_IN_PRE, TK.TRAIN_LOSS_PRE)
 TRAIN3_KERNELS = tuple(k for k in TK.TRAIN_KERNELS if k not in K5B_KERNELS)
+PROBE_KERNELS = (PW.ROW_SLICE, PW.TRANSPOSE, PW.STRIDE2)
 ROW_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
 ROWS: dict = {}  # (CudaKernel, TPU kernel id) -> the row's numbers
@@ -287,37 +306,50 @@ def check_kernels(dev, cfg, specs, k, dtypes, geometries):
     return model, errs, stage_inputs
 
 
+def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
+    """The service ``fn`` on the shots ``traces`` with every count set to 0
+    just before and read just after: each of ``kernels`` must have
+    launched and none of ``absent``; then the repo's two gates on every
+    shot.  Returns the outputs and the counts."""
+    for kern in _build.KERNELS:
+        kern.launches = 0
+    outs = [fn(wts, t) for t in traces]
+    torch.cuda.synchronize()
+    launches = {kern: kern.launches for kern in _build.KERNELS}
+    for kern in kernels:
+        check(launches[kern] > 0, f"{tag}: {kern.symbol} was not launched")
+    for kern in absent:
+        check(launches[kern] == 0, f"{tag}: {kern.symbol} was launched")
+    log(f"{tag} launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in kernels))
+    c, k = traces[0].shape[0], refs[0][1].shape[-1] // 128
+    for seed, (specs, enh), (s_ref, e_ref) in zip((0, 1, 2), outs, refs):
+        check(specs.shape == (c, 256, refs[0][0].shape[-1]), f"specs {tuple(specs.shape)}")
+        check(enh.shape == (c, 256, k * 128), f"enhanced {tuple(enh.shape)}")
+        check(bool(torch.isfinite(specs).all() and torch.isfinite(enh).all()), "non-finite output")
+        s_ssim = ssim(specs[0].cpu().numpy(), s_ref)
+        e_host = enh.cpu().numpy()
+        e_ssim = min(ssim(e_host[ch], e_ref[ch]) for ch in range(c))
+        log(f"{tag}, shot seed {seed}: spectrogram SSIM vs SciPy {s_ssim:.6f} "
+            f"(gate {GATE_SPEC_SSIM}), enhanced SSIM vs f32 plain service, min over "
+            f"{c} ch {e_ssim:.6f} (gate {GATE_ENH_SSIM})")
+        check(s_ssim >= GATE_SPEC_SSIM, f"{tag}: spectrogram SSIM {s_ssim:.6f}")
+        check(e_ssim >= GATE_ENH_SSIM, f"{tag}: enhanced SSIM {e_ssim:.6f}")
+    return outs, launches
+
+
 def run_service(dev, sp, cfg, model, n_channels):
     """Phases 4 and 6: the bf16 service on three shots, gated; returns the
-    launch counts of that run."""
+    service, its weights, the shots, their gate references, its outputs and
+    the launch counts of that run."""
     fn = make_enhance_shot_fn(cfg, sp, dtype=torch.bfloat16, device=dev)
     wts = fn.prepare(model)
     shots = [example_shot(sp, n_channels, seed) for seed in (0, 1, 2)]
     traces = [torch.from_numpy(s).to(dev) for s in shots]
-    for kern in _build.KERNELS:
-        kern.launches = 0
-    outs = [fn(wts, t) for t in traces]
-    torch.cuda.synchronize(dev)
-    launches = {kern: kern.launches for kern in _build.KERNELS}
-    for kern in SERVE_KERNELS:
-        check(launches[kern] > 0, f"{kern.symbol} was not launched by the service")
-    log(f"depth-{cfg.depth} service launches: "
-        + ", ".join(f"{k.symbol}={launches[k]}" for k in SERVE_KERNELS))
-    k = sp.n_frames // 128
-    for seed, host, t, (specs, enh) in zip((0, 1, 2), shots, traces, outs):
-        check(specs.shape == (n_channels, sp.n_freqs_kept, sp.n_frames), f"specs {tuple(specs.shape)}")
-        check(enh.shape == (n_channels, sp.n_freqs_kept, k * 128), f"enhanced {tuple(enh.shape)}")
-        check(bool(torch.isfinite(specs).all() and torch.isfinite(enh).all()), "non-finite output")
-        s_ssim = ssim(specs[0].cpu().numpy(), spectrogram_ref(host[0], sp))
-        _, enh32 = enhance_shot_plain(model, t, sp)
-        e_host, r_host = enh.cpu().numpy(), enh32.cpu().numpy()
-        e_ssim = min(ssim(e_host[c], r_host[c]) for c in range(n_channels))
-        log(f"depth {cfg.depth}, shot seed {seed}: spectrogram SSIM vs SciPy {s_ssim:.6f} "
-            f"(gate {GATE_SPEC_SSIM}), enhanced SSIM vs f32 plain service, min over "
-            f"{n_channels} ch {e_ssim:.6f} (gate {GATE_ENH_SSIM})")
-        check(s_ssim >= GATE_SPEC_SSIM, f"spectrogram SSIM {s_ssim:.6f}")
-        check(e_ssim >= GATE_ENH_SSIM, f"enhanced SSIM {e_ssim:.6f}")
-    return fn, wts, traces[0], launches
+    refs = [(spectrogram_ref(host[0], sp), enhance_shot_plain(model, t, sp)[1].cpu().numpy())
+            for host, t in zip(shots, traces)]
+    outs, launches = gated_run(fn, wts, traces, refs, f"depth-{cfg.depth} service",
+                               SERVE_KERNELS)
+    return dict(fn=fn, wts=wts, traces=traces, refs=refs, outs=outs, launches=launches)
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -357,19 +389,22 @@ def time_entries(gpu, entries, dtype, per=""):
     return times
 
 
-def time_stft(sp, gpu, traces):
-    """Phase 5, K1: the kernel, its twin, ``torch.stft`` and the bound.
-    K1's function needs no more than an FFT's work per frame: detrend and
-    window (~7 n), a real FFT (2.5 n log2 n), the PSD, its log and the
-    min/max (~6 per bin); the kernel's dense DFT GEMM is its own choice."""
+def time_stft(sp, gpu, traces, tf=False):
+    """Phases 5 and 12e, K1 in the (F, T) or the (T, F) layout: the kernel,
+    its twin, ``torch.stft`` and the bound.  K1's function needs no more
+    than an FFT's work per frame: detrend and window (~7 n), a real FFT
+    (2.5 n log2 n), the PSD, its log and the min/max (~6 per bin); the
+    kernel's dense DFT GEMM is its own choice."""
     c, nf, n = traces.shape[0], sp.n_freqs_onesided, sp.nperseg
     window = torch.hamming_window(sp.nperseg, periodic=True, device=traces.device)
     ops = c * sp.n_frames * (7 * n + 2.5 * n * np.log2(n) + 6 * nf)
-    entry = (lambda: SF.stft_ft_log(traces, sp), lambda: SF.stft_ft_log_plain(traces, sp),
+    kern, fn, plain = ((SF.STFT_TF_KERNEL, SF.stft_tf_log, SF.stft_tf_log_plain) if tf else
+                       (SF.STFT_KERNEL, SF.stft_ft_log, SF.stft_ft_log_plain))
+    entry = (lambda: fn(traces, sp), lambda: plain(traces, sp),
              lambda: torch.stft(traces, sp.nperseg, sp.hop, window=window, center=False,
                                 return_complex=True),
              ops, c * sp.n_samples * 4 + c * nf * sp.n_frames * 4)
-    return time_entries(gpu, {SF.STFT_KERNEL: entry}, torch.float32)[SF.STFT_KERNEL]
+    return time_entries(gpu, {kern: entry}, torch.float32)[kern]
 
 
 def time_serving(sp, gpu, model, fn, wts, traces, st):
@@ -432,14 +467,194 @@ def time_serving(sp, gpu, model, fn, wts, traces, st):
 
 def serve_family(dev, sp, gpu, cfg, specs, dtypes, geometries):
     """Phases 3-5 (flagship) or 6 (deep3) after K1: stage checks, the gated
-    service (its launches are the rows'), the timings."""
+    service (its launches are the rows'), the timings.  Returns the
+    service's run (``run_service``) and the module."""
     k = sp.n_frames // 128
     model, errs, st = check_kernels(dev, cfg, specs, k, dtypes, geometries)
-    fn, wts, traces, launches = run_service(dev, sp, cfg, model, N_CHANNELS)
-    times = time_serving(sp, gpu, model, fn, wts, traces, st)
+    run = run_service(dev, sp, cfg, model, N_CHANNELS)
+    times = time_serving(sp, gpu, model, run["fn"], run["wts"], run["traces"][0], st)
     for kern, kid in SERVE_IDS[cfg.depth].items():
-        row(kern, kid).update(launches=launches[kern], max_abs_err=errs[kern], **times[kern])
+        row(kern, kid).update(launches=run["launches"][kern], max_abs_err=errs[kern],
+                              **times[kern])
+    return run, model
+
+
+def check_stft_tf(sp, traces) -> float:
+    """Phase 12a, K1 in the (T, F) layout: against its twin, and bit for bit
+    the (F, T) kernel's output transposed, min and max included."""
+    out, mn, mx = SF.stft_tf_log(traces, sp)
+    ref, rmn, rmx = SF.stft_tf_log_plain(traces, sp)
+    ft, fmn, fmx = SF.stft_ft_log(traces, sp)
+    check(out.shape == (traces.shape[0], sp.n_frames, sp.n_freqs_onesided),
+          f"(T, F) log-PSD shape {tuple(out.shape)}")
+    err = max(max_err(out, ref), max_err(mn, rmn), max_err(mx, rmx))
+    check(err <= TOL_LOGPSD, f"K1 (T, F) |err| {err:.3g} > {TOL_LOGPSD}")
+    same = (torch.equal(out, ft.transpose(1, 2)) and torch.equal(mn, fmn)
+            and torch.equal(mx, fmx))
+    check(same, "K1 (T, F) differs from K1 (F, T) transposed")
+    log(f"K1 stft_logpsd_tf: max|err| {err:.3g} vs its twin (tol {TOL_LOGPSD}); "
+        f"bit for bit the (F, T) output transposed, min and max equal")
+    return err
+
+
+def check_tile_in_norm(dev, sp, traces, geometries):
+    """Phase 12b: ``ae_tile_in_norm`` in both layouts, bf16 and float32,
+    for each (name, channels, config): within one bf16 ulp (float32:
+    TOL_F32) of its twin, and bit for bit ``ae_tile_in`` on the normalized
+    spectrograms.  Returns the flagship's bf16 max |err| per layout."""
+    k = sp.n_frames // 128
+    raws = {"ft": SF.stft_ft_log(traces, sp), "tf": SF.stft_tf_log(traces, sp)}
+    specs = SF.spectrogram_fused(traces, sp)
+    errs = {}
+    gen = torch.Generator().manual_seed(SEED)
+    for name, c, cfg in geometries:
+        model = make_model(cfg, generator=gen, device=dev).eval()
+        for dt in (torch.bfloat16, torch.float32):
+            wts = AK.build_kernel_weights(model, dt)
+            act = check_bf16_stage if dt == torch.bfloat16 else check_f32_stage
+            want = AK.ae_tile_in(wts, specs[:c], k)
+            for layout, (raw, mn, mx) in raws.items():
+                tag = f"{name} {dt} ae_tile_in_norm ({layout})"
+                args = (wts, raw[:c], mn[:c], mx[:c], k, layout)
+                got = AK.ae_tile_in_norm(*args)
+                e = act(tag, got, AK.ae_tile_in_norm_plain(*args))
+                check(torch.equal(got, want), f"{tag} differs from ae_tile_in on the specs")
+                if c == N_CHANNELS and dt == torch.bfloat16:
+                    errs[layout] = e
+                log(f"{tag}, {c} ch: max|err| {e:.3g} vs its twin; bit for bit ae_tile_in")
+    return errs
+
+
+def serve_modes(dev, sp, gpu, model, run):
+    """Phase 12c and f: the flagship service in each other ``stft_mode``
+    on the auto run's three shots, counted and gated as it; "fused" and
+    "fused_ft" bit for bit "auto"; then K10's route (the raw (F, T)
+    log-PSD into ``ae_kernel_enhance_raw``), bit for bit "auto"'s enhanced
+    output; then ms/shot per mode.  Returns the launches per run."""
+    stages = (AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
+    modes = {
+        "fused": ((SF.STFT_TF_KERNEL, AK.TILE_IN_NORM, *stages), (SF.STFT_KERNEL, AK.TILE_IN)),
+        "fused_ft": (SERVE_KERNELS, (SF.STFT_TF_KERNEL, AK.TILE_IN_NORM)),
+        "xla": ((AK.TILE_IN, *stages), (SF.STFT_KERNEL, SF.STFT_TF_KERNEL, AK.TILE_IN_NORM)),
+    }
+    fns, launches = {"auto": run["fn"]}, {}
+    for mode, (kernels, absent) in modes.items():
+        fn = make_enhance_shot_fn(FLAGSHIP, sp, dtype=torch.bfloat16, device=dev,
+                                  stft_mode=mode)
+        outs, launches[mode] = gated_run(fn, run["wts"], run["traces"], run["refs"],
+                                         f"service stft_mode={mode!r}", kernels, absent)
+        if mode != "xla":
+            same = all(torch.equal(a, b) for o, r in zip(outs, run["outs"]) for a, b in zip(o, r))
+            check(same, f"stft_mode={mode!r} differs from 'auto'")
+            log(f"stft_mode={mode!r}: specs and enhanced bit for bit 'auto''s on 3 shots")
+        else:
+            d = max(max_err(o[1], r[1]) for o, r in zip(outs, run["outs"]))
+            log(f"stft_mode='xla': enhanced max|err| {d:.3g} from 'auto' (the matmul STFT front)")
+        fns[mode] = fn
+
+    def raw_ft(wts, t):
+        raw, mn, mx = SF.stft_ft_log(t, sp)
+        return AK.ae_kernel_enhance_raw(wts, raw, mn, mx, sp.n_frames // 128, "ft")
+
+    for kern in _build.KERNELS:
+        kern.launches = 0
+    with torch.no_grad():
+        enh = [raw_ft(run["wts"], t) for t in run["traces"]]
+    torch.cuda.synchronize()
+    launches["raw_ft"] = {kern: kern.launches for kern in _build.KERNELS}
+    check(launches["raw_ft"][AK.TILE_IN_NORM] > 0, "K10's route did not launch ae_tile_in_norm")
+    check(all(torch.equal(a, r[1]) for a, r in zip(enh, run["outs"])),
+          "K10's route differs from 'auto''s enhanced output")
+    log(f"K10's route (stft_logpsd -> ae_tile_in_norm 'ft' -> stages) on 3 shots: "
+        f"ae_tile_in_norm={launches['raw_ft'][AK.TILE_IN_NORM]}; enhanced bit for bit 'auto''s")
+
+    t0 = run["traces"][0]
+    order = ["auto", "fused", "fused_ft", "xla"]
+    ms = {m: [] for m in order}
+    for m in order + order[::-1]:  # in turns: drift shows as a gap
+        ms[m].append(time_cuda(fns[m], run["wts"], t0, warmup=3, iters=20))
+    for m in order:
+        log(f"[{gpu}] service flagship bf16 stft_mode={m!r}: {ms[m][0]:.4f}/{ms[m][1]:.4f} "
+            f"ms/shot (median of 20, two turns), {N_CHANNELS / min(ms[m]) * 1e3:.2f} "
+            f"spectrograms/s")
     return launches
+
+
+def run_probes(gpu):
+    """Phase 12d: the three K11 probes in this process (counts set to 0
+    just before, read just after), each equal to its twin, then
+    ``python -m specenh_torch.probe_walls`` (a subprocess per probe) all
+    OK, then their times.  Returns the launches and the times."""
+    for kern in _build.KERNELS:
+        kern.launches = 0
+    for name in PW.PROBES:
+        check(PW.run_probe(name, "cuda", SEED), f"probe {name} differs from its twin")
+    launches = {kern: kern.launches for kern in _build.KERNELS}
+    log("K11 probes in process, each equal to its twin: " + ", ".join(
+        f"{k.symbol}={launches[k]}" for k in PROBE_KERNELS))
+    results = PW.main(timeout=120)
+    check(all(v == "OK" for v in results.values()), f"probe_walls: {results}")
+    xs = {name: torch.randn(shape, generator=torch.Generator().manual_seed(SEED)).cuda()
+          for name, (_, _, shape) in PW.PROBES.items()}
+    library = {"sublane_offset1_slice": lambda x: torch.slice_copy(x, 0, 1, PW.FB + 1),
+               "in_kernel_transpose": lambda x: torch.transpose_copy(x, 0, 1),
+               "stride2_lane_slice": lambda x: torch.slice_copy(x, 1, 0, x.shape[1], 2)}
+    entries = {}
+    for kern, (name, (fn, plain, _)) in zip(PROBE_KERNELS, PW.PROBES.items()):
+        x = xs[name]
+        entries[kern] = (lambda f=fn, x=x: f(x), lambda p=plain, x=x: p(x),
+                         lambda lf=library[name], x=x: lf(x), 0.0,
+                         nbytes(x) + nbytes(plain(x)))
+    return launches, time_entries(gpu, entries, torch.float32, " (launch-bound)")
+
+
+def time_tile_in_norm(sp, gpu, traces, wts):
+    """Phase 12e: ``ae_tile_in_norm`` per layout at the flagship's 600
+    tiles, its twin, the library calls (normalize, cast, ``F.conv2d`` on
+    the raw tiles) and the bound (raw float32 read once, the pooled bf16
+    activations written once)."""
+    k, bf = sp.n_frames // 128, torch.bfloat16
+    raw_ft, mn, mx = SF.stft_ft_log(traces, sp)
+    raws = {"ft": raw_ft, "tf": SF.stft_tf_log(traces, sp)[0]}
+    tiles = patch(raw_ft[:, :256, : k * 128])[:, None].contiguous()
+    lo = mn.repeat_interleave(k, 0)[:, :, None, None]
+    span = (mx - mn).repeat_interleave(k, 0)[:, :, None, None]
+    cw0, b0 = AK._conv_w(wts, 0).to(bf), wts.b[0].to(bf)
+    x0 = AK.ae_tile_in(wts, SF.spectrogram_fused(traces, sp), k)
+    flops = conv_flops(wts, 0, x0.shape[0], 256, 128)
+    nb = traces.shape[0] * 256 * k * 128 * 4 + nbytes(x0)
+    times = {}
+    for layout, raw in raws.items():
+        entry = (lambda r=raw, l=layout: AK.ae_tile_in_norm(wts, r, mn, mx, k, l),
+                 lambda r=raw, l=layout: AK.ae_tile_in_norm_plain(wts, r, mn, mx, k, l),
+                 lambda: F.conv2d(((tiles - lo) / span).to(bf), cw0, b0, padding=wts.k(0) // 2),
+                 flops, nb)
+        times[layout] = time_entries(gpu, {AK.TILE_IN_NORM: entry}, bf,
+                                     f" ({layout})")[AK.TILE_IN_NORM]
+    return times
+
+
+def fused_front(dev, sp, gpu, traces, model, run):
+    """Phase 12: the service's other STFT fronts on the flagship and their
+    kernels (K1 (T, F), ``ae_tile_in_norm`` for K9 and K10), the K11
+    probes; fills their rows."""
+    err_tf = check_stft_tf(sp, traces)
+    errs = check_tile_in_norm(dev, sp, traces, (
+        ("flagship k3", N_CHANNELS, FLAGSHIP),
+        ("k5", 1, ModelConfig(kernels=((5, 5), (5, 5)), out_kernel=(5, 5))),
+        ("k7", 1, ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
+        ("manual (64,32)/k5", 1, ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
+                                             out_kernel=(5, 5)))))
+    launches = serve_modes(dev, sp, gpu, model, run)
+    row(SF.STFT_TF_KERNEL, "K1").update(launches=launches["fused"][SF.STFT_TF_KERNEL],
+                                        max_abs_err=err_tf, **time_stft(sp, gpu, traces, tf=True))
+    times = time_tile_in_norm(sp, gpu, traces, run["wts"])
+    for kid, layout, mode in (("K9", "tf", "fused"), ("K10", "ft", "raw_ft")):
+        row(AK.TILE_IN_NORM, kid).update(launches=launches[mode][AK.TILE_IN_NORM],
+                                         max_abs_err=errs[layout], **times[layout])
+    p_launches, p_times = run_probes(gpu)
+    for kern, kid in zip(PROBE_KERNELS, ("K11a", "K11b", "K11c")):
+        row(kern, kid).update(launches=p_launches[kern], max_abs_err=0.0, **p_times[kern])
 
 
 def check_f32(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -872,14 +1087,16 @@ def main() -> int:
     traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)
     err_k1 = check_stft(sp, traces)
     specs = SF.spectrogram_fused(traces, sp)
-    launches = serve_family(
+    run, model = serve_family(
         dev, sp, gpu, FLAGSHIP, specs, (torch.bfloat16,),
         (("flagship k3", N_CHANNELS, FLAGSHIP),
          ("k7", 1, ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
          ("manual (64,32)/k5", 1, ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
                                               out_kernel=(5, 5)))))
-    row(SF.STFT_KERNEL, "K1").update(launches=launches[SF.STFT_KERNEL], max_abs_err=err_k1,
-                                     **time_stft(sp, gpu, traces))
+    row(SF.STFT_KERNEL, "K1").update(launches=run["launches"][SF.STFT_KERNEL],
+                                     max_abs_err=err_k1, **time_stft(sp, gpu, traces))
+    fused_front(dev, sp, gpu, traces, model, run)
+    del run
     serve_family(
         dev, sp, gpu, DEEP3, specs, (torch.bfloat16, torch.float32),
         (("deep3 (16,32,64)/k5", N_CHANNELS, DEEP3),

@@ -70,7 +70,8 @@ def build(name: str) -> Path:
     return so
 
 
-def build_all(names: Sequence[str] = ("stft", "ae", "ae_train")) -> Dict[str, float]:
+def build_all(names: Sequence[str] = ("stft", "ae", "ae_train", "probes")
+              ) -> Dict[str, float]:
     """Build the libraries in parallel; returns wall seconds per library."""
     secs: Dict[str, float] = {}
     errors: List[BaseException] = []

@@ -4,13 +4,15 @@
 ``make_enhance_shot_fn`` builds the serving path: a multi-channel raw shot
 goes through the STFT kernel (K1), then the conv-AE stage kernels on
 256x128 tiles (K2+K3+K4 at depth 2, K8-in+K6+K8-out at depth 3), and comes
-back restitched.  ``enhance_shot_plain`` is the
+back restitched.  ``stft_mode`` picks the STFT front as the JAX service's
+does.  ``enhance_shot_plain`` is the
 same service composed of the plain twins (matmul STFT, the ``nn.Module``):
 the float32 reference the service is gated against.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 from typing import Callable, List
 
@@ -24,7 +26,9 @@ from specenh_torch.ops import ae_kernel, stft_fused
 from specenh_torch.ops.stft import spectrogram
 
 __all__ = ["make_enhance_shot_fn", "enhance_shot_plain", "example_shot",
-           "time_cuda"]
+           "time_cuda", "STFT_MODES"]
+
+STFT_MODES = ("auto", "fused", "fused_ft", "xla")
 
 
 def _k_tiles(sp: SpecParams, ps: PatchSpec) -> int:
@@ -36,12 +40,24 @@ def _k_tiles(sp: SpecParams, ps: PatchSpec) -> int:
     return k
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 matmuls in float32 on the card (TF32 off) inside the block."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def make_enhance_shot_fn(
     cfg: ModelConfig = ModelConfig(),
     sp: SpecParams = SpecParams(),
     ps: PatchSpec = PatchSpec(),
     dtype=torch.bfloat16,
     device="cuda",
+    stft_mode: str = "auto",
 ) -> Callable:
     """Returns ``fn(model_or_weights, traces) -> (specs, enhanced)``:
     traces (C, >= n_samples) -> specs (C, 256, n_frames) float32, enhanced
@@ -53,13 +69,40 @@ def make_enhance_shot_fn(
     On ``device="cpu"`` every kernel wrapper runs its plain twin.  A
     geometry that no kernel family covers (``ae_kernel.kernel_depth``)
     raises, and so do weights of another depth than ``cfg``'s.
+
+    ``stft_mode``, the STFT front (the JAX service's values and rules):
+
+    - ``"auto"``: K1 in the (F, T) layout (``spectrogram_fused``), then the
+      AE stages; needs nperseg 512 / hop 256.
+    - ``"fused"``: K1 in the (T, F) layout; the AE's first stage reads the
+      raw log-PSD and normalizes it as it loads (``ae_tile_in_norm``, K9's
+      route), and the specs output is one transposing pass
+      (``normalized_specs``).  Depth 2, bf16 and the reference STFT
+      geometry only, else ``NotImplementedError``.
+    - ``"fused_ft"``: K1 in the (F, T) layout, forced: bf16 and the
+      reference STFT geometry only.  In the port this is ``"auto"``'s path.
+    - ``"xla"``: the plain matmul STFT (``ops.stft.spectrogram``, float32,
+      TF32 off), then the AE stages; any STFT geometry.
+
+    Any other value raises ``ValueError``.
     """
     dtype = torch.float32 if dtype is None else dtype
     device = torch.device(device)
-    if not stft_fused.supported(sp):
-        raise NotImplementedError(f"the STFT kernel needs nperseg=512/hop=256: {sp}")
+    if stft_mode not in STFT_MODES:
+        raise ValueError(f"stft_mode must be one of {STFT_MODES}: {stft_mode!r}")
     depth = ae_kernel.kernel_depth(cfg)
     k_tiles = _k_tiles(sp, ps)
+    if stft_mode == "fused" and not (depth == 2 and dtype == torch.bfloat16
+                                     and stft_fused.supported(sp)):
+        raise NotImplementedError(
+            "stft_mode='fused' needs the depth-2 kernels serving in bf16 with the "
+            f"reference STFT geometry: {cfg}, {sp}, {dtype}")
+    if stft_mode == "fused_ft" and not (dtype == torch.bfloat16 and stft_fused.supported(sp)):
+        raise NotImplementedError(
+            "stft_mode='fused_ft' needs the kernels serving in bf16 with the "
+            f"reference STFT geometry: {sp}, {dtype}")
+    if stft_mode == "auto" and not stft_fused.supported(sp):
+        raise NotImplementedError(f"the STFT kernel needs nperseg=512/hop=256: {sp}")
 
     def prepare(model_or_weights):
         if isinstance(model_or_weights, ae_kernel.AEKernelWeights):
@@ -69,12 +112,23 @@ def make_enhance_shot_fn(
             return model_or_weights
         return ae_kernel.build_kernel_weights(model_or_weights, dtype, depth)
 
+    def front(wts, traces):
+        if stft_mode == "fused":
+            raw, mn, mx = stft_fused.stft_tf_log(traces, sp)
+            return (stft_fused.normalized_specs(raw, mn, mx, sp.n_frames),
+                    ae_kernel.ae_kernel_enhance_raw(wts, raw, mn, mx, k_tiles, "tf"))
+        if stft_mode == "xla":
+            with _no_tf32():
+                specs = spectrogram(traces, sp)
+        else:
+            specs = stft_fused.spectrogram_fused(traces, sp)
+        return specs, ae_kernel.ae_kernel_enhance_specs(wts, specs, k_tiles)
+
     def fn(model_or_weights, traces):
         wts = prepare(model_or_weights)
         traces = torch.as_tensor(traces, dtype=torch.float32, device=device)
         with torch.no_grad():
-            specs = stft_fused.spectrogram_fused(traces.contiguous(), sp)
-            return specs, ae_kernel.ae_kernel_enhance_specs(wts, specs, k_tiles)
+            return front(wts, traces.contiguous())
 
     fn.prepare = prepare
     return fn

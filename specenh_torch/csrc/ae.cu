@@ -4,6 +4,11 @@
 // Replaces, on the serving path (ae_kernel_enhance_specs):
 //   K2 specenh/ops/parity_turn.py:_make_turn_in_kernel  (specs_to_x16_2d:
 //      patch + bf16 cast into the AE kernel's layout)
+//   K9 specenh/ops/stft_fused.py:_make_turn_tf_kernel   (specs_tf_to_x16_2d)
+//   K10 specenh/ops/stft_fused.py:_make_turn_ft_norm_kernel
+//      (specs_ft_to_x16_2d: K2 fed the raw log-PSD in the (T, F) or the
+//      (F, T) layout, min-max normalized in the turn), as ae_tile_in_norm
+//      on ae_kernel_enhance_raw, stft_mode="fused"
 //   K3 specenh/ops/ae_kernel.py:_make_kernel            (_pallas_ae: the
 //      whole AE, activations resident in VMEM)
 //   K4 specenh/ops/parity_turn.py:_make_turn_out_kernel (o16_2d_to_specs:
@@ -27,6 +32,8 @@
 //                 j*128 .. j*128+127, rounds to the service dtype; 'same'
 //                 zero padding at the tile's border (the reference patches
 //                 before it convolves, so no neighbour columns leak in).
+//   ae_tile_in_norm  S1 on the raw log-PSD, in either layout, normalized as
+//                 the block stages it in shared memory (K9, K10).
 //   ae_conv_pool  S2 = conv2 (and conv3 at depth 3) + relu + maxpool2.
 //   ae_convt_relu S3 = Flax 'SAME' stride-2 transposed conv + relu (once per
 //                 level).
@@ -116,6 +123,36 @@ extern "C" int ae_tile_in(const float* specs, int kt, long long spec_outer,
   if (dtype == SX_BF16)
     return launch_conv_quad<__nv_bfloat16, COB>(
         PlaneSrc<float, __nv_bfloat16>{specs, src}, w, bias,
+        PoolEpi<__nv_bfloat16, COB>{static_cast<__nv_bfloat16*>(out), dst}, B,
+        1, Cout, H, W, K, st);
+  return cudaErrorInvalidValue;
+}
+
+// S1 on the raw log-PSD (K9 and K10, stft_mode="fused"): raw (C, >= H,
+// >= kt*W) float32 read through frequency stride raw_fs and time stride
+// raw_ts (the (F, T) layout of stft_logpsd, or the (T, F) layout of
+// stft_logpsd_tf), normalized by the channel's min and max, mn and mx (C,)
+// float32, as each block stages its input (NormPlaneSrc); otherwise as
+// ae_tile_in, for W = 128 and K <= 7.
+extern "C" int ae_tile_in_norm(const float* raw, const float* mn,
+                               const float* mx, int kt, long long raw_outer,
+                               long long raw_fs, long long raw_ts,
+                               const void* w, const float* bias, void* out,
+                               int dtype, int B, int Cout, int H, int W, int K,
+                               void* stream) {
+  if (W != SW || K > 7) return cudaErrorInvalidValue;
+  const Plane dst = nchw(Cout, H / 2, W / 2);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == SX_F32)
+    return launch_conv_quad<float, COB>(
+        NormPlaneSrc<float>{raw, mn, mx, raw_outer, raw_fs, raw_ts, kt, H, K},
+        w, bias, PoolEpi<float, COB>{static_cast<float*>(out), dst}, B, 1, Cout,
+        H, W, K, st);
+  if (dtype == SX_BF16)
+    return launch_conv_quad<__nv_bfloat16, COB>(
+        NormPlaneSrc<__nv_bfloat16>{raw, mn, mx, raw_outer, raw_fs, raw_ts, kt,
+                                    H, K},
+        w, bias,
         PoolEpi<__nv_bfloat16, COB>{static_cast<__nv_bfloat16*>(out), dst}, B,
         1, Cout, H, W, K, st);
   return cudaErrorInvalidValue;

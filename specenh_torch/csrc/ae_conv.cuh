@@ -37,7 +37,9 @@ inline Plane nchw(int C, int H, int W) {
 }
 
 // A source is read as src.tile(b).at(c).load(y, x): the tile's base is
-// computed once per block, a channel's once per channel.
+// computed once per block, a channel's once per channel.  Every thread of
+// the block calls tile(b) once before any load, so a source may stage the
+// block's input in shared memory there (NormPlaneSrc).
 
 // Source: plane p in TIN, each value rounded to TACT as it is loaded.
 template <typename TIN, typename TACT>
@@ -58,6 +60,90 @@ struct PlaneSrc {
   };
   __device__ __forceinline__ Tile tile(int b) const {
     return Tile{p + pl.base(b), pl.chan, pl.ld};
+  }
+};
+
+// Source: a raw float32 log-PSD, min-max normalized as the block stages
+// it.  Tile b = (b / kt, b % kt) is channel b / kt at frames (b % kt) * W ..;
+// its value (y, x) lies at p + (b / kt) * outer + y * fs + ((b % kt) * W + x)
+// * ts, so the (F, T) layout has ts = 1 and the (T, F) layout fs = 1.  Each
+// value becomes (v - mn[c]) / (mx[c] - mn[c]) with an IEEE division (no
+// reciprocal), rounded to TACT: the bits that PlaneSrc reads from the
+// normalized spectrogram, where the division is done the same way.
+//
+// One input channel (S1).  The block stages the input its quads read (its
+// quad rows' rows with a halo of R = K/2 on each side, the tile's W
+// columns with the same halo) in shared memory, normalized, in tile(b):
+// each value is loaded and divided once per block, not once per thread
+// that reads it (~4x), and the (T, F) layout is read along its contiguous
+// frequency rows.  All of a thread's loads are issued before its first
+// division: the division's slow-path branch would otherwise hold each load
+// until the one before has been divided.  The staged window is SROWS x
+// SCOLS whatever K (constant index arithmetic); what lies outside the
+// block's rows x cols is not loaded.  Needs W = SW (one block = two quad
+// rows) and K <= 7.
+constexpr int SW = 128;                     // tile width
+constexpr int SROWS = 2 * NT / SW + 7 + 1;  // K + 3 rows at K <= 7
+constexpr int SCOLS = SW + 7 + 1;           // W + K columns, one spare
+constexpr int SPER = (SROWS * SCOLS + NT - 1) / NT;  // staged values a thread
+
+template <typename TACT>
+struct NormPlaneSrc {
+  const float* p;
+  const float* mn;
+  const float* mx;
+  long long outer, fs, ts;
+  int kt, H, K;
+  struct Ch {
+    const float* s;  // staged (y - y0, x - x0)
+    int y0, x0;
+    __device__ __forceinline__ float load(int y, int x) const {
+      return s[(y - y0) * SCOLS + x - x0];
+    }
+  };
+  struct Tile {
+    Ch ch;
+    __device__ __forceinline__ Ch at(int) const { return ch; }
+  };
+  // Element e of the window: consecutive threads on consecutive addresses,
+  // along x in (F, T) (ts = 1), along y in (T, F).
+  __device__ __forceinline__ void window(int e, int& i, int& j) const {
+    i = ts == 1 ? e / SCOLS : e % SROWS;
+    j = ts == 1 ? e % SCOLS : e / SROWS;
+  }
+  // Every thread of the block calls it once, before any load.
+  __device__ __forceinline__ Tile tile(int b) const {
+    __shared__ float st[SROWS][SCOLS];
+    const int c = b / kt, r = (K - 1) / 2;
+    const float* q = p + c * outer + (long long)(b % kt) * SW * ts;
+    const int y0 = 2 * (blockIdx.x * NT / (SW / 2)) - r, x0 = -r;
+    const int rows = 2 * NT / SW + K + 1, cols = SW + K;
+    float v[SPER];
+    unsigned in = 0;  // bit u: v[u] was loaded
+#pragma unroll
+    for (int u = 0; u < SPER; ++u) {
+      const int e = threadIdx.x + u * NT;
+      int i, j;
+      window(e, i, j);
+      const int y = y0 + i, x = x0 + j;
+      v[u] = 0.f;
+      if (e < SROWS * SCOLS && i < rows && j < cols && y >= 0 && y < H && x >= 0 &&
+          x < SW) {
+        v[u] = q[(long long)y * fs + (long long)x * ts];
+        in |= 1u << u;
+      }
+    }
+    const float lo = mn[c], span = mx[c] - lo;
+#pragma unroll
+    for (int u = 0; u < SPER; ++u) {
+      const int e = threadIdx.x + u * NT;
+      int i, j;
+      window(e, i, j);
+      if (e < SROWS * SCOLS)  // outside the tile: 0, never read ('same' padding)
+        st[i][j] = (in >> u) & 1 ? sx_round<TACT>(__fdiv_rn(v[u] - lo, span)) : 0.f;
+    }
+    __syncthreads();
+    return Tile{Ch{&st[0][0], y0, x0}};
   }
 };
 

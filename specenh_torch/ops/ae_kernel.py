@@ -15,6 +15,14 @@ the out-conv 2d.  ``ae_kernel_enhance_specs`` runs four stage kernels of
   ae_tile_out   S4  out-conv + sigmoid fused with the restitched store
                     (K4, K8-out)
 
+``ae_kernel_enhance_raw`` is the same chain with S1 replaced by
+``ae_tile_in_norm``: S1 reading the raw log-PSD of the STFT kernel and
+min-max normalizing it as it loads, in the (T, F) layout (``layout="tf"``,
+the route of K9 ``specs_tf_to_x16_2d``, ``stft_mode="fused"``) or the
+(F, T) layout (``layout="ft"``, the route of K10 ``specs_ft_to_x16_2d``).
+The JAX kernels produce x16 parity rows; this stage produces pooled conv1
+activations, so the port does not use their names.
+
 Each stage wrapper launches its kernel for CUDA tensors and runs its plain
 twin (``*_plain``: ``F.conv2d`` and friends on float32 copies of values
 rounded to the service dtype, the kernel's rounding points) for CPU
@@ -44,9 +52,10 @@ from specenh_torch.models.autoencoder import ConvAutoencoder, conv_transpose_sam
 __all__ = [
     "AEKernelWeights", "supports", "supports3", "kernel_depth",
     "build_kernel_weights",
-    "ae_tile_in", "ae_conv_pool", "ae_convt", "ae_tile_out",
-    "ae_tile_in_plain", "ae_conv_pool_plain", "ae_convt_plain",
-    "ae_tile_out_plain", "ae_kernel_enhance_specs", "ae_kernel_apply",
+    "ae_tile_in", "ae_tile_in_norm", "ae_conv_pool", "ae_convt", "ae_tile_out",
+    "ae_tile_in_plain", "ae_tile_in_norm_plain", "ae_conv_pool_plain",
+    "ae_convt_plain", "ae_tile_out_plain", "normalized_tiles",
+    "ae_kernel_enhance_specs", "ae_kernel_enhance_raw", "ae_kernel_apply",
     "ae_kernel_enhance_specs_plain",
 ]
 
@@ -56,6 +65,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 TILE_IN = CudaKernel("ae", "ae_tile_in",
                      [_p, _i, _i64, _i64, _p, _p, _p, _i, _i, _i, _i, _i, _i])
+TILE_IN_NORM = CudaKernel("ae", "ae_tile_in_norm",
+                          [_p, _p, _p, _i, _i64, _i64, _i64, _p, _p, _p, _i, _i, _i,
+                           _i, _i, _i])
 CONV_POOL = CudaKernel("ae", "ae_conv_pool",
                        [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i])
 CONVT = CudaKernel("ae", "ae_convt_relu",
@@ -179,6 +191,29 @@ def _check_specs(specs: torch.Tensor, k_tiles: int) -> None:
         raise ValueError("spectrogram rows must be contiguous")
 
 
+def _raw_strides(raw: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+                 k_tiles: int, layout: str) -> Tuple[int, int, int]:
+    """Checks a raw log-PSD in ``layout``; returns its (channel, frequency,
+    time) strides."""
+    if layout not in ("tf", "ft"):
+        raise ValueError(f"layout must be 'tf' or 'ft', not {layout!r}")
+    if raw.dtype != torch.float32 or mn.dtype != torch.float32 or mx.dtype != torch.float32:
+        raise TypeError(f"raw log-PSD and min/max must be float32: {raw.dtype}, "
+                        f"{mn.dtype}, {mx.dtype}")
+    if raw.ndim != 3 or k_tiles < 1:
+        raise ValueError(f"raw log-PSD must be (C, F, T) or (C, T, F), got {tuple(raw.shape)}")
+    c, s1, s2 = raw.stride()
+    n1, n2 = raw.shape[1:]
+    (nf, fs), (nt, ts) = ((n1, s1), (n2, s2)) if layout == "ft" else ((n2, s2), (n1, s1))
+    if nf < TILE_F or nt < k_tiles * TILE_T:
+        raise ValueError(f"raw log-PSD ({layout}) needs >= {TILE_F} frequencies and "
+                         f">= {k_tiles}*{TILE_T} frames, got {tuple(raw.shape)}")
+    if mn.shape != (raw.shape[0], 1) or mx.shape != (raw.shape[0], 1):
+        raise ValueError(f"min/max must be ({raw.shape[0]}, 1), got {tuple(mn.shape)}, "
+                         f"{tuple(mx.shape)}")
+    return c, fs, ts
+
+
 def _on_device(x: torch.Tensor, wts: AEKernelWeights) -> None:
     """The CUDA path: weights must sit on x's device."""
     if any(t.device != x.device for t in (*wts.w, *wts.b)):
@@ -202,6 +237,22 @@ def _conv_pool(x: torch.Tensor, wts: AEKernelWeights, i: int) -> torch.Tensor:
 def ae_tile_in_plain(wts: AEKernelWeights, specs: torch.Tensor, k_tiles: int
                      ) -> torch.Tensor:
     tiles = patch(specs[:, :, : k_tiles * TILE_T])[:, None]
+    return _conv_pool(tiles.to(wts.dtype).float(), wts, 0)
+
+
+def normalized_tiles(raw: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+                     k_tiles: int, layout: str) -> torch.Tensor:
+    """(C*k, 256, 128) float32 tiles of the min-max normalized raw log-PSD
+    (``layout`` "tf" or "ft"), the values ``ae_tile_in_norm`` loads."""
+    v = raw if layout == "ft" else raw.transpose(1, 2)
+    v = v[:, :TILE_F, : k_tiles * TILE_T]
+    return patch((v - mn[:, :, None]) / (mx - mn)[:, :, None])
+
+
+def ae_tile_in_norm_plain(wts: AEKernelWeights, raw: torch.Tensor, mn: torch.Tensor,
+                          mx: torch.Tensor, k_tiles: int, layout: str) -> torch.Tensor:
+    """Normalize, ``patch``, cast, conv1 + relu + pool."""
+    tiles = normalized_tiles(raw, mn, mx, k_tiles, layout)[:, None]
     return _conv_pool(tiles.to(wts.dtype).float(), wts, 0)
 
 
@@ -243,6 +294,26 @@ def ae_tile_in(wts: AEKernelWeights, specs: torch.Tensor, k_tiles: int
     TILE_IN(specs.data_ptr(), k_tiles, specs.stride(0), specs.stride(1),
             wts.w[0].data_ptr(), wts.b[0].data_ptr(), out.data_ptr(),
             _DTYPE_CODE[wts.dtype], b, cout, TILE_F, TILE_T, wts.k(0))
+    return out
+
+
+def ae_tile_in_norm(wts: AEKernelWeights, raw: torch.Tensor, mn: torch.Tensor,
+                    mx: torch.Tensor, k_tiles: int, layout: str) -> torch.Tensor:
+    """S1 on the raw log-PSD: (C, F >= 256, T >= k*128) (``layout="ft"``,
+    K10's route) or (C, T, F) (``layout="tf"``, K9's route) float32 and the
+    per-channel (C, 1) min/max -> (C*k, c1, 128, 64) pooled conv1
+    activations; equal to ``ae_tile_in`` on the normalized spectrograms."""
+    c, fs, ts = _raw_strides(raw, mn, mx, k_tiles, layout)
+    if not raw.is_cuda:
+        return ae_tile_in_norm_plain(wts, raw, mn, mx, k_tiles, layout)
+    _on_device(raw, wts)
+    mn, mx = mn.reshape(-1).contiguous(), mx.reshape(-1).contiguous()
+    b, cout = raw.shape[0] * k_tiles, wts.cout(0)
+    out = torch.empty(b, cout, TILE_F // 2, TILE_T // 2, dtype=wts.dtype,
+                      device=raw.device)
+    TILE_IN_NORM(raw.data_ptr(), mn.data_ptr(), mx.data_ptr(), k_tiles, c, fs, ts,
+                 wts.w[0].data_ptr(), wts.b[0].data_ptr(), out.data_ptr(),
+                 _DTYPE_CODE[wts.dtype], b, cout, TILE_F, TILE_T, wts.k(0))
     return out
 
 
@@ -309,7 +380,20 @@ def ae_kernel_enhance_specs(wts: AEKernelWeights, specs: torch.Tensor,
                             k_tiles: int) -> torch.Tensor:
     """(C, 256, T) spectrograms -> (C, 256, k*128) restitched enhancement:
     patch -> AE -> unpatch, as the stages: one S1, d-1 S2, d S3, one S4."""
-    x = ae_tile_in(wts, specs, k_tiles)
+    return _enhance_pooled(wts, ae_tile_in(wts, specs, k_tiles), k_tiles)
+
+
+def ae_kernel_enhance_raw(wts: AEKernelWeights, raw: torch.Tensor, mn: torch.Tensor,
+                          mx: torch.Tensor, k_tiles: int, layout: str) -> torch.Tensor:
+    """``ae_kernel_enhance_specs`` of the normalized spectrograms, from the
+    raw log-PSD in ``layout`` and its (C, 1) min/max: S1 is
+    ``ae_tile_in_norm``."""
+    return _enhance_pooled(wts, ae_tile_in_norm(wts, raw, mn, mx, k_tiles, layout),
+                           k_tiles)
+
+
+def _enhance_pooled(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int) -> torch.Tensor:
+    """The stages after S1."""
     for i in range(1, wts.depth):
         x = ae_conv_pool(wts, x, i)
     for i in range(wts.depth, wts.out):

@@ -9,6 +9,12 @@ partials; for a CPU tensor it runs ``stft_ft_log_plain`` (framing, one
 matmul with the basis, the same epilogue).  ``spectrogram_fused`` adds the
 normalization and the Nyquist drop, a short torch epilogue as in the JAX
 package, where it is XLA outside the kernel.
+
+``stft_tf_log`` is the same kernel writing the (T, F) layout, the front of
+``stft_mode="fused"``: the same sums, so the same bits, transposed.  Its
+consumers are ``ae_kernel.ae_tile_in_norm`` (which normalizes as it loads)
+and ``normalized_specs`` (the service's specs output, one transposing
+pass).
 """
 
 from __future__ import annotations
@@ -24,17 +30,20 @@ from specenh_torch.config import SpecParams
 from specenh_torch._build import CudaKernel
 from specenh_torch.ops.stft import _basis_np, psd_weights, stft_psd
 
-__all__ = ["supported", "stft_ft_log", "stft_ft_log_plain", "spectrogram_fused",
-           "STFT_KERNEL"]
+__all__ = ["supported", "stft_ft_log", "stft_ft_log_plain", "stft_tf_log",
+           "stft_tf_log_plain", "spectrogram_fused", "normalized_specs",
+           "STFT_KERNEL", "STFT_TF_KERNEL"]
 
 # frames x frequencies per block of csrc/stft.cu (BM, BN)
 _BLOCK_T, _BLOCK_F = 64, 64
 
-STFT_KERNEL = CudaKernel("stft", "stft_logpsd", [
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-])
+_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_float, ctypes.c_void_p]
+STFT_KERNEL = CudaKernel("stft", "stft_logpsd", [*_ARGS, ctypes.c_void_p])
+# + the output's row stride
+STFT_TF_KERNEL = CudaKernel("stft", "stft_logpsd_tf", [*_ARGS, ctypes.c_int64,
+                                                       ctypes.c_void_p])
 
 
 def supported(sp: SpecParams) -> bool:
@@ -77,6 +86,36 @@ def stft_ft_log_plain(traces: torch.Tensor, sp: SpecParams
     return sxx, sxx.amin(dim=(1, 2))[:, None], sxx.amax(dim=(1, 2))[:, None]
 
 
+def stft_tf_log_plain(traces: torch.Tensor, sp: SpecParams
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of ``stft_tf_log``: ``stft_ft_log_plain`` transposed."""
+    sxx, mn, mx = stft_ft_log_plain(traces, sp)
+    return sxx.transpose(1, 2).contiguous(), mn, mx
+
+
+def _launch(traces: torch.Tensor, sp: SpecParams, tf: bool):
+    """K1 on the card in the (T, F) (``tf``) or the (F, T) layout ->
+    (log-PSD, min, max)."""
+    if not traces.is_contiguous():
+        raise ValueError("traces must be contiguous")
+    basis, weights, fpad = _kernel_operands(sp, traces.device)
+    c = traces.shape[0]
+    nf, nt = sp.n_freqs_onesided, sp.n_frames
+    # (T, F): rows padded to the basis's fpad (320) floats, whole 128-byte
+    # lines; the view drops the padding
+    out = torch.empty((c, nt, fpad) if tf else (c, nf, nt), dtype=torch.float32,
+                      device=traces.device)
+    parts = torch.empty(c, -(-nt // _BLOCK_T), fpad // _BLOCK_F, 2,
+                        dtype=torch.float32, device=traces.device)
+    kernel, ld = (STFT_TF_KERNEL, (fpad,)) if tf else (STFT_KERNEL, ())
+    kernel(traces.data_ptr(), traces.stride(0), c, sp.hop, sp.nperseg, nt, nf, fpad,
+           basis.data_ptr(), weights.data_ptr(), float(sp.eps), out.data_ptr(), *ld,
+           parts.data_ptr())
+    parts = parts.reshape(c, -1, 2)
+    return (out[:, :, :nf] if tf else out, parts[:, :, 0].amin(1, keepdim=True),
+            parts[:, :, 1].amax(1, keepdim=True))
+
+
 def stft_ft_log(traces: torch.Tensor, sp: SpecParams
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(C, >= n_samples) float32 traces -> ((C, 257, n_frames) float32
@@ -84,19 +123,19 @@ def stft_ft_log(traces: torch.Tensor, sp: SpecParams
     _check_traces(traces, sp)
     if not traces.is_cuda:
         return stft_ft_log_plain(traces, sp)
-    if not traces.is_contiguous():
-        raise ValueError("traces must be contiguous")
-    basis, weights, fpad = _kernel_operands(sp, traces.device)
-    c = traces.shape[0]
-    nf, nt = sp.n_freqs_onesided, sp.n_frames
-    out = torch.empty(c, nf, nt, dtype=torch.float32, device=traces.device)
-    parts = torch.empty(c, -(-nt // _BLOCK_T), fpad // _BLOCK_F, 2,
-                        dtype=torch.float32, device=traces.device)
-    STFT_KERNEL(traces.data_ptr(), traces.stride(0), c, sp.hop, sp.nperseg,
-                nt, nf, fpad, basis.data_ptr(), weights.data_ptr(),
-                float(sp.eps), out.data_ptr(), parts.data_ptr())
-    parts = parts.reshape(c, -1, 2)
-    return out, parts[:, :, 0].amin(1, keepdim=True), parts[:, :, 1].amax(1, keepdim=True)
+    return _launch(traces, sp, tf=False)
+
+
+def stft_tf_log(traces: torch.Tensor, sp: SpecParams
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(C, >= n_samples) float32 traces -> ((C, n_frames, 257) float32
+    log-PSD in the (T, F) layout, (C, 1) min, (C, 1) max): ``stft_ft_log``
+    transposed, bit for bit.  On the card the rows are 320 floats apart
+    (a view of a padded buffer); the CPU twin's are contiguous."""
+    _check_traces(traces, sp)
+    if not traces.is_cuda:
+        return stft_tf_log_plain(traces, sp)
+    return _launch(traces, sp, tf=True)
 
 
 def spectrogram_fused(traces: torch.Tensor, sp: SpecParams) -> torch.Tensor:
@@ -106,3 +145,15 @@ def spectrogram_fused(traces: torch.Tensor, sp: SpecParams) -> torch.Tensor:
     out, mn, mx = stft_ft_log(traces, sp)
     v = out[:, : sp.n_freqs_kept]
     return (v - mn[:, :, None]) / (mx - mn)[:, :, None]
+
+
+def normalized_specs(raw_tf: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
+                     n_frames: int) -> torch.Tensor:
+    """(C, >= n_frames, >= 256) (T, F) log-PSD + (C, 1) min/max -> the
+    service's (C, 256, n_frames) normalized float32 spectrogram (Nyquist
+    dropped after the min-max), contiguous: the same values as
+    ``spectrogram_fused``, through one transposing pass and one in place."""
+    v = raw_tf[:, :n_frames, :256].transpose(1, 2)
+    out = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    torch.sub(v, mn[:, :, None], out=out)
+    return out.div_((mx - mn)[:, :, None])

@@ -1,4 +1,5 @@
-"""The CUDA kernels (serving and training, depth 2 and 3) against their plain twins, on a GPU (marker ``gpu``;
+"""The CUDA kernels (serving in every STFT mode and training, depth 2 and 3,
+and the toolchain probes) against their plain twins, on a GPU (marker ``gpu``;
 skipped where no CUDA device is present).  This file imports no jax, so it
 runs where only torch is installed:
 
@@ -9,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from specenh_torch import ModelConfig, SpecParams
+from specenh_torch import ModelConfig, SpecParams, probe_walls
+from specenh_torch.bench import harness
 from specenh_torch.models.autoencoder import make_model
 from specenh_torch.config import MODEL_PRESETS
 from specenh_torch.ops import ae3_kernel as tak3
@@ -249,3 +251,70 @@ def test_ae3_kernel_grads_match_autograd(cuda, cfg):
     for name, p in model.named_parameters():
         err = float((grads[name] - p.grad).abs().max())
         assert err <= 1e-4 * scale, (name, err, scale)
+
+
+def test_stft_tf_kernel_matches_twin_and_ft(traces):
+    """K1 in the (T, F) layout: its twin to 2e-3, and the (F, T) kernel's
+    output transposed bit for bit, min and max included."""
+    before = tsf.STFT_TF_KERNEL.launches
+    out, mn, mx = tsf.stft_tf_log(traces, SP)
+    assert tsf.STFT_TF_KERNEL.launches == before + 1
+    ref, rmn, rmx = tsf.stft_tf_log_plain(traces, SP)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+    ft, fmn, fmx = tsf.stft_ft_log(traces, SP)
+    assert torch.equal(out, ft.transpose(1, 2))
+    assert torch.equal(mn, fmn) and torch.equal(mx, fmx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["tf", "ft"])
+@pytest.mark.parametrize("cfg", GEOMETRIES, ids=["k3", "k1", "k5", "k7", "manual", "64x64k7"])
+def test_tile_in_norm_matches_twin_and_tile_in(traces, cfg, layout, dtype):
+    """``ae_tile_in_norm`` within one ulp of its twin, and bit for bit
+    ``ae_tile_in`` on the normalized spectrograms (IEEE division on both
+    sides)."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=traces.device)
+    wts = tak.build_kernel_weights(model, dtype)
+    raw, mn, mx = (tsf.stft_tf_log if layout == "tf" else tsf.stft_ft_log)(traces, SP)
+    before = tak.TILE_IN_NORM.launches
+    got = tak.ae_tile_in_norm(wts, raw, mn, mx, 3, layout)
+    assert tak.TILE_IN_NORM.launches == before + 1
+    want = tak.ae_tile_in_norm_plain(wts, raw, mn, mx, 3, layout)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
+    excess = float(((got.float() - want.float()).abs() - ulp * want.float().abs() - 1e-5).max())
+    assert excess <= 0, excess
+    assert torch.equal(got, tak.ae_tile_in(wts, tsf.spectrogram_fused(traces, SP), 3))
+
+
+@pytest.mark.parametrize("mode", ["fused", "fused_ft", "xla"])
+def test_service_modes_match_auto(traces, mode):
+    """The bf16 service per ``stft_mode``: "fused" and "fused_ft" bit for bit
+    "auto" (specs and enhanced), "xla" within the bf16 AE bound of it; each
+    through its own kernels."""
+    model = make_model(ModelConfig(), generator=torch.Generator().manual_seed(1),
+                       device=traces.device).eval()
+    auto = harness.make_enhance_shot_fn(ModelConfig(), SP, device=traces.device)
+    wts = auto.prepare(model)
+    want = auto(wts, traces)
+    fn = harness.make_enhance_shot_fn(ModelConfig(), SP, device=traces.device, stft_mode=mode)
+    counted = (tsf.STFT_KERNEL, tsf.STFT_TF_KERNEL, tak.TILE_IN, tak.TILE_IN_NORM)
+    before = [k.launches for k in counted]
+    got = fn(wts, traces)
+    ran = {k.symbol for k, b in zip(counted, before) if k.launches > b}
+    assert ran == {"fused": {"stft_logpsd_tf", "ae_tile_in_norm"},
+                   "fused_ft": {"stft_logpsd", "ae_tile_in"},
+                   "xla": {"ae_tile_in"}}[mode]
+    if mode == "xla":
+        assert float((got[1] - want[1]).abs().max()) < 2e-2
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", sorted(probe_walls.PROBES))
+def test_probe_matches_twin(cuda, name):
+    kern = {"sublane_offset1_slice": probe_walls.ROW_SLICE,
+            "in_kernel_transpose": probe_walls.TRANSPOSE,
+            "stride2_lane_slice": probe_walls.STRIDE2}[name]
+    before = kern.launches
+    assert probe_walls.run_probe(name, cuda)
+    assert kern.launches == before + 1

@@ -197,6 +197,13 @@ CASES = {
     "convt-rank": (lambda w: tak.ae_convt(w, _specs(32, 64, 32, dtype=torch.bfloat16), 2), ValueError),
     "tile-out-shape": (lambda w: tak.ae_tile_out(w, _specs(6, 32, 128, 128, dtype=torch.bfloat16), 3), ValueError),
     "tile-out-batch": (lambda w: tak.ae_tile_out(w, _specs(5, 32, 256, 128, dtype=torch.bfloat16), 3), ValueError),
+    "stft-tf-dtype": (lambda w: tsf.stft_tf_log(torch.zeros(2, SP.n_samples, dtype=torch.float64), SP), TypeError),
+    "stft-tf-short": (lambda w: tsf.stft_tf_log(torch.zeros(2, SP.n_samples - 1), SP), ValueError),
+    "tile-in-norm-layout": (lambda w: tak.ae_tile_in_norm(w, _specs(2, 257, 384), *_mm(2), 3, "ff"), ValueError),
+    "tile-in-norm-dtype": (lambda w: tak.ae_tile_in_norm(w, _specs(2, 257, 384, dtype=torch.bfloat16), *_mm(2), 3, "ft"), TypeError),
+    "tile-in-norm-frames": (lambda w: tak.ae_tile_in_norm(w, _specs(2, 383, 257), *_mm(2), 3, "tf"), ValueError),
+    "tile-in-norm-freqs": (lambda w: tak.ae_tile_in_norm(w, _specs(2, 384, 255), *_mm(2), 3, "tf"), ValueError),
+    "tile-in-norm-minmax": (lambda w: tak.ae_tile_in_norm(w, _specs(2, 257, 384), *_mm(3), 3, "ft"), ValueError),
     "train-in-dtype": (lambda w: ttk.ae_train_in(_tw(), _specs(2, 256, 128, dtype=torch.bfloat16)), TypeError),
     "train-in-pre-dtype": (lambda w: ttk.ae_train_in(_tw(), _specs(2, 256, 128), pre=True), TypeError),
     "train-in-shape": (lambda w: ttk.ae_train_in(_tw(), _specs(2, 128, 128)), ValueError),
@@ -216,6 +223,10 @@ CASES = {
 def _tw():
     return ttk.build_train_weights(
         make_model(ModelConfig(), generator=torch.Generator().manual_seed(0)), torch.bfloat16)
+
+
+def _mm(c):
+    return torch.zeros(c, 1), torch.ones(c, 1)
 
 
 def _bf(*shape):
