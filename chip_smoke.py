@@ -33,7 +33,7 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    chain, the twins' backward on their own forward and on the kernels'
    (the pool windows and relu gates the forwards gate differently are
    counted); the kernels' loss and gradients against torch autograd of
-   the module;
+   the module; two runs of a bf16 step bit for bit;
 9. ``train.fit`` on the reference recipe: 3 epochs on the kernel engine
    (bf16, K5), 1 epoch of K5 and 1 of K5b (``pre_layout=True``) from the
    same weights, which must agree bit for bit, then 3 epochs on the
@@ -44,7 +44,8 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    tiles/s and the peak memory of a step for each engine;
 11. phases 8-10 for deep3 (K7): its stages against their twins on one
    128-tile batch in bf16 and float32, (64, 32, 64)/k7 and (48, 48, 64)/k3
-   on 4 tiles, the whole chains, gradients against autograd; 2 epochs of
+   on 4 tiles, the whole chains, gradients against autograd, two runs of
+   a step bit for bit; 2 epochs of
    ``fit`` on the kernel engine (bf16) and on autograd (float32) from the
    same weights, gated on the loss curve; the timings.
 12. (run after phase 5) the service's other STFT fronts on the flagship:
@@ -95,8 +96,8 @@ from specenh_torch import train as TR
 
 N_CHANNELS = 20
 SEED = 0
-# K1: float32 FMA in another order than cuBLAS; near psd*w ~ eps a relative
-# error of the DFT sum shows up as an absolute error of the log.
+# K1: a float32 FFT against the twin's float64 DFT; near psd*w ~ eps a
+# relative error of the transform shows up as an absolute error of the log.
 TOL_LOGPSD = 2e-3
 TOL_SPECS = 5e-4
 # Stages in bf16 round their outputs where the plain twin does; a sum on
@@ -393,8 +394,7 @@ def time_stft(sp, gpu, traces, tf=False):
     """Phases 5 and 12e, K1 in the (F, T) or the (T, F) layout: the kernel,
     its twin, ``torch.stft`` and the bound.  K1's function needs no more
     than an FFT's work per frame: detrend and window (~7 n), a real FFT
-    (2.5 n log2 n), the PSD, its log and the min/max (~6 per bin); the
-    kernel's dense DFT GEMM is its own choice."""
+    (2.5 n log2 n), the PSD, its log and the min/max (~6 per bin)."""
     c, nf, n = traces.shape[0], sp.n_freqs_onesided, sp.nperseg
     window = torch.hamming_window(sp.nperseg, periodic=True, device=traces.device)
     ops = c * sp.n_frames * (7 * n + 2.5 * n * np.log2(n) + 6 * nf)
@@ -880,6 +880,24 @@ def train_runs(dev, cfg, data, epochs):
     return launches
 
 
+def wg_rows(w, i, hw) -> int:
+    """Partial rows per tile of layer i's weight gradient (its row groups)."""
+    k, convt = w.k(i), w.is_convt(i)
+    stride, off = (2, convt_pad_before(k)) if convt else (1, k // 2)
+    return TK.wgrad_plan(w.w[i].shape[0], w.cout(i), k, *hw, stride, off, 2).sg
+
+
+def check_repeat(tw, x, y, mask, tag):
+    """Phases 8 and 11: two runs of one step's kernels give the same loss
+    and gradient sums, bit for bit (every cross-block sum is a fixed-order
+    sum of partials; no float atomics)."""
+    a = TK.loss_grad_sums(tw, x, y, mask)
+    b = TK.loss_grad_sums(tw, x, y, mask)
+    same = torch.equal(a[0], b[0]) and all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+    check(same, f"{tag}: two runs of a step differ")
+    log(f"{tag}: two runs of a step give the same loss and gradient sums, bit for bit")
+
+
 def time_training(gpu, cfg, data, tw, st):
     """Phases 10 and 11: each training kernel over its launches in a
     128-tile step, its twin, the PyTorch calls that compute the same
@@ -912,7 +930,7 @@ def time_training(gpu, cfg, data, tw, st):
     shapes = [(TK._rows(b, 256, 128, quad=True), 2)]
     shapes += [(TK._rows(b, *act[i].shape[2:], quad=True), act[i].shape[1]) for i in (*enc, o)]
     shapes += [(TK._rows(b, *act[i].shape[2:], quad=False), act[i].shape[1]) for i in dec]
-    shapes += [(b, w.w[i].numel()) for i in range(o + 1)]
+    shapes += [(b * wg_rows(w, i, ins[i].shape[2:]), w.w[i].numel()) for i in range(o + 1)]
     parts = [torch.rand(n, m, device=s["x"].device) for n, m in shapes]
     wg = [(o, act[o], dz[o], None)] + [(i, act[i], dz[i], None) for i in reversed(dec)] \
         + [(i, act[i], dz[i], bits[i]) for i in reversed(enc)]
@@ -1049,6 +1067,7 @@ def train_family(dev, gpu, cfg, data, extra, epochs, value_and_grad, build_train
             check_train_stages(tw, xb[:4], yb[:4], mb[:4], f"{name} {dt}, 4 tiles")
         check_chain(tw, xb[:4], yb[:4], mb[:4], f"{name} f32, 4 tiles")
     check_autograd(model, xb, yb, mb, value_and_grad)
+    check_repeat(tw16, xb, yb, mb, f"depth {cfg.depth} bf16, {BATCH} tiles")
     launches = train_runs(dev, cfg, data, epochs)
     times = time_training(gpu, cfg, data, tw16, tstate)
     for kern, t in times.items():

@@ -12,7 +12,6 @@ the float32 reference the service is gated against.
 
 from __future__ import annotations
 
-import contextlib
 import statistics
 from typing import Callable, List
 
@@ -40,17 +39,6 @@ def _k_tiles(sp: SpecParams, ps: PatchSpec) -> int:
     return k
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """float32 matmuls in float32 on the card (TF32 off) inside the block."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
 def make_enhance_shot_fn(
     cfg: ModelConfig = ModelConfig(),
     sp: SpecParams = SpecParams(),
@@ -73,7 +61,10 @@ def make_enhance_shot_fn(
     ``stft_mode``, the STFT front (the JAX service's values and rules):
 
     - ``"auto"``: K1 in the (F, T) layout (``spectrogram_fused``), then the
-      AE stages; needs nperseg 512 / hop 256.
+      AE stages, for the reference STFT geometry (nperseg 512 / hop 256,
+      ``stft_fused.supported``); for any other geometry the matmul front of
+      ``"xla"``, as the JAX service's ``"auto"`` falls back to its XLA
+      front.
     - ``"fused"``: K1 in the (T, F) layout; the AE's first stage reads the
       raw log-PSD and normalizes it as it loads (``ae_tile_in_norm``, K9's
       route), and the specs output is one transposing pass
@@ -81,8 +72,8 @@ def make_enhance_shot_fn(
       geometry only, else ``NotImplementedError``.
     - ``"fused_ft"``: K1 in the (F, T) layout, forced: bf16 and the
       reference STFT geometry only.  In the port this is ``"auto"``'s path.
-    - ``"xla"``: the plain matmul STFT (``ops.stft.spectrogram``, float32,
-      TF32 off), then the AE stages; any STFT geometry.
+    - ``"xla"``: the plain matmul STFT (``ops.stft.spectrogram``: a
+      float64 matmul, float32 out), then the AE stages; any STFT geometry.
 
     Any other value raises ``ValueError``.
     """
@@ -101,8 +92,7 @@ def make_enhance_shot_fn(
         raise NotImplementedError(
             "stft_mode='fused_ft' needs the kernels serving in bf16 with the "
             f"reference STFT geometry: {sp}, {dtype}")
-    if stft_mode == "auto" and not stft_fused.supported(sp):
-        raise NotImplementedError(f"the STFT kernel needs nperseg=512/hop=256: {sp}")
+    matmul_front = stft_mode == "xla" or not stft_fused.supported(sp)
 
     def prepare(model_or_weights):
         if isinstance(model_or_weights, ae_kernel.AEKernelWeights):
@@ -117,9 +107,8 @@ def make_enhance_shot_fn(
             raw, mn, mx = stft_fused.stft_tf_log(traces, sp)
             return (stft_fused.normalized_specs(raw, mn, mx, sp.n_frames),
                     ae_kernel.ae_kernel_enhance_raw(wts, raw, mn, mx, k_tiles, "tf"))
-        if stft_mode == "xla":
-            with _no_tf32():
-                specs = spectrogram(traces, sp)
+        if matmul_front:
+            specs = spectrogram(traces, sp)
         else:
             specs = stft_fused.spectrogram_fused(traces, sp)
         return specs, ae_kernel.ae_kernel_enhance_specs(wts, specs, k_tiles)
@@ -138,8 +127,9 @@ def enhance_shot_plain(model: ConvAutoencoder, traces: torch.Tensor,
                        sp: SpecParams = SpecParams(),
                        ps: PatchSpec = PatchSpec()):
     """The service from the plain twins, on ``traces``' device: the
-    reference STFT (``torch.matmul``) and the ``nn.Module`` in its own
-    dtype.  On a GPU keep TF32 off for this to be a float32 reference."""
+    reference STFT (a float64 ``torch.matmul``) and the ``nn.Module`` in
+    its own dtype.  On a GPU keep TF32 off for the module to be a float32
+    reference."""
     k_tiles = _k_tiles(sp, ps)
     with torch.no_grad():
         specs = spectrogram(traces, sp)

@@ -56,20 +56,17 @@
 //
 // Design: the forward and input-gradient stages reuse conv_quad_kernel
 // (ae_conv.cuh) with new epilogues, or mirror convt_relu_kernel's
-// thread-per-position register tiling.  The weight gradient is a GEMM over
-// the positions of a tile, one block per (tile, tap): a 64-position chunk
-// of the layer input and of the tap-shifted dz is staged in shared memory,
-// and each thread accumulates a register tile of up to 4 x 4 (ci, co).
-// No tensor cores yet.
+// thread-per-position register tiling.  The weight gradient, most of a step
+// in the first design (one block per (tile, tap), every value loaded
+// K^2 times), is an implicit GEMM over strips of a tile staged once for all
+// taps, on the bf16 tensor cores (mma.sync) or, in float32, on the CUDA
+// cores: see wgrad_kernel.
+
+#include <type_traits>
 
 #include "ae_conv.cuh"
 
 namespace {
-
-constexpr int WT = 256;  // threads of a weight-gradient block
-constexpr int WP = 64;   // positions per shared-memory chunk
-constexpr int WC = 64;   // most channels a weight-gradient block stages
-constexpr int WS = WC * WP / WT;  // most staged values per thread and operand
 
 // conv1 / conv2: bias + relu + 2x2 max pool, plus the routing bits of the
 // window: bit q (q = a * 2 + b for pixel (2m+a, 2n+b)) where that pixel's
@@ -217,92 +214,418 @@ __global__ void __launch_bounds__(NT) convt_dgrad_kernel(
   block_sums<COB>(db, part + ((long long)b * gridDim.x + blockIdx.x) * Cout + co0);
 }
 
-// Weight gradient of one tile and one tap (i, j):
+// Weight gradient of a layer, per tile:
 //   part[b][ci][i][j][co] = sum_{m, n} in[b, ci, m, n] *
 //                           dz[b, co, S*m + OFF - i, S*n + OFF - j]
-// over the layer input's (H, W) grid, dz zero outside its (Hz, Wz) grid.
+// over the layer input's (H, W) grid, dz zero outside its (S*H, S*W) grid.
 // A stride-1 'same' conv is S = 1, OFF = (K-1)/2; the transposed conv is
-// S = 2, OFF = PA.  Threads: tx over co (min(16, Cout)), ty over ci
-// (min(16, Cin)), tp over positions when a side has one channel; each
-// holds NI x NO sums (NI = Cin / 16 or 1, NO = Cout / 16 or 1).
-template <int NI, int NO, class SrcIn, class SrcDz>
-__global__ void __launch_bounds__(WT) wgrad_kernel(
-    SrcIn in, SrcDz dz, float* __restrict__ part, int Cin, int Cout, int H,
-    int W, int Hz, int Wz, int K, int S, int OFF) {
-  __shared__ float si[WC][WP + 1];
-  __shared__ float sd[WC][WP + 1];
-  const int tap = blockIdx.y, ti = tap / K, tj = tap % K, b = blockIdx.z;
-  const int txd = min(16, Cout), tyd = min(16, Cin), tpd = WT / (txd * tyd);
-  const int t = threadIdx.x, tx = t % txd, ty = (t / txd) % tyd,
-            tp = t / (txd * tyd);
-  const int npos = H * W;
-  const auto tin = in.tile(b);
-  const auto tdz = dz.tile(b);
+// S = 2, OFF = PA.  As a GEMM over the positions p of a grid:
+//   D[(t, tap), c] = sum_p T[t][p + shift(tap)] * P[c][p]
+// - S = 1: p runs over dz's grid (the input's), P = dz (c = co; routed from
+//   the pooled gradient and its bits for the encoder convs), T = the input
+//   (t = ci), shifted by (i - OFF, j - OFF);
+// - S = 2: p runs over the input's grid, P = the input (c = ci), T = dz
+//   (t = co) as its four phase planes dz[2u + ry][2v + rx]: tap (i, j) reads
+//   plane ((OFF - i) & 1, (OFF - j) & 1) shifted by (floor((OFF - i) / 2),
+//   floor((OFF - j) / 2)).
+// T is zero outside its planes' (H, W) grid: the 'same' padding.
+//
+// A block owns one tile b, one group sg of its rows (the partial row
+// b * sg_count + sg), and one slice of D's rows (t, tap), at most
+// gm * mw * 16 of them.  It walks its rows of the grid in strips of R rows.
+// For each strip it stages, in shared memory and in the kernel dtype, the
+// T channels its slice reads, with the halo of the taps (hlo .. hhi rows and
+// columns; zeros outside the grid), and the strip of P (routed dz decoded
+// from its bits here, once); then every tap of the slice is computed from
+// shared memory.  Each staged value serves all the taps the block computes.
+//
+// The 8 warps split the slice's 16-row fragments (gm groups of mw) and the
+// strip's positions (gp = 8 / gm groups of 16-position steps).  bf16: each
+// step is mma.sync.m16n8k16 (bf16 -> fp32) on fragments gathered from the
+// staged strips with 32-bit loads (a pair of positions that starts at an
+// odd column of a shifted window: two loads and a byte permute).  float32:
+// the same fragments' elements by fmaf on the CUDA cores (no TF32).
+// Staging moves 16-byte chunks (T's rows start at a multiple of 8 columns,
+// xs0, so that the halo columns are whole chunks of zeros).  Padding of the
+// MMA: conv 0 (one input channel) has K^2 rows of D in whole 16-row
+// fragments, 9 of 16 (44 % padding) at k3, 25 of 32 (22 %) at k5, 49 of 64
+// (23 %) at k7; the out-conv (one output channel) has one of each 8
+// columns (88 % padding).
+// No float atomics: each thread sums its positions in a fixed order over
+// the strips, the gp position groups are summed in order through shared
+// memory, and ae_train_sum adds the partial rows in order.  The row groups
+// also bound how many steps one accumulator takes (wgrad_plan): the error
+// of the tensor cores' float32 accumulation grows with the chain.
+constexpr int WG_WARPS = 8;
+constexpr int WG_NT = 32 * WG_WARPS;
 
-  float acc[NI][NO];
-#pragma unroll
-  for (int u = 0; u < NI; ++u)
-#pragma unroll
-    for (int v = 0; v < NO; ++v) acc[u][v] = 0.f;
+// The most M fragments a warp holds with NP column fragments of 8: at most
+// 64 accumulators a thread.
+template <int NP>
+struct WgShape {
+  static constexpr int MW = NP <= 4 ? 4 : 2;
+};
 
-  // A thread stages one position of each chunk, pp = t % WP, for the
-  // channels t / WP + k * (WT / WP): the position's index math once per
-  // chunk, and the loads of the unrolled loop in flight together.
-  constexpr int CSTEP = WT / WP;
-  const int pp0 = t % WP, c0 = t / WP;
-  for (int p0 = 0; p0 < npos; p0 += WP) {
-    const int pos = p0 + pp0, m = pos / W, n = pos % W;
-    const int y = S * m + OFF - ti, x = S * n + OFF - tj;
-    const bool in_ok = pos < npos;
-    const bool dz_ok = in_ok && y >= 0 && y < Hz && x >= 0 && x < Wz;
-    __syncthreads();
+struct WgGeom {
+  int Ct, Cp, K, H, W;  // T's and P's channels, taps per side, the grid
+  int S, OFF, nph;      // stride, offset, T planes per channel (1 or 4)
+  int hlo, hhi;         // the taps' shifts span hlo .. hhi (rows and columns)
+  int R, sg, mw, gm;    // strip rows, row groups, fragments a warp, warp groups
+  int M, RT, xs0, NC, LDT, PCS, tmax;  // D's rows; T strip rows, first
+                                       // column, 8-column chunks a row, row
+                                       // stride; P's channel stride; T
+                                       // channels a block
+};
+
+// Tap (i, j) -> T plane and shift (see above).
+__host__ __device__ inline void wg_tap(int tap, int K, int S, int OFF,
+                                       int& plane, int& dy, int& dx) {
+  const int i = tap / K, j = tap % K;
+  if (S == 1) {
+    plane = 0;
+    dy = i - OFF;
+    dx = j - OFF;
+    return;
+  }
+  const int a = OFF - i, c = OFF - j, ry = a & 1, rx = c & 1;
+  plane = ry * 2 + rx;
+  dy = (a - ry) / 2;
+  dx = (c - rx) / 2;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 8 consecutive values at p (16-byte aligned) as float, and 8 floats
+// stored at p (16-byte aligned) in T, rounded to nearest.
+__device__ __forceinline__ void wg_load8(const __nv_bfloat16* p, float* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
-    for (int k = 0; k < WS; ++k) {
-      const int c = c0 + k * CSTEP;
-      if (c < Cin) si[c][pp0] = in_ok ? tin.at(c).load(m, n) : 0.f;
-      if (c < Cout) sd[c][pp0] = dz_ok ? tdz.at(c).load(y, x) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int pp = tp; pp < WP; pp += tpd) {
-      float a[NI], d[NO];
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void wg_load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 c = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+}
+__device__ __forceinline__ void wg_store8(__nv_bfloat16* p, const float* v) {
+  uint4 q;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
 #pragma unroll
-      for (int u = 0; u < NI; ++u) a[u] = si[ty + tyd * u][pp];
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = q;
+}
+__device__ __forceinline__ void wg_store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// T source: (B, C, Hs, Ws) in TIN (T's values rounded to T as they are
+// staged); rows 16-byte aligned (Ws a multiple of 16).
+template <typename TIN>
+struct WgPlaneT {
+  const TIN* p;
+  int C, Hs, Ws;
+  __device__ __forceinline__ const TIN* row(int b, int c, int y) const {
+    return p + (((long long)b * C + c) * Hs + y) * Ws;
+  }
+};
+
+// Stages go 8 values (16 bytes) at a time, 2 units a thread in flight: all
+// loads of a round before its stores.
+constexpr int WG_U = 2;
+
+// P source: (B, Cp, H, W) in T, copied.
+template <typename T>
+struct WgPlainP {
+  const T* p;
+  __device__ __forceinline__ void stage(T* ps, const WgGeom& g, int b, int y0) const {
+    const int nc = g.W / 8, total = g.Cp * g.R * nc;
+    for (int e0 = threadIdx.x; e0 < total; e0 += WG_NT * WG_U) {
+      float v[WG_U][8];
 #pragma unroll
-      for (int v = 0; v < NO; ++v) d[v] = sd[tx + txd * v][pp];
+      for (int u = 0; u < WG_U; ++u) {
+        const int e = e0 + u * WG_NT, c = e / (g.R * nc), q = e % (g.R * nc);
+        if (e < total)
+          wg_load8(p + (((long long)b * g.Cp + c) * g.H + y0) * g.W + q * 8, v[u]);
+      }
 #pragma unroll
-      for (int u = 0; u < NI; ++u)
-#pragma unroll
-        for (int v = 0; v < NO; ++v) acc[u][v] = fmaf(a[u], d[v], acc[u][v]);
+      for (int u = 0; u < WG_U; ++u) {
+        const int e = e0 + u * WG_NT, c = e / (g.R * nc), q = e % (g.R * nc);
+        if (e < total) wg_store8(ps + c * g.PCS + q * 8, v[u]);
+      }
     }
   }
-  if (tpd > 1) {  // then NI * NO <= 4: sum the tp slices in order
-    static_assert(NI * NO * WT <= WC * (WP + 1), "the sums fit in si");
-    float* red = &si[0][0];
+};
+
+// P source: dz routed from the pooled gradient v (B, Cp, H/2, W/2) and its
+// bits (RouteSrc's encoding), each pooled value and its bits read once.
+template <typename T>
+struct WgRouteP {
+  const T* v;
+  const uint8_t* bits;
+  __device__ __forceinline__ void stage(T* ps, const WgGeom& g, int b, int y0) const {
+    const int hh = g.H / 2, nc = g.W / 16, rows = g.R / 2, total = g.Cp * rows * nc;
+    for (int e0 = threadIdx.x; e0 < total; e0 += WG_NT * WG_U) {
+      float val[WG_U][8];
+      uint2 m[WG_U];
+#pragma unroll
+      for (int u = 0; u < WG_U; ++u) {
+        const int e = e0 + u * WG_NT, c = e / (rows * nc), q = e % (rows * nc);
+        const long long o =
+            (((long long)b * g.Cp + c) * hh + y0 / 2 + q / nc) * (g.W / 2) + (q % nc) * 8;
+        if (e < total) {
+          wg_load8(v + o, val[u]);
+          m[u] = *reinterpret_cast<const uint2*>(bits + o);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < WG_U; ++u) {
+        const int e = e0 + u * WG_NT, c = e / (rows * nc), q = e % (rows * nc);
+        if (e >= total) continue;
+        T* d = ps + c * g.PCS + 2 * (q / nc) * g.W + (q % nc) * 16;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {  // pixel row 2 u + a
+          float out[16];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const unsigned k = ((i < 4 ? m[u].x : m[u].y) >> (8 * (i & 3))) & 0xffu;
+            out[2 * i] = (k >> (2 * a)) & 1u ? val[u][i] : 0.f;
+            out[2 * i + 1] = (k >> (2 * a + 1)) & 1u ? val[u][i] : 0.f;
+          }
+          wg_store8(d + a * g.W, out);
+          wg_store8(d + a * g.W + 8, out + 8);
+        }
+      }
+    }
+  }
+};
+
+// Stage T channels tc0 .. tc0 + ntc - 1 for the strip at row y0: smem
+// (t, plane, r, c) holds T plane value (y0 + hlo + r, xs0 + c), zero outside
+// the grid.  A unit is 8 columns of one plane row (of phase planes: both
+// column phases, from 16 source values of the row).
+template <typename T, class TSrc>
+__device__ __forceinline__ void wg_stage_t(const TSrc& src, T* ts, const WgGeom& g,
+                                           int b, int tc0, int ntc, int y0) {
+  const int ny = g.nph == 4 ? 2 : 1, per = g.RT * ny * g.NC, total = ntc * per;
+  for (int e0 = threadIdx.x; e0 < total; e0 += WG_NT * WG_U) {
+    float v[WG_U][16];
+#pragma unroll
+    for (int u = 0; u < WG_U; ++u) {
+      const int e = e0 + u * WG_NT, t = e / per, q = e % per;
+      const int j = q % g.NC, ry = (q / g.NC) % ny, r = q / (g.NC * ny);
+      const int y = y0 + g.hlo + r, x = g.xs0 + 8 * j;
+      const bool in = e < total && y >= 0 && y < g.H && x >= 0 && x < g.W;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[u][i] = 0.f;
+      if (in) {
+        const auto* row = src.row(b, tc0 + t, ny * y + ry) + ny * x;
+        wg_load8(row, v[u]);
+        if (ny == 2) wg_load8(row + 8, v[u] + 8);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WG_U; ++u) {
+      const int e = e0 + u * WG_NT, t = e / per, q = e % per;
+      if (e >= total) continue;
+      const int j = q % g.NC, ry = (q / g.NC) % ny, r = q / (g.NC * ny);
+      T* d = ts + ((long long)(t * g.nph + ry * 2) * g.RT + r) * g.LDT + 8 * j;
+      if (ny == 1) {
+        wg_store8(d, v[u]);
+      } else {  // deinterleave the column phases
+        float ev[8], od[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          ev[i] = v[u][2 * i];
+          od[i] = v[u][2 * i + 1];
+        }
+        wg_store8(d, ev);
+        wg_store8(d + (long long)g.RT * g.LDT, od);
+      }
+    }
+  }
+}
+
+// The 32-bit word of two bf16 at element offset e of s (e even: one
+// aligned load; e odd: two, and the middle half-words).
+__device__ __forceinline__ uint32_t wg_pair(const uint32_t* s, int e) {
+  const uint32_t lo = s[e >> 1];
+  if (!(e & 1)) return lo;
+  return __byte_perm(lo, s[(e >> 1) + 1], 0x5432);
+}
+
+template <typename T, int NP, class TSrc, class PSrc>
+__global__ void __launch_bounds__(WG_NT, 2) wgrad_kernel(TSrc tsrc, PSrc psrc,
+                                                          float* __restrict__ part,
+                                                          WgGeom g) {
+  constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int MW = WgShape<NP>::MW;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  T* ts = reinterpret_cast<T*>(wg_smem);
+  T* ps = ts + (long long)g.tmax * g.nph * g.RT * g.LDT;
+
+  const int KK = g.K * g.K;
+  const int sgi = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * g.gm * g.mw * 16;
+  const int row1 = min(g.M, row0 + g.gm * g.mw * 16);
+  const int tc0 = row0 / KK, ntc = (row1 - 1) / KK + 1 - tc0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int gp = WG_WARPS / g.gm, gmi = warp / gp, gpi = warp % gp;
+  const int wrow0 = row0 + gmi * g.mw * 16;  // this warp's first row of D
+
+  // The smem offset of each of the thread's two rows (gq, gq + 8) per
+  // fragment, at position (0, 0) of the strip; rows past the slice read 0.
+  int off[MW][2];
+#pragma unroll
+  for (int f = 0; f < MW; ++f)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wrow0 + f * 16 + gq + 8 * h;
+      off[f][h] = 0;
+      if (f < g.mw && row < row1) {
+        int plane, dy, dx;
+        wg_tap(row % KK, g.K, g.S, g.OFF, plane, dy, dx);
+        off[f][h] = ((row / KK - tc0) * g.nph + plane) * g.RT * g.LDT +
+                    (dy - g.hlo) * g.LDT + dx - g.xs0;
+      }
+    }
+
+  float acc[MW][NP][4];
+#pragma unroll
+  for (int f = 0; f < MW; ++f)
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[f][n][q] = 0.f;
+
+  const bool busy = wrow0 < row1;
+  const int rows = g.H / g.sg, kw = g.W / 16, nks = g.R * kw;
+  for (int y0 = sgi * rows; y0 < (sgi + 1) * rows; y0 += g.R) {
+    __syncthreads();
+    wg_stage_t<T>(tsrc, ts, g, b, tc0, ntc, y0);
+    psrc.stage(ps, g, b, y0);
+    __syncthreads();
+    if (!busy) continue;
+    for (int ks = gpi; ks < nks; ks += gp) {
+      const int yl = ks / kw, x0 = (ks % kw) * 16;
+      if constexpr (MMA) {
+        const uint32_t* t32 = reinterpret_cast<const uint32_t*>(ts);
+        const uint32_t* p32 = reinterpret_cast<const uint32_t*>(ps);
+        uint32_t bq[NP][2];
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          const int o = (min(n * 8 + gq, g.Cp - 1) * g.PCS + yl * g.W + x0 + 2 * tq) >> 1;
+          bq[n][0] = p32[o];
+          bq[n][1] = p32[o + 4];
+        }
+        const int base = yl * g.LDT + x0 + 2 * tq;
+#pragma unroll
+        for (int f = 0; f < MW; ++f) {
+          if (f >= g.mw) break;
+          const uint32_t a0 = wg_pair(t32, off[f][0] + base);
+          const uint32_t a1 = wg_pair(t32, off[f][1] + base);
+          const uint32_t a2 = wg_pair(t32, off[f][0] + base + 8);
+          const uint32_t a3 = wg_pair(t32, off[f][1] + base + 8);
+#pragma unroll
+          for (int n = 0; n < NP; ++n) mma_bf16(acc[f][n], a0, a1, a2, a3, bq[n][0], bq[n][1]);
+        }
+      } else {
+        const float* tf = reinterpret_cast<const float*>(ts);
+        const float* pf = reinterpret_cast<const float*>(ps);
+        int pc[NP][2];
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            pc[n][e] = min(n * 8 + 2 * tq + e, g.Cp - 1) * g.PCS + yl * g.W + x0;
+        const int base = yl * g.LDT + x0;
+#pragma unroll 4
+        for (int k = 0; k < 16; ++k) {
+          float bv[NP][2];
+#pragma unroll
+          for (int n = 0; n < NP; ++n) {
+            bv[n][0] = pf[pc[n][0] + k];
+            bv[n][1] = pf[pc[n][1] + k];
+          }
+#pragma unroll
+          for (int f = 0; f < MW; ++f) {
+            if (f >= g.mw) break;
+            const float a0 = tf[off[f][0] + base + k], a1 = tf[off[f][1] + base + k];
+#pragma unroll
+            for (int n = 0; n < NP; ++n) {
+              acc[f][n][0] = fmaf(a0, bv[n][0], acc[f][n][0]);
+              acc[f][n][1] = fmaf(a0, bv[n][1], acc[f][n][1]);
+              acc[f][n][2] = fmaf(a1, bv[n][0], acc[f][n][2]);
+              acc[f][n][3] = fmaf(a1, bv[n][1], acc[f][n][3]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (gp > 1) {  // the position groups' sums, in order
+    float* red = reinterpret_cast<float*>(wg_smem);
     __syncthreads();
 #pragma unroll
-    for (int u = 0; u < NI; ++u)
+    for (int f = 0; f < MW; ++f)
 #pragma unroll
-      for (int v = 0; v < NO; ++v) red[(u * NO + v) * WT + t] = acc[u][v];
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          red[(((warp * MW + f) * NP + n) * 4 + q) * 32 + lane] = acc[f][n][q];
     __syncthreads();
-    if (tp == 0) {
+    if (gpi == 0) {
 #pragma unroll
-      for (int u = 0; u < NI; ++u)
+      for (int f = 0; f < MW; ++f)
 #pragma unroll
-        for (int v = 0; v < NO; ++v) {
-          float s = 0.f;
-          for (int q = 0; q < tpd; ++q) s += red[(u * NO + v) * WT + t + q * txd * tyd];
-          acc[u][v] = s;
+        for (int n = 0; n < NP; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float s = 0.f;
+            for (int w = 0; w < gp; ++w)
+              s += red[((((gmi * gp + w) * MW + f) * NP + n) * 4 + q) * 32 + lane];
+            acc[f][n][q] = s;
+          }
+    }
+  }
+  if (gpi != 0 || !busy) return;
+  const int cout = g.S == 1 ? g.Cp : g.Ct;
+  float* prow = part + ((long long)b * g.sg + sgi) * g.M * g.Cp;
+#pragma unroll
+  for (int f = 0; f < MW; ++f) {
+    if (f >= g.mw) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wrow0 + f * 16 + gq + 8 * h;
+      if (row >= row1) continue;
+      const int t = row / KK, tap = row % KK;
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * tq + e;
+          if (col >= g.Cp) continue;
+          const int ci = g.S == 1 ? t : col, co = g.S == 1 ? col : t;
+          prow[((long long)ci * KK + tap) * cout + co] = acc[f][n][h * 2 + e];
         }
     }
   }
-  if (tp != 0) return;
-#pragma unroll
-  for (int u = 0; u < NI; ++u)
-#pragma unroll
-    for (int v = 0; v < NO; ++v)
-      part[(((long long)b * Cin + ty + tyd * u) * K * K + tap) * Cout + tx + txd * v] =
-          acc[u][v];
 }
 
 // out[c] = sum over the n rows of part (n, m), in a fixed order: one block
@@ -322,45 +645,76 @@ __global__ void __launch_bounds__(256) sum_rows_kernel(
   if (threadIdx.x == 0) out[col] = red[0];
 }
 
-bool wgrad_channels_ok(int c) { return c == 1 || (c % 16 == 0 && c <= WC); }
-
-// One register tile NI x NO, NO chosen at run time.
-template <int NI, class SrcIn, class SrcDz>
-int launch_wgrad_ni(SrcIn in, SrcDz dz, float* part, int no, dim3 grid,
-                    int Cin, int Cout, int H, int W, int Hz, int Wz, int K,
-                    int S, int OFF, cudaStream_t st) {
-#define SX_NO(NO_)                                                          \
-  case NO_:                                                                 \
-    wgrad_kernel<NI, NO_, SrcIn, SrcDz><<<grid, WT, 0, st>>>(               \
-        in, dz, part, Cin, Cout, H, W, Hz, Wz, K, S, OFF);                  \
-    return cudaGetLastError();
-  switch (no) { SX_NO(1) SX_NO(2) SX_NO(3) SX_NO(4) }
-#undef SX_NO
-  return cudaErrorInvalidValue;
+// The rest of a launch's geometry from (Ct, Cp, K, H, W, S, OFF) and the
+// plan (R, sg, mw, gm); returns the dynamic shared memory it needs, or -1
+// for a geometry or plan the kernel does not take.  ops/ae_train_kernel.py
+// (wgrad_plan) chooses the plan with the same sizes.
+inline long long wg_geometry(WgGeom& g, int item, int mw_max) {
+  if (g.K < 1 || g.K > 7 || g.Ct < 1 || g.Cp < 1 || g.Cp > 64 || g.W % 16 != 0 ||
+      g.R < 2 || g.R % 2 != 0 || g.sg < 1 || g.H % (g.sg * g.R) != 0 || g.mw < 1 ||
+      g.mw > mw_max || (g.gm != 1 && g.gm != 2 && g.gm != 4 && g.gm != 8) ||
+      (g.S != 1 && g.S != 2))
+    return -1;
+  g.nph = g.S == 2 ? 4 : 1;
+  g.hlo = 1 << 20;
+  g.hhi = -(1 << 20);
+  for (int i = 0; i < g.K; ++i) {  // rows and columns shift alike
+    int plane, dy, dx;
+    wg_tap(i * g.K + i, g.K, g.S, g.OFF, plane, dy, dx);
+    g.hlo = min(g.hlo, dy);
+    g.hhi = max(g.hhi, dy);
+  }
+  g.M = g.Ct * g.K * g.K;
+  g.RT = g.R + g.hhi - g.hlo;
+  // T rows start at the multiple of 8 columns at or left of hlo, so that 8
+  // columns are one aligned 16-byte chunk of the source row; row and channel
+  // strides are 4 words past a multiple of 8 (of 32 for P's channels), so
+  // that the fragment loads of 8 rows or channels spread over the banks
+  g.xs0 = g.hlo >= 0 ? 0 : -8 * ((7 - g.hlo) / 8);
+  g.NC = (g.W + g.hhi - g.xs0 + 7) / 8;
+  g.LDT = 8 * g.NC + (item == 2 ? (g.NC % 2 == 0 ? 8 : 0) : 4);
+  const int wpe = item == 2 ? 2 : 1;  // elements per 4-byte word
+  const int words = g.R * g.W / wpe;
+  g.PCS = (words + (36 - words % 32) % 32) * wpe;
+  const int rows = g.gm * g.mw * 16, kk = g.K * g.K;
+  g.tmax = min(g.Ct, (rows - 1) / kk + 2);
+  const long long stage =
+      ((long long)g.tmax * g.nph * g.RT * g.LDT + (long long)g.Cp * g.PCS) * item;
+  const int np = (g.Cp + 7) / 8;
+  const long long red = g.gm < WG_WARPS ? (long long)WG_NT * mw_max * np * 4 * 4 : 0;
+  return max(stage, red);
 }
 
-// The register tiles: NI, NO = channels / 16 (16 to 64 channels) or 1 (one
-// channel), each 1..4, every pair of which some depth-2 or depth-3
-// geometry runs (the 48-channel filters give 3).  MAXNI bounds NI where the
-// caller reads one input channel (conv 0's tiles), so that only the tiles
-// it can run are instantiated.
-template <int MAXNI, class SrcIn, class SrcDz>
-int launch_wgrad(SrcIn in, SrcDz dz, float* part, int B, int Cin, int Cout,
-                 int H, int W, int Hz, int Wz, int K, int S, int OFF,
-                 cudaStream_t st) {
-  if (!wgrad_channels_ok(Cin) || !wgrad_channels_ok(Cout) || B < 1 ||
-      B > 65535 || K < 1 || K > 7)
+template <typename T, int NP, class TSrc, class PSrc>
+int launch_wgrad_np(TSrc ts, PSrc ps, float* part, int B, WgGeom g, cudaStream_t st) {
+  const long long smem = wg_geometry(g, sizeof(T), WgShape<NP>::MW);
+  const int slices = (g.Ct * g.K * g.K + g.gm * g.mw * 16 - 1) / (g.gm * g.mw * 16);
+  if (smem < 0 || smem > 227 * 1024 || B < 1 || B > 65535 || slices > 65535)
     return cudaErrorInvalidValue;
-  const int ni = Cin / min(16, Cin), no = Cout / min(16, Cout);
-  const dim3 grid(1, K * K, B);
-#define SX_NI(NI_)                                                          \
-  case NI_:                                                                 \
-    if constexpr (NI_ <= MAXNI)                                             \
-      return launch_wgrad_ni<NI_>(in, dz, part, no, grid, Cin, Cout, H, W,  \
-                                  Hz, Wz, K, S, OFF, st);                   \
-    break;
-  switch (ni) { SX_NI(1) SX_NI(2) SX_NI(3) SX_NI(4) }
-#undef SX_NI
+  auto kern = wgrad_kernel<T, NP, TSrc, PSrc>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(slices, g.sg, B), WG_NT, smem, st>>>(ts, ps, part, g);
+  return cudaGetLastError();
+}
+
+// Column fragments NP = ceil(Cp / 8): 1 for the out-conv's one channel
+// (ONE), else 2, 4, 6 or 8 (16 to 64 channels): only the tiles some
+// geometry runs are instantiated.
+template <typename T, bool ONE, class TSrc, class PSrc>
+int launch_wgrad(TSrc ts, PSrc ps, float* part, int B, WgGeom g, cudaStream_t st) {
+  const int np = (g.Cp + 7) / 8;
+  if constexpr (ONE) {
+    if (np == 1) return launch_wgrad_np<T, 1>(ts, ps, part, B, g, st);
+  } else {
+    switch (np) {
+      case 2: return launch_wgrad_np<T, 2>(ts, ps, part, B, g, st);
+      case 4: return launch_wgrad_np<T, 4>(ts, ps, part, B, g, st);
+      case 6: return launch_wgrad_np<T, 6>(ts, ps, part, B, g, st);
+      case 8: return launch_wgrad_np<T, 8>(ts, ps, part, B, g, st);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -423,15 +777,21 @@ int dgrad_convt(const void* dz, const void* w, const void* gate, void* out,
 
 template <typename T>
 int wgrad(const void* in, const void* dz, const uint8_t* dz_bits, float* part,
-          int B, int Cin, int Cout, int H, int W, int Hz, int Wz, int K,
-          int S, int OFF, cudaStream_t st) {
-  const PlaneSrc<T, T> src{static_cast<const T*>(in), nchw(Cin, H, W)};
+          int B, int Cin, int Cout, int H, int W, int Hz, int Wz, int K, int S,
+          int OFF, int R, int sg, int mw, int gm, cudaStream_t st) {
+  if (Hz != S * H || Wz != S * W) return cudaErrorInvalidValue;
+  const auto* i = static_cast<const T*>(in);
   const auto* d = static_cast<const T*>(dz);
+  if (S == 2) {  // T = dz's phase planes, P = the input
+    const WgGeom g{Cout, Cin, K, H, W, S, OFF, 0, 0, 0, R, sg, mw, gm};
+    return launch_wgrad<T, false>(WgPlaneT<T>{d, Cout, Hz, Wz}, WgPlainP<T>{i},
+                                  part, B, g, st);
+  }
+  const WgGeom g{Cin, Cout, K, H, W, S, OFF, 0, 0, 0, R, sg, mw, gm};
+  const WgPlaneT<T> src{i, Cin, H, W};
   if (dz_bits == nullptr)
-    return launch_wgrad<4>(src, PlaneSrc<T, T>{d, nchw(Cout, Hz, Wz)}, part,
-                           B, Cin, Cout, H, W, Hz, Wz, K, S, OFF, st);
-  return launch_wgrad<4>(src, RouteSrc<T>{d, dz_bits, Cout, Hz / 2, Wz / 2},
-                         part, B, Cin, Cout, H, W, Hz, Wz, K, S, OFF, st);
+    return launch_wgrad<T, true>(src, WgPlainP<T>{d}, part, B, g, st);
+  return launch_wgrad<T, false>(src, WgRouteP<T>{d, dz_bits}, part, B, g, st);
 }
 
 }  // namespace
@@ -531,30 +891,34 @@ extern "C" int ae_train_dgrad_convt(const void* dz, const void* w,
                                              Cz, Cout, H, W, K, st)));
 }
 
-// Weight gradient partials, part (B, Cin, K, K, Cout) float32: in
-// (B, Cin, H, W) in dtype; dz (B, Cout, Hz, Wz) in dtype, or routed from
-// (B, Cout, Hz/2, Wz/2) values and dz_bits; S / OFF as wgrad_kernel.
+// Weight gradient partials, part (B * sg, Cin, K, K, Cout) float32, one row
+// per (tile, row group): in (B, Cin, H, W) in dtype; dz (B, Cout, Hz, Wz)
+// in dtype, or routed from (B, Cout, Hz/2, Wz/2) values and dz_bits; S /
+// OFF as wgrad_kernel; R, sg, mw, gm the plan (ops/ae_train_kernel.py
+// wgrad_plan).
 extern "C" int ae_train_wgrad(const void* in, const void* dz,
                               const uint8_t* dz_bits, float* part, int dtype,
                               int B, int Cin, int Cout, int H, int W, int Hz,
-                              int Wz, int K, int S, int OFF, void* stream) {
+                              int Wz, int K, int S, int OFF, int R, int sg,
+                              int mw, int gm, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   SX_DTYPE(dtype, (wgrad<T>(in, dz, dz_bits, part, B, Cin, Cout, H, W, Hz,
-                            Wz, K, S, OFF, st)));
+                            Wz, K, S, OFF, R, sg, mw, gm, st)));
 }
 
 // conv1's weight gradient partials (K5): x (B, H, W) float32 tiles rounded
 // to dtype as loaded, dz routed from (B, Cout, H/2, W/2) and dz_bits.
 extern "C" int ae_train_wgrad_x(const float* x, const void* dz,
                                 const uint8_t* dz_bits, float* part, int dtype,
-                                int B, int Cout, int H, int W, int K,
-                                void* stream) {
+                                int B, int Cout, int H, int W, int K, int R,
+                                int sg, int mw, int gm, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dz_bits == nullptr) return cudaErrorInvalidValue;
-  SX_DTYPE(dtype, (launch_wgrad<1>(
-                      PlaneSrc<float, T>{x, nchw(1, H, W)},
-                      RouteSrc<T>{static_cast<const T*>(dz), dz_bits, Cout, H / 2, W / 2},
-                      part, B, 1, Cout, H, W, H, W, K, 1, (K - 1) / 2, st)));
+  const WgGeom g{1, Cout, K, H, W, 1, (K - 1) / 2, 0, 0, 0, R, sg, mw, gm};
+  SX_DTYPE(dtype, (launch_wgrad<T, false>(
+                      WgPlaneT<float>{x, 1, H, W},
+                      WgRouteP<T>{static_cast<const T*>(dz), dz_bits}, part,
+                      B, g, st)));
 }
 
 // out (m,) = the sum of part's n rows (n, m), float32.

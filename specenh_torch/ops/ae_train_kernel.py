@@ -58,6 +58,7 @@ __all__ = [
     "ae_train_sum", "ae_train_in_plain", "ae_train_conv_pool_plain",
     "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
     "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
+    "WgradPlan", "wgrad_plan",
     "train_weights", "route_bits", "route_expand",
     "loss_grad_sums", "bce_sum", "normalise",
     "kernel_loss_grad_sums", "kernel_loss_grad_sums_plain",
@@ -80,8 +81,8 @@ TRAIN_LOSS_PRE = CudaKernel("ae_train", "ae_train_loss_pre", [_p] * 8 + [_i] * 7
 DGRAD_CONV = CudaKernel("ae_train", "ae_train_dgrad_conv", [_p] * 6 + [_i] * 8)
 DGRAD_CONVT = CudaKernel("ae_train", "ae_train_dgrad_convt",
                          [_p, _p, _p, _i, _p, _p] + [_i] * 8)
-WGRAD = CudaKernel("ae_train", "ae_train_wgrad", [_p] * 4 + [_i] * 11)
-WGRAD_X = CudaKernel("ae_train", "ae_train_wgrad_x", [_p] * 4 + [_i] * 6)
+WGRAD = CudaKernel("ae_train", "ae_train_wgrad", [_p] * 4 + [_i] * 15)
+WGRAD_X = CudaKernel("ae_train", "ae_train_wgrad_x", [_p] * 4 + [_i] * 10)
 TRAIN_SUM = CudaKernel("ae_train", "ae_train_sum", [_p, _p, _i, _i])
 TRAIN_KERNELS = (TRAIN_IN, TRAIN_IN_PRE, TRAIN_CONV_POOL, TRAIN_LOSS,
                  TRAIN_LOSS_PRE, DGRAD_CONV, DGRAD_CONVT, WGRAD, WGRAD_X,
@@ -454,6 +455,98 @@ def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
     return out, ae_train_sum(part)
 
 
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """How ``csrc/ae_train.cu``'s ``wgrad_kernel`` splits one layer's weight
+    gradient.  The GEMM ``D[(t, tap), c] = sum_p T[t][p + shift(tap)] P[c][p]``
+    (stride 1: T = the input, P = dz; stride 2: T = dz's four phase planes,
+    P = the input) has ``ct * k * k`` rows in 16-row fragments; a block owns
+    one tile, one of ``sg`` groups of its grid rows (one partial row each)
+    and one of ``slices`` slices of ``gm * mw`` fragments, walks its rows in
+    strips of ``rows`` with T's halo ``hlo .. hhi``; its 8 warps are ``gm``
+    groups of ``mw`` fragments times ``8 // gm`` groups of positions."""
+
+    ct: int
+    cp: int
+    k: int
+    stride: int
+    off: int
+    hlo: int
+    hhi: int
+    rows: int
+    sg: int
+    mw: int
+    gm: int
+    slices: int
+
+    def taps(self):
+        """(plane, dy, dx) of each tap, as the kernel's ``wg_tap``."""
+        out = []
+        for tap in range(self.k * self.k):
+            i, j = divmod(tap, self.k)
+            if self.stride == 1:
+                out.append((0, i - self.off, j - self.off))
+            else:
+                a, c = self.off - i, self.off - j
+                out.append(((a & 1) * 2 + (c & 1), a >> 1, c >> 1))
+        return out
+
+
+_WG_WARPS = 8
+_WG_SMEM = 112 * 1024  # a block's shared memory budget: two blocks an SM
+# The most 16-position steps one accumulator takes in a row: the error of
+# the tensor cores' float32 accumulation grows with the length of the chain
+# (a bf16 k7 out-conv gradient, 2048 steps, was 1.1e-4 of its scale off the
+# twin on an H100), so the rows of a tile are split into more groups
+# (partial rows).
+_WG_CHAIN = 128
+
+
+def _wg_bytes(ct, cp, k, h, w, rows, nph, hlo, hhi, gm, mw, item) -> int:
+    """Shared memory of a block, as ``wg_geometry`` in ae_train.cu."""
+    xs0 = hlo // 8 * 8
+    nc = -(-(w + hhi - xs0) // 8)
+    ldt = 8 * nc + ((8 if nc % 2 == 0 else 0) if item == 2 else 4)
+    wpe = 2 if item == 2 else 1
+    words = rows * w // wpe
+    pcs = (words + (36 - words % 32) % 32) * wpe
+    tmax = min(ct, (gm * mw * 16 - 1) // (k * k) + 2)
+    stage = (tmax * nph * (rows + hhi - hlo) * ldt + cp * pcs) * item
+    np_ = -(-cp // 8)
+    red = _WG_WARPS * 32 * (4 if np_ <= 4 else 2) * np_ * 16 if gm < _WG_WARPS else 0
+    return max(stage, red)
+
+
+def wgrad_plan(cin: int, cout: int, k: int, h: int, w: int, stride: int,
+               off: int, item: int) -> WgradPlan:
+    """The weight-gradient kernel's split of a layer whose input grid is
+    (h, w), for operands of ``item`` bytes: warps take up to ``mw``
+    fragments each (at most 64 accumulators a thread), the fragments fill
+    as few warp groups as they can, a tile's rows are split into groups
+    until there are 4 blocks a tile and no accumulator takes more than
+    ``_WG_CHAIN`` steps, and the strips are as tall as the shared memory
+    budget allows."""
+    ct, cp = (cin, cout) if stride == 1 else (cout, cin)
+    mf, np_ = -(-ct * k * k // 16), -(-cp // 8)
+    mw = min(4 if np_ <= 4 else 2, -(-mf // _WG_WARPS))
+    gm = 1
+    while gm < _WG_WARPS and gm * mw < mf:
+        gm *= 2
+    slices = -(-mf // (gm * mw))
+    shifts = [d for _, d, _ in WgradPlan(ct, cp, k, stride, off, 0, 0, 0, 0, 0, 0, 0).taps()]
+    hlo, hhi = min(shifts), max(shifts)
+    gp = _WG_WARPS // gm
+    sg = 1
+    while (slices * sg < 4 or h // sg * w // 16 > _WG_CHAIN * gp) and h % (4 * sg) == 0:
+        sg *= 2
+    nph = 4 if stride == 2 else 1
+    rows = 2
+    while (h % (sg * rows * 2) == 0
+           and _wg_bytes(ct, cp, k, h, w, rows * 2, nph, hlo, hhi, gm, mw, item) <= _WG_SMEM):
+        rows *= 2
+    return WgradPlan(ct, cp, k, stride, off, hlo, hhi, rows, sg, mw, gm, slices)
+
+
 def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
                    dz: torch.Tensor, dz_bits=None, pre: bool = False
                    ) -> torch.Tensor:
@@ -461,7 +554,9 @@ def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
     the batch: ``inp`` is the layer's input (for conv 0 the tiles: float32
     through ``ae_train_wgrad_x``, K5, or with ``pre=True`` in the kernel
     dtype, K5b), ``dz`` the gradient at its output, or for the encoder
-    convs the pooled gradient with its routing bits."""
+    convs the pooled gradient with its routing bits.  On the card the
+    kernel writes one partial row per (tile, row group of ``wgrad_plan``),
+    summed in a fixed order by ``ae_train_sum``."""
     if layer not in range(tw.fwd.out + 1):
         raise ValueError(f"layers are 0..{tw.fwd.out}, not {layer}")
     convt = tw.fwd.is_convt(layer)
@@ -484,17 +579,21 @@ def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
     if not inp.is_cuda:
         return ae_train_wgrad_plain(tw, layer, inp, dz, dz_bits)
     _on_device(inp, tw)
+    if any(t.data_ptr() % 16 for t in (inp, dz, dz_bits) if t is not None):
+        raise ValueError("the weight-gradient kernel reads 16-byte aligned tensors")
     cin = shape[1]
-    part = torch.empty(b, cin * k * k * cout, dtype=torch.float32, device=inp.device)
+    stride, off = (2, convt_pad_before(k)) if convt else (1, k // 2)
+    plan = wgrad_plan(cin, cout, k, h, w, stride, off, tw.dtype.itemsize)
+    part = torch.empty(b * plan.sg, cin * k * k * cout, dtype=torch.float32,
+                       device=inp.device)
     bits = 0 if dz_bits is None else dz_bits.data_ptr()
+    split = (plan.rows, plan.sg, plan.mw, plan.gm)
     if layer == 0 and not pre:
         WGRAD_X(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
-                _DT[tw.dtype], b, cout, h, w, k)
+                _DT[tw.dtype], b, cout, h, w, k, *split)
     else:
-        off = convt_pad_before(k) if convt else k // 2
         WGRAD(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
-              _DT[tw.dtype], b, cin, cout, h, w, hz, wz, k,
-              2 if convt else 1, off)
+              _DT[tw.dtype], b, cin, cout, h, w, hz, wz, k, stride, off, *split)
     return ae_train_sum(part).reshape(cin, k, k, cout)
 
 

@@ -9,11 +9,12 @@ Reference behaviour (spec_denoising/pipeline_data.py:28-36)::
     Sxx = (Sxx - Sxx.min()) / (Sxx.max() - Sxx.min())
     Sxx = Sxx[:-1, :]                      # drop the Nyquist row
 
-The transform is one matmul of the framed signal with a basis built once in
-float64 on the host: per-segment linear detrend (an orthogonal projection)
-x periodic Hamming window x DFT, split into real and imaginary parts.  The
-basis helpers are copies of the JAX package's, so both packages use the same
-float64 numbers.  The min-max normalization runs over all one-sided rows,
+The transform is one float64 matmul of the framed signal with a basis built
+once in float64 on the host: per-segment linear detrend (an orthogonal
+projection) x periodic Hamming window x DFT, split into real and imaginary
+parts; the PSD and its log stay float64 and are rounded to float32 once.
+The basis helpers are copies of the JAX package's, so both packages use the
+same float64 numbers.  The min-max normalization runs over all one-sided rows,
 Nyquist included, and only then drops Nyquist: that is the reference quirk.
 """
 
@@ -34,6 +35,7 @@ __all__ = [
     "psd_weights",
     "frame_signal",
     "stft_psd",
+    "log_psd",
     "spectrogram",
 ]
 
@@ -125,24 +127,34 @@ def frame_signal(x: torch.Tensor, nperseg: int, hop: int) -> torch.Tensor:
     return x.unfold(-1, nperseg, hop)
 
 
-def stft_psd(x: torch.Tensor, sp: SpecParams) -> torch.Tensor:
-    """One-sided PSD, (..., n_freqs_onesided, n_frames), as
-    scipy.signal.spectrogram(mode='psd') with ``sp``'s parameters.  float32
-    matmuls: callers on a GPU keep TF32 off for this to be a reference."""
-    x = x[..., : sp.n_samples].to(torch.float32)
-    frames = frame_signal(x, sp.nperseg, sp.hop)
-    b_real, b_imag, weights = stft_basis(sp, x.device)
+def _psd64(x: torch.Tensor, sp: SpecParams) -> torch.Tensor:
+    """One-sided PSD in float64, (..., n_freqs_onesided, n_frames)."""
+    frames = frame_signal(x[..., : sp.n_samples].double(), sp.nperseg, sp.hop)
+    b_real, b_imag, weights = stft_basis(sp, x.device, torch.float64)
     zr = torch.matmul(frames, b_real)
     zi = torch.matmul(frames, b_imag)
-    psd = (zr * zr + zi * zi) * weights
-    return psd.transpose(-1, -2).contiguous()
+    return ((zr * zr + zi * zi) * weights).transpose(-1, -2)
+
+
+def stft_psd(x: torch.Tensor, sp: SpecParams) -> torch.Tensor:
+    """One-sided PSD, (..., n_freqs_onesided, n_frames) float32, as
+    scipy.signal.spectrogram(mode='psd') with ``sp``'s parameters: float64
+    matmuls, rounded once, so the result does not depend on a BLAS's
+    float32 blocking."""
+    return _psd64(x, sp).float().contiguous()
+
+
+def log_psd(x: torch.Tensor, sp: SpecParams) -> torch.Tensor:
+    """log(PSD + eps), (..., n_freqs_onesided, n_frames) float32, from the
+    float64 PSD and a float64 log, rounded once."""
+    return torch.log(_psd64(x, sp) + sp.eps).float().contiguous()
 
 
 def spectrogram(x: torch.Tensor, sp: SpecParams) -> torch.Tensor:
     """Reference log spectrogram in [0, 1]: (..., >= n_samples) traces ->
     (..., 256, 3905) at the reference geometry, min-max per leading index
     (per channel) over all one-sided rows, then the Nyquist row dropped."""
-    sxx = torch.log(stft_psd(x, sp) + sp.eps)
+    sxx = log_psd(x, sp)
     mn = sxx.amin(dim=(-2, -1), keepdim=True)
     mx = sxx.amax(dim=(-2, -1), keepdim=True)
-    return ((sxx - mn) / (mx - mn))[..., : sp.n_freqs_kept, :]
+    return (sxx[..., : sp.n_freqs_kept, :] - mn) / (mx - mn)

@@ -4,14 +4,17 @@ counterpart of ``specenh.ops.stft_fused``).
 ``stft_ft_log`` returns the raw log-PSD in the natural (F, T) layout with
 the per-channel min/max over the reference's pre-drop normalization domain
 (valid frames, all one-sided rows including Nyquist).  For a CUDA tensor it
-launches ``csrc/stft.cu`` and reduces the kernel's per-block min/max
-partials; for a CPU tensor it runs ``stft_ft_log_plain`` (framing, one
-matmul with the basis, the same epilogue).  ``spectrogram_fused`` adds the
-normalization and the Nyquist drop, a short torch epilogue as in the JAX
-package, where it is XLA outside the kernel.
+launches ``csrc/stft.cu`` (per frame: detrend by mean and slope, window, a
+512-point real FFT as a 256-point complex FFT in shared memory, the log
+epilogue) and reduces the kernel's per-block min/max partials; for a CPU
+tensor it runs ``stft_ft_log_plain`` (``ops.stft.log_psd``: framing, one
+float64 matmul with the detrend x window x DFT basis, the log in float64,
+cast to float32 once: the same values whatever the blocking of a BLAS).
+``spectrogram_fused`` adds the normalization and the Nyquist drop, a short
+torch epilogue as in the JAX package, where it is XLA outside the kernel.
 
 ``stft_tf_log`` is the same kernel writing the (T, F) layout, the front of
-``stft_mode="fused"``: the same sums, so the same bits, transposed.  Its
+``stft_mode="fused"``: the same arithmetic, so the same bits, transposed.  Its
 consumers are ``ae_kernel.ae_tile_in_norm`` (which normalizes as it loads)
 and ``normalized_specs`` (the service's specs output, one transposing
 pass).
@@ -28,14 +31,16 @@ import torch
 
 from specenh_torch.config import SpecParams
 from specenh_torch._build import CudaKernel
-from specenh_torch.ops.stft import _basis_np, psd_weights, stft_psd
+from specenh_torch.ops.stft import _window_np, log_psd, psd_weights
 
 __all__ = ["supported", "stft_ft_log", "stft_ft_log_plain", "stft_tf_log",
            "stft_tf_log_plain", "spectrogram_fused", "normalized_specs",
-           "STFT_KERNEL", "STFT_TF_KERNEL"]
+           "fft_table", "STFT_KERNEL", "STFT_TF_KERNEL"]
 
-# frames x frequencies per block of csrc/stft.cu (BM, BN)
-_BLOCK_T, _BLOCK_F = 64, 64
+# frames per block of csrc/stft.cu (TB); the (T, F) output's row stride, in
+# floats (whole 128-byte lines)
+_BLOCK_T, _TF_LD = 16, 320
+_DETREND = {"none": 0, "false": 0, "": 0, "constant": 1, "linear": 2}
 
 _ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -52,19 +57,23 @@ def supported(sp: SpecParams) -> bool:
     return sp.nperseg == 512 and sp.hop == 256
 
 
+def fft_table(sp: SpecParams) -> np.ndarray:
+    """float64 table of the FFT kernel, in its order: the window (nperseg),
+    W_{n/2}^k = exp(-2 pi i k / (n/2)) as cos and sin for k < n/2, and
+    W_n^k for k <= n/2 (the real-to-complex split)."""
+    n = sp.nperseg
+    k2, k1 = np.arange(n // 2), np.arange(n // 2 + 1)
+    a2, a1 = -2.0 * np.pi * k2 / (n // 2), -2.0 * np.pi * k1 / n
+    return np.concatenate([_window_np(sp.window, n), np.cos(a2), np.sin(a2),
+                           np.cos(a1), np.sin(a1)])
+
+
 @functools.lru_cache(maxsize=4)
 def _kernel_operands(sp: SpecParams, device: torch.device):
-    """float32 [Br | Bi] basis, each half padded to whole 64-column blocks,
-    and the one-sided weights, on ``device``."""
-    br, bi, _ = _basis_np(sp.nperseg, sp.detrend, sp.fs, sp.scaling, sp.window)
-    nf = br.shape[1]
-    fpad = -(-nf // _BLOCK_F) * _BLOCK_F
-    pack = np.zeros((sp.nperseg, 2 * fpad), np.float64)
-    pack[:, :nf] = br
-    pack[:, fpad:fpad + nf] = bi
-    return (torch.as_tensor(pack, dtype=torch.float32, device=device),
-            torch.as_tensor(psd_weights(sp), dtype=torch.float32, device=device),
-            fpad)
+    """The kernel's float32 table (``fft_table``) and one-sided weights, on
+    ``device``."""
+    return (torch.as_tensor(fft_table(sp), dtype=torch.float32, device=device),
+            torch.as_tensor(psd_weights(sp), dtype=torch.float32, device=device))
 
 
 def _check_traces(traces: torch.Tensor, sp: SpecParams) -> None:
@@ -80,9 +89,10 @@ def _check_traces(traces: torch.Tensor, sp: SpecParams) -> None:
 
 def stft_ft_log_plain(traces: torch.Tensor, sp: SpecParams
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain twin of ``stft_ft_log``: framing, ``torch.matmul`` with the
-    basis, log epilogue, per-channel min/max."""
-    sxx = torch.log(stft_psd(traces, sp) + sp.eps)
+    """Plain twin of ``stft_ft_log``: ``ops.stft.log_psd`` (framing, a
+    float64 matmul with the basis and a float64 log, rounded once) and the
+    per-channel min/max."""
+    sxx = log_psd(traces, sp)
     return sxx, sxx.amin(dim=(1, 2))[:, None], sxx.amax(dim=(1, 2))[:, None]
 
 
@@ -98,20 +108,20 @@ def _launch(traces: torch.Tensor, sp: SpecParams, tf: bool):
     (log-PSD, min, max)."""
     if not traces.is_contiguous():
         raise ValueError("traces must be contiguous")
-    basis, weights, fpad = _kernel_operands(sp, traces.device)
+    if sp.detrend not in _DETREND:
+        raise NotImplementedError(f"the STFT kernel's detrend kinds are {sorted(_DETREND)}")
+    table, weights = _kernel_operands(sp, traces.device)
     c = traces.shape[0]
     nf, nt = sp.n_freqs_onesided, sp.n_frames
-    # (T, F): rows padded to the basis's fpad (320) floats, whole 128-byte
-    # lines; the view drops the padding
-    out = torch.empty((c, nt, fpad) if tf else (c, nf, nt), dtype=torch.float32,
+    # (T, F): rows padded to whole 128-byte lines; the view drops the padding
+    out = torch.empty((c, nt, _TF_LD) if tf else (c, nf, nt), dtype=torch.float32,
                       device=traces.device)
-    parts = torch.empty(c, -(-nt // _BLOCK_T), fpad // _BLOCK_F, 2,
-                        dtype=torch.float32, device=traces.device)
-    kernel, ld = (STFT_TF_KERNEL, (fpad,)) if tf else (STFT_KERNEL, ())
-    kernel(traces.data_ptr(), traces.stride(0), c, sp.hop, sp.nperseg, nt, nf, fpad,
-           basis.data_ptr(), weights.data_ptr(), float(sp.eps), out.data_ptr(), *ld,
-           parts.data_ptr())
-    parts = parts.reshape(c, -1, 2)
+    parts = torch.empty(c, -(-nt // _BLOCK_T), 2, dtype=torch.float32,
+                        device=traces.device)
+    kernel, ld = (STFT_TF_KERNEL, (_TF_LD,)) if tf else (STFT_KERNEL, ())
+    kernel(traces.data_ptr(), traces.stride(0), c, sp.hop, sp.nperseg, nt, nf,
+           _DETREND[sp.detrend], table.data_ptr(), weights.data_ptr(), float(sp.eps),
+           out.data_ptr(), *ld, parts.data_ptr())
     return (out[:, :, :nf] if tf else out, parts[:, :, 0].amin(1, keepdim=True),
             parts[:, :, 1].amax(1, keepdim=True))
 

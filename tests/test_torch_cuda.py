@@ -318,3 +318,87 @@ def test_probe_matches_twin(cuda, name):
     before = kern.launches
     assert probe_walls.run_probe(name, cuda)
     assert kern.launches == before + 1
+
+
+# every layer kind of the weight gradient, Cin / Cout in {1, 16, 32, 48, 64},
+# K in {3, 5, 7}
+WGRAD_GEOMETRIES = [
+    ModelConfig(),
+    MODEL_PRESETS["deep3"],
+    ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)), out_kernel=(5, 5)),
+    ModelConfig(filters=(48, 48, 64), kernels=((3, 3),) * 3, out_kernel=(3, 3)),
+    ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
+    ModelConfig(filters=(16, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
+]
+WGRAD_IDS = ["k3", "deep3", "64-32k5", "48-48-64k3", "64-32-64k7", "16-32-64k7"]
+
+
+def _wgrad_inputs(cuda, tw, b, seed=0):
+    """Layer -> (its input, dz, routing bits) of random values in the
+    shapes and dtypes of a step (conv 0's input: float32 tiles)."""
+    g = torch.Generator().manual_seed(seed)
+    w, out = tw.fwd, {}
+    for i in range(w.out + 1):
+        shape = ttk._act_shape(tw, i, b)
+        h, wd = shape[2:]
+        inp = (torch.rand(b, 256, 128, generator=g) if i == 0
+               else torch.randn(shape, generator=g).clamp_min(0)).to(cuda)
+        inp = inp if i == 0 else inp.to(tw.dtype)
+        bits = None
+        if w.is_convt(i):
+            dz = torch.randn(b, w.cout(i), 2 * h, 2 * wd, generator=g)
+        elif i == w.out:
+            dz = torch.randn(b, 1, h, wd, generator=g)
+        else:
+            dz = torch.randn(b, w.cout(i), h // 2, wd // 2, generator=g)
+            bits = torch.randint(0, 16, dz.shape, generator=g, dtype=torch.uint8).to(cuda)
+        out[i] = (inp, dz.to(cuda, tw.dtype), bits)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", WGRAD_GEOMETRIES, ids=WGRAD_IDS)
+def test_wgrad_kernel_matches_twin(cuda, cfg, dtype):
+    """The weight-gradient kernel, every layer of the geometry (conv 0, the
+    encoder convs with routed dz, the transposed convs, the out-conv),
+    against its twin on the same inputs: 1e-4 of the scale (f32 sums in
+    another order); two runs bit-identical; conv 0 from tiles in the
+    kernel dtype (K5b) bit-identical to float32 tiles (K5)."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    tw = ttk.build_train_weights(model, dtype)
+    for i, (inp, dz, bits) in _wgrad_inputs(cuda, tw, 3).items():
+        got = ttk.ae_train_wgrad(tw, i, inp, dz, bits)
+        want = ttk.ae_train_wgrad_plain(tw, i, inp, dz, bits)
+        scale = max(float(want.abs().max()), 1e-6)
+        assert float((got - want).abs().max()) <= 1e-4 * scale, i
+        assert torch.equal(got, ttk.ae_train_wgrad(tw, i, inp, dz, bits)), i
+        if i == 0:
+            assert torch.equal(got, ttk.ae_train_wgrad(tw, 0, inp.to(dtype), dz, bits, pre=True))
+
+
+@pytest.mark.parametrize("cfg", [ModelConfig(), MODEL_PRESETS["deep3"]], ids=["k3", "deep3"])
+def test_train_step_repeats_bit_for_bit(cuda, cfg):
+    """Two runs of one step's kernels give identical loss and gradient
+    sums: every cross-block sum is a fixed-order sum of partials."""
+    model, x, y, mask = _train_setup(cuda, cfg)
+    a = ttk.kernel_loss_grad_sums(model, x, y, mask, torch.bfloat16)
+    b = ttk.kernel_loss_grad_sums(model, x, y, mask, torch.bfloat16)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+
+
+@pytest.mark.parametrize("cut", [0.1, 0.2], ids=["194-frames", "389-frames"])
+def test_stft_kernel_ragged_block(cuda, cut):
+    """K1 on shots whose frame count is not a multiple of the block's 16
+    frames: its twin to 2e-3 in both layouts, the (T, F) output the (F, T)
+    output transposed bit for bit."""
+    sp = SpecParams(cut_shot=cut)
+    assert sp.n_frames % 16 != 0
+    x = torch.from_numpy(harness.example_shot(sp, 2, seed=5)).to(cuda)
+    ft, mn, mx = tsf.stft_ft_log(x, sp)
+    ref, rmn, rmx = tsf.stft_ft_log_plain(x, sp)
+    torch.testing.assert_close(ft, ref, rtol=0, atol=2e-3)
+    torch.testing.assert_close(mn, rmn, rtol=0, atol=2e-3)
+    torch.testing.assert_close(mx, rmx, rtol=0, atol=2e-3)
+    tf, tmn, tmx = tsf.stft_tf_log(x, sp)
+    assert torch.equal(tf, ft.transpose(1, 2)) and torch.equal(tmn, mn) and torch.equal(tmx, mx)

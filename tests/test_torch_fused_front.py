@@ -61,6 +61,9 @@ def setup():
 
 
 def test_stft_tf_log_plain_matches_jax_kernel(traces, jax_tf):
+    """The (T, F) twin against JAX's kernel, and equal to the (F, T) twin
+    transposed: the twins compute in float64 and cast, so two calls give
+    the same bits whatever the float32 blocking of the CPU's BLAS."""
     a, mn, mx = jax_tf
     got, gmn, gmx = tsf.stft_tf_log_plain(torch.from_numpy(traces), SP)
     assert got.shape == (2, SP.n_frames, SP.n_freqs_onesided)
@@ -181,6 +184,33 @@ def test_fused_modes_equal_auto(setup, mode):
     auto = harness.make_enhance_shot_fn(CFG, SP, device="cpu")(wts, shot)
     for a, b in zip(fn(wts, shot), auto):
         assert torch.equal(a, b)
+
+
+SP_HOP128 = SpecParams(cut_shot=0.2, noverlap=384)  # hop 128: no K1 geometry
+
+
+def test_auto_falls_back_to_the_matmul_front(setup):
+    """For a geometry K1 does not take, "auto" is the "xla" service, bit for
+    bit, and matches the JAX service's "auto" (which falls back to its XLA
+    front) at the bounds of ``test_service_mode_matches_jax_service``."""
+    params, model, _ = setup
+    assert not tsf.supported(SP_HOP128)
+    shot = harness.example_shot(SP_HOP128, n_channels=1, seed=3)
+    auto = harness.make_enhance_shot_fn(CFG, SP_HOP128, device="cpu")(model, shot)
+    xla = harness.make_enhance_shot_fn(CFG, SP_HOP128, device="cpu",
+                                       stft_mode="xla")(model, shot)
+    for a, b in zip(auto, xla):
+        assert torch.equal(a, b)
+    fn = jharness.make_enhance_shot_fn(CFG, SP_HOP128, use_kernel=True, interpret=True,
+                                       stft_mode="auto")
+    js, je = (np.asarray(a) for a in fn(params, jnp.asarray(shot)))
+    specs, enhanced = auto
+    assert specs.shape == js.shape == (1, 256, SP_HOP128.n_frames)
+    assert enhanced.shape == je.shape
+    ds, de = np.abs(specs.numpy() - js), np.abs(enhanced.numpy() - je)
+    assert ds.mean() < 1e-3 and ds.max() < 0.15, (ds.mean(), ds.max())
+    assert (ds > 5e-3).mean() < 0.01
+    assert de.mean() < 1e-3 and de.max() < 0.05, (de.mean(), de.max())
 
 
 DEEP3 = ModelConfig(filters=(16, 32, 64), kernels=((3, 3),) * 3)

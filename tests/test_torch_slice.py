@@ -72,9 +72,18 @@ def test_bf16_service_passes_the_enhanced_gate(setup):
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(cfg=ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3,
                           out_kernel=(5, 5))), NotImplementedError),
-    (dict(sp=SpecParams(nperseg=256, noverlap=128)), NotImplementedError),
+    (dict(sp=SpecParams(nperseg=256, noverlap=128)), ValueError),
     (dict(sp=SpecParams(cut_shot=0.05)), ValueError),
 ], ids=["depth3", "nperseg256", "too-short"])
 def test_service_rejects(kwargs, exc):
+    """A geometry no kernel family covers and a shot too short to tile raise
+    when the service is built.  nperseg 256 gives 129 one-sided rows: the
+    JAX service builds ("auto" falls back to its matmul front) and its call
+    leaves the 256-row tiles' rows past the 128 kept ones unfilled (NaN in
+    interpret mode); the port's service builds too, and its call raises
+    where the first AE stage finds 128-row spectrograms."""
+    sp = kwargs.get("sp", SpecParams())
     with pytest.raises(exc):
-        harness.make_enhance_shot_fn(device="cpu", **kwargs)
+        fn = harness.make_enhance_shot_fn(device="cpu", **kwargs)
+        model = make_model(CFG, generator=torch.Generator().manual_seed(0)).eval()
+        fn(model, harness.example_shot(sp, n_channels=1, seed=0))

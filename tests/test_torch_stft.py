@@ -100,9 +100,12 @@ def test_supported_matches_jax():
 
 
 def test_kernel_operands_pad_to_blocks():
-    basis, weights, fpad = tsf._kernel_operands(SP, torch.device("cpu"))
-    br, bi, _ = tstft._basis_np(512, "linear", 5e5, "density", "hamm")
-    assert fpad == 320 and basis.shape == (512, 640) and weights.shape == (257,)
-    np.testing.assert_array_equal(basis[:, :257].numpy(), br.astype(np.float32))
-    np.testing.assert_array_equal(basis[:, 320:577].numpy(), bi.astype(np.float32))
-    assert not basis[:, 257:320].any() and not basis[:, 577:].any()
+    """The FFT kernel's operands: the float64 table (window and twiddles)
+    and the one-sided weights, rounded to float32 once, whole blocks of
+    frames in the partials' shape."""
+    table, weights = tsf._kernel_operands(SP, torch.device("cpu"))
+    assert table.dtype == weights.dtype == torch.float32
+    assert table.shape == (512 + 2 * 256 + 2 * 257,) and weights.shape == (257,)
+    np.testing.assert_array_equal(table.numpy(), tsf.fft_table(SP).astype(np.float32))
+    np.testing.assert_array_equal(weights.numpy(), tstft.psd_weights(SP).astype(np.float32))
+    assert -(-SP.n_frames // tsf._BLOCK_T) == 25 and tsf._TF_LD % 32 == 0
