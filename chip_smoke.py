@@ -41,7 +41,9 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    training kernel must have launched in the kernel runs;
 10. timings: each training kernel per 128-tile step beside its twin, the
    one PyTorch call that computes the same function and its bound; s/epoch,
-   tiles/s and the peak memory of a step for each engine;
+   tiles/s and the peak memory of a step for each engine, the bf16
+   autograd engine (``create_state(dtype=bfloat16)``) among them, whose
+   epoch must give finite, falling losses;
 11. phases 8-10 for deep3 (K7): its stages against their twins on one
    128-tile batch in bf16 and float32, (64, 32, 64)/k7 and (48, 48, 64)/k3
    on 4 tiles, the whole chains, gradients against autograd, two runs of
@@ -60,6 +62,9 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    toolchain probes in process and through ``python -m
    specenh_torch.probe_walls``; (e) the new entry points' times beside
    their twins, library calls and bounds; (f) ms/shot per ``stft_mode``.
+13. (run after phase 6) a geometry no kernel family covers, (16, 32, 128)/k5,
+   served in bf16 with ``use_kernel="auto"``: the module route on three
+   shots, no serving kernel launched, gated as phase 4; its ms/shot.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -130,6 +135,8 @@ HBM = 3.35e12
 
 FLAGSHIP = ModelConfig()
 DEEP3 = MODEL_PRESETS["deep3"]
+# no kernel family covers it (128 filters): served on the module route
+UNCOVERED = ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3, out_kernel=(5, 5))
 # the TPU kernel (its pl.pallas_call) each id names
 TPU_KERNELS = {
     "K1": "specenh/ops/stft_fused.py:198",
@@ -351,6 +358,29 @@ def run_service(dev, sp, cfg, model, n_channels):
     outs, launches = gated_run(fn, wts, traces, refs, f"depth-{cfg.depth} service",
                                SERVE_KERNELS)
     return dict(fn=fn, wts=wts, traces=traces, refs=refs, outs=outs, launches=launches)
+
+
+def serve_module_route(dev, sp, gpu):
+    """Phase 13: a geometry no kernel family covers, (16, 32, 128)/k5,
+    served with ``use_kernel="auto"`` in bf16: the module route (the
+    matmul STFT front, the ``nn.Module`` computing in bf16 with float32
+    parameters), on three 20-channel shots, none of the serving kernels
+    launched, gated as the kernel services against the plain float32
+    service; its ms/shot."""
+    cfg = UNCOVERED
+    model = make_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    fn = make_enhance_shot_fn(cfg, sp, dtype=torch.bfloat16, device=dev, use_kernel="auto")
+    check(fn.prepare(model) is model, "the module route's prepare must return the module")
+    shots = [example_shot(sp, N_CHANNELS, seed) for seed in (0, 1, 2)]
+    traces = [torch.from_numpy(s_).to(dev) for s_ in shots]
+    refs = [(spectrogram_ref(host[0], sp), enhance_shot_plain(model, t, sp)[1].cpu().numpy())
+            for host, t in zip(shots, traces)]
+    gated_run(fn, model, traces, refs, "module route (16,32,128)/k5 bf16", (),
+              absent=SERVE_KERNELS)
+    ms = time_cuda(fn, model, traces[0], warmup=2, iters=10)
+    ms_plain = time_cuda(enhance_shot_plain, model, traces[0], sp, warmup=2, iters=10)
+    log(f"[{gpu}] module route (16,32,128)/k5 bf16 service: {ms:.4f} ms/shot "
+        f"({N_CHANNELS / ms * 1e3:.2f} spectrograms/s); plain f32 service {ms_plain:.4f} ms/shot")
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -927,9 +957,10 @@ def time_training(gpu, cfg, data, tw, st):
 
     # the partials a step sums: the loss's, each input gradient's bias
     # partials, each layer's weight-gradient partials
-    shapes = [(TK._rows(b, 256, 128, quad=True), 2)]
-    shapes += [(TK._rows(b, *act[i].shape[2:], quad=True), act[i].shape[1]) for i in (*enc, o)]
-    shapes += [(TK._rows(b, *act[i].shape[2:], quad=False), act[i].shape[1]) for i in dec]
+    shapes = [(TK._rows(b, 256, 128), 2)]
+    shapes += [(TK._rows(b, *act[i].shape[2:]), act[i].shape[1]) for i in (*enc, o)]
+    shapes += [(TK.dgrad_convt_rows(b, *act[i].shape[2:], act[i].shape[1]), act[i].shape[1])
+               for i in dec]
     shapes += [(b * wg_rows(w, i, ins[i].shape[2:]), w.w[i].numel()) for i in range(o + 1)]
     parts = [torch.rand(n, m, device=s["x"].device) for n, m in shapes]
     wg = [(o, act[o], dz[o], None)] + [(i, act[i], dz[i], None) for i in reversed(dec)] \
@@ -1016,10 +1047,12 @@ def time_training(gpu, cfg, data, tw, st):
     if depth2:
         engines.append(("kernel bf16 (K5b)", TR.kernel_epoch_for(cfg, tc, pre_layout=True)))
     engines += [("kernel f32", TR.kernel_epoch_for(cfg, tc, dtype=torch.float32)),
-                ("autograd f32", TR.train_epoch)]
+                ("autograd f32", TR.train_epoch), ("autograd bf16", TR.train_epoch)]
+    sec_of, losses_of = {}, {}
     for name, epoch_fn in engines:
         state = TR.create_state(cfg, tc, generator=torch.Generator().manual_seed(SEED),
-                                device=x.device)
+                                device=x.device,
+                                dtype=torch.bfloat16 if name == "autograd bf16" else None)
         epoch_fn(state, x, y, bi[:2], bm[:2])  # warm-up: two steps
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1027,15 +1060,28 @@ def time_training(gpu, cfg, data, tw, st):
         step_ms = time_cuda(lambda: epoch_fn(state, x, y, bi[:1], bm[:1]), warmup=1, iters=10)
         peak = torch.cuda.max_memory_allocated() - base
         t0 = time.perf_counter()
-        epoch_fn(state, x, y, bi, bm)
+        _, losses = epoch_fn(state, x, y, bi, bm)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        sec_of[name], losses_of[name] = sec, losses.float().cpu()
         log(f"[{gpu}] depth {d} {name}: {sec:.4f} s/epoch ({bi.shape[0]} steps of {BATCH}), "
             f"{n / sec:.1f} tiles/s; step {step_ms:.4f} ms (CUDA events, median of 10, "
             f"with the optimizer{'; K5b casts all tiles once per call' if 'K5b' in name else ''}"
             f"; {flops_step / step_ms / 1e9:.2f} TFLOP/s of the step's {flops_step / 1e9:.1f} "
             f"GFLOP); peak device memory of a step {peak / 2**30:.3f} GiB above the "
             f"{base / 2**30:.3f} GiB resident")
+    # the bf16 autograd engine (create_state(dtype=bfloat16)): its epoch,
+    # from the same weights and batches as the f32 one, must give finite,
+    # falling losses
+    l16, l32 = losses_of["autograd bf16"], losses_of["autograd f32"]
+    e16, e32 = (float(TR.weighted_epoch_mean(v, bm.cpu())) for v in (l16, l32))
+    log(f"[{gpu}] depth {d} autograd bf16 epoch: {sec_of['autograd bf16']:.4f} s/epoch "
+        f"against autograd f32 {sec_of['autograd f32']:.4f} s/epoch "
+        f"({sec_of['autograd bf16'] / sec_of['autograd f32']:.3f}x); epoch loss {e16:.6f} "
+        f"vs f32 {e32:.6f} (rel {abs(e16 - e32) / e32:.3g}); first 10 batches "
+        f"{float(l16[:10].mean()):.6f}, last 10 {float(l16[-10:].mean()):.6f}")
+    check(bool(torch.isfinite(l16).all()), "autograd bf16: non-finite loss")
+    check(float(l16[-10:].mean()) < float(l16[:10].mean()), "autograd bf16: loss did not fall")
     # a step's kernels; the stage wrappers' times include their
     # ae_train_sum launches, so the sums' own row is left out here
     step = {k.symbol: t["ms"] for k, t in times.items()
@@ -1121,6 +1167,7 @@ def main() -> int:
         (("deep3 (16,32,64)/k5", N_CHANNELS, DEEP3),
          ("(64,32,64)/k7", 1, ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3,
                                           out_kernel=(7, 7)))))
+    serve_module_route(dev, sp, gpu)
     del traces, specs
 
     data = make_data(dev, sp)

@@ -5,7 +5,8 @@
 goes through the STFT kernel (K1), then the conv-AE stage kernels on
 256x128 tiles (K2+K3+K4 at depth 2, K8-in+K6+K8-out at depth 3), and comes
 back restitched.  ``stft_mode`` picks the STFT front as the JAX service's
-does.  ``enhance_shot_plain`` is the
+does, and ``use_kernel`` the route (the kernels, or the ``nn.Module`` for
+a geometry no kernel family covers).  ``enhance_shot_plain`` is the
 same service composed of the plain twins (matmul STFT, the ``nn.Module``):
 the float32 reference the service is gated against.
 """
@@ -46,17 +47,32 @@ def make_enhance_shot_fn(
     dtype=torch.bfloat16,
     device="cuda",
     stft_mode: str = "auto",
+    use_kernel: object = "auto",
 ) -> Callable:
     """Returns ``fn(model_or_weights, traces) -> (specs, enhanced)``:
     traces (C, >= n_samples) -> specs (C, 256, n_frames) float32, enhanced
     (C, 256, k*128) float32.
 
     The AE runs in ``dtype`` (bfloat16, or float32 for ``None``); the STFT
-    is float32 either way.  ``fn.prepare(model)`` builds the kernels'
-    weights once; a resident service passes that in place of the model.
-    On ``device="cpu"`` every kernel wrapper runs its plain twin.  A
-    geometry that no kernel family covers (``ae_kernel.kernel_depth``)
-    raises, and so do weights of another depth than ``cfg``'s.
+    is float32 either way.  On ``device="cpu"`` every kernel wrapper runs
+    its plain twin.
+
+    ``use_kernel`` (the JAX service's values and rules) picks the route:
+
+    - ``True``: the kernel family that covers ``cfg``
+      (``ae_kernel.kernel_depth``); ``NotImplementedError`` where none
+      does.  ``fn.prepare(model)`` builds the kernels' weights once; a
+      resident service passes them in place of the model, and weights of
+      another depth than ``cfg``'s raise.
+    - ``False``: the module route: the ``nn.Module`` computing in
+      ``dtype`` (its float32 parameters cast per layer), behind the
+      ``"xla"`` matmul front.  ``fn.prepare`` returns the module as it is;
+      kernel weights raise ``TypeError``.
+    - ``"auto"``: the kernels where a family covers ``cfg``, in either
+      dtype, else the module route.  (JAX's ``"auto"`` also takes its Flax
+      route for float32 and on a CPU backend; the port's runs the kernels
+      there, whose CPU twins compute the same within the tests'
+      tolerances.)
 
     ``stft_mode``, the STFT front (the JAX service's values and rules):
 
@@ -69,9 +85,10 @@ def make_enhance_shot_fn(
       raw log-PSD and normalizes it as it loads (``ae_tile_in_norm``, K9's
       route), and the specs output is one transposing pass
       (``normalized_specs``).  Depth 2, bf16 and the reference STFT
-      geometry only, else ``NotImplementedError``.
-    - ``"fused_ft"``: K1 in the (F, T) layout, forced: bf16 and the
-      reference STFT geometry only.  In the port this is ``"auto"``'s path.
+      geometry only, on the kernel route, else ``NotImplementedError``.
+    - ``"fused_ft"``: K1 in the (F, T) layout, forced: bf16, the
+      reference STFT geometry and the kernel route only.  In the port
+      this is ``"auto"``'s path.
     - ``"xla"``: the plain matmul STFT (``ops.stft.spectrogram``: a
       float64 matmul, float32 out), then the AE stages; any STFT geometry.
 
@@ -81,17 +98,30 @@ def make_enhance_shot_fn(
     device = torch.device(device)
     if stft_mode not in STFT_MODES:
         raise ValueError(f"stft_mode must be one of {STFT_MODES}: {stft_mode!r}")
-    depth = ae_kernel.kernel_depth(cfg)
+    if use_kernel not in ("auto", True, False):
+        raise ValueError(f"use_kernel must be 'auto', True or False: {use_kernel!r}")
     k_tiles = _k_tiles(sp, ps)
+    if use_kernel is False:
+        depth = None
+    else:
+        try:
+            depth = ae_kernel.kernel_depth(cfg)
+        except NotImplementedError:
+            if use_kernel is True:
+                raise
+            depth = None
     if stft_mode == "fused" and not (depth == 2 and dtype == torch.bfloat16
                                      and stft_fused.supported(sp)):
         raise NotImplementedError(
             "stft_mode='fused' needs the depth-2 kernels serving in bf16 with the "
-            f"reference STFT geometry: {cfg}, {sp}, {dtype}")
-    if stft_mode == "fused_ft" and not (dtype == torch.bfloat16 and stft_fused.supported(sp)):
+            f"reference STFT geometry: {cfg}, {sp}, {dtype}, use_kernel={use_kernel!r}")
+    if stft_mode == "fused_ft" and not (depth is not None and dtype == torch.bfloat16
+                                        and stft_fused.supported(sp)):
         raise NotImplementedError(
             "stft_mode='fused_ft' needs the kernels serving in bf16 with the "
-            f"reference STFT geometry: {sp}, {dtype}")
+            f"reference STFT geometry: {cfg}, {sp}, {dtype}, use_kernel={use_kernel!r}")
+    if depth is None:
+        return _module_route(sp, dtype, device, k_tiles)
     matmul_front = stft_mode == "xla" or not stft_fused.supported(sp)
 
     def prepare(model_or_weights):
@@ -118,6 +148,26 @@ def make_enhance_shot_fn(
         traces = torch.as_tensor(traces, dtype=torch.float32, device=device)
         with torch.no_grad():
             return front(wts, traces.contiguous())
+
+    fn.prepare = prepare
+    return fn
+
+
+def _module_route(sp: SpecParams, dtype, device, k_tiles: int) -> Callable:
+    """The service on the ``nn.Module`` (JAX's Flax route): the matmul
+    STFT, then the module computing in ``dtype``."""
+
+    def prepare(model):
+        if isinstance(model, ae_kernel.AEKernelWeights):
+            raise TypeError("the module route serves the nn.Module, not kernel weights")
+        return model
+
+    def fn(model, traces):
+        model = prepare(model)
+        traces = torch.as_tensor(traces, dtype=torch.float32, device=device)
+        with torch.no_grad():
+            specs = spectrogram(traces.contiguous(), sp)
+            return specs, ae_kernel.ae_kernel_enhance_specs_plain(model, specs, k_tiles, dtype)
 
     fn.prepare = prepare
     return fn

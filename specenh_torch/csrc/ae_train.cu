@@ -54,13 +54,12 @@
 // ~379 GFLOP per 128-tile step, 0.38 ms at the bf16 peak, about as long as
 // its ~1 GB of stored activations and gradients take at 3.35 TB/s.
 //
-// Design: the forward and input-gradient stages reuse conv_quad_kernel
-// (ae_conv.cuh) with new epilogues, or mirror convt_relu_kernel's
-// thread-per-position register tiling.  The weight gradient, most of a step
-// in the first design (one block per (tile, tap), every value loaded
-// K^2 times), is an implicit GEMM over strips of a tile staged once for all
-// taps, on the bf16 tensor cores (mma.sync) or, in float32, on the CUDA
-// cores: see wgrad_kernel.
+// Design: the forward and stride-1 input-gradient stages reuse
+// conv_quad_kernel (ae_conv.cuh) with new epilogues.  The weight gradient
+// (wgrad_kernel) and the transposed convs' input gradient
+// (convt_dgrad_kernel) are implicit GEMMs over strips of a tile staged
+// once per block for all taps, on the bf16 tensor cores (mma.sync) or, in
+// float32, on the CUDA cores.
 
 #include <type_traits>
 
@@ -156,63 +155,6 @@ struct GateQuadEpi {
     block_sums<COB>(db, part + ((long long)b * gridDim.x + blockIdx.x) * Cout + co0);
   }
 };
-
-// Input gradient of the stride-2 transposed conv (convt_relu_kernel's
-// adjoint), again a gather: out[ci, m, n] = sum_co sum_ij w[ci, i, j, co] *
-// dz[co, 2m + PA - i, 2n + PA - j] over the taps inside dz's (2H, 2W) grid.
-// wt (Cz, K, K, Cout) is w transposed.  One thread per position (m, n) and
-// COB channels; gated per pixel, with bias-gradient partials.
-template <typename T, int K, int MODE>
-__global__ void __launch_bounds__(NT) convt_dgrad_kernel(
-    const T* __restrict__ dz, const T* __restrict__ wt, GateOut<T, MODE> g,
-    float* __restrict__ part, int Cz, int Cout, int H, int W) {
-  constexpr int PA = ConvtGeom<K>::PA;
-  __shared__ float ws[CC][K * K][COB];
-
-  const int pos = blockIdx.x * NT + threadIdx.x;
-  const bool active = pos < H * W;
-  const int m = pos / W, n = pos % W;
-  const int co0 = blockIdx.y * COB;
-  const int b = blockIdx.z;
-  const int h2 = 2 * H, w2 = 2 * W;
-  const T* dzb = dz + (long long)b * Cz * h2 * w2;
-
-  float acc[COB];
-#pragma unroll
-  for (int co = 0; co < COB; ++co) acc[co] = 0.f;
-
-  for (int c0 = 0; c0 < Cz; c0 += CC) {
-    const int nc = min(CC, Cz - c0);
-    __syncthreads();
-    stage_weights<T, K, COB>(ws, wt, c0, nc, co0, Cout);
-    __syncthreads();
-    if (!active) continue;
-    for (int cc = 0; cc < nc; ++cc) {
-      const T* pl = dzb + (long long)(c0 + cc) * h2 * w2;
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const int y = 2 * m + PA - i;
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const int x = 2 * n + PA - j;
-          const float v = (y >= 0 && y < h2 && x >= 0 && x < w2)
-                              ? sx_load(pl + (long long)y * w2 + x)
-                              : 0.f;
-#pragma unroll
-          for (int co = 0; co < COB; ++co)
-            acc[co] = fmaf(v, ws[cc][i * K + j][co], acc[co]);
-        }
-      }
-    }
-  }
-  float db[COB];
-#pragma unroll
-  for (int co = 0; co < COB; ++co)
-    db[co] = active ? g.put((((long long)b * Cout + co0 + co) * H + m) * W + n,
-                            acc[co])
-                    : 0.f;
-  block_sums<COB>(db, part + ((long long)b * gridDim.x + blockIdx.x) * Cout + co0);
-}
 
 // Weight gradient of a layer, per tile:
 //   part[b][ci][i][j][co] = sum_{m, n} in[b, ci, m, n] *
@@ -628,6 +570,284 @@ __global__ void __launch_bounds__(WG_NT, 2) wgrad_kernel(TSrc tsrc, PSrc psrc,
   }
 }
 
+// Input gradient of the stride-2 transposed conv (convt_relu_kernel's
+// adjoint), gated per pixel, with the bias-gradient partials of the layer
+// below:
+//   out[c, m, n] = sum_{cz, i, j} w[c, i, j, cz] * dz[cz, 2m + PA - i, 2n + PA - j]
+// over dz's (2H, 2W) grid (zero outside: the 'same' padding).  With dz as
+// its four phase planes dz[2u + ry][2v + rx], tap (i, j) reads plane
+// ((PA - i) & 1, (PA - j) & 1) at (m + dy, n + dx), dy = floor((PA - i) / 2),
+// dx = floor((PA - j) / 2): a plain shifted window of an (H, W) grid.  So
+// the stage is an implicit GEMM
+//   D[p, c] = sum_{(cz, tap)} A[p, (cz, tap)] * W[(cz, tap), c]
+// over the positions p of the output grid (M), the Cout channels c (N, in
+// 8-column fragments) and the reduction (cz, tap) (K), A being dz read
+// through the tap's shift.  wt is (K, K, Cout, Cz): w with dz's channel
+// fastest.
+//
+// A block owns one tile b and a strip of R output rows (R * W positions:
+// 8 warps of MW 16-position fragments).  It walks dz's channels in chunks
+// of CH (16 in bf16, 8 in float32).  For each chunk it stages, in shared
+// memory and in T, the strip's four phase planes with the taps' halo
+// (plane rows y0 + hlo .. y0 + R - 1 + hhi, columns hlo .. W - 1 + hhi,
+// zeros outside the grid) and the chunk's weights for every tap and output
+// channel; every tap and every output channel is computed from there.  Each
+// dz value is loaded from device memory once per block.
+//
+// Layout: a staged position (plane, row, column) or weight (tap, c) is one
+// run of CH channels (32 bytes).  bf16: the pair of reduction values a
+// thread holds in an m16n8k16 A fragment (channels 2tq, 2tq + 1 at one
+// position) is one aligned 32-bit load, and its B fragment's pair (the same
+// channels at one output channel) likewise; the two 16-byte halves of a run
+// swap places where bit 2 of its index is set, so that the 8 positions or
+// channels of a fragment load fall in 32 different banks.  No permute at
+// the fragment loads (staging splits the column phases), and no padding in
+// the MMA: M is whole 16-position fragments (W a multiple of
+// 16), N whole 8-channel fragments (Cout a multiple of 16), K whole
+// 16-channel steps (Cz a multiple of 16).
+//
+// bf16: each k step is mma.sync.m16n8k16 (bf16 -> fp32).  The tensor
+// cores' float32 accumulation drifts with the length of a chain (see
+// wgrad_kernel's row groups), and a chain here is Cz * K^2 products
+// (3136 at (64, 32, 64)/k7), so each channel chunk (at most 49 k steps)
+// accumulates in fresh fragments that are then added into float32
+// registers, chunk by chunk in order.  float32: the same fragments'
+// elements by fmaf on the CUDA cores (no TF32).
+//
+// The gate and the bias partials as GateOut gives them: each thread sums
+// its gated values in a fixed order, then the 8 lanes of a channel by a
+// fixed shuffle tree, then the 8 warps in order: one partial row per
+// (tile, strip), summed in order by ae_train_sum.  No float atomics.
+//
+// What bounds it: 2 * H * W * Cz * Cout * K^2 FLOP a tile (flagship 24.2,
+// deep3 67.1 GFLOP per 128-tile step): 0.025 / 0.068 ms at the bf16 peak,
+// under the byte bound (dz, the gate and the output once: 0.15 / 0.13 ms).
+// This design stages with plain loads, does not overlap the staging with
+// the MMAs, and each block reads the layer's weights (up to 401 KB) from L2.
+constexpr int DG_WARPS = 8;
+constexpr int DG_NT = 32 * DG_WARPS;
+
+template <int NF>
+struct DgShape {  // 16-position fragments a warp, with NF * MW <= 8
+  static constexpr int MW = NF >= 6 ? 1 : 8 / NF;
+  static constexpr int POS = DG_WARPS * MW * 16;
+};
+template <typename T>
+struct DgChunk {  // dz channels a chunk: one 32-byte run
+  static constexpr int CH = sizeof(T) == 2 ? 16 : 8;
+};
+
+struct DgGeom {
+  int Cz, Cout, H, W, K, PA;
+  int hlo, hhi, R, RT, WT;  // the taps' shifts, strip rows, staged rows and columns
+};
+
+// 32-bit word of word q (0..7) of run L: bf16 runs swap their halves where
+// bit 2 of L is set; float32 runs are stored as they are.
+template <typename T>
+__device__ __forceinline__ int dg_word(int L, int q) {
+  if constexpr (sizeof(T) == 2) return L * 8 + (q ^ (L & 4));
+  return L * 8 + q;
+}
+
+// Stage dz channels c0 .. c0 + CH - 1 of the strip at y0 as runs of the
+// four phase planes: run ((ry * 2 + rx) * RT + r) * WT + x holds plane
+// (ry, rx) at (y0 + hlo + r, hlo + x).  A unit is one plane row's column
+// pair: CH loads of both column phases (32 bits in bf16, 64 in float32).
+template <typename T>
+__device__ __forceinline__ void dg_stage_dz(const T* __restrict__ dz, uint32_t* as,
+                                            const DgGeom& g, int b, int c0, int y0) {
+  constexpr int CH = DgChunk<T>::CH;
+  const int total = g.RT * 2 * g.WT, w2 = 2 * g.W;
+  const long long chan = (long long)(2 * g.H) * w2;
+  const T* base = dz + ((long long)b * g.Cz + c0) * chan;
+  for (int e = threadIdx.x; e < total; e += DG_NT) {
+    const int x = e % g.WT, ry = (e / g.WT) & 1, r = e / (2 * g.WT);
+    const int u = y0 + g.hlo + r, v = g.hlo + x;
+    const bool in = u >= 0 && u < g.H && v >= 0 && v < g.W;
+    const long long o = in ? (long long)(2 * u + ry) * w2 + 2 * v : 0;
+    const int L0 = (ry * 2 * g.RT + r) * g.WT + x, L1 = L0 + g.RT * g.WT;
+    if constexpr (sizeof(T) == 2) {
+      uint32_t p[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        p[c] = in ? *reinterpret_cast<const uint32_t*>(base + c * chan + o) : 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        as[dg_word<T>(L0, q)] = __byte_perm(p[2 * q], p[2 * q + 1], 0x5410);
+        as[dg_word<T>(L1, q)] = __byte_perm(p[2 * q], p[2 * q + 1], 0x7632);
+      }
+    } else {
+      float2 p[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        p[c] = in ? *reinterpret_cast<const float2*>(base + c * chan + o)
+                  : make_float2(0.f, 0.f);
+      float* f = reinterpret_cast<float*>(as);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        f[L0 * 8 + c] = p[c].x;
+        f[L1 * 8 + c] = p[c].y;
+      }
+    }
+  }
+}
+
+// Stage the chunk's weights: run tap * Cout + c holds wt[tap][c][c0 ..],
+// two 16-byte loads.
+template <typename T>
+__device__ __forceinline__ void dg_stage_w(const T* __restrict__ wt, uint32_t* ws,
+                                           const DgGeom& g, int c0) {
+  const int total = g.K * g.K * g.Cout;
+  for (int e = threadIdx.x; e < total; e += DG_NT) {
+    const uint4* src = reinterpret_cast<const uint4*>(wt + (long long)e * g.Cz + c0);
+    const uint4 lo = src[0], hi = src[1];
+    *reinterpret_cast<uint4*>(ws + dg_word<T>(e, 0)) = lo;
+    *reinterpret_cast<uint4*>(ws + dg_word<T>(e, 4)) = hi;
+  }
+}
+
+template <typename T, int NF, int MODE>
+__global__ void __launch_bounds__(DG_NT, 2) convt_dgrad_kernel(
+    const T* __restrict__ dz, const T* __restrict__ wt, GateOut<T, MODE> gout,
+    float* __restrict__ part, DgGeom g) {
+  constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int MW = DgShape<NF>::MW, CH = DgChunk<T>::CH;
+  extern __shared__ __align__(16) unsigned char dg_smem[];
+  __shared__ float red[DG_WARPS][64];
+  uint32_t* as = reinterpret_cast<uint32_t*>(dg_smem);
+  uint32_t* ws = as + 4 * g.RT * g.WT * 8;
+
+  const int strip = blockIdx.x, b = blockIdx.z, y0 = strip * g.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nmf = g.R * g.W / 16, kk = g.K * g.K;
+
+  // each fragment's run for its row gq at plane 0, shift (hlo, hlo)
+  int lb[MW];
+#pragma unroll
+  for (int f = 0; f < MW; ++f) {
+    const int p0 = (warp * MW + f) * 16;
+    lb[f] = (p0 / g.W) * g.WT + p0 % g.W + gq;
+  }
+
+  float acc[MW][NF][4];
+#pragma unroll
+  for (int f = 0; f < MW; ++f)
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[f][n][q] = 0.f;
+
+  for (int c0 = 0; c0 < g.Cz; c0 += CH) {
+    __syncthreads();
+    dg_stage_dz<T>(dz, as, g, b, c0, y0);
+    dg_stage_w<T>(wt, ws, g, c0);
+    __syncthreads();
+    float cacc[MW][NF][4];
+#pragma unroll
+    for (int f = 0; f < MW; ++f)
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cacc[f][n][q] = 0.f;
+    for (int tap = 0; tap < kk; ++tap) {
+      const int ai = g.PA - tap / g.K, aj = g.PA - tap % g.K;
+      const int plane = (ai & 1) * 2 + (aj & 1);
+      const int toff = (plane * g.RT + (ai >> 1) - g.hlo) * g.WT + (aj >> 1) - g.hlo;
+      const int wl = tap * g.Cout;
+      if constexpr (MMA) {
+        uint32_t bq[NF][2];
+#pragma unroll
+        for (int n = 0; n < NF; ++n) {
+          bq[n][0] = ws[dg_word<T>(wl + 8 * n + gq, tq)];
+          bq[n][1] = ws[dg_word<T>(wl + 8 * n + gq, tq + 4)];
+        }
+#pragma unroll
+        for (int f = 0; f < MW; ++f) {
+          if (warp * MW + f >= nmf) break;
+          const int L = lb[f] + toff;
+          const uint32_t a0 = as[dg_word<T>(L, tq)], a1 = as[dg_word<T>(L + 8, tq)];
+          const uint32_t a2 = as[dg_word<T>(L, tq + 4)], a3 = as[dg_word<T>(L + 8, tq + 4)];
+#pragma unroll
+          for (int n = 0; n < NF; ++n)
+            mma_bf16(cacc[f][n], a0, a1, a2, a3, bq[n][0], bq[n][1]);
+        }
+      } else {
+        const float* af = reinterpret_cast<const float*>(as);
+        const float* wf = reinterpret_cast<const float*>(ws);
+#pragma unroll
+        for (int k = 0; k < CH; ++k) {
+          float bv[NF][2];
+#pragma unroll
+          for (int n = 0; n < NF; ++n) {
+            bv[n][0] = wf[(wl + 8 * n + 2 * tq) * 8 + k];
+            bv[n][1] = wf[(wl + 8 * n + 2 * tq + 1) * 8 + k];
+          }
+#pragma unroll
+          for (int f = 0; f < MW; ++f) {
+            if (warp * MW + f >= nmf) break;
+            const int L = lb[f] + toff;
+            const float a0 = af[L * 8 + k], a1 = af[(L + 8) * 8 + k];
+#pragma unroll
+            for (int n = 0; n < NF; ++n) {
+              acc[f][n][0] = fmaf(a0, bv[n][0], acc[f][n][0]);
+              acc[f][n][1] = fmaf(a0, bv[n][1], acc[f][n][1]);
+              acc[f][n][2] = fmaf(a1, bv[n][0], acc[f][n][2]);
+              acc[f][n][3] = fmaf(a1, bv[n][1], acc[f][n][3]);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (MMA) {
+#pragma unroll
+      for (int f = 0; f < MW; ++f)
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[f][n][q] += cacc[f][n][q];
+    }
+  }
+
+  // the gate, the store and the bias partials of channel 8n + 2tq + e at
+  // positions gq and gq + 8 of each fragment
+  float db[NF][2];
+#pragma unroll
+  for (int n = 0; n < NF; ++n) db[n][0] = db[n][1] = 0.f;
+#pragma unroll
+  for (int f = 0; f < MW; ++f) {
+    if (warp * MW + f >= nmf) break;
+    const int p0 = (warp * MW + f) * 16;
+    const int y = y0 + p0 / g.W, x = p0 % g.W + gq;
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long o =
+            (((long long)b * g.Cout + 8 * n + 2 * tq + e) * g.H + y) * g.W + x;
+        db[n][e] += gout.put(o, acc[f][n][e]);
+        db[n][e] += gout.put(o + 8, acc[f][n][2 + e]);
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = db[n][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (gq == 0) red[warp][8 * n + 2 * tq + e] = s;
+    }
+  __syncthreads();
+  if (threadIdx.x < g.Cout) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < DG_WARPS; ++w) s += red[w][threadIdx.x];
+    part[((long long)b * gridDim.x + strip) * g.Cout + threadIdx.x] = s;
+  }
+}
+
 // out[c] = sum over the n rows of part (n, m), in a fixed order: one block
 // per column, a strided sum per thread, then a shared-memory tree.
 __global__ void __launch_bounds__(256) sum_rows_kernel(
@@ -759,20 +979,51 @@ int dgrad_conv(const void* dz, const uint8_t* dz_bits, const void* w,
       W, K, st);
 }
 
+template <typename T, int NF, int MODE>
+int launch_dgrad_convt(const T* dz, const T* wt, GateOut<T, MODE> g, float* part,
+                       int B, const DgGeom& geo, cudaStream_t st) {
+  const long long smem =
+      (4LL * geo.RT * geo.WT + (long long)geo.K * geo.K * geo.Cout) * 32;
+  if (smem > 227 * 1024 - (long long)sizeof(float) * DG_WARPS * 64)
+    return cudaErrorInvalidValue;
+  auto kern = convt_dgrad_kernel<T, NF, MODE>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(geo.H / geo.R, 1, B), DG_NT, smem, st>>>(dz, wt, g, part, geo);
+  return cudaGetLastError();
+}
+
+// One partial row per (tile, strip): the strips are R = min(POS / W, H)
+// rows, POS the positions of a block (ops/ae_train_kernel.py
+// dgrad_convt_rows).
 template <typename T, int MODE>
 int dgrad_convt(const void* dz, const void* w, const void* gate, void* out,
                 float* part, int rows, int B, int Cz, int Cout, int H, int W,
                 int K, cudaStream_t st) {
-  const int nblk = (H * W + NT - 1) / NT;
-  if (Cout % COB != 0 || B < 1 || B > 65535 || rows != B * nblk)
+  if (K < 1 || K > 7 || K % 2 == 0 || Cz < 16 || Cz % 16 != 0 || Cout < 16 ||
+      Cout > 64 || Cout % 16 != 0 || W < 16 || W % 16 != 0 || H < 1 || B < 1 ||
+      B > 65535)
     return cudaErrorInvalidValue;
-  const dim3 grid(nblk, Cout / COB, B);
+  DgGeom geo{Cz, Cout, H, W, K, K - 1 < 2 ? K - 1 : (K + 1) / 2};
+  geo.hlo = (geo.PA - K + 1) >> 1;
+  geo.hhi = geo.PA >> 1;
+  const int nf = Cout / 8;
+  const int pos = nf == 2 ? DgShape<2>::POS : nf == 4 ? DgShape<4>::POS : DgShape<8>::POS;
+  geo.R = min(pos / W, H);
+  if (geo.R < 1 || H % geo.R != 0 || rows != B * (H / geo.R)) return cudaErrorInvalidValue;
+  geo.RT = geo.R + geo.hhi - geo.hlo;
+  geo.WT = W + geo.hhi - geo.hlo;
   const auto* d = static_cast<const T*>(dz);
   const auto* wt = static_cast<const T*>(w);
   const GateOut<T, MODE> g{static_cast<T*>(out), gate};
-  SX_K_SWITCH(K, convt_dgrad_kernel<T, KK, MODE>
-                     <<<grid, NT, 0, st>>>(d, wt, g, part, Cz, Cout, H, W));
-  return cudaGetLastError();
+  switch (nf) {
+    case 2: return launch_dgrad_convt<T, 2, MODE>(d, wt, g, part, B, geo, st);
+    case 4: return launch_dgrad_convt<T, 4, MODE>(d, wt, g, part, B, geo, st);
+    case 6: return launch_dgrad_convt<T, 6, MODE>(d, wt, g, part, B, geo, st);
+    case 8: return launch_dgrad_convt<T, 8, MODE>(d, wt, g, part, B, geo, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -875,9 +1126,9 @@ extern "C" int ae_train_dgrad_conv(const void* dz, const uint8_t* dz_bits,
 }
 
 // Input gradient of the stride-2 transposed conv: dz (B, Cz, 2H, 2W), w
-// (Cz, K, K, Cout) = the Flax kernel transposed, out (B, Cout, H, W).
-// route 0: gate = the layer input (relu); 1: gate = pool routing bits.
-// part (rows = B * ceil(H*W / 128), Cout): bias grads.
+// (K, K, Cout, Cz) = the Flax kernel with dz's channel fastest, out
+// (B, Cout, H, W).  route 0: gate = the layer input (relu); 1: gate = pool
+// routing bits.  part (rows = B * strips, Cout): bias grads.
 extern "C" int ae_train_dgrad_convt(const void* dz, const void* w,
                                     const void* gate, int route, void* out,
                                     float* part, int rows, int dtype, int B,

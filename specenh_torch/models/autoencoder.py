@@ -31,7 +31,7 @@ from torch import nn
 from specenh_torch.config import ModelConfig
 
 __all__ = ["ConvAutoencoder", "make_model", "param_count", "convt_pad_before",
-           "conv_transpose_same"]
+           "conv_transpose_same", "Conv2dSame", "ConvTranspose2dSame"]
 
 
 def convt_pad_before(k: int, stride: int = 2) -> int:
@@ -54,14 +54,27 @@ def conv_transpose_same(x: torch.Tensor, weight: torch.Tensor,
     return y[..., : 2 * h, : 2 * w]
 
 
+class Conv2dSame(nn.Conv2d):
+    """``nn.Conv2d`` with 'same' padding for odd kernels, computing in the
+    input's dtype (its weight and bias cast to it, as Flax's
+    ``promote_dtype``)."""
+
+    def __init__(self, cin: int, cout: int, k: Tuple[int, int]):
+        super().__init__(cin, cout, k, padding=(k[0] // 2, k[1] // 2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class ConvTranspose2dSame(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` with Flax/Keras 'SAME' stride-2 geometry."""
+    """``nn.ConvTranspose2d`` with Flax/Keras 'SAME' stride-2 geometry,
+    computing in the input's dtype."""
 
     def __init__(self, cin: int, cout: int, k: Tuple[int, int]):
         super().__init__(cin, cout, k, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose_same(x, self.weight, self.bias)
+        return conv_transpose_same(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def _glorot_(weight: torch.Tensor, fan_in: int, fan_out: int,
@@ -73,12 +86,19 @@ def _glorot_(weight: torch.Tensor, fan_in: int, fan_out: int,
 
 class ConvAutoencoder(nn.Module):
     """Depth-N conv autoencoder; ``forward`` maps (B, H, W) tiles to
-    (B, H, W) float32 sigmoid probabilities, computing in the parameters'
-    dtype."""
+    (B, H, W) float32 sigmoid probabilities.
+
+    ``dtype`` is the computation dtype, as Flax's module attribute: the
+    input and each layer's weight and bias are cast to it (Flax's
+    ``promote_dtype``) and the logits come back float32, while the
+    parameters keep their own dtype (float32 as built; bfloat16 here
+    trains with float32 master weights).  None computes in the
+    parameters' dtype."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         for k in (*cfg.kernels, cfg.out_kernel):
             if k[0] % 2 == 0 or k[1] % 2 == 0:
                 raise ValueError(f"'same' convs need odd kernels: {cfg}")
@@ -86,9 +106,7 @@ class ConvAutoencoder(nn.Module):
         f = cfg.filters
         cin = (cfg.input_shape[-1], *f[:-1])
         self.enc_convs = nn.ModuleList(
-            nn.Conv2d(cin[i], f[i], cfg.kernels[i],
-                      padding=(cfg.kernels[i][0] // 2, cfg.kernels[i][1] // 2))
-            for i in range(cfg.depth)
+            Conv2dSame(cin[i], f[i], cfg.kernels[i]) for i in range(cfg.depth)
         )
         # decoder level i maps filters[i+1] (filters[-1] at the bottom) to
         # filters[i]; indexed like Flax's dec_deconv{i}
@@ -97,10 +115,7 @@ class ConvAutoencoder(nn.Module):
                                 cfg.kernels[i])
             for i in range(cfg.depth)
         )
-        self.out_conv = nn.Conv2d(
-            f[0], 1, cfg.out_kernel,
-            padding=(cfg.out_kernel[0] // 2, cfg.out_kernel[1] // 2),
-        )
+        self.out_conv = Conv2dSame(f[0], 1, cfg.out_kernel)
         for conv in (*self.enc_convs, self.out_conv):
             cout, cin_, kh, kw = conv.weight.shape
             _glorot_(conv.weight, cin_ * kh * kw, cout * kh * kw, generator)
@@ -113,9 +128,17 @@ class ConvAutoencoder(nn.Module):
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
         """(B, H, W) or the JAX layout (B, H, W, 1) -> the same layout,
         float32: sigmoid probabilities, or the logits with ``logits=True``
-        (as Flax's ``__call__(x, logits)``)."""
+        (as Flax's ``__call__(x, logits)``), computed in ``self.dtype``."""
+        return self.forward_as(x, self.dtype, logits)
+
+    def forward_as(self, x: torch.Tensor, dtype: torch.dtype | None,
+                   logits: bool = False) -> torch.Tensor:
+        """``forward`` computing in ``dtype`` (None: the parameters')
+        whatever the module's own ``dtype``: the service's module route
+        runs in the service dtype."""
+        dt = self.out_conv.weight.dtype if dtype is None else dtype
         nhwc = x.ndim == 4
-        x = (x[..., 0] if nhwc else x)[:, None].to(self.out_conv.weight.dtype)
+        x = (x[..., 0] if nhwc else x)[:, None].to(dt)  # every layer follows x
         for conv in self.enc_convs:
             x = F.max_pool2d(F.relu(conv(x)), 2)
         for i in reversed(range(self.cfg.depth)):
@@ -126,10 +149,13 @@ class ConvAutoencoder(nn.Module):
 
 
 def make_model(cfg: ModelConfig = ModelConfig(), *,
-               generator: torch.Generator, device=None) -> ConvAutoencoder:
+               generator: torch.Generator, device=None,
+               dtype: torch.dtype | None = None) -> ConvAutoencoder:
     """Glorot-initialised model from ``generator`` (drawn on the CPU, so a
-    seed gives the same weights on every device), moved to ``device``."""
-    return ConvAutoencoder(cfg, generator=generator).to(device)
+    seed gives the same weights on every device), moved to ``device``,
+    computing in ``dtype`` (None: float32) with float32 parameters, as
+    the JAX package's ``make_model(cfg, dtype)``."""
+    return ConvAutoencoder(cfg, generator=generator, dtype=dtype).to(device)
 
 
 def param_count(model: nn.Module) -> int:

@@ -407,7 +407,9 @@ def ae_kernel_apply(wts: AEKernelWeights, tiles: torch.Tensor) -> torch.Tensor:
 
 
 def ae_kernel_enhance_specs_plain(model: ConvAutoencoder, specs: torch.Tensor,
-                                  k_tiles: int) -> torch.Tensor:
-    """Plain twin of the whole AE: ``patch``, the module, ``unpatch``."""
+                                  k_tiles: int, dtype=None) -> torch.Tensor:
+    """Plain twin of the whole AE: ``patch``, the module, ``unpatch``; the
+    module computes in its own dtype, or in ``dtype`` when given."""
     tiles = patch(specs[:, :, : k_tiles * TILE_T])
-    return unpatch(model(tiles), tiles_per_spec=k_tiles)
+    out = model(tiles) if dtype is None else model.forward_as(tiles, dtype)
+    return unpatch(out, tiles_per_spec=k_tiles)

@@ -58,7 +58,7 @@ __all__ = [
     "ae_train_sum", "ae_train_in_plain", "ae_train_conv_pool_plain",
     "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
     "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
-    "WgradPlan", "wgrad_plan",
+    "WgradPlan", "wgrad_plan", "dgrad_convt_rows",
     "train_weights", "route_bits", "route_expand",
     "loss_grad_sums", "bce_sum", "normalise",
     "kernel_loss_grad_sums", "kernel_loss_grad_sums_plain",
@@ -99,9 +99,10 @@ def _layer_params(depth: int) -> Tuple[str, ...]:
 @dataclasses.dataclass(frozen=True)
 class TrainWeights:
     """The forward weights (``ae_kernel.AEKernelWeights``) and, for layers 1
-    to 2d, the input-gradient operands ``bwd[i]`` (Cout, K, K, Cin) in the
-    kernel dtype: the kernel transposed, and for the stride-1 convs also
-    flipped in space."""
+    to 2d, the input-gradient operands ``bwd[i]`` in the kernel dtype: for
+    the stride-1 convs (Cout, K, K, Cin), the kernel transposed and flipped
+    in space; for the transposed convs (K, K, Cin, Cout), the kernel with
+    the channel of dz fastest."""
 
     fwd: AK.AEKernelWeights
     bwd: Tuple[torch.Tensor | None, ...]
@@ -124,8 +125,8 @@ def train_weights(fwd: AK.AEKernelWeights) -> TrainWeights:
     bwd = [None]
     for i in range(1, fwd.out + 1):
         w = fwd.w[i]
-        w = w if fwd.is_convt(i) else w.flip(1, 2)
-        bwd.append(w.permute(3, 1, 2, 0).contiguous())
+        w = w.permute(1, 2, 0, 3) if fwd.is_convt(i) else w.flip(1, 2).permute(3, 1, 2, 0)
+        bwd.append(w.contiguous())
     return TrainWeights(fwd, tuple(bwd))
 
 
@@ -204,9 +205,19 @@ def _act_shape(tw: TrainWeights, layer: int, b: int):
     return (b, cin, TILE_F >> s, TILE_T >> s)
 
 
-def _rows(b: int, h: int, w: int, quad: bool) -> int:
-    n = (h // 2) * (w // 2) if quad else h * w
-    return b * ((n + NQ - 1) // NQ)
+def _rows(b: int, h: int, w: int) -> int:
+    """Partial rows of a conv_quad_kernel launch over an (h, w) grid."""
+    return b * (((h // 2) * (w // 2) + NQ - 1) // NQ)
+
+
+def dgrad_convt_rows(b: int, h: int, w: int, cout: int) -> int:
+    """Partial rows of ``convt_dgrad_kernel`` over an (h, w) output grid
+    with ``cout`` channels: one per (tile, strip of R rows), where a block
+    holds 8 warps of 16-position fragments, 8 // (cout / 8) a warp (one
+    from 48 channels up), and R = min(positions / w, h)."""
+    nf = cout // 8
+    pos = 8 * 16 * (1 if nf >= 6 else 8 // nf)
+    return b * (h // min(pos // w, h))
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +385,7 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
     _on_device(e, tw)
     logits = torch.empty(b, TILE_F, TILE_T, dtype=torch.float32, device=e.device)
     dz = torch.empty(b, 1, TILE_F, TILE_T, dtype=tw.dtype, device=e.device)
-    rows = _rows(b, TILE_F, TILE_T, quad=True)
+    rows = _rows(b, TILE_F, TILE_T)
     part = torch.empty(rows, 2, dtype=torch.float32, device=e.device)
     (TRAIN_LOSS_PRE if pre else TRAIN_LOSS)(
         e.data_ptr(), tw.fwd.w[o].data_ptr(), tw.fwd.b[o].data_ptr(),
@@ -415,7 +426,7 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
     _on_device(dz, tw)
     h, w = shape[2:]
     out = torch.empty(shape, dtype=tw.dtype, device=dz.device)
-    rows = _rows(b, h, w, quad=True)
+    rows = _rows(b, h, w)
     part = torch.empty(rows, cout, dtype=torch.float32, device=dz.device)
     DGRAD_CONV(dz.data_ptr(), 0 if dz_bits is None else dz_bits.data_ptr(),
                tw.bwd[layer].data_ptr(), gate.data_ptr(), out.data_ptr(),
@@ -432,7 +443,9 @@ def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
     first one (layer d) reads the last encoder conv's pool: gate = its
     routing bits -> (the pooled gradient, the encoder conv's db).  At depth
     2, layer 3 (convT1) takes dz4 (B, C1, 256, 128) -> dz3 and layer 2
-    (convT2) dz3 (B, C2, 128, 64) -> dp2."""
+    (convT2) dz3 (B, C2, 128, 64) -> dp2.  On the card the kernel writes
+    one bias partial row per (tile, strip) (``dgrad_convt_rows``), summed
+    in a fixed order by ``ae_train_sum``."""
     if not tw.fwd.is_convt(layer):
         raise ValueError(f"transposed-conv layers are {tw.fwd.depth}..{tw.fwd.out - 1}, "
                          f"not {layer}")
@@ -445,9 +458,11 @@ def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
     if not dz.is_cuda:
         return ae_train_dgrad_convt_plain(tw, layer, dz, gate)
     _on_device(dz, tw)
+    if dz.data_ptr() % 16:
+        raise ValueError("the transposed convs' input-gradient kernel reads a 16-byte aligned dz")
     h, w = shape[2:]
     out = torch.empty(shape, dtype=tw.dtype, device=dz.device)
-    rows = _rows(b, h, w, quad=False)
+    rows = dgrad_convt_rows(b, h, w, shape[1])
     part = torch.empty(rows, shape[1], dtype=torch.float32, device=dz.device)
     DGRAD_CONVT(dz.data_ptr(), tw.bwd[layer].data_ptr(), gate.data_ptr(),
                 int(routed), out.data_ptr(), part.data_ptr(), rows,

@@ -12,7 +12,9 @@
   ``metrics.jsonl``, ``history.json`` and ``run_meta.json``, resume with
   shuffle replay, opt-in early stopping (``cfg.patience``).
 
-The default engine (``train_epoch``) is torch autograd on the ``nn.Module``;
+The default engine (``train_epoch``) is torch autograd on the ``nn.Module``,
+in float32 or, with ``create_state(dtype=torch.bfloat16)``, in bf16 with
+float32 master weights;
 ``kernel_epoch_for`` gives the engine on the hand-written CUDA training
 kernels (``ops.ae_train_kernel``: K5 at depth 2, K7 at depth 3).  Tiles
 are (N, 256, 128) or the JAX layout (N, 256, 128, 1); everything runs on
@@ -58,11 +60,15 @@ class TrainState:
 def create_state(model_cfg: ModelConfig = ModelConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
                  generator: Optional[torch.Generator] = None,
-                 device="cuda") -> TrainState:
+                 device="cuda", dtype=None) -> TrainState:
     """A glorot-initialised module (from ``generator``, default seeded with
-    ``train_cfg.seed``) on ``device`` and its Adam optimizer."""
+    ``train_cfg.seed``) on ``device`` and its Adam optimizer.
+    ``dtype=torch.bfloat16`` trains the autograd engine with bfloat16
+    activations, the parameters and the optimizer state staying float32
+    (the JAX package's ``create_state(dtype=jnp.bfloat16)``); None is
+    float32."""
     gen = torch.Generator().manual_seed(train_cfg.seed) if generator is None else generator
-    model = make_model(model_cfg, generator=gen, device=device)
+    model = make_model(model_cfg, generator=gen, device=device, dtype=dtype)
     opt = torch.optim.Adam(model.parameters(), lr=train_cfg.learning_rate,
                            betas=(train_cfg.beta1, train_cfg.beta2),
                            eps=train_cfg.adam_eps)

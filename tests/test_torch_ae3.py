@@ -155,8 +155,10 @@ def test_service_matches_jax_kernel_service(deep3):
 
 def test_kernel_family_and_prepare(deep3):
     """kernel_depth picks depth 2 or 3 as the JAX harness's _kernel_family
-    does, and raises for a geometry outside both, as does the service; the
-    deep3 service's prepare gives depth-3 weights and is idempotent."""
+    does, and raises for a geometry outside both, as does the service with
+    the kernel route forced (``use_kernel=True``; "auto" serves such a
+    geometry on the module route); the deep3 service's prepare gives
+    depth-3 weights and is idempotent."""
     _, model, x, _ = deep3
     assert tak.kernel_depth(DEEP3) == 3 and tak.kernel_depth(ModelConfig()) == 2
     wide = ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3, out_kernel=(5, 5))
@@ -164,7 +166,7 @@ def test_kernel_family_and_prepare(deep3):
         with pytest.raises(NotImplementedError):
             tak.kernel_depth(cfg)
         with pytest.raises(NotImplementedError):
-            harness.make_enhance_shot_fn(cfg, SP, device="cpu")
+            harness.make_enhance_shot_fn(cfg, SP, device="cpu", use_kernel=True)
     fn = harness.make_enhance_shot_fn(DEEP3, SP, dtype=None, device="cpu")
     wts = fn.prepare(model)
     assert wts.depth == 3 and wts.dtype == torch.float32 and fn.prepare(wts) is wts

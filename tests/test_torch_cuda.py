@@ -12,6 +12,7 @@ import torch
 
 from specenh_torch import ModelConfig, SpecParams, probe_walls
 from specenh_torch.bench import harness
+from specenh_torch.bench.reference import ssim
 from specenh_torch.models.autoencoder import make_model
 from specenh_torch.config import MODEL_PRESETS
 from specenh_torch.ops import ae3_kernel as tak3
@@ -212,6 +213,36 @@ def test_ae3_kernels_match_module(cuda, traces, cfg):
     assert float((got16 - want).abs().max()) < 2e-2
 
 
+def _autograd(model, x, y, mask, deterministic=True):
+    """Loss, gradients and the gates of torch autograd of the module in
+    float32, by default with cuDNN's deterministic algorithms (set and
+    restored):
+    the relu gates of the transposed convs (their outputs > 0, from
+    forward hooks) and the routing bits of the encoder pools."""
+    outs = {}
+    mods = [*model.enc_convs, *model.dec_deconvs]
+    hooks = [m.register_forward_hook(lambda _m, _i, o, k=k: outs.__setitem__(k, o.detach()))
+             for k, m in enumerate(mods)]
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        model.zero_grad()
+        ref = ttk.masked_bce_from_logits(model(x, logits=True), y, mask)
+        ref.backward()
+    finally:
+        torch.backends.cudnn.deterministic = old
+        for h in hooks:
+            h.remove()
+    d = model.cfg.depth
+    bits = []
+    for i in range(d):
+        r = torch.relu(outs[i])
+        bits.append(ttk.route_bits(r, torch.nn.functional.max_pool2d(r, 2)))
+    relu = [outs[d + k] > 0 for k in range(d)]  # dec_deconvs[k] feeds layer 2d - k
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return float(ref.detach()), grads, bits, relu
+
+
 @pytest.mark.parametrize("cfg", DEPTH3, ids=DEPTH3_IDS)
 def test_ae3_kernel_grads_match_autograd(cuda, cfg):
     """float32 depth-3 kernels against their whole plain twin and against
@@ -220,7 +251,11 @@ def test_ae3_kernel_grads_match_autograd(cuda, cfg):
     within float32 rounding of each other or of 0, each chain's own forward
     may gate the gradient differently.  So the twins' backward also runs
     on the kernels' forward and must agree there; the twins' own chain, and
-    autograd, must agree unless some gate differs between the forwards."""
+    autograd, must agree unless some gate differs between the forwards:
+    the gates of autograd's forward are counted from forward hooks, as the
+    twins' are.  Autograd's backward runs with cuDNN's deterministic
+    algorithms: two runs give the same bits (the default algorithms do
+    not)."""
     model, x, y, mask = _train_setup(cuda, cfg)
     sums = ttk3.kernel_loss_grad_sums3(model, x, y, mask, torch.float32)
     plain = ttk3.kernel_loss_grad_sums3_plain(model, x, y, mask, torch.float32)
@@ -237,20 +272,25 @@ def test_ae3_kernel_grads_match_autograd(cuda, cfg):
         err_fed = float((sums[2][k] - fed[k]).abs().max())
         assert err_fed <= 1e-4 * scale, (k, err_fed, scale)
         own = max(own, float((sums[2][k] - plain[2][k]).abs().max()) / scale)
-    print(f"{cfg}: {routed_apart} pool windows and {relu_apart} relu gates differ between "
-          f"the forwards; the twins' own chain off by {own:.3g} of scale")
     assert own <= 1e-4 or routed_apart + relu_apart > 0, own
-    if own > 1e-4:
-        return  # autograd's forward gates as it rounds, too
     loss, grads = ttk3.kernel_value_and_grad3(model, x, y, mask, torch.float32)
-    model.zero_grad()
-    ref = ttk.masked_bce_from_logits(model(x, logits=True), y, mask)
-    ref.backward()
-    scale = max(float(p.grad.abs().max()) for p in model.parameters())
-    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref)), (float(loss), float(ref))
-    for name, p in model.named_parameters():
-        err = float((grads[name] - p.grad).abs().max())
-        assert err <= 1e-4 * scale, (name, err, scale)
+    ref, ref_g, bits, relu = _autograd(model, x, y, mask)
+    again = _autograd(model, x, y, mask)[1]
+    assert all(torch.equal(ref_g[n], again[n]) for n in ref_g)
+    fast = [_autograd(model, x, y, mask, deterministic=False)[1] for _ in range(2)]
+    fast_equal = all(torch.equal(fast[0][n], fast[1][n]) for n in ref_g)
+    auto_routed = sum(int((a != b).sum()) for a, b in zip(s["bits"], bits))
+    auto_relu = sum(int((a != (s["act"][6 - k] > 0)).sum()) for k, a in enumerate(relu))
+    scale = max(float(g.abs().max()) for g in ref_g.values())
+    err = max(float((grads[n] - ref_g[n]).abs().max()) for n in ref_g) / scale
+    print(f"{cfg}: {routed_apart} pool windows and {relu_apart} relu gates differ between "
+          f"the kernels' and the twins' forwards, {auto_routed} and {auto_relu} between the "
+          f"kernels' and autograd's; the twins' own chain off by {own:.3g} of scale, "
+          f"autograd's by {err:.3g}; two autograd runs with cuDNN's default algorithms "
+          f"bit-equal: {fast_equal}")
+    assert abs(float(loss) - ref) <= 1e-5 * abs(ref), (float(loss), ref)
+    if auto_routed + auto_relu == 0:
+        assert err <= 1e-4, err
 
 
 def test_stft_tf_kernel_matches_twin_and_ft(traces):
@@ -402,3 +442,53 @@ def test_stft_kernel_ragged_block(cuda, cut):
     torch.testing.assert_close(mx, rmx, rtol=0, atol=2e-3)
     tf, tmn, tmx = tsf.stft_tf_log(x, sp)
     assert torch.equal(tf, ft.transpose(1, 2)) and torch.equal(tmn, mn) and torch.equal(tmx, mx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", WGRAD_GEOMETRIES, ids=WGRAD_IDS)
+def test_dgrad_convt_kernel_matches_twin(cuda, cfg, dtype):
+    """The transposed convs' input-gradient kernel, every transposed-conv
+    layer of the geometry (the first gated by random pool routing bits,
+    the others by their relu'd input), against its twin on the same inputs:
+    the output within one ulp of the dtype (bf16 2^-7, f32 1e-5 of the
+    scale, as chip_smoke.py's stage checks), the bias sums to 1e-4 of their
+    scale; two runs bit-identical."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    tw = ttk.build_train_weights(model, dtype)
+    w, g = tw.fwd, torch.Generator().manual_seed(4)
+    before = ttk.DGRAD_CONVT.launches
+    for i, (inp, dz, _) in _wgrad_inputs(cuda, tw, 3).items():
+        if not w.is_convt(i):
+            continue
+        gate = (torch.randint(0, 16, inp.shape, generator=g, dtype=torch.uint8).to(cuda)
+                if i == w.depth else inp)
+        out, db = ttk.ae_train_dgrad_convt(tw, i, dz, gate)
+        rout, rdb = ttk.ae_train_dgrad_convt_plain(tw, i, dz, gate)
+        d, ref = (out.float() - rout.float()).abs(), rout.float().abs()
+        if dtype == torch.bfloat16:
+            assert float((d - 2.0 ** -7 * ref - 1e-5).max()) <= 0, i
+        else:
+            assert float(d.max()) <= 1e-5 * max(float(ref.max()), 1e-6), i
+        assert float((db - rdb).abs().max()) <= 1e-4 * max(float(rdb.abs().max()), 1e-6), i
+        again = ttk.ae_train_dgrad_convt(tw, i, dz, gate)
+        assert torch.equal(out, again[0]) and torch.equal(db, again[1]), i
+    assert ttk.DGRAD_CONVT.launches == before + 2 * w.depth
+
+
+def test_module_route_service_passes_the_gate(traces):
+    """A geometry no kernel family covers, (16, 32, 128)/k5, served with
+    ``use_kernel="auto"`` in bf16: the module route, no serving kernel
+    launched, enhanced SSIM >= 0.999 per channel against the plain float32
+    service (TF32 off)."""
+    cfg = ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3, out_kernel=(5, 5))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=traces.device).eval()
+    fn = harness.make_enhance_shot_fn(cfg, SP, device=traces.device)
+    counted = (tsf.STFT_KERNEL, tak.TILE_IN, tak.CONV_POOL, tak.CONVT, tak.TILE_OUT)
+    before = [k.launches for k in counted]
+    specs, enhanced = fn(model, traces)
+    assert [k.launches for k in counted] == before
+    want_specs, want = harness.enhance_shot_plain(model, traces, SP)
+    assert torch.equal(specs, want_specs)
+    e, w = enhanced.cpu().numpy(), want.cpu().numpy()
+    for c in range(traces.shape[0]):
+        assert ssim(e[c], w[c]) >= 0.999, c

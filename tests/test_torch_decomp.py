@@ -9,6 +9,11 @@ package:
   OFF shifts, routed dz decoded once per strip, each tap read from the
   staged strip, sums over the strips in order and partial rows summed in
   order; against the twin and Flax autodiff for k3, k5 and k7;
+- the transposed convs' input gradient (``convt_dgrad_kernel``, split by
+  ``ops.ae_train_kernel.dgrad_convt_rows``): per (tile, strip) block, dz's
+  phase planes staged with the taps' halo one channel chunk at a time,
+  each chunk summed on its own and added in order, the gate, one bias
+  partial row per block; against the twin and Flax autodiff;
 - K1 (``csrc/stft.cu``): per block of 16 frames, detrend by mean and slope,
   the window, the 256-point complex FFT as 16 x 16 with the host's twiddle
   table, the real-to-complex split, per-block min/max; against the twin
@@ -175,6 +180,137 @@ def test_wgrad_plan_covers_the_layer(args, item):
     nph = 4 if stride == 2 else 1
     assert ttk._wg_bytes(p.ct, p.cp, k, h, w, p.rows, nph, p.hlo, p.hhi, p.gm, p.mw,
                          item) <= 227 * 1024
+
+
+# ---------------------------------------------------------------------------
+# the transposed convs' input-gradient kernel
+# ---------------------------------------------------------------------------
+
+
+def dgrad_convt_emulated(tw, layer, dz, gate):
+    """``ae_train_dgrad_convt`` as ``convt_dgrad_kernel`` computes it: per
+    (tile, strip of R rows) block, dz's four phase planes staged with the
+    taps' halo (zeros outside the grid) one channel chunk at a time (16
+    channels in bf16, 8 in float32), every tap a shifted window of a
+    plane, each chunk summed on its own and added in order, the gate, one
+    bias partial row per block, the rows summed in order."""
+    k = tw.fwd.k(layer)
+    pa = convt_pad_before(k)
+    hlo, hhi = (pa - k + 1) >> 1, pa >> 1
+    b, cz, h2, w2 = dz.shape
+    h, w = h2 // 2, w2 // 2
+    cout = tw.fwd.w[layer].shape[0]
+    strips = ttk.dgrad_convt_rows(1, h, w, cout)
+    r = h // strips
+    ch = 16 if tw.dtype == torch.bfloat16 else 8
+    wt = tw.bwd[layer].float()                                  # (K, K, Cout, Cz)
+    out = torch.empty(b, cout, h, w, dtype=tw.dtype)
+    part = torch.empty(b * strips, cout)
+    for bi in range(b):
+        d = dz[bi].float()
+        planes = torch.stack([d[:, ry::2, rx::2] for ry in (0, 1) for rx in (0, 1)], 1)
+        planes = torch.nn.functional.pad(planes, (-hlo, hhi, -hlo, hhi))
+        for s in range(strips):
+            y0 = s * r
+            strip = planes[:, :, y0:y0 + r + hhi - hlo]         # staged once
+            acc = torch.zeros(cout, r, w)
+            for c0 in range(0, cz, ch):
+                cacc = torch.zeros(cout, r, w)
+                for tap in range(k * k):
+                    ai, aj = pa - tap // k, pa - tap % k
+                    plane = (ai & 1) * 2 + (aj & 1)
+                    dy, dx = (ai >> 1) - hlo, (aj >> 1) - hlo
+                    win = strip[c0:c0 + ch, plane, dy:dy + r, dx:dx + w]
+                    cacc += torch.einsum("cyx,oc->oyx", win, wt[tap // k, tap % k, :, c0:c0 + ch])
+                acc += cacc
+            g = gate[bi:bi + 1, :, y0:y0 + r]
+            o, gv = ttk._gate(acc[None], g, tw.dtype)
+            out[bi, :, y0:y0 + r] = o[0]
+            part[bi * strips + s] = gv[0].sum((1, 2))
+    return out, ttk.ae_train_sum(part)
+
+
+DGRAD_GEOMETRIES = {
+    "k3": ModelConfig(),
+    "deep3": ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(5, 5)),
+    "64-32-64k7": ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
+    "48-16-48mixed": ModelConfig(filters=(48, 16, 48), kernels=((3, 3), (5, 5), (1, 1)),
+                                 out_kernel=(3, 3)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(DGRAD_GEOMETRIES))
+def test_dgrad_convt_decomposition_matches_twin(name, dtype):
+    """Every transposed-conv layer (the first gated by random routing bits,
+    the others by their relu'd input) on one tile of random inputs: the
+    emulated kernel against the twin, the output within one ulp of the
+    dtype (float32: 1e-5 of the scale) and the bias sums to 1e-5 of their
+    scale."""
+    model = make_model(DGRAD_GEOMETRIES[name], generator=torch.Generator().manual_seed(1))
+    tw = ttk.build_train_weights(model, dtype)
+    g = torch.Generator().manual_seed(2)
+    for i in range(tw.fwd.depth, tw.fwd.out):
+        shape = ttk._act_shape(tw, i, 1)
+        dz = torch.randn(1, tw.fwd.cout(i), 2 * shape[2], 2 * shape[3], generator=g).to(dtype)
+        gate = (torch.randint(0, 16, shape, generator=g, dtype=torch.uint8) if i == tw.fwd.depth
+                else torch.randn(shape, generator=g).clamp_min(0).to(dtype))
+        out, db = dgrad_convt_emulated(tw, i, dz, gate)
+        rout, rdb = ttk.ae_train_dgrad_convt_plain(tw, i, dz, gate)
+        d, ref = (out.float() - rout.float()).abs(), rout.float().abs()
+        if dtype == torch.bfloat16:
+            assert float((d - 2.0 ** -7 * ref - 1e-5).max()) <= 0, i
+        else:
+            assert float(d.max()) <= 1e-5 * float(ref.max()), i
+        assert float((db - rdb).abs().max()) <= 1e-5 * float(rdb.abs().max()), i
+
+
+@pytest.mark.parametrize("name", ["k3", "deep3"])
+def test_dgrad_convt_decomposition_in_the_chain_matches_flax(name):
+    """float32: the twins' backward with the emulated transposed-conv input
+    gradients in place of the twin's, normalised, against autodiff of the
+    Flax model (2e-5 of the scale, as the weight-gradient emulation)."""
+    cfg = DGRAD_GEOMETRIES[name]
+    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
+    fm = flax_model(jcfg)
+    params = fm.init(jax.random.PRNGKey(0), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, cfg))
+    x, y, mask = _tiles(n=1, seed=3)
+    tw = ttk.build_train_weights(model, torch.float32)
+    xs, ys, ms = ttk._inputs(tw, torch.from_numpy(x), torch.from_numpy(y),
+                             torch.from_numpy(mask), False)
+    saved, _, bce = ttk._forward(tw, xs, ys, ms, False, ttk._PLAIN)
+    gw, gb = ttk._backward(tw, saved, False, dict(ttk._PLAIN, dgrad_convt=dgrad_convt_emulated))
+    _, grads = ttk.normalise((bce[0], ms.sum(), ttk.grads_to_torch(gw, gb)))
+    _, ref = jax.value_and_grad(lambda p: jbce(fm.apply(p, x, logits=True), y, mask))(params)
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, ref), cfg)
+    scale = max(float(v.abs().max()) for v in want.values())
+    err = max(float((grads[k] - want[k]).abs().max()) for k in want)
+    assert err < 2e-5 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("name", list(DGRAD_GEOMETRIES))
+def test_dgrad_convt_strips_cover_the_grid(name):
+    """The kernel's split of each transposed-conv layer, as the C launcher
+    checks it: strips of R rows tile the output grid, a block's R * W
+    positions fit its 8 warps of 16-position fragments, and its staged
+    strip and weight chunk fit the 227 KB of shared memory (less the 2 KB
+    of its bias reduction)."""
+    tw = ttk.build_train_weights(make_model(DGRAD_GEOMETRIES[name],
+                                            generator=torch.Generator()), torch.bfloat16)
+    for i in range(tw.fwd.depth, tw.fwd.out):
+        _, cout, h, w = ttk._act_shape(tw, i, 1)
+        k, nf = tw.fwd.k(i), cout // 8
+        strips = ttk.dgrad_convt_rows(1, h, w, cout)
+        r = h // strips
+        assert strips * r == h and w % 16 == 0 and cout % 16 == 0
+        assert r * w <= 8 * 16 * (1 if nf >= 6 else 8 // nf)
+        pa = convt_pad_before(k)
+        halo = (pa >> 1) - ((pa - k + 1) >> 1)
+        smem = (4 * (r + halo) * (w + halo) + k * k * cout) * 32
+        assert smem <= 227 * 1024 - 2048, (i, smem)
+        assert ttk.dgrad_convt_rows(5, h, w, cout) == 5 * strips
 
 
 # ---------------------------------------------------------------------------

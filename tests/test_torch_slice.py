@@ -71,12 +71,14 @@ def test_bf16_service_passes_the_enhanced_gate(setup):
 
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(cfg=ModelConfig(filters=(16, 32, 128), kernels=((5, 5),) * 3,
-                          out_kernel=(5, 5))), NotImplementedError),
+                          out_kernel=(5, 5)), use_kernel=True), NotImplementedError),
     (dict(sp=SpecParams(nperseg=256, noverlap=128)), ValueError),
     (dict(sp=SpecParams(cut_shot=0.05)), ValueError),
 ], ids=["depth3", "nperseg256", "too-short"])
 def test_service_rejects(kwargs, exc):
-    """A geometry no kernel family covers and a shot too short to tile raise
+    """A geometry no kernel family covers, with the kernel route forced
+    (``use_kernel=True``, as JAX's raises; "auto" serves it on the module,
+    tests/test_torch_module_route.py), and a shot too short to tile raise
     when the service is built.  nperseg 256 gives 129 one-sided rows: the
     JAX service builds ("auto" falls back to its matmul front) and its call
     leaves the 256-row tiles' rows past the 128 kept ones unfilled (NaN in
