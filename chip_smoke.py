@@ -9,14 +9,20 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
 1. the device: a CUDA device must be present; prints its name and power
    limit and turns TF32 off, so the plain float32 references are float32;
 2. builds every kernel from ``specenh_torch/csrc`` with nvcc, in parallel,
-   and prints each library's ptxas registers and spills;
+   and prints each library's ptxas registers and spills, and each
+   instantiation of the tensor-core conv ``conv_igemm_kernel``'s;
 3. each kernel against its plain PyTorch twin at the serving path's shapes
    (a 20-channel, 2 s shot; the flagship AE), and the whole AE in float32
-   and bf16, plus the k7 and (64, 32)/k5 geometries on one channel;
+   and bf16, plus the k7 and (64, 32)/k5 geometries on one channel; each
+   stage launch on the conv template its dtype and channels choose (bf16
+   S2 on ``conv_igemm_kernel``, float32 and single-channel convs on
+   ``conv_quad_kernel``, from the libraries' per-template launch counts);
 4. the service ``make_enhance_shot_fn(dtype=bfloat16)`` on three synthetic
    shots, with the repo's two gates: spectrogram SSIM >= 0.99 against the
    SciPy recipe, enhanced SSIM >= 0.999 against the plain float32 service
-   on every channel; every kernel must have launched during it;
+   on every channel; every kernel must have launched during it, every S2
+   launch on ``conv_igemm_kernel`` and every S1 and S4 launch on
+   ``conv_quad_kernel``;
 5. CUDA-event timings of each kernel and its twin, ms/shot, spectrograms/s
    and peak device memory;
 6. phases 3-5 for the deep3 preset (filters (16, 32, 64), k5): every stage
@@ -29,6 +35,8 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
 8. each training kernel (K5 and K5b entry points) against its plain twin,
    stage by stage on the same inputs, on one 128-tile batch of the
    flagship in bf16 and float32, and k5, k7 and (64, 32)/k5 on 4 tiles;
+   each launch on its conv template (the encoder convs' forward and routed
+   input gradient on ``conv_igemm_kernel`` in bf16);
    for each in float32 the whole kernel chain against the twins' whole
    chain, the twins' backward on their own forward and on the kernels'
    (the pool windows and relu gates the forwards gate differently are
@@ -38,9 +46,13 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    (bf16, K5), 1 epoch of K5 and 1 of K5b (``pre_layout=True``) from the
    same weights, which must agree bit for bit, then 3 epochs on the
    autograd engine in float32; gated on the loss curves, and every
-   training kernel must have launched in the kernel runs;
+   training kernel must have launched in the kernel runs, the encoder
+   convs' forward and input gradients on ``conv_igemm_kernel``, conv 0,
+   the loss and the out-conv's input gradient on ``conv_quad_kernel``;
 10. timings: each training kernel per 128-tile step beside its twin, the
-   one PyTorch call that computes the same function and its bound; s/epoch,
+   one PyTorch call that computes the same function and its bound (the
+   out-conv's and the encoder convs' ``ae_train_dgrad_conv`` also apart,
+   each beside ``conv2d_input``); s/epoch,
    tiles/s and the peak memory of a step for each engine, the bf16
    autograd engine (``create_state(dtype=bfloat16)``) among them, whose
    epoch must give finite, falling losses;
@@ -156,6 +168,8 @@ TPU_KERNELS = {
     "K11c": "scripts/probe_mosaic_walls.py:54",
 }
 STAGES = (AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
+# the two stride-1 conv templates of csrc/ae_conv.cuh
+QUAD, IGEMM = "conv_quad_kernel", "conv_igemm_kernel"
 SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
              3: dict(zip(STAGES, ("K8-in", "K6", "K6", "K8-out")))}
 SERVE_KERNELS = (SF.STFT_KERNEL, *STAGES)
@@ -232,6 +246,24 @@ def ptxas_summary() -> list:
     return rows
 
 
+def on_template(lib: str, kind, tag: str, fn, *args):
+    """``fn(*args)``, which must launch one stride-1 conv through library
+    ``lib`` on template ``kind`` (QUAD or IGEMM), or none (None)."""
+    before = _build.conv_template_launches(lib)
+    out = fn(*args)
+    after = _build.conv_template_launches(lib)
+    got = {k: after[k] - before[k] for k in after}
+    want = {QUAD: int(kind == QUAD), IGEMM: int(kind == IGEMM)}
+    check(got == want, f"{tag}: conv template launches {got}, expected {want}")
+    return out
+
+
+def template_deltas(before: dict) -> dict:
+    """Launches of each conv template per library since ``before``."""
+    now = {lib: _build.conv_template_launches(lib) for lib in before}
+    return {lib: {k: now[lib][k] - before[lib][k] for k in now[lib]} for lib in now}
+
+
 def conv_flops(w: AK.AEKernelWeights, i: int, b: int, h: int, wd: int) -> float:
     """FLOPs of layer i on b inputs of h x wd: a stride-1 conv's output
     positions, or a transposed conv's input positions, times its taps."""
@@ -258,13 +290,18 @@ def check_stft(sp, traces) -> float:
 
 def serve_chain(wts, specs, k):
     """The stage kernels over the layer table, each on the previous
-    kernel's output: (the 2d activations, the restitched output)."""
-    xs = [AK.ae_tile_in(wts, specs, k)]
+    kernel's output: (the 2d activations, the restitched output).  Each
+    S2 launch must run on the tensor cores in bf16 and on
+    ``conv_quad_kernel`` in float32, S1 and S4 (one channel) on
+    ``conv_quad_kernel``."""
+    s2 = IGEMM if wts.dtype == torch.bfloat16 else QUAD
+    xs = [on_template("ae", QUAD, "ae_tile_in", AK.ae_tile_in, wts, specs, k)]
     for i in range(1, wts.depth):
-        xs.append(AK.ae_conv_pool(wts, xs[-1], i))
+        xs.append(on_template("ae", s2, f"{wts.dtype} ae_conv_pool {i}", AK.ae_conv_pool,
+                              wts, xs[-1], i))
     for i in range(wts.depth, wts.out):
-        xs.append(AK.ae_convt(wts, xs[-1], i))
-    return xs, AK.ae_tile_out(wts, xs[-1], k)
+        xs.append(on_template("ae", None, f"ae_convt {i}", AK.ae_convt, wts, xs[-1], i))
+    return xs, on_template("ae", QUAD, "ae_tile_out", AK.ae_tile_out, wts, xs[-1], k)
 
 
 def check_serve_stages(wts, specs, k, tag):
@@ -315,20 +352,27 @@ def check_kernels(dev, cfg, specs, k, dtypes, geometries):
 
 
 def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
-    """The service ``fn`` on the shots ``traces`` with every count set to 0
-    just before and read just after: each of ``kernels`` must have
-    launched and none of ``absent``; then the repo's two gates on every
-    shot.  Returns the outputs and the counts."""
+    """The bf16 service ``fn`` on the shots ``traces`` with every count set
+    to 0 just before and read just after: each of ``kernels`` must have
+    launched and none of ``absent``, every S2 launch on the tensor cores
+    and every S1 and S4 launch on ``conv_quad_kernel``; then the repo's two
+    gates on every shot.  Returns the outputs and the counts."""
     for kern in _build.KERNELS:
         kern.launches = 0
+    before = {"ae": _build.conv_template_launches("ae")}
     outs = [fn(wts, t) for t in traces]
     torch.cuda.synchronize()
     launches = {kern: kern.launches for kern in _build.KERNELS}
+    took = template_deltas(before)["ae"]
     for kern in kernels:
         check(launches[kern] > 0, f"{tag}: {kern.symbol} was not launched")
     for kern in absent:
         check(launches[kern] == 0, f"{tag}: {kern.symbol} was launched")
-    log(f"{tag} launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in kernels))
+    s1s4 = launches[AK.TILE_IN] + launches[AK.TILE_IN_NORM] + launches[AK.TILE_OUT]
+    check(took == {IGEMM: launches[AK.CONV_POOL], QUAD: s1s4},
+          f"{tag}: conv templates {took}, S2 {launches[AK.CONV_POOL]}, S1 + S4 {s1s4}")
+    log(f"{tag} launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in kernels)
+        + f"; {IGEMM}={took[IGEMM]} (every S2), {QUAD}={took[QUAD]} (every S1, S4)")
     c, k = traces[0].shape[0], refs[0][1].shape[-1] // 128
     for seed, (specs, enh), (s_ref, e_ref) in zip((0, 1, 2), outs, refs):
         check(specs.shape == (c, 256, refs[0][0].shape[-1]), f"specs {tuple(specs.shape)}")
@@ -418,6 +462,22 @@ def time_entries(gpu, entries, dtype, per=""):
             f"({b_by}; {flops / 1e9:.3f} GFLOP, {nb / 1e6:.1f} MB, "
             f"{PEAK[dt][1]}, 3.35 TB/s), achieved {flops / ms / 1e9:.2f} TFLOP/s")
     return times
+
+
+def device_ms(fn, name: str) -> float:
+    """Device milliseconds of one call of ``fn`` spent in the CUDA kernels
+    whose names contain ``name``, from torch.profiler over 10 calls after a
+    warm-up; 0.0 where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if name in e.key)
+    return us / 10 / 1e3
 
 
 def time_stft(sp, gpu, traces, tf=False):
@@ -726,7 +786,10 @@ def check_train_stages(tw, x, y, mask, tag):
     """Phases 8 and 11: every training kernel against its twin, stage by
     stage on the same inputs (the kernels' own outputs feed the next
     stage), over the layer table from conv 0 to the out-conv and back; at
-    depth 2 the K5b entry points must equal K5's bit for bit.  Returns the
+    depth 2 the K5b entry points must equal K5's bit for bit.  The encoder
+    convs' forward and input gradient must run on the tensor cores in bf16
+    and on ``conv_quad_kernel`` in float32, the single-channel convs (conv
+    0, the out-conv and its input gradient) on ``conv_quad_kernel``.  Returns the
     max |err| of each kernel and the stage tensors: ``act[i]`` layer i's
     input, ``bits[i]`` encoder conv i's routing bits, ``dz[i]`` the
     gradient at layer i's output (pooled for the encoder convs)."""
@@ -739,17 +802,20 @@ def check_train_stages(tw, x, y, mask, tag):
         errs[kern] = max(errs.get(kern, 0.0), e)
 
     x16, y16 = x.to(dt), y.to(dt)
-    p, pm = TK.ae_train_in(tw, x)
+    multi = IGEMM if dt == torch.bfloat16 else QUAD  # the encoder convs' template
+    p, pm = on_template("ae_train", QUAD, f"{tag} ae_train_in", TK.ae_train_in, tw, x)
     r, rm = TK.ae_train_in_plain(tw, x)
     note(TK.TRAIN_IN, act_(f"{tag} ae_train_in", p, r))
     fr = check_mask(f"{tag} pool-0 routing", pm, rm)
     if pre:
-        q, qm = TK.ae_train_in(tw, x16, pre=True)
+        q, qm = on_template("ae_train", QUAD, f"{tag} ae_train_in_pre", TK.ae_train_in, tw,
+                            x16, True)
         check(torch.equal(q, p) and torch.equal(qm, pm), f"{tag} ae_train_in_pre != ae_train_in")
         note(TK.TRAIN_IN_PRE, act_(f"{tag} ae_train_in_pre", q, r))
     act, bits = [x, p], [pm]
     for i in range(1, d):
-        p, pm = TK.ae_train_conv_pool(tw, act[-1], i)
+        p, pm = on_template("ae_train", multi, f"{tag} ae_train_conv_pool {i}",
+                            TK.ae_train_conv_pool, tw, act[-1], i)
         r, rm = TK.ae_train_conv_pool_plain(tw, act[-1], i)
         note(TK.TRAIN_CONV_POOL, act_(f"{tag} ae_train_conv_pool {i}", p, r))
         fr = max(fr, check_mask(f"{tag} pool-{i} routing", pm, rm))
@@ -762,14 +828,16 @@ def check_train_stages(tw, x, y, mask, tag):
         fr = max(fr, check_mask(f"{tag} relu {i}", a > 0, r > 0))
         act.append(a)
     e = act[o]
-    logits, dz_o, bce, db_o = TK.ae_train_loss(tw, e, y, mask)
+    logits, dz_o, bce, db_o = on_template("ae_train", QUAD, f"{tag} ae_train_loss",
+                                          TK.ae_train_loss, tw, e, y, mask)
     rl, rdz, rbce, rdb = TK.ae_train_loss_plain(tw, e, y, mask)
     note(TK.TRAIN_LOSS, max(check_f32(f"{tag} logits", logits, rl),
                             act_(f"{tag} dz{o}", dz_o, rdz),
                             check_sum(f"{tag} BCE sum", bce, rbce),
                             check_sum(f"{tag} db{o}", db_o, rdb)))
     if pre:
-        got = TK.ae_train_loss(tw, e, y16, mask, pre=True)
+        got = on_template("ae_train", QUAD, f"{tag} ae_train_loss_pre", TK.ae_train_loss,
+                          tw, e, y16, mask, True)
         check(all(torch.equal(a, b) for a, b in zip(got, (logits, dz_o, bce, db_o))),
               f"{tag} ae_train_loss_pre != ae_train_loss")
         note(TK.TRAIN_LOSS_PRE, errs[TK.TRAIN_LOSS])
@@ -781,7 +849,8 @@ def check_train_stages(tw, x, y, mask, tag):
         return got
 
     def dgrad(fn, plain, kern, i, dz, gate, *bits_):
-        out, db = fn(tw, i, dz, gate, *bits_)
+        kind = None if kern is TK.DGRAD_CONVT else multi if bits_ else QUAD
+        out, db = on_template("ae_train", kind, f"{tag} dgrad {i}", fn, tw, i, dz, gate, *bits_)
         rout, rdb = plain(tw, i, dz, gate, *bits_)
         note(kern, max(act_(f"{tag} dgrad {i}", out, rout), check_sum(f"{tag} db{i - 1}", db, rdb)))
         return out
@@ -876,6 +945,7 @@ def train_runs(dev, cfg, data, epochs):
     args = (data.x_train, data.y_train, data.x_tune, data.y_tune)
     for kern in _build.KERNELS:
         kern.launches = 0
+    before = {"ae_train": _build.conv_template_launches("ae_train")}
     t0 = time.perf_counter()
     _, hk = TR.fit(state(), *args, cfg=tc, epochs=epochs, epoch_fn=TR.kernel_epoch_for(cfg, tc))
     if depth2:
@@ -884,11 +954,21 @@ def train_runs(dev, cfg, data, epochs):
                         epoch_fn=TR.kernel_epoch_for(cfg, tc, pre_layout=True))
     torch.cuda.synchronize(dev)
     launches = {kern: kern.launches for kern in _build.KERNELS}
+    took = template_deltas(before)["ae_train"]
     t_kernel = time.perf_counter() - t0
     log(f"depth-{cfg.depth} training launches: " + ", ".join(
-        f"{k.symbol}={n}" for k, n in launches.items() if n))
+        f"{k.symbol}={n}" for k, n in launches.items() if n)
+        + f"; {IGEMM}={took[IGEMM]}, {QUAD}={took[QUAD]}")
     for kern in (*(TK.TRAIN_KERNELS if depth2 else TRAIN3_KERNELS), AK.CONVT):
         check(launches[kern] > 0, f"{kern.symbol} was not launched by training")
+    # a bf16 step: the encoder convs' forward and input gradients on the
+    # tensor cores; conv 0, the loss and the out-conv's input gradient (one
+    # per step) on conv_quad_kernel
+    steps = launches[TK.TRAIN_LOSS] + launches[TK.TRAIN_LOSS_PRE]
+    single = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps + steps
+    multi = launches[TK.TRAIN_CONV_POOL] + launches[TK.DGRAD_CONV] - steps
+    check(took == {IGEMM: multi, QUAD: single},
+          f"training conv templates {took}, expected {IGEMM}={multi}, {QUAD}={single}")
     t0 = time.perf_counter()
     _, ha = TR.fit(state(), *args, cfg=tc, epochs=epochs)
     t_auto = time.perf_counter() - t0
@@ -958,7 +1038,8 @@ def time_training(gpu, cfg, data, tw, st):
     # the partials a step sums: the loss's, each input gradient's bias
     # partials, each layer's weight-gradient partials
     shapes = [(TK._rows(b, 256, 128), 2)]
-    shapes += [(TK._rows(b, *act[i].shape[2:]), act[i].shape[1]) for i in (*enc, o)]
+    shapes += [((TK.conv_igemm_rows(b, *act[i].shape[2:], act[i].shape[1]) if i in enc
+                 else TK._rows(b, *act[i].shape[2:])), act[i].shape[1]) for i in (*enc, o)]
     shapes += [(TK.dgrad_convt_rows(b, *act[i].shape[2:], act[i].shape[1]), act[i].shape[1])
                for i in dec]
     shapes += [(b * wg_rows(w, i, ins[i].shape[2:]), w.w[i].numel()) for i in range(o + 1)]
@@ -1032,6 +1113,35 @@ def time_training(gpu, cfg, data, tw, st):
             lambda: F.conv2d(act[o], cw[o], padding=pad(o)),
             fl([o]), nbytes(act[o], s["y16"], s["y"], dz[o], s["mask"]))
     times = time_entries(gpu, entries, tw.dtype, f" per {b}-tile step (depth {d})")
+    # the two kinds of ae_train_dgrad_conv launch apart: the out-conv's (one
+    # dz channel, conv_quad_kernel) and the encoder convs' (routed dz, the
+    # tensor cores), each with its ae_train_sum, conv2d_input and its bound
+    apart = {
+        "out-conv": (lambda: TK.ae_train_dgrad_conv(tw, o, dz[o], act[o]),
+                     lambda: conv2d_input(act[o].shape, cw[o], dz[o], padding=pad(o)),
+                     fl([o]), nbytes(dz[o], act[o], dz[o - 1]), 1),
+        "encoder": (lambda: [TK.ae_train_dgrad_conv(tw, i, dz[i], bits[i - 1], bits[i])
+                             for i in enc],
+                    lambda: [conv2d_input(act[i].shape, cw[i], dzx[i], padding=pad(i))
+                             for i in enc],
+                    fl(enc), sum(nbytes(dz[i], bits[i], bits[i - 1], dz[i - 1]) for i in enc),
+                    len(enc)),
+    }
+    # ae_train_sum's row times each call from the host's side of the
+    # stream, its Python wrapper included; the kernels' own device time
+    # beside torch.sum's, from torch.profiler
+    k_dev = device_ms(lambda: [TK.ae_train_sum(p) for p in parts], "sum_rows_kernel")
+    l_dev = device_ms(lambda: [torch.sum(p, 0) for p in parts], "reduce_kernel")
+    log(f"[{gpu}] ae_train_sum, the step's {len(parts)} partial arrays, device time "
+        f"(torch.profiler): sum_rows_kernel {k_dev:.4f} ms, torch.sum's kernels {l_dev:.4f} ms")
+    for name, (kf, lf, flops, nb, n_launch) in apart.items():
+        ms = min(time_cuda(kf), time_cuda(kf))
+        with torch.no_grad():
+            lib_ms = time_cuda(lf)
+        b_ms, b_by = bound(flops, nb, tw.dtype)
+        log(f"[{gpu}] ae_train_dgrad_conv, {name} ({n_launch} a step, depth {d}): kernel "
+            f"{ms:.4f} ms, conv2d_input {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nb / 1e6:.1f} MB), achieved {flops / ms / 1e9:.2f} TFLOP/s")
     # forward and weight gradients of every layer, input gradients of all
     # but conv 0
     flops_step = 2 * fl(range(o + 1)) + fl(range(1, o + 1))
@@ -1147,6 +1257,12 @@ def main() -> int:
         log(f"  ptxas {lib}.cu: {len(mine)} kernels, at most {max(r[2] for r in mine)} "
             f"registers, {sum(r[3] for r in mine)} B spill stores in all (each kernel: "
             f"{listing})")
+    for lib, name, regs, spill in rows:
+        m = re.search(r"conv_igemm_kernelILi(\d+)E.*?(Ig\w+?Src).*?(Ig\w+?Epi)(ILi(\d)E)?", name)
+        if m:
+            gate = f"<{m.group(5)}>" if m.group(5) else ""
+            log(f"  ptxas {lib}.cu conv_igemm_kernel<NF={m.group(1)}, {m.group(2)}, "
+                f"{m.group(3)}{gate}>: {regs} registers, {spill} B spill stores")
 
     sp = SpecParams()
     traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)

@@ -10,7 +10,10 @@ local CUDA toolkit.
 A ``CudaKernel`` is one C entry point.  Every entry point takes the CUDA
 stream as its last argument and returns ``cudaGetLastError()`` after its
 launch; the call raises if that is not 0 and otherwise adds one to
-``launches``, so a run can show that it went through the kernel.
+``launches``, so a run can show that it went through the kernel.  The
+libraries with the stride-1 conv templates (``ae``, ``ae_train``) also
+count the launches of each template (``conv_template_launches``), so a run
+can show which template each launch site took.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "build", "build_all", "KERNELS", "CSRC", "BUILD_DIR"]
+__all__ = ["CudaKernel", "build", "build_all", "conv_template_launches", "KERNELS",
+           "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -109,6 +113,14 @@ def _library(name: str) -> ctypes.CDLL:
             lib.specenh_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def conv_template_launches(name: str) -> Dict[str, int]:
+    """The launches of each stride-1 conv template (``csrc/ae_conv.cuh``)
+    made through library ``name`` since it was loaded."""
+    out = (ctypes.c_longlong * 2)()
+    _library(name).specenh_conv_launches(out)
+    return {"conv_quad_kernel": out[0], "conv_igemm_kernel": out[1]}
 
 
 class CudaKernel:

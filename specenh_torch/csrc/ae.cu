@@ -47,16 +47,19 @@
 // (16/32/64, k5) does ~498 M MAC per tile, ~598 GFLOP a shot, and moves
 // ~2.9 GB.
 //
-// Design: direct convolution, one thread per 2x2 quad of output pixels and
-// 16 output channels (64 float accumulators).  The thread loads the
-// (K+1)x(K+1) input patch its quad needs into registers once per input
-// channel, so each load feeds 4*K*K*16/((K+1)^2) FMAs; the weights of 8
+// Design (S1, S4 and every float32 stage): direct convolution, one thread
+// per 2x2 quad of output pixels and 16 output channels (64 float
+// accumulators).  The thread loads the (K+1)x(K+1) input patch its quad
+// needs into registers once per input channel, so each load feeds
+// 4*K*K*16/((K+1)^2) FMAs; the weights of 8
 // input channels at a time are staged in shared memory as float and read
 // as warp-wide broadcasts.  Kernel size is a template argument (1, 3, 5,
 // 7), channel counts are runtime: every geometry ae_kernel.supports()
-// accepts.  No tensor cores yet: wgmma, TMA and fusing the stages with
-// halo recompute are later work.  The kernel templates live in
-// ae_conv.cuh, shared with the training stages (ae_train.cu).
+// accepts.  The bf16 S2 runs conv_igemm_kernel instead:
+// an implicit GEMM on the bf16 tensor cores over strips of a tile staged
+// once per 16-channel chunk, pooled in registers.  wgmma, TMA and fusing
+// the stages with halo recompute are later work.  The kernel templates
+// live in ae_conv.cuh, shared with the training stages (ae_train.cu).
 
 #include "ae_conv.cuh"
 
@@ -81,6 +84,29 @@ struct PoolEpi {
       ob[(long long)(co0 + co) * dst.chan + (long long)m * dst.ld + n] =
           sx_cast<TOUT>(fmaxf(z, 0.f));
     }
+  }
+};
+
+// S2 on the tensor cores (conv_igemm_kernel): PoolEpi's bias + relu + 2x2
+// max pool, the window being the thread's two positions in its two
+// fragments; out (B, Cout, h2, w2) bf16.
+struct IgPoolEpi {
+  __nv_bfloat16* out;
+  int Cout, h2, w2;
+  template <int NW>
+  __device__ __forceinline__ void operator()(float (&acc)[2][NW][4], const float* bias,
+                                             int b, int y, int x0, int co0) const {
+    const int lane = threadIdx.x & 31, tq = lane & 3;
+    const long long pix = (long long)(y >> 1) * w2 + (x0 >> 1) + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co0 + 8 * n + 2 * tq + e;
+        const float z = fmaxf(fmaxf(acc[0][n][e], acc[0][n][2 + e]),
+                              fmaxf(acc[1][n][e], acc[1][n][2 + e])) + bias[co];
+        out[((long long)b * Cout + co) * h2 * w2 + pix] = __float2bfloat16_rn(fmaxf(z, 0.f));
+      }
   }
 };
 
@@ -158,26 +184,23 @@ extern "C" int ae_tile_in_norm(const float* raw, const float* mn,
   return cudaErrorInvalidValue;
 }
 
-// S2.  in: (B, Cin, H, W), out: (B, Cout, H/2, W/2), w: (Cin, K, K, Cout),
-// all in dtype.
-template <typename T>
-int conv_pool(const void* in, const void* w, const float* bias, void* out,
-              int B, int Cin, int Cout, int H, int W, int K, cudaStream_t st) {
-  return launch_conv_quad<T, COB>(
-      PlaneSrc<T, T>{static_cast<const T*>(in), nchw(Cin, H, W)}, w, bias,
-      PoolEpi<T, COB>{static_cast<T*>(out), nchw(Cout, H / 2, W / 2)}, B, Cin,
-      Cout, H, W, K, st);
-}
-
+// S2.  in: (B, Cin, H, W), out: (B, Cout, H/2, W/2), all in dtype.  float32
+// runs conv_quad_kernel, w (Cin, K, K, Cout); bf16 conv_igemm_kernel, w
+// (K, K, Cout, Cin).
 extern "C" int ae_conv_pool(const void* in, const void* w, const float* bias,
                             void* out, int dtype, int B, int Cin, int Cout,
                             int H, int W, int K, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
-    return conv_pool<float>(in, w, bias, out, B, Cin, Cout, H, W, K, st);
+    return launch_conv_quad<float, COB>(
+        PlaneSrc<float, float>{static_cast<const float*>(in), nchw(Cin, H, W)}, w, bias,
+        PoolEpi<float, COB>{static_cast<float*>(out), nchw(Cout, H / 2, W / 2)}, B, Cin,
+        Cout, H, W, K, st);
   if (dtype == SX_BF16)
-    return conv_pool<__nv_bfloat16>(in, w, bias, out, B, Cin, Cout, H, W, K,
-                                    st);
+    return launch_conv_igemm(
+        IgPlaneSrc{static_cast<const __nv_bfloat16*>(in)}, w, bias,
+        IgPoolEpi{static_cast<__nv_bfloat16*>(out), Cout, H / 2, W / 2}, B, Cin,
+        Cout, H, W, K, st);
   return cudaErrorInvalidValue;
 }
 

@@ -6,10 +6,19 @@
 //                      it reads comes from a source functor (a plain NCHW
 //                      plane, or a max-pool gradient routed from the pooled
 //                      grid) and what it writes from an epilogue functor.
+//   conv_igemm_kernel  the same convolution for bf16 launches with >= 16
+//                      input and output channels, as an implicit GEMM on the
+//                      tensor cores (mma.sync), with its own source and
+//                      epilogue functors.
 //   convt_relu_kernel  Flax 'SAME' stride-2 transposed conv + bias + relu.
 //   GateOut, block_sums  the training epilogues' per-pixel gate and the
 //                      per-block channel sums (deterministic: warp shuffles
 //                      and a fixed-order sum over the warps, no atomics).
+//
+// Which template a launch takes is decided by its dtype and channel counts
+// alone: the multi-channel stride-1 convs run conv_igemm_kernel in bf16,
+// everything else conv_quad_kernel.  Nothing falls back from one to the
+// other: a bf16 launch that conv_igemm_kernel refuses raises.
 #pragma once
 
 #include <stdint.h>
@@ -359,6 +368,17 @@ inline int quad_blocks(int H, int W) { return ((H / 2) * (W / 2) + NT - 1) / NT;
     default: return cudaErrorInvalidValue;                    \
   }
 
+// Launches of each stride-1 conv template since the library was loaded
+// (0: conv_quad_kernel, 1: conv_igemm_kernel), counted on the host where a
+// launch succeeds: a run can show which template each launch site took.
+long long sx_conv_launches[2];
+
+inline int count_conv_launch(int which) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++sx_conv_launches[which];
+  return err;
+}
+
 template <typename TACT, int CB, class Src, class Epi>
 int launch_conv_quad(Src src, const void* w, const float* bias, Epi epi,
                      int B, int Cin, int Cout, int H, int W, int K,
@@ -369,7 +389,332 @@ int launch_conv_quad(Src src, const void* w, const float* bias, Epi epi,
   const auto* wt = static_cast<const TACT*>(w);
   SX_K_SWITCH(K, conv_quad_kernel<TACT, KK, CB, Src, Epi>
                      <<<grid, NT, 0, st>>>(src, wt, bias, epi, Cin, Cout, H, W));
-  return cudaGetLastError();
+  return count_conv_launch(0);
+}
+
+// ---------------------------------------------------------------------------
+// conv_igemm_kernel: the 'same' K x K stride-1 convolution of a bf16 launch
+// with Cin and Cout multiples of 16 (Cout <= 64), as an implicit GEMM on
+// bf16 mma.sync.m16n8k16 (bf16 in, float32 out):
+//   D[p, co] = sum_{(c, tap)} A[p, (c, tap)] * Wt[(c, tap), co]
+// over the output positions p of a strip of R rows of one tile (M), all Cout
+// channels in 8-channel fragments (N) and the reduction over the input
+// channels c in 16-channel chunks per tap (K).  A is the input read through
+// the tap's shift, zero outside the tile ('same' padding).  wt is
+// (K, K, Cout, Cin): the layer's weight with the input channel fastest,
+// arranged once when the layer table is built.  It computes the math of
+// conv_quad_kernel (its epilogues keep their functors' semantics) for the
+// multi-channel launches in bf16: the S2 (ae_conv_pool), the training
+// forward (ae_train_conv_pool) and the encoder convs' routed input
+// gradient (ae_train_dgrad_conv).
+//
+// Block: 8 warps, one tile b, one strip of R rows (blockIdx.x).  Each warp
+// holds a row pair (2m, 2m + 1) x 16 columns (two 16-position fragments)
+// and NW 8-channel fragments; for up to 32 channels one group of 8 warps
+// covers every channel, for 48 and 64 two groups of 4 warps take half each
+// (at most 2 x NW x 4 = 32 accumulators a thread, and as many for a chunk's
+// fresh sums).  Fragment row r is column x0 + 2 (r mod 8) + r / 8, so the
+// two positions a thread holds (rows gq and gq + 8) are a horizontal pair
+// and its two fragments the vertical pair: a 2x2 pool window is max-pooled
+// in registers.
+//
+// Staging, per 16-channel chunk: the strip's input rows y0 - r .. y0 + R -
+// 1 + r (r = K / 2) with the taps' halo columns, zeros outside the tile,
+// each staged position one run of 16 channels (32 bytes, channel fastest:
+// each half of a run is one 8x8 row of an ldmatrix), the columns split
+// into their two phases (staged column s = x + XO, XO = r rounded up to
+// even, in phase s & 1 at index s / 2) so that the 8 positions of a fragment
+// load are 8 consecutive runs; a run's two 16-byte halves swap where bit 2
+// of its index is set (run_word), so those 8 runs fall in 32 banks.  A
+// thread stages a column pair of one row: 16 32-bit loads of the channel
+// planes (a routed gradient: the pooled value and its bits, decoded once
+// here, not once per tap), split by byte permutes.  Then the chunk's
+// weights for every tap and output channel, run tap * Cout + co holding
+// wt[tap][co][c0 ..] (two 16-byte loads, four runs in flight a thread).
+// A and B fragments are read by ldmatrix (one x4 for a 16-position A
+// fragment, one for a pair of 8-channel B fragments).
+//
+// Accumulation: a chain is Cin K^2 products (3136 at 64 channels, k7); the
+// tensor cores' float32 accumulation drifts with its length, so each chunk
+// (16 K^2 products) accumulates in fresh fragments that are then added into
+// float32 registers, chunk by chunk in order (as convt_dgrad_kernel).
+//
+// What bounds it: 2 * H * W * Cin * Cout * K^2 FLOP a tile (the flagship S2
+// 90.6 GFLOP a shot, 0.092 ms at the bf16 peak) against the input read once
+// and the pooled output written once (0.117 ms at 3.35 TB/s): bytes.  This
+// first design stages with plain loads, does not overlap staging and MMAs,
+// re-reads the halo rows and the layer's weights (up to 401 KB at 64 x 64
+// channels, k7) from L2 in every block.
+constexpr int IG_WARPS = 8;
+constexpr int IG_NT = 32 * IG_WARPS;
+
+template <int NF>
+struct IgShape {
+  static constexpr int NG = NF > 4 ? 2 : 1;      // groups of warps over Cout
+  static constexpr int NW = NF / NG;             // 8-channel fragments a warp
+  static constexpr int PW = IG_WARPS / NG;       // warps of a group
+  static constexpr int POS = PW * 32;            // positions a block
+};
+
+// Strip rows of a conv_igemm_kernel launch with Cout channels over a grid W
+// columns wide (a block's positions / W), or -1 where the kernel does not
+// take the width.  ops/ae_train_kernel.py conv_igemm_rows mirrors it.
+inline int ig_strip_rows(int Cout, int W) {
+  const int pos = Cout > 32 ? IgShape<8>::POS : IgShape<4>::POS;
+  if (W < 16 || W % 16 != 0 || pos % W != 0 || pos / W < 2) return -1;
+  return pos / W;
+}
+
+struct IgGeom {
+  int Cin, Cout, H, W, K, r;  // r = K / 2
+  int R, RT, XO, WH;          // strip rows, staged rows, column offset, runs a
+                              // staged row has in each column phase
+};
+
+// Word q (0..7) of a 32-byte run L of 16 bf16: the run's two 16-byte halves
+// swap where bit 2 of L is set.
+__device__ __forceinline__ int run_word(int L, int q) { return L * 8 + (q ^ (L & 4)); }
+
+// Four (two) 8x8 b16 matrices from shared memory: lane l gives the address
+// of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); register i of
+// thread t holds row t / 4, columns 2 (t % 4) and 2 (t % 4) + 1 of matrix i:
+// an mma.sync fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint32_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const uint32_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Source: an NCHW bf16 plane (B, Cin, H, W), as PlaneSrc reads it.  pair()
+// gives channels c0 .. c0 + 15 at columns (x, x + 1) of row y, x even: word
+// c holds column x in its low half.
+struct IgPlaneSrc {
+  const __nv_bfloat16* p;
+  bool aligned() const { return reinterpret_cast<uintptr_t>(p) % 4 == 0; }
+  __device__ __forceinline__ void pair(uint32_t (&v)[16], const IgGeom& g, int b,
+                                       int c0, int y, int x) const {
+    const long long chan = (long long)g.H * g.W;
+    const __nv_bfloat16* q = p + ((long long)b * g.Cin + c0) * chan + (long long)y * g.W + x;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) v[c] = *reinterpret_cast<const uint32_t*>(q + c * chan);
+  }
+};
+
+// Source: the gradient at the input of a 2x2 max pool, routed from the
+// pooled grid, as RouteSrc reads it: v (B, Cin, H/2, W/2) bf16 and bits
+// (bit (y & 1) * 2 + (x & 1) of bits[y/2][x/2]: pixel (y, x) takes the
+// pooled value).  A column pair (x, x + 1), x even, is one pooled value and
+// its bits.
+struct IgRouteSrc {
+  const __nv_bfloat16* v;
+  const uint8_t* bits;
+  bool aligned() const { return reinterpret_cast<uintptr_t>(v) % 2 == 0; }
+  __device__ __forceinline__ void pair(uint32_t (&out)[16], const IgGeom& g, int b,
+                                       int c0, int y, int x) const {
+    const long long chan = (long long)(g.H / 2) * (g.W / 2);
+    const long long o = ((long long)b * g.Cin + c0) * chan + (long long)(y >> 1) * (g.W / 2) +
+                        (x >> 1);
+    const unsigned short* raw = reinterpret_cast<const unsigned short*>(v) + o;
+    const uint8_t* m = bits + o;
+    uint32_t val[16], k[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {  // every load in flight before the decode
+      val[c] = raw[c * chan];
+      k[c] = m[c * chan];
+    }
+    const int sh = (y & 1) * 2;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+      out[c] = ((k[c] >> sh) & 1u ? val[c] : 0u) | ((k[c] >> (sh + 1)) & 1u ? val[c] << 16 : 0u);
+  }
+};
+
+// Stage input channels c0 .. c0 + 15 of the strip at row y0: run
+// (t * 2 + s % 2) * WH + s / 2 holds staged row t (input row y0 - r + t) at
+// staged column s (input column s - XO).  A unit is a column pair of a row.
+template <class Src>
+__device__ __forceinline__ void ig_stage_in(const Src& src, uint32_t* as, const IgGeom& g,
+                                            int b, int c0, int y0) {
+  const int total = g.RT * g.WH;
+  for (int e = threadIdx.x; e < total; e += IG_NT) {
+    const int t = e / g.WH, i = e % g.WH;
+    const int y = y0 - g.r + t, x = 2 * i - g.XO;
+    uint32_t v[16];  // a unit's 16 loads in flight before its stores
+    if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
+      src.pair(v, g, b, c0, y, x);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 16; ++c) v[c] = 0u;
+    }
+    const int L0 = 2 * t * g.WH + i, L1 = L0 + g.WH;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      as[run_word(L0, q)] = __byte_perm(v[2 * q], v[2 * q + 1], 0x5410);
+      as[run_word(L1, q)] = __byte_perm(v[2 * q], v[2 * q + 1], 0x7632);
+    }
+  }
+}
+
+// Stage the chunk's weights: run tap * Cout + co holds wt[tap][co][c0 ..].
+__device__ __forceinline__ void ig_stage_w(const __nv_bfloat16* __restrict__ wt, uint32_t* ws,
+                                           const IgGeom& g, int c0) {
+  constexpr int U = 4;  // runs in flight a thread: all loads of a round before its stores
+  const int total = g.K * g.K * g.Cout;
+  for (int e0 = threadIdx.x; e0 < total; e0 += IG_NT * U) {
+    uint4 v[U][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * IG_NT;
+      if (e < total) {
+        const uint4* src = reinterpret_cast<const uint4*>(wt + (long long)e * g.Cin + c0);
+        v[u][0] = src[0];
+        v[u][1] = src[1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * IG_NT;
+      if (e >= total) continue;
+      *reinterpret_cast<uint4*>(ws + run_word(e, 0)) = v[u][0];
+      *reinterpret_cast<uint4*>(ws + run_word(e, 4)) = v[u][1];
+    }
+  }
+}
+
+// The sums of the warp's positions: acc[f][n][h * 2 + e] is position
+// (y + f, x0 + 2 gq + h), channel co0 + 8 n + 2 tq + e.  Then epi(acc,
+// bias, b, y, x0, co0) writes them; every thread of the block reaches it.
+template <int NF, class Src, class Epi>
+__global__ void __launch_bounds__(IG_NT, 2) conv_igemm_kernel(
+    Src src, const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias, Epi epi,
+    IgGeom g) {
+  using S = IgShape<NF>;
+  constexpr int NW = S::NW;
+  extern __shared__ __align__(16) unsigned char ig_smem[];
+  uint32_t* as = reinterpret_cast<uint32_t*>(ig_smem);
+  uint32_t* ws = as + g.RT * 2 * g.WH * 8;
+
+  const int b = blockIdx.z, y0 = blockIdx.x * g.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
+  const int grp = warp / S::PW, pw = warp % S::PW, cgs = g.W / 16;
+  const int rp = pw / cgs, x0 = (pw % cgs) * 16, co0 = grp * NW * 8;
+
+  float acc[2][NW][4];
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[f][n][q] = 0.f;
+
+  const int kk = g.K * g.K;
+  for (int c0 = 0; c0 < g.Cin; c0 += 16) {
+    __syncthreads();
+    ig_stage_in(src, as, g, b, c0, y0);
+    ig_stage_w(wt, ws, g, c0);
+    __syncthreads();
+    float cacc[2][NW][4];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cacc[f][n][q] = 0.f;
+    for (int tap = 0; tap < kk; ++tap) {
+      const int dy = tap / g.K, s0 = x0 + tap % g.K - g.r + g.XO;
+      // B: matrix m of a pair of fragments is fragment n + m / 2, channel
+      // half m % 2; lane l reads the run of output channel l % 8
+      const uint32_t* wb = ws + run_word(tap * g.Cout + co0 + (lane & 7) + 8 * (mat >> 1),
+                                         4 * (mat & 1));
+      uint32_t bq[NW][2];
+#pragma unroll
+      for (int n = 0; n + 1 < NW; n += 2) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, wb + 64 * n);
+        bq[n][0] = r4[0];
+        bq[n][1] = r4[1];
+        bq[n + 1][0] = r4[2];
+        bq[n + 1][1] = r4[3];
+      }
+      if constexpr (NW % 2 == 1) ldmatrix_x2(bq[NW - 1], wb + 64 * (NW - 1));
+      // A: matrix m is fragment rows 8 (m % 2) .. (staged columns s0 + 2 i
+      // and s0 + 1 + 2 i for row i and 8 + i), channel half m / 2
+      const int s = s0 + (mat & 1);
+      const int la = (s & 1) * g.WH + (s >> 1) + (lane & 7);
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        uint32_t a[4];
+        ldmatrix_x4(a, as + run_word((2 * rp + f + dy) * 2 * g.WH + la, 4 * (mat >> 1)));
+#pragma unroll
+        for (int n = 0; n < NW; ++n)
+          mma_bf16(cacc[f][n], a[0], a[1], a[2], a[3], bq[n][0], bq[n][1]);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[f][n][q] += cacc[f][n][q];
+  }
+  epi(acc, bias, b, y0 + 2 * rp, x0, co0);
+}
+
+template <int NF, class Src, class Epi>
+int launch_igemm_nf(Src src, const __nv_bfloat16* wt, const float* bias, Epi epi, int B,
+                    const IgGeom& g, cudaStream_t st) {
+  const long long smem = (2LL * g.RT * g.WH + (long long)g.K * g.K * g.Cout) * 32;
+  if (smem > 227 * 1024 - (long long)sizeof(float) * IG_WARPS * 32) return cudaErrorInvalidValue;
+  auto kern = conv_igemm_kernel<NF, Src, Epi>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(g.H / g.R, 1, B), IG_NT, smem, st>>>(src, wt, bias, epi, g);
+  return count_conv_launch(1);
+}
+
+// The launch: the source's rows 4-byte aligned, wt 16-byte aligned;
+// K odd up to 7; Cin a multiple of 16; Cout 16, 32, 48 or 64; W 32 or 64
+// (ig_strip_rows), H a multiple of the strip rows.  Returns
+// cudaErrorInvalidValue for anything else: the caller raises.
+template <class Src, class Epi>
+int launch_conv_igemm(Src src, const void* w, const float* bias, Epi epi, int B, int Cin,
+                      int Cout, int H, int W, int K, cudaStream_t st) {
+  const int R = ig_strip_rows(Cout, W);
+  if (K < 1 || K > 7 || K % 2 == 0 || Cin < 16 || Cin % 16 != 0 || Cout < 16 || Cout > 64 ||
+      Cout % 16 != 0 || R < 2 || H < R || H % R != 0 || B < 1 || B > 65535 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || !src.aligned())
+    return cudaErrorInvalidValue;
+  IgGeom g{Cin, Cout, H, W, K, K / 2};
+  g.R = R;
+  g.RT = R + 2 * g.r;
+  g.XO = (g.r + 1) & ~1;
+  g.WH = (g.XO + W + g.r + 1) / 2;
+  const auto* wt = static_cast<const __nv_bfloat16*>(w);
+  switch (Cout / 8) {
+    case 2: return launch_igemm_nf<2>(src, wt, bias, epi, B, g, st);
+    case 4: return launch_igemm_nf<4>(src, wt, bias, epi, B, g, st);
+    case 6: return launch_igemm_nf<6>(src, wt, bias, epi, B, g, st);
+    case 8: return launch_igemm_nf<8>(src, wt, bias, epi, B, g, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -437,3 +782,10 @@ struct GateOut {
 };
 
 }  // namespace
+
+// The launches of the two conv templates in this library so far: out[0]
+// conv_quad_kernel, out[1] conv_igemm_kernel.
+extern "C" void specenh_conv_launches(long long* out) {
+  out[0] = sx_conv_launches[0];
+  out[1] = sx_conv_launches[1];
+}

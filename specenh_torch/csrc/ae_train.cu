@@ -47,15 +47,19 @@
 // and weight gradients): ~1.13 GFLOP per tile, ~145 GFLOP per 128-tile
 // step, 0.15 ms at the card's 989 TFLOP/s peak for bf16 operands.  The
 // stages write ~7 MB per tile in bf16 and read it back: ~3 GB per step,
-// 0.9 ms at 3.35 TB/s.  So the step is bound by bytes.  That these stages
-// run their FMAs on the CUDA cores (67 TFLOP/s fp32, 2.2 ms for the step)
-// is a choice of this first design, not the bound.  The deep3 preset
+// 0.9 ms at 3.35 TB/s.  So the step is bound by bytes.  That some stages
+// (the single-channel convs, every float32 stage) run their FMAs on the
+// CUDA cores (67 TFLOP/s fp32) is a choice of the design, not the bound.
+// The deep3 preset
 // (16/32/64, k5) does ~0.5 G MAC per tile forward and twice that backward:
 // ~379 GFLOP per 128-tile step, 0.38 ms at the bf16 peak, about as long as
 // its ~1 GB of stored activations and gradients take at 3.35 TB/s.
 //
-// Design: the forward and stride-1 input-gradient stages reuse
-// conv_quad_kernel (ae_conv.cuh) with new epilogues.  The weight gradient
+// Design: the forward and stride-1 input-gradient stages reuse the serving
+// stages' conv templates (ae_conv.cuh) with new epilogues: the multi-channel
+// ones in bf16 (ae_train_conv_pool, the encoder convs' ae_train_dgrad_conv)
+// the implicit GEMM conv_igemm_kernel on the tensor cores, the others
+// conv_quad_kernel.  The weight gradient
 // (wgrad_kernel) and the transposed convs' input gradient
 // (convt_dgrad_kernel) are implicit GEMMs over strips of a tile staged
 // once per block for all taps, on the bf16 tensor cores (mma.sync) or, in
@@ -156,6 +160,90 @@ struct GateQuadEpi {
   }
 };
 
+// ae_train_conv_pool on the tensor cores (conv_igemm_kernel): PoolMaskEpi's
+// bias + relu + pool and routing bits, the window being the thread's two
+// positions (bit 2 f + h: row y + f, column x + h) in its two fragments.
+struct IgPoolMaskEpi {
+  __nv_bfloat16* out;
+  uint8_t* bits;
+  int Cout, h2, w2;
+  template <int NW>
+  __device__ __forceinline__ void operator()(float (&acc)[2][NW][4], const float* bias,
+                                             int b, int y, int x0, int co0) const {
+    const int lane = threadIdx.x & 31, tq = lane & 3;
+    const long long pix = (long long)(y >> 1) * w2 + (x0 >> 1) + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co0 + 8 * n + 2 * tq + e;
+        const float bv = bias[co];
+        float r[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) r[q] = fmaxf(acc[q >> 1][n][(q & 1) * 2 + e] + bv, 0.f);
+        const float p = fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
+        unsigned k = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) k |= (p > 0.f && r[q] == p) ? (1u << q) : 0u;
+        const long long o = ((long long)b * Cout + co) * h2 * w2 + pix;
+        out[o] = __float2bfloat16_rn(p);
+        bits[o] = (uint8_t)k;
+      }
+  }
+};
+
+// The encoder convs' routed input gradient on the tensor cores: GateQuadEpi
+// through GateOut, and the bias-gradient partials of the Cout channels, one
+// row per (tile, strip): each thread sums its gated values in a fixed
+// order, then the 8 lanes of a channel by a fixed shuffle tree, then the
+// warps of the channel's group in order.
+template <int MODE>
+struct IgGateEpi {
+  GateOut<__nv_bfloat16, MODE> g;  // (B, Cout, H, W)
+  float* part;
+  int Cout, H, W;
+  template <int NW>
+  __device__ __forceinline__ void operator()(float (&acc)[2][NW][4], const float*, int b,
+                                             int y, int x0, int co0) const {
+    __shared__ float red[IG_WARPS][32];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+    const int x = x0 + 2 * (lane >> 2);
+    float db[NW][2];
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co0 + 8 * n + 2 * tq + e;
+        float s = 0.f;
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const long long o = (((long long)b * Cout + co) * H + y + f) * W + x;
+          s += g.put(o, acc[f][n][e]);
+          s += g.put(o + 1, acc[f][n][2 + e]);
+        }
+        db[n][e] = s;
+      }
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = db[n][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane < 4) red[warp][8 * n + 2 * tq + e] = s;
+      }
+    __syncthreads();
+    if (threadIdx.x < Cout) {
+      const int per = Cout > 32 ? Cout / 2 : Cout;  // channels of a group of warps
+      const int pw = Cout > 32 ? IG_WARPS / 2 : IG_WARPS;
+      const int grp = threadIdx.x / per, c = threadIdx.x % per;
+      float s = 0.f;
+      for (int w = 0; w < pw; ++w) s += red[grp * pw + w][c];
+      part[((long long)b * gridDim.x + blockIdx.x) * Cout + threadIdx.x] = s;
+    }
+  }
+};
+
 // Weight gradient of a layer, per tile:
 //   part[b][ci][i][j][co] = sum_{m, n} in[b, ci, m, n] *
 //                           dz[b, co, S*m + OFF - i, S*n + OFF - j]
@@ -233,16 +321,6 @@ __host__ __device__ inline void wg_tap(int tap, int K, int S, int OFF,
   plane = ry * 2 + rx;
   dy = (a - ry) / 2;
   dx = (c - rx) / 2;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // 8 consecutive values at p (16-byte aligned) as float, and 8 floats
@@ -646,7 +724,7 @@ struct DgGeom {
 // bit 2 of L is set; float32 runs are stored as they are.
 template <typename T>
 __device__ __forceinline__ int dg_word(int L, int q) {
-  if constexpr (sizeof(T) == 2) return L * 8 + (q ^ (L & 4));
+  if constexpr (sizeof(T) == 2) return run_word(L, q);
   return L * 8 + q;
 }
 
@@ -848,21 +926,40 @@ __global__ void __launch_bounds__(DG_NT, 2) convt_dgrad_kernel(
   }
 }
 
-// out[c] = sum over the n rows of part (n, m), in a fixed order: one block
-// per column, a strided sum per thread, then a shared-memory tree.
-__global__ void __launch_bounds__(256) sum_rows_kernel(
+// out[y][c] = the sum of rows n * y / slabs .. n * (y + 1) / slabs - 1 of
+// part (n, m), slab y = blockIdx.y, in a fixed order.  A block takes 32
+// consecutive columns (blockIdx.x) of its slab: lane l reads column 32 x +
+// l, so a warp's loads of a row are coalesced; warp w sums the slab's rows
+// w, w + 8, .. in order; then a fixed tree over the 8 warps: ((w0 + w4) +
+// (w2 + w6)) + ((w1 + w5) + (w3 + w7)).
+constexpr int SUM_WARPS = 8;
+
+__global__ void __launch_bounds__(32 * SUM_WARPS) sum_rows_kernel(
     const float* __restrict__ part, float* __restrict__ out, int n, int m) {
-  __shared__ float red[256];
-  const int col = blockIdx.x;
+  __shared__ float red[SUM_WARPS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = blockIdx.x * 32 + lane, slabs = gridDim.y;
+  const int r0 = (int)((long long)n * blockIdx.y / slabs);
+  const int r1 = (int)((long long)n * (blockIdx.y + 1) / slabs);
   float s = 0.f;
-  for (int r = threadIdx.x; r < n; r += 256) s += part[(long long)r * m + col];
-  red[threadIdx.x] = s;
+  if (col < m) {
+    int r = r0 + warp;
+    for (; r + 7 * SUM_WARPS < r1; r += 8 * SUM_WARPS) {  // 8 loads in flight, added in order
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = part[(long long)(r + u * SUM_WARPS) * m + col];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; r < r1; r += SUM_WARPS) s += part[(long long)r * m + col];
+  }
+  red[warp][lane] = s;
   __syncthreads();
-  for (int w = 128; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+  for (int w = SUM_WARPS / 2; w > 0; w >>= 1) {
+    if (warp < w) red[warp][lane] += red[warp + w][lane];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[col] = red[0];
+  if (warp == 0 && col < m) out[(long long)blockIdx.y * m + col] = red[0][lane];
 }
 
 // The rest of a launch's geometry from (Ct, Cp, K, H, W, S, OFF) and the
@@ -961,22 +1058,37 @@ int train_loss(const void* e, const void* w, const float* bias, const void* y,
       B, Cin, 1, H, W, K, st);
 }
 
+// bf16 with a routed dz (the encoder convs) runs conv_igemm_kernel, w
+// (K, K, Cout, Cz), one partial row per (tile, strip); every other launch
+// (the out-conv's one dz channel, float32) conv_quad_kernel, w (Cz, K, K,
+// Cout), one partial row per quad block.
 template <typename T>
 int dgrad_conv(const void* dz, const uint8_t* dz_bits, const void* w,
                const void* gate, void* out, float* part, int rows, int B,
                int Cz, int Cout, int H, int W, int K, cudaStream_t st) {
-  if (rows != B * quad_blocks(H, W)) return cudaErrorInvalidValue;
   const auto* d = static_cast<const T*>(dz);
   auto* o = static_cast<T*>(out);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (dz_bits != nullptr) {
+      const int R = ig_strip_rows(Cout, W);
+      if (R < 2 || H % R != 0 || rows != B * (H / R)) return cudaErrorInvalidValue;
+      return launch_conv_igemm(
+          IgRouteSrc{d, dz_bits}, w, nullptr,
+          IgGateEpi<GATE_ROUTE>{{o, gate}, part, Cout, H, W}, B, Cz, Cout, H, W, K, st);
+    }
+  }
+  if (rows != B * quad_blocks(H, W)) return cudaErrorInvalidValue;
   if (dz_bits == nullptr)
     return launch_conv_quad<T, COB>(
         PlaneSrc<T, T>{d, nchw(Cz, H, W)}, w, nullptr,
         GateQuadEpi<T, GATE_RELU>{{o, gate}, part, Cout, H, W}, B, Cz, Cout,
         H, W, K, st);
-  return launch_conv_quad<T, COB>(
-      RouteSrc<T>{d, dz_bits, Cz, H / 2, W / 2}, w, nullptr,
-      GateQuadEpi<T, GATE_ROUTE>{{o, gate}, part, Cout, H, W}, B, Cz, Cout, H,
-      W, K, st);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_conv_quad<T, COB>(
+        RouteSrc<T>{d, dz_bits, Cz, H / 2, W / 2}, w, nullptr,
+        GateQuadEpi<T, GATE_ROUTE>{{o, gate}, part, Cout, H, W}, B, Cz, Cout, H,
+        W, K, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int NF, int MODE>
@@ -1073,17 +1185,25 @@ extern "C" int ae_train_in_pre(const void* x, const void* w, const float* bias,
   SX_DTYPE(dtype, train_in<T, T>(x, w, bias, out, bits, B, Cout, H, W, K, st));
 }
 
-// Forward 2.  in (B, Cin, H, W) -> out, bits (B, Cout, H/2, W/2).
+// Forward 2.  in (B, Cin, H, W) -> out, bits (B, Cout, H/2, W/2).  float32
+// runs conv_quad_kernel, w (Cin, K, K, Cout); bf16 conv_igemm_kernel, w
+// (K, K, Cout, Cin).
 extern "C" int ae_train_conv_pool(const void* in, const void* w,
                                   const float* bias, void* out, uint8_t* bits,
                                   int dtype, int B, int Cin, int Cout, int H,
                                   int W, int K, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  SX_DTYPE(dtype, launch_conv_quad<T, COB>(
-                      PlaneSrc<T, T>{static_cast<const T*>(in), nchw(Cin, H, W)},
-                      w, bias,
-                      PoolMaskEpi<T>{static_cast<T*>(out), bits, Cout, H / 2, W / 2},
-                      B, Cin, Cout, H, W, K, st));
+  if (dtype == SX_F32)
+    return launch_conv_quad<float, COB>(
+        PlaneSrc<float, float>{static_cast<const float*>(in), nchw(Cin, H, W)}, w, bias,
+        PoolMaskEpi<float>{static_cast<float*>(out), bits, Cout, H / 2, W / 2}, B, Cin,
+        Cout, H, W, K, st);
+  if (dtype == SX_BF16)
+    return launch_conv_igemm(
+        IgPlaneSrc{static_cast<const __nv_bfloat16*>(in)}, w, bias,
+        IgPoolMaskEpi{static_cast<__nv_bfloat16*>(out), bits, Cout, H / 2, W / 2}, B, Cin,
+        Cout, H, W, K, st);
+  return cudaErrorInvalidValue;
 }
 
 // Loss (K5).  e (B, Cin, H, W) in dtype, w (Cin, K, K, 1); y (B, H, W)
@@ -1109,12 +1229,15 @@ extern "C" int ae_train_loss_pre(const void* e, const void* w,
                                    rows, B, Cin, H, W, K, st));
 }
 
-// Input gradient of a stride-1 'same' conv over an (H, W) grid.  w
-// (Cz, K, K, Cout) is the layer's kernel flipped and transposed.  dz_bits
+// Input gradient of a stride-1 'same' conv over an (H, W) grid.  w is the
+// layer's kernel flipped and transposed: (Cz, K, K, Cout), or for a launch
+// on the tensor cores (bf16, dz routed) (K, K, Cout, Cz).  dz_bits
 // null: dz (B, Cz, H, W), gate = the layer input (relu), out = gated dz of
 // the layer below.  Otherwise dz is routed from (B, Cz, H/2, W/2) values and
 // dz_bits, gate = the routing bits of the pool below (B, Cout, H, W), out =
-// the pooled gradient.  part (rows = B * quad blocks, Cout): bias grads.
+// the pooled gradient.  part (rows, Cout): bias grads, rows = B * quad
+// blocks, or on the tensor cores B * strips (ops/ae_train_kernel.py
+// conv_igemm_rows).
 extern "C" int ae_train_dgrad_conv(const void* dz, const uint8_t* dz_bits,
                                    const void* w, const void* gate, void* out,
                                    float* part, int rows, int dtype, int B,
@@ -1172,11 +1295,24 @@ extern "C" int ae_train_wgrad_x(const float* x, const void* dz,
                       B, g, st)));
 }
 
-// out (m,) = the sum of part's n rows (n, m), float32.
-extern "C" int ae_train_sum(const float* part, float* out, int n, int m,
-                            void* stream) {
-  if (n < 1 || m < 1) return cudaErrorInvalidValue;
-  sum_rows_kernel<<<m, 256, 0, static_cast<cudaStream_t>(stream)>>>(part, out,
-                                                                    n, m);
+// out (m,) = the sum of part's n rows (n, m), float32, in a fixed order.
+// slabs = 1: one pass.  slabs > 1 (few columns, many rows: the bias
+// partials): each slab of rows is summed into scratch (slabs, m), then the
+// slabs' sums in a second pass (ops/ae_train_kernel.py sum_slabs).
+extern "C" int ae_train_sum(const float* part, float* out, float* scratch, int n, int m,
+                            int slabs, void* stream) {
+  const int groups = (m + 31) / 32;
+  if (n < 1 || m < 1 || slabs < 1 || slabs > n || slabs > 65535 ||
+      (slabs > 1 && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (slabs == 1) {
+    sum_rows_kernel<<<dim3(groups, 1), 32 * SUM_WARPS, 0, st>>>(part, out, n, m);
+    return cudaGetLastError();
+  }
+  sum_rows_kernel<<<dim3(groups, slabs), 32 * SUM_WARPS, 0, st>>>(part, scratch, n, m);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_rows_kernel<<<dim3(groups, 1), 32 * SUM_WARPS, 0, st>>>(scratch, out, slabs, m);
   return cudaGetLastError();
 }

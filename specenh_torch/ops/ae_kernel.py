@@ -10,7 +10,8 @@ the out-conv 2d.  ``ae_kernel_enhance_specs`` runs four stage kernels of
 
   ae_tile_in    S1  the tile load + cast (K2, K8-in) fused with encoder
                     conv 0 + relu + pool
-  ae_conv_pool  S2  encoder convs 1 .. d-1 + relu + pool
+  ae_conv_pool  S2  encoder convs 1 .. d-1 + relu + pool (in bf16 on the
+                    tensor cores, ``conv_igemm_kernel``)
   ae_convt      S3  stride-2 transposed conv + relu, d times
   ae_tile_out   S4  out-conv + sigmoid fused with the restitched store
                     (K4, K8-out)
@@ -81,11 +82,15 @@ class AEKernelWeights:
     """The 2d + 1 layers in the kernels' layout: ``w[i]`` (Cin, kh, kw,
     Cout) in the service dtype (transposed convs: the Flax kernel,
     unflipped), ``b[i]`` (Cout,) float32.  Layers: the encoder convs, the
-    transposed convs from the bottom up, the out-conv."""
+    transposed convs from the bottom up, the out-conv.  ``wt[i]`` is the
+    operand of ``conv_igemm_kernel`` (``csrc/ae_conv.cuh``), w[i] with its
+    input channel fastest (kh, kw, Cout, Cin), for the multi-channel encoder
+    convs 1 .. d-1 in bf16, which run on it; else None."""
 
     w: Tuple[torch.Tensor, ...]
     b: Tuple[torch.Tensor, ...]
     dtype: torch.dtype
+    wt: Tuple[torch.Tensor | None, ...]
 
     @property
     def depth(self) -> int:
@@ -151,7 +156,7 @@ def build_kernel_weights(model: ConvAutoencoder, dtype=torch.bfloat16,
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"service dtype must be float32 or bfloat16: {dtype}")
     layers = (*model.enc_convs, *model.dec_deconvs[::-1], model.out_conv)
-    ws, bs = [], []
+    ws, bs, wts = [], [], []
     for i, conv in enumerate(layers):
         w = conv.weight.detach().float()
         if d <= i < 2 * d:  # torch (in, out, kh, kw), flipped -> Flax, unflipped
@@ -160,7 +165,9 @@ def build_kernel_weights(model: ConvAutoencoder, dtype=torch.bfloat16,
             w = w.permute(1, 2, 3, 0)
         ws.append(w.to(dtype).contiguous())
         bs.append(conv.bias.detach().float().contiguous())
-    return AEKernelWeights(tuple(ws), tuple(bs), dtype)
+        mma = 1 <= i < d and dtype == torch.bfloat16
+        wts.append(ws[-1].permute(1, 2, 3, 0).contiguous() if mma else None)
+    return AEKernelWeights(tuple(ws), tuple(bs), dtype, tuple(wts))
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +223,7 @@ def _raw_strides(raw: torch.Tensor, mn: torch.Tensor, mx: torch.Tensor,
 
 def _on_device(x: torch.Tensor, wts: AEKernelWeights) -> None:
     """The CUDA path: weights must sit on x's device."""
-    if any(t.device != x.device for t in (*wts.w, *wts.b)):
+    if any(t is not None and t.device != x.device for t in (*wts.w, *wts.b, *wts.wt)):
         raise ValueError(f"weights are not on {x.device}")
 
 
@@ -320,7 +327,8 @@ def ae_tile_in_norm(wts: AEKernelWeights, raw: torch.Tensor, mn: torch.Tensor,
 def ae_conv_pool(wts: AEKernelWeights, x: torch.Tensor, layer: int = 1
                  ) -> torch.Tensor:
     """S2: encoder conv ``layer`` (1 .. d-1), (B, Cin, H, W) -> (B, Cout,
-    H/2, W/2)."""
+    H/2, W/2); on the card in bf16 ``conv_igemm_kernel`` (``wt[layer]``),
+    in float32 ``conv_quad_kernel``."""
     if not 1 <= layer < wts.depth:
         raise ValueError(f"pooled conv layers are 1..{wts.depth - 1}, not {layer}")
     _check_act(x, wts, layer)
@@ -330,7 +338,8 @@ def ae_conv_pool(wts: AEKernelWeights, x: torch.Tensor, layer: int = 1
     b, cin, h, w = x.shape
     cout = wts.cout(layer)
     out = torch.empty(b, cout, h // 2, w // 2, dtype=wts.dtype, device=x.device)
-    CONV_POOL(x.data_ptr(), wts.w[layer].data_ptr(), wts.b[layer].data_ptr(),
+    wk = wts.w[layer] if wts.wt[layer] is None else wts.wt[layer]
+    CONV_POOL(x.data_ptr(), wk.data_ptr(), wts.b[layer].data_ptr(),
               out.data_ptr(), _DTYPE_CODE[wts.dtype], b, cin, cout, h, w,
               wts.k(layer))
     return out

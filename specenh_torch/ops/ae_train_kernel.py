@@ -58,7 +58,7 @@ __all__ = [
     "ae_train_sum", "ae_train_in_plain", "ae_train_conv_pool_plain",
     "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
     "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
-    "WgradPlan", "wgrad_plan", "dgrad_convt_rows",
+    "WgradPlan", "wgrad_plan", "dgrad_convt_rows", "conv_igemm_rows", "sum_slabs",
     "train_weights", "route_bits", "route_expand",
     "loss_grad_sums", "bce_sum", "normalise",
     "kernel_loss_grad_sums", "kernel_loss_grad_sums_plain",
@@ -83,7 +83,7 @@ DGRAD_CONVT = CudaKernel("ae_train", "ae_train_dgrad_convt",
                          [_p, _p, _p, _i, _p, _p] + [_i] * 8)
 WGRAD = CudaKernel("ae_train", "ae_train_wgrad", [_p] * 4 + [_i] * 15)
 WGRAD_X = CudaKernel("ae_train", "ae_train_wgrad_x", [_p] * 4 + [_i] * 10)
-TRAIN_SUM = CudaKernel("ae_train", "ae_train_sum", [_p, _p, _i, _i])
+TRAIN_SUM = CudaKernel("ae_train", "ae_train_sum", [_p, _p, _p, _i, _i, _i])
 TRAIN_KERNELS = (TRAIN_IN, TRAIN_IN_PRE, TRAIN_CONV_POOL, TRAIN_LOSS,
                  TRAIN_LOSS_PRE, DGRAD_CONV, DGRAD_CONVT, WGRAD, WGRAD_X,
                  TRAIN_SUM)
@@ -100,9 +100,11 @@ def _layer_params(depth: int) -> Tuple[str, ...]:
 class TrainWeights:
     """The forward weights (``ae_kernel.AEKernelWeights``) and, for layers 1
     to 2d, the input-gradient operands ``bwd[i]`` in the kernel dtype: for
-    the stride-1 convs (Cout, K, K, Cin), the kernel transposed and flipped
-    in space; for the transposed convs (K, K, Cin, Cout), the kernel with
-    the channel of dz fastest."""
+    the stride-1 convs the kernel transposed and flipped in space, (Cout,
+    K, K, Cin) for ``conv_quad_kernel`` or, for the encoder convs that run
+    on the tensor cores (those with ``fwd.wt[i]``), (K, K, Cin, Cout) with
+    dz's channel fastest; for the transposed convs (K, K, Cin, Cout), the
+    kernel with the channel of dz fastest."""
 
     fwd: AK.AEKernelWeights
     bwd: Tuple[torch.Tensor | None, ...]
@@ -125,7 +127,12 @@ def train_weights(fwd: AK.AEKernelWeights) -> TrainWeights:
     bwd = [None]
     for i in range(1, fwd.out + 1):
         w = fwd.w[i]
-        w = w.permute(1, 2, 0, 3) if fwd.is_convt(i) else w.flip(1, 2).permute(3, 1, 2, 0)
+        if fwd.is_convt(i):
+            w = w.permute(1, 2, 0, 3)
+        elif fwd.wt[i] is not None:  # the tensor-core kernel's: dz's channel fastest
+            w = w.flip(1, 2).permute(1, 2, 0, 3)
+        else:
+            w = w.flip(1, 2).permute(3, 1, 2, 0)
         bwd.append(w.contiguous())
     return TrainWeights(fwd, tuple(bwd))
 
@@ -208,6 +215,17 @@ def _act_shape(tw: TrainWeights, layer: int, b: int):
 def _rows(b: int, h: int, w: int) -> int:
     """Partial rows of a conv_quad_kernel launch over an (h, w) grid."""
     return b * (((h // 2) * (w // 2) + NQ - 1) // NQ)
+
+
+def conv_igemm_rows(b: int, h: int, w: int, cout: int) -> int:
+    """Partial rows of ``conv_igemm_kernel`` (``csrc/ae_conv.cuh``) over an
+    (h, w) grid with ``cout`` output channels: one per (tile, strip of R
+    rows).  A block's 8 warps each hold a row pair x 16 columns, all in
+    one group up to 32 channels and in two groups (half the channels each)
+    for 48 and 64, so a strip is 256 or 128 positions: R = positions / w
+    (``ig_strip_rows``)."""
+    pos = 32 * (8 if cout <= 32 else 4)
+    return b * (h // (pos // w))
 
 
 def dgrad_convt_rows(b: int, h: int, w: int, cout: int) -> int:
@@ -320,15 +338,34 @@ def ae_train_wgrad_plain(tw: TrainWeights, layer: int, inp: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+_SUM_BLOCKS = 264  # two blocks on each of the card's 132 SMs
+_SUM_SLAB = 64     # the fewest rows a slab takes: 8 for each of a block's warps
+
+
+def sum_slabs(n: int, m: int) -> int:
+    """The row slabs of ``ae_train_sum``'s first pass over (n, m) partials:
+    ``ceil(m / 32)`` column groups times the slabs fill the card, and each
+    slab has at least 64 rows; 1 is a single pass."""
+    return max(1, min(_SUM_BLOCKS // -(-m // 32), n // _SUM_SLAB))
+
+
 def ae_train_sum(part: torch.Tensor) -> torch.Tensor:
-    """(n, m) float32 partials -> (m,) sums, in a fixed order."""
+    """(n, m) float32 partials -> (m,) sums, in a fixed order: on the card
+    each warp sums every 8th row of its slab of ``sum_slabs`` over 32
+    columns, then a fixed tree over the warps, then the slabs' sums in
+    order."""
     _check(part, "partials", torch.float32, part.shape)
     if part.ndim != 2:
         raise ValueError(f"partials must be (n, m), got {tuple(part.shape)}")
     if not part.is_cuda:
         return _sum64(part, 0)
-    out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
-    TRAIN_SUM(part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1])
+    n, m = part.shape
+    slabs = sum_slabs(n, m)
+    out = torch.empty(m, dtype=torch.float32, device=part.device)
+    scratch = (torch.empty(slabs * m, dtype=torch.float32, device=part.device)
+               if slabs > 1 else None)
+    TRAIN_SUM(part.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+              n, m, slabs)
     return out
 
 
@@ -351,7 +388,8 @@ def ae_train_in(tw: TrainWeights, x: torch.Tensor, pre: bool = False):
 
 def ae_train_conv_pool(tw: TrainWeights, p: torch.Tensor, layer: int = 1):
     """Encoder conv ``layer`` (1 .. d-1) + relu + pool, with routing bits:
-    at depth 2, p1 (B, C1, 128, 64) -> p2 (B, C2, 64, 32)."""
+    at depth 2, p1 (B, C1, 128, 64) -> p2 (B, C2, 64, 32).  On the card in
+    bf16 ``conv_igemm_kernel``, in float32 ``conv_quad_kernel``."""
     if not 1 <= layer < tw.fwd.depth:
         raise ValueError(f"pooled conv layers are 1..{tw.fwd.depth - 1}, not {layer}")
     _check(p, f"input of layer {layer}", tw.dtype, _act_shape(tw, layer, p.shape[0]))
@@ -362,7 +400,8 @@ def ae_train_conv_pool(tw: TrainWeights, p: torch.Tensor, layer: int = 1):
     cout = tw.fwd.cout(layer)
     out = torch.empty(b, cout, h // 2, w // 2, dtype=tw.dtype, device=p.device)
     bits = torch.empty(out.shape, dtype=torch.uint8, device=p.device)
-    TRAIN_CONV_POOL(p.data_ptr(), tw.fwd.w[layer].data_ptr(),
+    wk = tw.fwd.w[layer] if tw.fwd.wt[layer] is None else tw.fwd.wt[layer]
+    TRAIN_CONV_POOL(p.data_ptr(), wk.data_ptr(),
                     tw.fwd.b[layer].data_ptr(), out.data_ptr(), bits.data_ptr(),
                     _DT[tw.dtype], b, cin, cout, h, w, tw.fwd.k(layer))
     return out, bits
@@ -403,7 +442,10 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
     gate = its input e -> (dz of the last transposed conv, its db).  An
     encoder conv i (1 .. d-1): dz routed from the pooled gradient (B, Ci+1,
     H/2, W/2) and layer i's bits, gate = layer i-1's bits (B, Ci, H, W) ->
-    (the pooled gradient of layer i-1, its db)."""
+    (the pooled gradient of layer i-1, its db).  On the card the out-conv
+    (one dz channel) and every float32 launch run ``conv_quad_kernel``
+    (one bias partial row per quad block), the encoder convs in bf16
+    ``conv_igemm_kernel`` (one per (tile, strip): ``conv_igemm_rows``)."""
     out_layer = layer == tw.fwd.out
     if not (out_layer or 1 <= layer < tw.fwd.depth):
         raise ValueError(f"stride-1 input gradients are of layers 1..{tw.fwd.depth - 1} "
@@ -426,12 +468,12 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
     _on_device(dz, tw)
     h, w = shape[2:]
     out = torch.empty(shape, dtype=tw.dtype, device=dz.device)
-    rows = _rows(b, h, w)
+    rows = _rows(b, h, w) if tw.fwd.wt[layer] is None else conv_igemm_rows(b, h, w, cout)
     part = torch.empty(rows, cout, dtype=torch.float32, device=dz.device)
     DGRAD_CONV(dz.data_ptr(), 0 if dz_bits is None else dz_bits.data_ptr(),
                tw.bwd[layer].data_ptr(), gate.data_ptr(), out.data_ptr(),
-               part.data_ptr(), rows, _DT[tw.dtype], b, tw.bwd[layer].shape[0],
-               cout, h, w, tw.fwd.k(layer))
+               part.data_ptr(), rows, _DT[tw.dtype], b, dz.shape[1], cout, h, w,
+               tw.fwd.k(layer))
     return out, ae_train_sum(part)
 
 

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from specenh_torch import ModelConfig, SpecParams, probe_walls
+from specenh_torch import ModelConfig, SpecParams, _build, probe_walls
 from specenh_torch.bench import harness
 from specenh_torch.bench.reference import ssim
 from specenh_torch.models.autoencoder import make_model
@@ -492,3 +492,79 @@ def test_module_route_service_passes_the_gate(traces):
     e, w = enhanced.cpu().numpy(), want.cpu().numpy()
     for c in range(traces.shape[0]):
         assert ssim(e[c], w[c]) >= 0.999, c
+
+
+# the encoder convs the tensor-core kernel runs: Cout 16 to 64, K 3 to 7,
+# grids 128 x 64 and 64 x 32
+IGEMM_GEOMETRIES = [
+    ModelConfig(),
+    MODEL_PRESETS["deep3"],
+    ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7)),
+    ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)), out_kernel=(5, 5)),
+    ModelConfig(filters=(48, 48, 64), kernels=((3, 3),) * 3, out_kernel=(3, 3)),
+]
+IGEMM_IDS = ["k3", "deep3", "k7", "64-32k5", "48-48-64k3"]
+
+
+def _templates():
+    return {lib: _build.conv_template_launches(lib) for lib in ("ae", "ae_train")}
+
+
+@pytest.mark.parametrize("cfg", IGEMM_GEOMETRIES, ids=IGEMM_IDS)
+def test_conv_igemm_kernel_matches_twins(cuda, cfg):
+    """The tensor-core conv (``conv_igemm_kernel``) with each epilogue, for
+    every encoder conv after conv 0, bf16, on 3 tiles of random inputs,
+    against the twin of its entry point: ``ae_conv_pool`` and
+    ``ae_train_conv_pool`` within one bf16 ulp (routing bits equal but on
+    ties, <= 1e-4), the two bit for bit each other; the routed input
+    gradient within one ulp, its bias sums to 1e-4 of their scale; two runs
+    bit for bit; every launch on the tensor-core template."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    tw = ttk.build_train_weights(model, torch.bfloat16)
+    g = torch.Generator().manual_seed(5)
+
+    def ulp(name, a, b):
+        excess = float(((a.float() - b.float()).abs() - 2.0 ** -7 * b.float().abs() - 1e-5).max())
+        assert excess <= 0, f"{name}: beyond one ulp by {excess:.3g}"
+
+    for i in range(1, tw.fwd.depth):
+        shape = ttk._act_shape(tw, i, 3)
+        pooled = (3, tw.fwd.cout(i), shape[2] // 2, shape[3] // 2)
+        x = torch.randn(shape, generator=g).clamp_min(0).to(cuda, torch.bfloat16)
+        dz = torch.randn(pooled, generator=g).to(cuda, torch.bfloat16)
+        dz_bits = torch.randint(0, 16, pooled, generator=g, dtype=torch.uint8).to(cuda)
+        gate = torch.randint(0, 16, shape, generator=g, dtype=torch.uint8).to(cuda)
+        before = _templates()
+        got = tak.ae_conv_pool(tw.fwd, x, i)
+        ulp(f"ae_conv_pool {i}", got, tak.ae_conv_pool_plain(tw.fwd, x, i))
+        p, bits = ttk.ae_train_conv_pool(tw, x, i)
+        want, wbits = ttk.ae_train_conv_pool_plain(tw, x, i)
+        ulp(f"ae_train_conv_pool {i}", p, want)
+        assert float((bits != wbits).float().mean()) <= 1e-4, i
+        assert torch.equal(p, got), i
+        out, db = ttk.ae_train_dgrad_conv(tw, i, dz, gate, dz_bits)
+        rout, rdb = ttk.ae_train_dgrad_conv_plain(tw, i, dz, gate, dz_bits)
+        ulp(f"ae_train_dgrad_conv {i}", out, rout)
+        assert float((db - rdb).abs().max()) <= 1e-4 * max(float(rdb.abs().max()), 1e-6), i
+        again = ttk.ae_train_dgrad_conv(tw, i, dz, gate, dz_bits)
+        assert torch.equal(out, again[0]) and torch.equal(db, again[1]), i
+        assert torch.equal(got, tak.ae_conv_pool(tw.fwd, x, i)), i
+        after = _templates()
+        assert after["ae"]["conv_igemm_kernel"] - before["ae"]["conv_igemm_kernel"] == 2
+        assert after["ae_train"]["conv_igemm_kernel"] - before["ae_train"]["conv_igemm_kernel"] == 3
+        assert all(after[lib]["conv_quad_kernel"] == before[lib]["conv_quad_kernel"]
+                   for lib in after)
+
+
+@pytest.mark.parametrize("shape", [(8192, 2), (4096, 64), (4096, 288), (512, 9216),
+                                   (300, 2400), (1, 5)])
+def test_train_sum_matches_sum64(cuda, shape):
+    """The fixed-order sum of partial rows (one pass, or two over row slabs
+    where the columns are few) against the twin's float64 sum, within
+    float32 rounding (1e-6 of each column's sum of magnitudes); two runs bit
+    for bit."""
+    part = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape))).to(cuda)
+    got = ttk.ae_train_sum(part)
+    want = ttk._sum64(part.cpu(), 0)
+    assert bool(((got.cpu() - want).abs() <= 1e-6 * part.abs().sum(0).cpu()).all())
+    assert torch.equal(got, ttk.ae_train_sum(part))
