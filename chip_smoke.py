@@ -10,18 +10,21 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    limit and turns TF32 off, so the plain float32 references are float32;
 2. builds every kernel from ``specenh_torch/csrc`` with nvcc, in parallel,
    and prints each library's ptxas registers and spills, and each
-   instantiation of the tensor-core conv ``conv_igemm_kernel``'s;
+   instantiation of the tensor-core templates ``conv_igemm_kernel`` and
+   ``convt_igemm_kernel``;
 3. each kernel against its plain PyTorch twin at the serving path's shapes
    (a 20-channel, 2 s shot; the flagship AE), and the whole AE in float32
    and bf16, plus the k7 and (64, 32)/k5 geometries on one channel; each
    stage launch on the conv template its dtype and channels choose (bf16
-   S2 on ``conv_igemm_kernel``, float32 and single-channel convs on
+   S2 on ``conv_igemm_kernel``, bf16 S3 on ``convt_igemm_kernel``, float32
+   S3 on ``convt_relu_kernel``, float32 and single-channel convs on
    ``conv_quad_kernel``, from the libraries' per-template launch counts);
 4. the service ``make_enhance_shot_fn(dtype=bfloat16)`` on three synthetic
    shots, with the repo's two gates: spectrogram SSIM >= 0.99 against the
    SciPy recipe, enhanced SSIM >= 0.999 against the plain float32 service
    on every channel; every kernel must have launched during it, every S2
-   launch on ``conv_igemm_kernel`` and every S1 and S4 launch on
+   launch on ``conv_igemm_kernel``, every S3 launch on
+   ``convt_igemm_kernel`` and every S1 and S4 launch on
    ``conv_quad_kernel``;
 5. CUDA-event timings of each kernel and its twin, ms/shot, spectrograms/s
    and peak device memory;
@@ -36,7 +39,8 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    stage by stage on the same inputs, on one 128-tile batch of the
    flagship in bf16 and float32, and k5, k7 and (64, 32)/k5 on 4 tiles;
    each launch on its conv template (the encoder convs' forward and routed
-   input gradient on ``conv_igemm_kernel`` in bf16);
+   input gradient on ``conv_igemm_kernel``, the transposed convs' forward
+   on ``convt_igemm_kernel``, in bf16);
    for each in float32 the whole kernel chain against the twins' whole
    chain, the twins' backward on their own forward and on the kernels'
    (the pool windows and relu gates the forwards gate differently are
@@ -47,12 +51,17 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    same weights, which must agree bit for bit, then 3 epochs on the
    autograd engine in float32; gated on the loss curves, and every
    training kernel must have launched in the kernel runs, the encoder
-   convs' forward and input gradients on ``conv_igemm_kernel``, conv 0,
-   the loss and the out-conv's input gradient on ``conv_quad_kernel``;
+   convs' forward and input gradients on ``conv_igemm_kernel``, the
+   transposed convs' forward on ``convt_igemm_kernel``, conv 0, the loss
+   and the out-conv's input gradient on ``conv_quad_kernel``, and a step's
+   sums in one ``ae_train_sum`` call;
 10. timings: each training kernel per 128-tile step beside its twin, the
    one PyTorch call that computes the same function and its bound (the
    out-conv's and the encoder convs' ``ae_train_dgrad_conv`` also apart,
-   each beside ``conv2d_input``); s/epoch,
+   each beside ``conv2d_input``; ``ae_train_sum`` as a step's one batched
+   call over its partial arrays, beside ``torch.sum`` over each, and both
+   devices' times from torch.profiler; a step's stages with its sums in
+   one call and with per-call sums, in turns); s/epoch,
    tiles/s and the peak memory of a step for each engine, the bf16
    autograd engine (``create_state(dtype=bfloat16)``) among them, whose
    epoch must give finite, falling losses;
@@ -168,8 +177,8 @@ TPU_KERNELS = {
     "K11c": "scripts/probe_mosaic_walls.py:54",
 }
 STAGES = (AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
-# the two stride-1 conv templates of csrc/ae_conv.cuh
-QUAD, IGEMM = "conv_quad_kernel", "conv_igemm_kernel"
+# the conv templates of csrc/ae_conv.cuh: stride 1, and the transposed convs'
+QUAD, IGEMM, CT_RELU, CT_IGEMM = _build.CONV_TEMPLATES
 SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
              3: dict(zip(STAGES, ("K8-in", "K6", "K6", "K8-out")))}
 SERVE_KERNELS = (SF.STFT_KERNEL, *STAGES)
@@ -247,15 +256,20 @@ def ptxas_summary() -> list:
 
 
 def on_template(lib: str, kind, tag: str, fn, *args):
-    """``fn(*args)``, which must launch one stride-1 conv through library
-    ``lib`` on template ``kind`` (QUAD or IGEMM), or none (None)."""
+    """``fn(*args)``, which must launch one conv through library ``lib`` on
+    template ``kind`` (QUAD, IGEMM, CT_RELU or CT_IGEMM), or none (None)."""
     before = _build.conv_template_launches(lib)
     out = fn(*args)
     after = _build.conv_template_launches(lib)
     got = {k: after[k] - before[k] for k in after}
-    want = {QUAD: int(kind == QUAD), IGEMM: int(kind == IGEMM)}
+    want = {k: int(kind == k) for k in _build.CONV_TEMPLATES}
     check(got == want, f"{tag}: conv template launches {got}, expected {want}")
     return out
+
+
+def convt_template(dtype) -> str:
+    """The template of a transposed-conv launch in ``dtype``."""
+    return CT_IGEMM if dtype == torch.bfloat16 else CT_RELU
 
 
 def template_deltas(before: dict) -> dict:
@@ -291,16 +305,17 @@ def check_stft(sp, traces) -> float:
 def serve_chain(wts, specs, k):
     """The stage kernels over the layer table, each on the previous
     kernel's output: (the 2d activations, the restitched output).  Each
-    S2 launch must run on the tensor cores in bf16 and on
-    ``conv_quad_kernel`` in float32, S1 and S4 (one channel) on
-    ``conv_quad_kernel``."""
+    S2 and S3 launch must run on the tensor cores in bf16 and on
+    ``conv_quad_kernel`` / ``convt_relu_kernel`` in float32, S1 and S4 (one
+    channel) on ``conv_quad_kernel``."""
     s2 = IGEMM if wts.dtype == torch.bfloat16 else QUAD
     xs = [on_template("ae", QUAD, "ae_tile_in", AK.ae_tile_in, wts, specs, k)]
     for i in range(1, wts.depth):
         xs.append(on_template("ae", s2, f"{wts.dtype} ae_conv_pool {i}", AK.ae_conv_pool,
                               wts, xs[-1], i))
     for i in range(wts.depth, wts.out):
-        xs.append(on_template("ae", None, f"ae_convt {i}", AK.ae_convt, wts, xs[-1], i))
+        xs.append(on_template("ae", convt_template(wts.dtype), f"{wts.dtype} ae_convt {i}",
+                              AK.ae_convt, wts, xs[-1], i))
     return xs, on_template("ae", QUAD, "ae_tile_out", AK.ae_tile_out, wts, xs[-1], k)
 
 
@@ -354,9 +369,9 @@ def check_kernels(dev, cfg, specs, k, dtypes, geometries):
 def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
     """The bf16 service ``fn`` on the shots ``traces`` with every count set
     to 0 just before and read just after: each of ``kernels`` must have
-    launched and none of ``absent``, every S2 launch on the tensor cores
-    and every S1 and S4 launch on ``conv_quad_kernel``; then the repo's two
-    gates on every shot.  Returns the outputs and the counts."""
+    launched and none of ``absent``, every S2 and S3 launch on the tensor
+    cores and every S1 and S4 launch on ``conv_quad_kernel``; then the
+    repo's two gates on every shot.  Returns the outputs and the counts."""
     for kern in _build.KERNELS:
         kern.launches = 0
     before = {"ae": _build.conv_template_launches("ae")}
@@ -369,10 +384,11 @@ def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
     for kern in absent:
         check(launches[kern] == 0, f"{tag}: {kern.symbol} was launched")
     s1s4 = launches[AK.TILE_IN] + launches[AK.TILE_IN_NORM] + launches[AK.TILE_OUT]
-    check(took == {IGEMM: launches[AK.CONV_POOL], QUAD: s1s4},
-          f"{tag}: conv templates {took}, S2 {launches[AK.CONV_POOL]}, S1 + S4 {s1s4}")
+    want = {QUAD: s1s4, IGEMM: launches[AK.CONV_POOL], CT_RELU: 0, CT_IGEMM: launches[AK.CONVT]}
+    check(took == want, f"{tag}: conv templates {took}, expected {want}")
     log(f"{tag} launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in kernels)
-        + f"; {IGEMM}={took[IGEMM]} (every S2), {QUAD}={took[QUAD]} (every S1, S4)")
+        + f"; {IGEMM}={took[IGEMM]} (every S2), {CT_IGEMM}={took[CT_IGEMM]} (every S3), "
+        f"{QUAD}={took[QUAD]} (every S1, S4)")
     c, k = traces[0].shape[0], refs[0][1].shape[-1] // 128
     for seed, (specs, enh), (s_ref, e_ref) in zip((0, 1, 2), outs, refs):
         check(specs.shape == (c, 256, refs[0][0].shape[-1]), f"specs {tuple(specs.shape)}")
@@ -787,9 +803,10 @@ def check_train_stages(tw, x, y, mask, tag):
     stage on the same inputs (the kernels' own outputs feed the next
     stage), over the layer table from conv 0 to the out-conv and back; at
     depth 2 the K5b entry points must equal K5's bit for bit.  The encoder
-    convs' forward and input gradient must run on the tensor cores in bf16
-    and on ``conv_quad_kernel`` in float32, the single-channel convs (conv
-    0, the out-conv and its input gradient) on ``conv_quad_kernel``.  Returns the
+    convs' forward and input gradient and the transposed convs' forward
+    must run on the tensor cores in bf16 and on ``conv_quad_kernel`` /
+    ``convt_relu_kernel`` in float32, the single-channel convs (conv 0, the
+    out-conv and its input gradient) on ``conv_quad_kernel``.  Returns the
     max |err| of each kernel and the stage tensors: ``act[i]`` layer i's
     input, ``bits[i]`` encoder conv i's routing bits, ``dz[i]`` the
     gradient at layer i's output (pooled for the encoder convs)."""
@@ -822,7 +839,8 @@ def check_train_stages(tw, x, y, mask, tag):
         act.append(p)
         bits.append(pm)
     for i in range(d, o):
-        a = AK.ae_convt(tw.fwd, act[-1], i)
+        a = on_template("ae", convt_template(dt), f"{tag} convT {i}", AK.ae_convt, tw.fwd,
+                        act[-1], i)
         r = AK.ae_convt_plain(tw.fwd, act[-1], i)
         note(AK.CONVT, act_(f"{tag} convT {i}", a, r))
         fr = max(fr, check_mask(f"{tag} relu {i}", a > 0, r > 0))
@@ -945,7 +963,7 @@ def train_runs(dev, cfg, data, epochs):
     args = (data.x_train, data.y_train, data.x_tune, data.y_tune)
     for kern in _build.KERNELS:
         kern.launches = 0
-    before = {"ae_train": _build.conv_template_launches("ae_train")}
+    before = {lib: _build.conv_template_launches(lib) for lib in ("ae", "ae_train")}
     t0 = time.perf_counter()
     _, hk = TR.fit(state(), *args, cfg=tc, epochs=epochs, epoch_fn=TR.kernel_epoch_for(cfg, tc))
     if depth2:
@@ -954,21 +972,27 @@ def train_runs(dev, cfg, data, epochs):
                         epoch_fn=TR.kernel_epoch_for(cfg, tc, pre_layout=True))
     torch.cuda.synchronize(dev)
     launches = {kern: kern.launches for kern in _build.KERNELS}
-    took = template_deltas(before)["ae_train"]
+    deltas = template_deltas(before)
+    took, took_ae = deltas["ae_train"], deltas["ae"]
     t_kernel = time.perf_counter() - t0
     log(f"depth-{cfg.depth} training launches: " + ", ".join(
         f"{k.symbol}={n}" for k, n in launches.items() if n)
-        + f"; {IGEMM}={took[IGEMM]}, {QUAD}={took[QUAD]}")
+        + f"; {IGEMM}={took[IGEMM]}, {QUAD}={took[QUAD]}, {CT_IGEMM}={took_ae[CT_IGEMM]}")
     for kern in (*(TK.TRAIN_KERNELS if depth2 else TRAIN3_KERNELS), AK.CONVT):
         check(launches[kern] > 0, f"{kern.symbol} was not launched by training")
-    # a bf16 step: the encoder convs' forward and input gradients on the
-    # tensor cores; conv 0, the loss and the out-conv's input gradient (one
-    # per step) on conv_quad_kernel
+    # a bf16 step: the encoder convs' forward and input gradients and the
+    # transposed convs' forward on the tensor cores; conv 0, the loss and
+    # the out-conv's input gradient (one per step) on conv_quad_kernel; its
+    # sums in one call
     steps = launches[TK.TRAIN_LOSS] + launches[TK.TRAIN_LOSS_PRE]
     single = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps + steps
     multi = launches[TK.TRAIN_CONV_POOL] + launches[TK.DGRAD_CONV] - steps
-    check(took == {IGEMM: multi, QUAD: single},
-          f"training conv templates {took}, expected {IGEMM}={multi}, {QUAD}={single}")
+    want = {QUAD: single, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0}
+    check(took == want, f"training conv templates {took}, expected {want}")
+    want = {QUAD: 0, IGEMM: 0, CT_RELU: 0, CT_IGEMM: launches[AK.CONVT]}
+    check(took_ae == want, f"training forward convT templates {took_ae}, expected {want}")
+    check(launches[TK.TRAIN_SUM] == steps,
+          f"{launches[TK.TRAIN_SUM]} ae_train_sum calls in {steps} steps")
     t0 = time.perf_counter()
     _, ha = TR.fit(state(), *args, cfg=tc, epochs=epochs)
     t_auto = time.perf_counter() - t0
@@ -988,13 +1012,6 @@ def train_runs(dev, cfg, data, epochs):
     log(f"gates: per-epoch loss within {TOL_LOSS_CURVE:.1%} of f32 autograd, falling, val finite"
         + ("; K5b parameters == K5 parameters bit for bit after one epoch" if depth2 else ""))
     return launches
-
-
-def wg_rows(w, i, hw) -> int:
-    """Partial rows per tile of layer i's weight gradient (its row groups)."""
-    k, convt = w.k(i), w.is_convt(i)
-    stride, off = (2, convt_pad_before(k)) if convt else (1, k // 2)
-    return TK.wgrad_plan(w.w[i].shape[0], w.cout(i), k, *hw, stride, off, 2).sg
 
 
 def check_repeat(tw, x, y, mask, tag):
@@ -1035,15 +1052,16 @@ def time_training(gpu, cfg, data, tw, st):
     def pad(i):
         return w.k(i) // 2
 
-    # the partials a step sums: the loss's, each input gradient's bias
-    # partials, each layer's weight-gradient partials
-    shapes = [(TK._rows(b, 256, 128), 2)]
-    shapes += [((TK.conv_igemm_rows(b, *act[i].shape[2:], act[i].shape[1]) if i in enc
-                 else TK._rows(b, *act[i].shape[2:])), act[i].shape[1]) for i in (*enc, o)]
-    shapes += [(TK.dgrad_convt_rows(b, *act[i].shape[2:], act[i].shape[1]), act[i].shape[1])
-               for i in dec]
-    shapes += [(b * wg_rows(w, i, ins[i].shape[2:]), w.w[i].numel()) for i in range(o + 1)]
-    parts = [torch.rand(n, m, device=s["x"].device) for n, m in shapes]
+    # the partials a step sums (the loss's, each input gradient's bias
+    # partials, each layer's weight-gradient partials), as one plan
+    parts = [torch.rand(n, m, device=s["x"].device) for n, m in TK.step_partials(tw, b)]
+
+    def batched_sums():
+        plan = TK.step_sums(tw, s["x"].device)
+        out = [plan.add(p) for p in parts]
+        plan.run()
+        return out
+
     wg = [(o, act[o], dz[o], None)] + [(i, act[i], dz[i], None) for i in reversed(dec)] \
         + [(i, act[i], dz[i], bits[i]) for i in reversed(enc)]
     # kernel: (kernel launches, plain, library call, FLOPs, bytes); the
@@ -1096,7 +1114,7 @@ def time_training(gpu, cfg, data, tw, st):
                      lambda: TK.ae_train_wgrad_plain(tw, 0, s["x"], dz[0], bits[0]),
                      lambda: conv2d_weight(x1, cw[0].shape, dzx[0], padding=pad(0)),
                      fl([0]), nbytes(s["x"], dz[0], bits[0]) + 4 * w.w[0].numel()),
-        TK.TRAIN_SUM: (lambda: [TK.ae_train_sum(p) for p in parts],
+        TK.TRAIN_SUM: (batched_sums,
                        lambda: [p.sum(0) for p in parts],
                        lambda: [torch.sum(p, 0) for p in parts],
                        sum(p.numel() for p in parts), sum(nbytes(p) for p in parts)),
@@ -1127,13 +1145,16 @@ def time_training(gpu, cfg, data, tw, st):
                     fl(enc), sum(nbytes(dz[i], bits[i], bits[i - 1], dz[i - 1]) for i in enc),
                     len(enc)),
     }
-    # ae_train_sum's row times each call from the host's side of the
-    # stream, its Python wrapper included; the kernels' own device time
-    # beside torch.sum's, from torch.profiler
-    k_dev = device_ms(lambda: [TK.ae_train_sum(p) for p in parts], "sum_rows_kernel")
+    # ae_train_sum's row times a step's one batched call from the host's
+    # side of the stream, its plan's Python included; the kernels' own
+    # device time beside torch.sum's, from torch.profiler
+    k_dev = device_ms(batched_sums, "sum_rows_kernel")
     l_dev = device_ms(lambda: [torch.sum(p, 0) for p in parts], "reduce_kernel")
-    log(f"[{gpu}] ae_train_sum, the step's {len(parts)} partial arrays, device time "
-        f"(torch.profiler): sum_rows_kernel {k_dev:.4f} ms, torch.sum's kernels {l_dev:.4f} ms")
+    check(all(torch.equal(a, TK.ae_train_sum(p)) for a, p in zip(batched_sums(), parts)),
+          "a step's batched sums differ from the per-call sums")
+    log(f"[{gpu}] ae_train_sum, a step's {len(parts)} partial arrays in one call (bit for bit "
+        f"the per-call sums), device time (torch.profiler): sum_rows_kernel {k_dev:.4f} ms, "
+        f"torch.sum's kernels {l_dev:.4f} ms")
     for name, (kf, lf, flops, nb, n_launch) in apart.items():
         ms = min(time_cuda(kf), time_cuda(kf))
         with torch.no_grad():
@@ -1142,6 +1163,19 @@ def time_training(gpu, cfg, data, tw, st):
         log(f"[{gpu}] ae_train_dgrad_conv, {name} ({n_launch} a step, depth {d}): kernel "
             f"{ms:.4f} ms, conv2d_input {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
             f"{flops / 1e9:.3f} GFLOP, {nb / 1e6:.1f} MB), achieved {flops / ms / 1e9:.2f} TFLOP/s")
+    # a step's stages with its sums in one call (loss_grad_sums) against the
+    # same stages each summing its own partials, in turns: what the batched
+    # sums move in a step
+    def per_call():
+        saved, _, _ = TK._forward(tw, s["x"], s["y"], s["mask"], False)
+        return TK._backward(tw, saved, False)
+
+    def batched():
+        return TK.loss_grad_sums(tw, s["x"], s["y"], s["mask"])
+
+    turns = [time_cuda(f, iters=20) for f in (per_call, batched, batched, per_call)]
+    log(f"[{gpu}] depth {d} step's stages (no optimizer), median of 20: sums in one call "
+        f"{turns[1]:.4f}/{turns[2]:.4f} ms, per-call sums {turns[0]:.4f}/{turns[3]:.4f} ms")
     # forward and weight gradients of every layer, input gradients of all
     # but conv 0
     flops_step = 2 * fl(range(o + 1)) + fl(range(1, o + 1))
@@ -1263,6 +1297,10 @@ def main() -> int:
             gate = f"<{m.group(5)}>" if m.group(5) else ""
             log(f"  ptxas {lib}.cu conv_igemm_kernel<NF={m.group(1)}, {m.group(2)}, "
                 f"{m.group(3)}{gate}>: {regs} registers, {spill} B spill stores")
+        m = re.search(r"convt_igemm_kernelILi(\d)E", name)
+        if m:
+            log(f"  ptxas {lib}.cu convt_igemm_kernel<K={m.group(1)}>: {regs} registers, "
+                f"{spill} B spill stores")
 
     sp = SpecParams()
     traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)

@@ -11,9 +11,9 @@ A ``CudaKernel`` is one C entry point.  Every entry point takes the CUDA
 stream as its last argument and returns ``cudaGetLastError()`` after its
 launch; the call raises if that is not 0 and otherwise adds one to
 ``launches``, so a run can show that it went through the kernel.  The
-libraries with the stride-1 conv templates (``ae``, ``ae_train``) also
-count the launches of each template (``conv_template_launches``), so a run
-can show which template each launch site took.
+libraries with the conv templates (``ae``, ``ae_train``) also
+count the launches of each conv template (``conv_template_launches``), so
+a run can show which template each launch site took.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "build", "build_all", "conv_template_launches", "KERNELS",
-           "CSRC", "BUILD_DIR"]
+__all__ = ["CudaKernel", "build", "build_all", "conv_template_launches", "CONV_TEMPLATES",
+           "KERNELS", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -115,12 +115,17 @@ def _library(name: str) -> ctypes.CDLL:
         return lib
 
 
+CONV_TEMPLATES = ("conv_quad_kernel", "conv_igemm_kernel", "convt_relu_kernel",
+                  "convt_igemm_kernel")
+
+
 def conv_template_launches(name: str) -> Dict[str, int]:
-    """The launches of each stride-1 conv template (``csrc/ae_conv.cuh``)
-    made through library ``name`` since it was loaded."""
-    out = (ctypes.c_longlong * 2)()
+    """The launches of each conv template (``csrc/ae_conv.cuh``: the
+    stride-1 and the transposed convs') made through library ``name`` since
+    it was loaded."""
+    out = (ctypes.c_longlong * len(CONV_TEMPLATES))()
     _library(name).specenh_conv_launches(out)
-    return {"conv_quad_kernel": out[0], "conv_igemm_kernel": out[1]}
+    return dict(zip(CONV_TEMPLATES, out))
 
 
 class CudaKernel:

@@ -57,8 +57,10 @@
 // 7), channel counts are runtime: every geometry ae_kernel.supports()
 // accepts.  The bf16 S2 runs conv_igemm_kernel instead:
 // an implicit GEMM on the bf16 tensor cores over strips of a tile staged
-// once per 16-channel chunk, pooled in registers.  wgmma, TMA and fusing
-// the stages with halo recompute are later work.  The kernel templates
+// once per 16-channel chunk, pooled in registers; the bf16 S3
+// convt_igemm_kernel, four such GEMMs (one per output parity) over one
+// staged strip.  wgmma, TMA and fusing the stages with halo recompute are
+// later work.  The kernel templates
 // live in ae_conv.cuh, shared with the training stages (ae_train.cu).
 
 #include "ae_conv.cuh"
@@ -128,6 +130,35 @@ struct SigmoidEpi {
     }
   }
 };
+
+// float32 S3: convt_relu_kernel.
+int launch_convt(const float* in, const float* w, const float* bias, float* out, int B,
+                 int Cin, int Cout, int H, int W, int K, cudaStream_t st) {
+  if (Cout % COB != 0 || B < 1 || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((H * W + NT - 1) / NT, Cout / COB, B);
+  SX_K_SWITCH(K, convt_relu_kernel<KK><<<grid, NT, 0, st>>>(in, w, bias, out, Cin, Cout, H, W));
+  return count_conv_launch(2);
+}
+
+// The launch: in 4-byte aligned, wt and out 16-byte aligned; K odd up to 7;
+// Cin and Cout multiples of 16; W a multiple of 16 that divides 128
+// (ct_strip_rows), H a multiple of the strip rows.  Returns
+// cudaErrorInvalidValue for anything else: the caller raises.
+int launch_convt_igemm(const void* in, const void* w, const float* bias, void* out, int B,
+                       int Cin, int Cout, int H, int W, int K, cudaStream_t st) {
+  const int R = ct_strip_rows(W);
+  if (K < 1 || K > 7 || K % 2 == 0 || Cin < 16 || Cin % 16 != 0 || Cout < 16 ||
+      Cout % 16 != 0 || R < 1 || H < R || H % R != 0 || H / R > 65535 || B < 1 || B > 65535 ||
+      reinterpret_cast<uintptr_t>(in) % 4 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const CtGeom g{Cin, Cout, H, W, R, 0, 0};
+  const auto* i = static_cast<const __nv_bfloat16*>(in);
+  const auto* wt = static_cast<const __nv_bfloat16*>(w);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  SX_K_SWITCH(K, return launch_convt_igemm_k<KK>(i, wt, bias, o, B, g, st));
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -204,17 +235,18 @@ extern "C" int ae_conv_pool(const void* in, const void* w, const float* bias,
   return cudaErrorInvalidValue;
 }
 
-// S3.  in: (B, Cin, H, W), out: (B, Cout, 2H, 2W), w: (Cin, K, K, Cout), the
-// Flax kernel unflipped; all in dtype.
+// S3.  in: (B, Cin, H, W), out: (B, Cout, 2H, 2W), all in dtype.  float32
+// runs convt_relu_kernel, w (Cin, K, K, Cout), the Flax kernel unflipped;
+// bf16 convt_igemm_kernel, w (K, K, Cout, Cin).
 extern "C" int ae_convt_relu(const void* in, const void* w, const float* bias,
                              void* out, int dtype, int B, int Cin, int Cout,
                              int H, int W, int K, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
-    return launch_convt<float>(in, w, bias, out, B, Cin, Cout, H, W, K, st);
+    return launch_convt(static_cast<const float*>(in), static_cast<const float*>(w), bias,
+                        static_cast<float*>(out), B, Cin, Cout, H, W, K, st);
   if (dtype == SX_BF16)
-    return launch_convt<__nv_bfloat16>(in, w, bias, out, B, Cin, Cout, H, W, K,
-                                       st);
+    return launch_convt_igemm(in, w, bias, out, B, Cin, Cout, H, W, K, st);
   return cudaErrorInvalidValue;
 }
 

@@ -10,15 +10,20 @@
 //                      input and output channels, as an implicit GEMM on the
 //                      tensor cores (mma.sync), with its own source and
 //                      epilogue functors.
-//   convt_relu_kernel  Flax 'SAME' stride-2 transposed conv + bias + relu.
+//   convt_relu_kernel  Flax 'SAME' stride-2 transposed conv + bias + relu,
+//                      for float32 launches.
+//   convt_igemm_kernel the same for bf16 launches, as four implicit GEMMs
+//                      (one per output parity) on the tensor cores.
 //   GateOut, block_sums  the training epilogues' per-pixel gate and the
 //                      per-block channel sums (deterministic: warp shuffles
 //                      and a fixed-order sum over the warps, no atomics).
 //
 // Which template a launch takes is decided by its dtype and channel counts
 // alone: the multi-channel stride-1 convs run conv_igemm_kernel in bf16,
-// everything else conv_quad_kernel.  Nothing falls back from one to the
-// other: a bf16 launch that conv_igemm_kernel refuses raises.
+// every other stride-1 conv conv_quad_kernel; the transposed convs run
+// convt_igemm_kernel in bf16 and convt_relu_kernel in float32.  Nothing
+// falls back from one to the other: a bf16 launch that a tensor-core
+// template refuses raises.
 #pragma once
 
 #include <stdint.h>
@@ -279,10 +284,10 @@ struct ConvtGeom {
   static constexpr int NR = DMAX - DMIN + 1;
 };
 
-template <typename T, int K>
+template <int K>
 __global__ void __launch_bounds__(NT) convt_relu_kernel(
-    const T* __restrict__ in, const T* __restrict__ w,
-    const float* __restrict__ bias, T* __restrict__ out, int Cin, int Cout,
+    const float* __restrict__ in, const float* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out, int Cin, int Cout,
     int H, int W) {
   using G = ConvtGeom<K>;
   constexpr int PA = G::PA, DMIN = G::DMIN, NR = G::NR;
@@ -293,7 +298,7 @@ __global__ void __launch_bounds__(NT) convt_relu_kernel(
   const int m = pos / W, n = pos % W;
   const int co0 = blockIdx.y * COB;
   const int b = blockIdx.z;
-  const T* inb = in + (long long)b * Cin * H * W;
+  const float* inb = in + (long long)b * Cin * H * W;
 
   float acc[4][COB];
 #pragma unroll
@@ -304,11 +309,11 @@ __global__ void __launch_bounds__(NT) convt_relu_kernel(
   for (int c0 = 0; c0 < Cin; c0 += CC) {
     const int nc = min(CC, Cin - c0);
     __syncthreads();
-    stage_weights<T, K, COB>(ws, w, c0, nc, co0, Cout);
+    stage_weights<float, K, COB>(ws, w, c0, nc, co0, Cout);
     __syncthreads();
     if (!active) continue;
     for (int cc = 0; cc < nc; ++cc) {
-      const T* pl = inb + (long long)(c0 + cc) * H * W;
+      const float* pl = inb + (long long)(c0 + cc) * H * W;
       float p[NR][NR];
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
@@ -317,7 +322,7 @@ __global__ void __launch_bounds__(NT) convt_relu_kernel(
         for (int s = 0; s < NR; ++s) {
           const int xx = n + DMIN + s;
           p[r][s] = (y >= 0 && y < H && xx >= 0 && xx < W)
-                        ? sx_load(pl + (long long)y * W + xx)
+                        ? pl[(long long)y * W + xx]
                         : 0.f;
         }
       }
@@ -347,11 +352,10 @@ __global__ void __launch_bounds__(NT) convt_relu_kernel(
 #pragma unroll
   for (int co = 0; co < COB; ++co) {
     const float bv = bias[co0 + co];
-    T* oc = out + ((long long)b * Cout + co0 + co) * ho * wo;
+    float* oc = out + ((long long)b * Cout + co0 + co) * ho * wo;
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      oc[(long long)(2 * m + q / 2) * wo + 2 * n + q % 2] =
-          sx_cast<T>(fmaxf(acc[q][co] + bv, 0.f));
+      oc[(long long)(2 * m + q / 2) * wo + 2 * n + q % 2] = fmaxf(acc[q][co] + bv, 0.f);
   }
 }
 
@@ -368,10 +372,12 @@ inline int quad_blocks(int H, int W) { return ((H / 2) * (W / 2) + NT - 1) / NT;
     default: return cudaErrorInvalidValue;                    \
   }
 
-// Launches of each stride-1 conv template since the library was loaded
-// (0: conv_quad_kernel, 1: conv_igemm_kernel), counted on the host where a
-// launch succeeds: a run can show which template each launch site took.
-long long sx_conv_launches[2];
+// Launches of each conv template since the library was loaded (0:
+// conv_quad_kernel, 1: conv_igemm_kernel, 2: convt_relu_kernel, 3:
+// convt_igemm_kernel), counted on the host where a launch succeeds: a run
+// can show which template each launch site took.
+constexpr int SX_TEMPLATES = 4;
+long long sx_conv_launches[SX_TEMPLATES];
 
 inline int count_conv_launch(int which) {
   const cudaError_t err = cudaGetLastError();
@@ -572,18 +578,22 @@ __device__ __forceinline__ void ig_stage_in(const Src& src, uint32_t* as, const 
   }
 }
 
-// Stage the chunk's weights: run tap * Cout + co holds wt[tap][co][c0 ..].
+// Stage a chunk's weights from wt (taps, Cout, Cin) for nco output channels
+// from co0: run tap * nco + co holds wt[tap][co0 + co][c0 ..].  Blocks of
+// IG_NT threads.
 __device__ __forceinline__ void ig_stage_w(const __nv_bfloat16* __restrict__ wt, uint32_t* ws,
-                                           const IgGeom& g, int c0) {
+                                           int taps, int Cout, int co0, int nco, int Cin,
+                                           int c0) {
   constexpr int U = 4;  // runs in flight a thread: all loads of a round before its stores
-  const int total = g.K * g.K * g.Cout;
+  const int total = taps * nco;
   for (int e0 = threadIdx.x; e0 < total; e0 += IG_NT * U) {
     uint4 v[U][2];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int e = e0 + u * IG_NT;
       if (e < total) {
-        const uint4* src = reinterpret_cast<const uint4*>(wt + (long long)e * g.Cin + c0);
+        const long long row = (long long)(e / nco) * Cout + co0 + e % nco;
+        const uint4* src = reinterpret_cast<const uint4*>(wt + row * Cin + c0);
         v[u][0] = src[0];
         v[u][1] = src[1];
       }
@@ -628,7 +638,7 @@ __global__ void __launch_bounds__(IG_NT, 2) conv_igemm_kernel(
   for (int c0 = 0; c0 < g.Cin; c0 += 16) {
     __syncthreads();
     ig_stage_in(src, as, g, b, c0, y0);
-    ig_stage_w(wt, ws, g, c0);
+    ig_stage_w(wt, ws, g.K * g.K, g.Cout, 0, g.Cout, g.Cin, c0);
     __syncthreads();
     float cacc[2][NW][4];
 #pragma unroll
@@ -717,18 +727,204 @@ int launch_conv_igemm(Src src, const void* w, const float* bias, Epi epi, int B,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-int launch_convt(const void* in, const void* w, const float* bias, void* out,
-                 int B, int Cin, int Cout, int H, int W, int K,
-                 cudaStream_t st) {
-  if (Cout % COB != 0 || B < 1 || B > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((H * W + NT - 1) / NT, Cout / COB, B);
-  const auto* i = static_cast<const T*>(in);
-  const auto* wt = static_cast<const T*>(w);
-  auto* o = static_cast<T*>(out);
-  SX_K_SWITCH(K, convt_relu_kernel<T, KK>
-                     <<<grid, NT, 0, st>>>(i, wt, bias, o, Cin, Cout, H, W));
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// convt_igemm_kernel: convt_relu_kernel's function (the Flax 'SAME'
+// stride-2 transposed conv + bias + relu) for bf16 launches with Cin and
+// Cout multiples of 16, as implicit GEMMs on bf16 mma.sync.m16n8k16 (bf16
+// in, float32 out).  Output (2m + a, 2n + b) is parity (a, b): a stride-1
+// product over the input grid with the taps {(i, j): a + i - PA and b + j -
+// PA even}, tap (i, j) at shift (dy, dx) = ((a + i - PA) / 2, (b + j - PA)
+// / 2) (ConvtGeom):
+//   D_ab[p, co] = sum_{(c, (i, j) in T_ab)} A[p + (dy, dx), c] * wt[i][j][co][c]
+// over the input positions p (M, 16-position fragments), the output
+// channels co (N, 8-channel fragments) and the input channels in 16-channel
+// chunks times the parity's taps (K).  Taps per parity (0,0), (0,1), (1,0),
+// (1,1): k1 1, 0, 0, 0 (three parities are relu(bias)); k3 4, 2, 2, 1; k5
+// 4, 6, 6, 9; k7 16, 12, 12, 9.  Each tap is in one parity, so a position
+// costs K^2 Cin Cout MACs, as in the direct form.  wt is (K, K, Cout, Cin),
+// the Flax kernel with its input channel fastest, arranged once with the
+// layer table.  The JAX kernels (K3's L3/L4, K6's dec2..dec0) decompose it
+// the same way, one matmul per parity on the MXU.
+//
+// Block: 8 warps, one tile b (blockIdx.z), one strip of R = 128 / W input
+// rows (blockIdx.y) and 16 output channels (blockIdx.x: a strip's channel
+// groups are neighbouring blocks, which read its input from L2).  Warp w
+// holds one 16-position fragment (row w / (W / 16) of the strip, columns
+// x0 .. x0 + 15) and all four parities of the block's 16 channels: 32
+// float32 totals a thread, 32 more for a chunk's fresh sums.  Per 16-channel
+// chunk the block stages the strip's input rows y0 + DMIN .. y0 + R - 1 +
+// DMAX and columns DMIN .. W - 1 + DMAX (zeros outside the tile), each
+// position one 32-byte run, channel fastest, whose 16-byte halves swap
+// where bit 2 of the run's index is set (run_word): the 8 consecutive
+// positions of a fragment load fall in 32 banks at any shift.  A thread
+// stages a column pair of a row: 16 32-bit loads of the channel planes.
+// Then the chunk's weights for every tap and the block's channels: run
+// tap * 16 + co.  Each input value is loaded from device memory once per
+// block and feeds every tap of the four parities: a warp walks the NR x NR
+// shifts, one ldmatrix A fragment a shift, and for each parity with a tap
+// at that shift one ldmatrix of two B fragments and two mma.sync.  Each
+// chunk accumulates in fresh fragments, added into the totals chunk by
+// chunk in order (a chain is up to Cin x 16 products; the tensor cores'
+// float32 accumulation drifts with its length, as in convt_dgrad_kernel).
+//
+// Epilogue: bias, relu and one bf16 rounding; the block's (16, 2R, 2W)
+// output goes through shared memory (the staging area) and out in 16-byte
+// runs along each NCHW row: the output is 4x the input and most of the
+// bytes (the flagship's second transposed conv writes 1.26 GB a shot),
+// while a thread's accumulators are pairs of channels at scattered
+// positions.
+//
+// What bounds it: 2 H W Cin Cout K^2 FLOP a tile (the flagship's two
+// transposed convs 113 GFLOP a shot, deep3's three 315: 0.11 and 0.32 ms at
+// the bf16 peak) against the input read once and the output written once
+// (1.97 and 1.61 GB a shot: 0.59 and 0.48 ms at 3.35 TB/s): bytes.  This
+// first design stages with plain loads, does not overlap staging and MMAs,
+// and each block re-reads the halo rows and its channels' weights from L2.
+constexpr int CT_POS = 16 * IG_WARPS;     // input positions a block: a fragment a warp
+constexpr int CT_CO = 16;                 // output channels a block
+constexpr int CT_OCS = 4 * CT_POS + 8;    // bf16 a channel in the output stage (+8: banks)
+
+// Strip rows of a convt_igemm_kernel launch over an input grid W columns
+// wide, or -1 where the kernel does not take the width.
+// ops/ae_kernel.py convt_igemm_rows mirrors it.
+inline int ct_strip_rows(int W) {
+  if (W < 16 || W % 16 != 0 || CT_POS % W != 0) return -1;
+  return CT_POS / W;
+}
+
+struct CtGeom {
+  int Cin, Cout, H, W, R, RT, WT;  // strip rows; staged rows and columns
+};
+
+template <int K>
+__global__ void __launch_bounds__(IG_NT, 2) convt_igemm_kernel(
+    const __nv_bfloat16* __restrict__ in, const __nv_bfloat16* __restrict__ wt,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, CtGeom g) {
+  using G = ConvtGeom<K>;
+  constexpr int PA = G::PA, DMIN = G::DMIN, DMAX = G::DMAX, NR = G::NR;
+  constexpr int XLO = DMIN & ~1;  // the first staged column pair
+  extern __shared__ __align__(16) unsigned char ct_smem[];
+  uint32_t* as = reinterpret_cast<uint32_t*>(ct_smem);
+  uint32_t* ws = as + g.RT * g.WT * 8;
+
+  const int cg = blockIdx.x, y0 = blockIdx.y * g.R, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
+  const int cgs = g.W / 16, row = warp / cgs, x0 = (warp % cgs) * 16;
+  const long long chan = (long long)g.H * g.W;
+  const int pairs = (g.W - 1 + DMAX - XLO) / 2 + 1;
+
+  float acc[4][2][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][n][q] = 0.f;
+
+  for (int c0 = 0; c0 < g.Cin; c0 += 16) {
+    __syncthreads();
+    // staged run t * WT + s: input row y0 + DMIN + t, column s + DMIN
+    for (int e = threadIdx.x; e < g.RT * pairs; e += IG_NT) {
+      const int t = e / pairs, x = XLO + 2 * (e % pairs), y = y0 + DMIN + t;
+      uint32_t v[16];  // a unit's 16 loads in flight before its stores
+      if (y >= 0 && y < g.H && x >= 0 && x < g.W) {
+        const __nv_bfloat16* q = in + ((long long)b * g.Cin + c0) * chan + (long long)y * g.W + x;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) v[c] = *reinterpret_cast<const uint32_t*>(q + c * chan);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) v[c] = 0u;
+      }
+      const int s = x - DMIN, L = t * g.WT + s;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (s >= 0) as[run_word(L, q)] = __byte_perm(v[2 * q], v[2 * q + 1], 0x5410);
+        if (s + 1 < g.WT) as[run_word(L + 1, q)] = __byte_perm(v[2 * q], v[2 * q + 1], 0x7632);
+      }
+    }
+    ig_stage_w(wt, ws, K * K, g.Cout, cg * CT_CO, CT_CO, g.Cin, c0);
+    __syncthreads();
+    float cacc[4][2][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cacc[p][n][q] = 0.f;
+#pragma unroll
+    for (int sy = 0; sy < NR; ++sy)
+#pragma unroll
+      for (int sx = 0; sx < NR; ++sx) {
+        // A: matrix m is fragment rows 8 (m % 2) .. (positions x0 + sx + ..
+        // of staged row row + sy), channel half m / 2
+        uint32_t a[4];
+        ldmatrix_x4(a, as + run_word((row + sy) * g.WT + x0 + sx + 8 * (mat & 1) + (lane & 7),
+                                     4 * (mat >> 1)));
+#pragma unroll
+        for (int pa = 0; pa < 2; ++pa)
+#pragma unroll
+          for (int pb = 0; pb < 2; ++pb) {
+            const int i = 2 * (sy + DMIN) + PA - pa, j = 2 * (sx + DMIN) + PA - pb;
+            if (i < 0 || i >= K || j < 0 || j >= K) continue;  // no tap of (pa, pb) here
+            // B: matrix m is fragment m / 2, channel half m % 2; lane l reads
+            // the run of output channel l % 8
+            uint32_t r4[4];
+            ldmatrix_x4(r4, ws + run_word((i * K + j) * CT_CO + (lane & 7) + 8 * (mat >> 1),
+                                          4 * (mat & 1)));
+            mma_bf16(cacc[pa * 2 + pb][0], a[0], a[1], a[2], a[3], r4[0], r4[1]);
+            mma_bf16(cacc[pa * 2 + pb][1], a[0], a[1], a[2], a[3], r4[2], r4[3]);
+          }
+      }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][n][q] += cacc[p][n][q];
+  }
+
+  // acc[a * 2 + b][n][h * 2 + e]: output (2 (y0 + row) + a, 2 (x0 + gq + 8 h)
+  // + b), channel 8 n + 2 tq + e; the pair b = 0, 1 is one 32-bit store
+  __syncthreads();
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(ct_smem);
+  const int gq = lane >> 2, tq = lane & 3, wo = 2 * g.W;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int co = 8 * n + 2 * tq + (q & 1), x = x0 + gq + 8 * (q >> 1);
+      const float bv = bias[cg * CT_CO + co];
+#pragma unroll
+      for (int pa = 0; pa < 2; ++pa)
+        *reinterpret_cast<__nv_bfloat162*>(os + co * CT_OCS + (2 * row + pa) * wo + 2 * x) =
+            __floats2bfloat162_rn(fmaxf(acc[pa * 2][n][q] + bv, 0.f),
+                                  fmaxf(acc[pa * 2 + 1][n][q] + bv, 0.f));
+    }
+  __syncthreads();
+  const int runs = wo / 8, per = 2 * g.R * runs;  // 16-byte runs a row, a channel
+  for (int e = threadIdx.x; e < CT_CO * per; e += IG_NT) {
+    const int co = e / per, r = e % per;
+    const uint4 v = *reinterpret_cast<const uint4*>(os + co * CT_OCS + r * 8);
+    __nv_bfloat16* dst = out + (((long long)b * g.Cout + cg * CT_CO + co) * 2 * g.H + 2 * y0 +
+                                r / runs) * wo + (r % runs) * 8;
+    *reinterpret_cast<uint4*>(dst) = v;
+  }
+}
+
+template <int K>
+int launch_convt_igemm_k(const __nv_bfloat16* in, const __nv_bfloat16* wt, const float* bias,
+                         __nv_bfloat16* out, int B, CtGeom g, cudaStream_t st) {
+  g.RT = g.R + ConvtGeom<K>::NR - 1;
+  g.WT = g.W + ConvtGeom<K>::NR - 1;
+  const long long smem = max((long long)(g.RT * g.WT + K * K * CT_CO) * 32,
+                             (long long)CT_CO * CT_OCS * 2);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto kern = convt_igemm_kernel<K>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(g.Cout / CT_CO, g.H / g.R, B), IG_NT, smem, st>>>(in, wt, bias, out, g);
+  return count_conv_launch(3);
 }
 
 // Sum v[0..N) over the block's NT threads and write the N sums to out[0..N)
@@ -783,9 +979,8 @@ struct GateOut {
 
 }  // namespace
 
-// The launches of the two conv templates in this library so far: out[0]
-// conv_quad_kernel, out[1] conv_igemm_kernel.
+// The launches of the four conv templates in this library so far, in
+// sx_conv_launches' order.
 extern "C" void specenh_conv_launches(long long* out) {
-  out[0] = sx_conv_launches[0];
-  out[1] = sx_conv_launches[1];
+  for (int i = 0; i < SX_TEMPLATES; ++i) out[i] = sx_conv_launches[i];
 }

@@ -26,7 +26,8 @@
 //                                   gradient partials
 //             ae_train_dgrad_convt  stride-2 transposed-conv input gradient
 //             ae_train_wgrad[_x]    weight-gradient partials, one per tile
-//             ae_train_sum          partials -> sums, in a fixed order
+//             ae_train_sum          partials -> sums, in a fixed order: a
+//                                   step's every array in one call
 //
 // Semantics carried over from the TPU kernel: x and the labels y are
 // rounded to the kernel dtype as they are loaded (the _pre entry points
@@ -926,21 +927,42 @@ __global__ void __launch_bounds__(DG_NT, 2) convt_dgrad_kernel(
   }
 }
 
-// out[y][c] = the sum of rows n * y / slabs .. n * (y + 1) / slabs - 1 of
-// part (n, m), slab y = blockIdx.y, in a fixed order.  A block takes 32
-// consecutive columns (blockIdx.x) of its slab: lane l reads column 32 x +
-// l, so a warp's loads of a row are coalesced; warp w sums the slab's rows
-// w, w + 8, .. in order; then a fixed tree over the 8 warps: ((w0 + w4) +
-// (w2 + w6)) + ((w1 + w5) + (w3 + w7)).
+// Fixed-order sums of partial rows, for up to SUM_SEGS segments in one
+// launch (a step's partials: the loss's, each input gradient's bias
+// partials, each weight gradient's).  Segment s sums its (n, m) rows into
+// (slabs, m): slab y holds rows n * y / slabs .. n * (y + 1) / slabs - 1;
+// its blocks are blk0 .. blk0 + groups * slabs - 1, block l taking 32
+// consecutive columns (group l % groups: lane j reads column 32 group + j,
+// so a warp's loads of a row are coalesced) of slab l / groups.  Warp w sums
+// the slab's rows w, w + 8, .. in order; then a fixed tree over the 8 warps:
+// ((w0 + w4) + (w2 + w6)) + ((w1 + w5) + (w3 + w7)).  The table is a
+// __grid_constant__ parameter (SUM_SEGS * 32 bytes, far under the 4 KB
+// limit), and a block finds its segment by the table's block offsets.
 constexpr int SUM_WARPS = 8;
+constexpr int SUM_SEGS = 32;
 
-__global__ void __launch_bounds__(32 * SUM_WARPS) sum_rows_kernel(
-    const float* __restrict__ part, float* __restrict__ out, int n, int m) {
+struct SumSeg {
+  const float* src;
+  float* dst;
+  int n, m, slabs, blk0;
+};
+struct SumTable {
+  SumSeg seg[SUM_SEGS];
+  int count;
+};
+
+__global__ void __launch_bounds__(32 * SUM_WARPS)
+    sum_rows_kernel(const __grid_constant__ SumTable t) {
   __shared__ float red[SUM_WARPS][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = blockIdx.x * 32 + lane, slabs = gridDim.y;
-  const int r0 = (int)((long long)n * blockIdx.y / slabs);
-  const int r1 = (int)((long long)n * (blockIdx.y + 1) / slabs);
+  int i = 0;
+  while (i + 1 < t.count && (int)blockIdx.x >= t.seg[i + 1].blk0) ++i;
+  const SumSeg& g = t.seg[i];
+  const float* __restrict__ part = g.src;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n = g.n, m = g.m;
+  const int groups = (m + 31) / 32, l = blockIdx.x - g.blk0;
+  const int col = (l % groups) * 32 + lane, slab = l / groups;
+  const int r0 = (int)((long long)n * slab / g.slabs);
+  const int r1 = (int)((long long)n * (slab + 1) / g.slabs);
   float s = 0.f;
   if (col < m) {
     int r = r0 + warp;
@@ -959,7 +981,7 @@ __global__ void __launch_bounds__(32 * SUM_WARPS) sum_rows_kernel(
     if (warp < w) red[warp][lane] += red[warp + w][lane];
     __syncthreads();
   }
-  if (warp == 0 && col < m) out[(long long)blockIdx.y * m + col] = red[0][lane];
+  if (warp == 0 && col < m) g.dst[(long long)slab * m + col] = red[0][lane];
 }
 
 // The rest of a launch's geometry from (Ct, Cp, K, H, W, S, OFF) and the
@@ -1295,24 +1317,39 @@ extern "C" int ae_train_wgrad_x(const float* x, const void* dz,
                       B, g, st)));
 }
 
-// out (m,) = the sum of part's n rows (n, m), float32, in a fixed order.
-// slabs = 1: one pass.  slabs > 1 (few columns, many rows: the bias
-// partials): each slab of rows is summed into scratch (slabs, m), then the
-// slabs' sums in a second pass (ops/ae_train_kernel.py sum_slabs).
-extern "C" int ae_train_sum(const float* part, float* out, float* scratch, int n, int m,
-                            int slabs, void* stream) {
-  const int groups = (m + 31) / 32;
-  if (n < 1 || m < 1 || slabs < 1 || slabs > n || slabs > 65535 ||
-      (slabs > 1 && scratch == nullptr))
-    return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (slabs == 1) {
-    sum_rows_kernel<<<dim3(groups, 1), 32 * SUM_WARPS, 0, st>>>(part, out, n, m);
-    return cudaGetLastError();
+// The sums of count segments of partial rows, float32, each in a fixed
+// order, in at most two launches.  seg[6 i ..] describes segment i: its
+// partials (n, m), its output (m,), n, m, its slabs (ops/ae_train_kernel.py
+// sum_slabs) and, for slabs > 1, the offset (in floats) of its (slabs, m)
+// slab sums in scratch.  Pass 1 sums every segment's slabs (straight into
+// the output where a segment has one slab); pass 2, for the segments with
+// more than one slab, sums the slabs' sums in order.  Segment by segment
+// this is the order of one call per segment.
+extern "C" int ae_train_sum(const long long* seg, int count, float* scratch, void* stream) {
+  if (count < 1 || count > SUM_SEGS) return cudaErrorInvalidValue;
+  SumTable one{}, two{};
+  int blocks1 = 0, blocks2 = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* e = seg + 6 * i;
+    const int n = (int)e[2], m = (int)e[3], slabs = (int)e[4];
+    if (e[0] == 0 || e[1] == 0 || n < 1 || m < 1 || slabs < 1 || slabs > n ||
+        (slabs > 1 && (scratch == nullptr || e[5] < 0)))
+      return cudaErrorInvalidValue;
+    const auto* part = reinterpret_cast<const float*>(e[0]);
+    auto* out = reinterpret_cast<float*>(e[1]);
+    const int groups = (m + 31) / 32;
+    float* slab_sums = slabs > 1 ? scratch + e[5] : out;
+    one.seg[one.count++] = SumSeg{part, slab_sums, n, m, slabs, blocks1};
+    blocks1 += groups * slabs;
+    if (slabs > 1) {
+      two.seg[two.count++] = SumSeg{slab_sums, out, slabs, m, 1, blocks2};
+      blocks2 += groups;
+    }
   }
-  sum_rows_kernel<<<dim3(groups, slabs), 32 * SUM_WARPS, 0, st>>>(part, scratch, n, m);
+  auto st = static_cast<cudaStream_t>(stream);
+  sum_rows_kernel<<<blocks1, 32 * SUM_WARPS, 0, st>>>(one);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_rows_kernel<<<dim3(groups, 1), 32 * SUM_WARPS, 0, st>>>(scratch, out, slabs, m);
+  if (err != cudaSuccess || two.count == 0) return err;
+  sum_rows_kernel<<<blocks2, 32 * SUM_WARPS, 0, st>>>(two);
   return cudaGetLastError();
 }

@@ -12,7 +12,8 @@ the out-conv 2d.  ``ae_kernel_enhance_specs`` runs four stage kernels of
                     conv 0 + relu + pool
   ae_conv_pool  S2  encoder convs 1 .. d-1 + relu + pool (in bf16 on the
                     tensor cores, ``conv_igemm_kernel``)
-  ae_convt      S3  stride-2 transposed conv + relu, d times
+  ae_convt      S3  stride-2 transposed conv + relu, d times (in bf16 on
+                    the tensor cores, ``convt_igemm_kernel``)
   ae_tile_out   S4  out-conv + sigmoid fused with the restitched store
                     (K4, K8-out)
 
@@ -54,6 +55,7 @@ __all__ = [
     "AEKernelWeights", "supports", "supports3", "kernel_depth",
     "build_kernel_weights",
     "ae_tile_in", "ae_tile_in_norm", "ae_conv_pool", "ae_convt", "ae_tile_out",
+    "convt_igemm_rows",
     "ae_tile_in_plain", "ae_tile_in_norm_plain", "ae_conv_pool_plain",
     "ae_convt_plain", "ae_tile_out_plain", "normalized_tiles",
     "ae_kernel_enhance_specs", "ae_kernel_enhance_raw", "ae_kernel_apply",
@@ -83,9 +85,10 @@ class AEKernelWeights:
     Cout) in the service dtype (transposed convs: the Flax kernel,
     unflipped), ``b[i]`` (Cout,) float32.  Layers: the encoder convs, the
     transposed convs from the bottom up, the out-conv.  ``wt[i]`` is the
-    operand of ``conv_igemm_kernel`` (``csrc/ae_conv.cuh``), w[i] with its
-    input channel fastest (kh, kw, Cout, Cin), for the multi-channel encoder
-    convs 1 .. d-1 in bf16, which run on it; else None."""
+    operand of the tensor-core templates (``csrc/ae_conv.cuh``), w[i] with
+    its input channel fastest (kh, kw, Cout, Cin), in bf16 for the
+    multi-channel layers 1 .. 2d-1 (``conv_igemm_kernel`` for the encoder
+    convs, ``convt_igemm_kernel`` for the transposed convs); else None."""
 
     w: Tuple[torch.Tensor, ...]
     b: Tuple[torch.Tensor, ...]
@@ -165,7 +168,7 @@ def build_kernel_weights(model: ConvAutoencoder, dtype=torch.bfloat16,
             w = w.permute(1, 2, 3, 0)
         ws.append(w.to(dtype).contiguous())
         bs.append(conv.bias.detach().float().contiguous())
-        mma = 1 <= i < d and dtype == torch.bfloat16
+        mma = 1 <= i < 2 * d and dtype == torch.bfloat16
         wts.append(ws[-1].permute(1, 2, 3, 0).contiguous() if mma else None)
     return AEKernelWeights(tuple(ws), tuple(bs), dtype, tuple(wts))
 
@@ -345,9 +348,18 @@ def ae_conv_pool(wts: AEKernelWeights, x: torch.Tensor, layer: int = 1
     return out
 
 
+def convt_igemm_rows(w: int) -> int:
+    """Input rows of a strip of ``convt_igemm_kernel`` (``csrc/ae_conv.cuh``)
+    over a grid ``w`` columns wide: a block's 8 warps hold one 16-position
+    fragment each, 128 positions, so R = 128 / w (``ct_strip_rows``)."""
+    return 128 // w
+
+
 def ae_convt(wts: AEKernelWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
     """S3: transposed conv ``layer`` (d .. 2d-1; at depth 2 layer 2 is
-    convT2, 3 convT1), (B, Cin, H, W) -> (B, Cout, 2H, 2W)."""
+    convT2, 3 convT1), (B, Cin, H, W) -> (B, Cout, 2H, 2W); on the card in
+    bf16 ``convt_igemm_kernel`` (``wt[layer]``), in float32
+    ``convt_relu_kernel``."""
     if not wts.is_convt(layer):
         raise ValueError(f"transposed-conv layers are {wts.depth}..{wts.out - 1}, "
                          f"not {layer}")
@@ -358,7 +370,8 @@ def ae_convt(wts: AEKernelWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
     b, cin, h, w = x.shape
     cout = wts.cout(layer)
     out = torch.empty(b, cout, 2 * h, 2 * w, dtype=wts.dtype, device=x.device)
-    CONVT(x.data_ptr(), wts.w[layer].data_ptr(), wts.b[layer].data_ptr(),
+    wk = wts.w[layer] if wts.wt[layer] is None else wts.wt[layer]
+    CONVT(x.data_ptr(), wk.data_ptr(), wts.b[layer].data_ptr(),
           out.data_ptr(), _DTYPE_CODE[wts.dtype], b, cin, cout, h, w,
           wts.k(layer))
     return out

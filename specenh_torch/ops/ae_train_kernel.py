@@ -15,6 +15,9 @@ One step (``kernel_loss_grad_sums``) runs the stages of
             ae_train_loss      out-conv -> logits, BCE sum, dz, its db
   backward  ae_train_wgrad / ae_train_dgrad_conv / ae_train_dgrad_convt,
             layer by layer down to conv 0 (ae_train_wgrad_x)
+  sums      ae_train_sum       every stage's partials (the BCE, the bias
+                               and weight gradients) in one plan, at most
+                               two launches at the step's end (StepSums)
 
 K5 (``pre=False``) reads float32 tiles and rounds x and y to the kernel
 dtype as it loads them; K5b (``pre=True``, ``pre_layout=True`` in the epoch
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -59,6 +63,7 @@ __all__ = [
     "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
     "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
     "WgradPlan", "wgrad_plan", "dgrad_convt_rows", "conv_igemm_rows", "sum_slabs",
+    "StepSums", "step_partials", "step_sums",
     "train_weights", "route_bits", "route_expand",
     "loss_grad_sums", "bce_sum", "normalise",
     "kernel_loss_grad_sums", "kernel_loss_grad_sums_plain",
@@ -83,7 +88,7 @@ DGRAD_CONVT = CudaKernel("ae_train", "ae_train_dgrad_convt",
                          [_p, _p, _p, _i, _p, _p] + [_i] * 8)
 WGRAD = CudaKernel("ae_train", "ae_train_wgrad", [_p] * 4 + [_i] * 15)
 WGRAD_X = CudaKernel("ae_train", "ae_train_wgrad_x", [_p] * 4 + [_i] * 10)
-TRAIN_SUM = CudaKernel("ae_train", "ae_train_sum", [_p, _p, _p, _i, _i, _i])
+TRAIN_SUM = CudaKernel("ae_train", "ae_train_sum", [_p, _i, _p])
 TRAIN_KERNELS = (TRAIN_IN, TRAIN_IN_PRE, TRAIN_CONV_POOL, TRAIN_LOSS,
                  TRAIN_LOSS_PRE, DGRAD_CONV, DGRAD_CONVT, WGRAD, WGRAD_X,
                  TRAIN_SUM)
@@ -349,6 +354,83 @@ def sum_slabs(n: int, m: int) -> int:
     return max(1, min(_SUM_BLOCKS // -(-m // 32), n // _SUM_SLAB))
 
 
+class StepSums:
+    """A plan that sums many (n, m) float32 partial arrays on the card in at
+    most two launches of ``ae_train_sum``: ``add(part)`` returns the (m,)
+    view of one output buffer (``cols`` columns in all) that will hold
+    part's sums, ``run()`` computes every sum added, each in the fixed order
+    of its own ``ae_train_sum`` call: the same bits.  A training step hands
+    every stage's partials to one plan and runs it at the step's end,
+    before anything reads the sums."""
+
+    def __init__(self, cols: int, device):
+        self.out = torch.empty(cols, dtype=torch.float32, device=device)
+        self._parts, self._used = [], 0
+
+    def add(self, part: torch.Tensor) -> torch.Tensor:
+        _check(part, "partials", torch.float32, part.shape)
+        if part.ndim != 2 or not part.is_cuda:
+            raise ValueError(f"partials must be (n, m) on the card, got {tuple(part.shape)} "
+                             f"on {part.device}")
+        col, self._used = self._used, self._used + part.shape[1]
+        if self._used > self.out.numel():
+            raise ValueError(f"the plan holds {self.out.numel()} columns")
+        self._parts.append((part, col))
+        return self.out[col:self._used]
+
+    def run(self) -> None:
+        """The sums of every part added, then the plan is empty."""
+        if not self._parts:
+            return
+        seg, off = [], 0
+        for p, col in self._parts:
+            n, m = p.shape
+            slabs = sum_slabs(n, m)
+            seg += [p.data_ptr(), self.out.data_ptr() + 4 * col, n, m, slabs, off]
+            off += slabs * m if slabs > 1 else 0
+        scratch = torch.empty(off, dtype=torch.float32, device=self.out.device) if off else None
+        TRAIN_SUM((ctypes.c_longlong * len(seg))(*seg), len(self._parts),
+                  0 if scratch is None else scratch.data_ptr())
+        self._parts = []
+
+
+def step_partials(tw: TrainWeights, b: int):
+    """The (n, m) partial arrays a step of ``b`` tiles sums on the card, in
+    the order its stages hand them to the plan: the loss's (the BCE and the
+    out-conv's bias gradient), then from the out-conv down each layer's
+    weight gradient and the bias gradient of the layer below."""
+    w = tw.fwd
+
+    def wgrad(i):
+        h, wd = _act_shape(tw, i, b)[2:]
+        stride, off = (2, convt_pad_before(w.k(i))) if w.is_convt(i) else (1, w.k(i) // 2)
+        plan = wgrad_plan(w.w[i].shape[0], w.cout(i), w.k(i), h, wd, stride, off,
+                          tw.dtype.itemsize)
+        return b * plan.sg, w.w[i].numel()
+
+    def dgrad(i):  # the input gradient's bias partials, of the layer below
+        _, c, h, wd = _act_shape(tw, i, b)
+        rows = (dgrad_convt_rows(b, h, wd, c) if w.is_convt(i) else
+                _rows(b, h, wd) if w.wt[i] is None else conv_igemm_rows(b, h, wd, c))
+        return rows, c
+
+    out = [(_rows(b, TILE_F, TILE_T), 2)]
+    for i in range(w.out, 0, -1):
+        out += [wgrad(i), dgrad(i)]
+    return out + [wgrad(0)]
+
+
+def step_sums(tw: TrainWeights, device) -> StepSums:
+    """The plan of one step's sums (``step_partials``): the parameters'
+    gradients and the BCE, one column each."""
+    return StepSums(1 + sum(t.numel() for t in (*tw.fwd.w, *tw.fwd.b)), device)
+
+
+def _sum(part: torch.Tensor, sums: StepSums | None) -> torch.Tensor:
+    """part's (m,) sums: now, or when ``sums`` runs."""
+    return ae_train_sum(part) if sums is None else sums.add(part)
+
+
 def ae_train_sum(part: torch.Tensor) -> torch.Tensor:
     """(n, m) float32 partials -> (m,) sums, in a fixed order: on the card
     each warp sums every 8th row of its slab of ``sum_slabs`` over 32
@@ -359,13 +441,9 @@ def ae_train_sum(part: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"partials must be (n, m), got {tuple(part.shape)}")
     if not part.is_cuda:
         return _sum64(part, 0)
-    n, m = part.shape
-    slabs = sum_slabs(n, m)
-    out = torch.empty(m, dtype=torch.float32, device=part.device)
-    scratch = (torch.empty(slabs * m, dtype=torch.float32, device=part.device)
-               if slabs > 1 else None)
-    TRAIN_SUM(part.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-              n, m, slabs)
+    sums = StepSums(part.shape[1], part.device)
+    out = sums.add(part)
+    sums.run()
     return out
 
 
@@ -408,11 +486,13 @@ def ae_train_conv_pool(tw: TrainWeights, p: torch.Tensor, layer: int = 1):
 
 
 def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
-                  mask: torch.Tensor, pre: bool = False):
+                  mask: torch.Tensor, pre: bool = False, sums: StepSums | None = None):
     """out-conv + masked sigmoid-BCE: e (B, C1, 256, 128), labels y
     (B, 256, 128) float32 (K5) or in the kernel dtype (K5b), tile mask (B,)
     float32 -> (logits (B, 256, 128) float32, dz5 (B, 1, 256, 128) in the
-    kernel dtype, BCE sum (1,), db5 (1,))."""
+    kernel dtype, BCE sum (1,), db5 (1,)).  On the card the two sums are
+    taken now, or, given a step's plan ``sums``, when it runs; so for the
+    other stages' sums."""
     b, o = e.shape[0], tw.fwd.out
     _check(e, "e", tw.dtype, _act_shape(tw, o, b))
     _check_tiles(y, "labels", (tw.dtype,) if pre else (torch.float32,))
@@ -431,12 +511,12 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
         y.data_ptr(), mask.data_ptr(), logits.data_ptr(), dz.data_ptr(),
         part.data_ptr(), rows, _DT[tw.dtype], b, e.shape[1], TILE_F, TILE_T,
         tw.fwd.k(o))
-    sums = ae_train_sum(part)
-    return logits, dz, sums[0:1], sums[1:2]
+    out = _sum(part, sums)
+    return logits, dz, out[0:1], out[1:2]
 
 
 def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
-                        gate: torch.Tensor, dz_bits=None):
+                        gate: torch.Tensor, dz_bits=None, sums: StepSums | None = None):
     """Input gradient of a stride-1 conv, gated, and the bias gradient of
     the layer below.  The out-conv (layer 2d): its dz (B, 1, 256, 128),
     gate = its input e -> (dz of the last transposed conv, its db).  An
@@ -474,11 +554,11 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
                tw.bwd[layer].data_ptr(), gate.data_ptr(), out.data_ptr(),
                part.data_ptr(), rows, _DT[tw.dtype], b, dz.shape[1], cout, h, w,
                tw.fwd.k(layer))
-    return out, ae_train_sum(part)
+    return out, _sum(part, sums)
 
 
 def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
-                         gate: torch.Tensor):
+                         gate: torch.Tensor, sums: StepSums | None = None):
     """Input gradient of a stride-2 transposed conv (layer d .. 2d-1),
     gated, and the bias gradient of the layer below: dz (B, Cout, 2H, 2W),
     gate = the layer's input (B, Cin, H, W) -> (its dz, its db).  The
@@ -509,7 +589,7 @@ def ae_train_dgrad_convt(tw: TrainWeights, layer: int, dz: torch.Tensor,
     DGRAD_CONVT(dz.data_ptr(), tw.bwd[layer].data_ptr(), gate.data_ptr(),
                 int(routed), out.data_ptr(), part.data_ptr(), rows,
                 _DT[tw.dtype], b, cz, shape[1], h, w, tw.fwd.k(layer))
-    return out, ae_train_sum(part)
+    return out, _sum(part, sums)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -605,8 +685,8 @@ def wgrad_plan(cin: int, cout: int, k: int, h: int, w: int, stride: int,
 
 
 def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
-                   dz: torch.Tensor, dz_bits=None, pre: bool = False
-                   ) -> torch.Tensor:
+                   dz: torch.Tensor, dz_bits=None, pre: bool = False,
+                   sums: StepSums | None = None) -> torch.Tensor:
     """Weight gradient (Cin, K, K, Cout) float32 of one layer, summed over
     the batch: ``inp`` is the layer's input (for conv 0 the tiles: float32
     through ``ae_train_wgrad_x``, K5, or with ``pre=True`` in the kernel
@@ -651,7 +731,7 @@ def ae_train_wgrad(tw: TrainWeights, layer: int, inp: torch.Tensor,
     else:
         WGRAD(inp.data_ptr(), dz.data_ptr(), bits, part.data_ptr(),
               _DT[tw.dtype], b, cin, cout, h, w, hz, wz, k, stride, off, *split)
-    return ae_train_sum(part).reshape(cin, k, k, cout)
+    return _sum(part, sums).reshape(cin, k, k, cout)
 
 
 # ---------------------------------------------------------------------------
@@ -729,15 +809,33 @@ def _inputs(tw, x, y, mask, pre):
     return x, y, mask.to(torch.float32).contiguous()
 
 
+def _stages_into(sums: StepSums):
+    """The kernel stages, each handing its partials to the step's plan."""
+    return dict(_KERNEL, **{k: functools.partial(_KERNEL[k], sums=sums)
+                            for k in ("loss", "wgrad", "dgrad_conv", "dgrad_convt")})
+
+
+def _step(tw: TrainWeights, x, y, mask, pre: bool, plain: bool):
+    """(BCE sum (1,), kernel-layout (gw, gb)) of checked inputs, from the
+    stage twins (``plain``) or the stage kernels.  On the card every sum of
+    the step is one plan (``step_sums``), run after the last stage."""
+    sums = step_sums(tw, x.device) if x.is_cuda and not plain else None
+    f = _PLAIN if plain else _KERNEL if sums is None else _stages_into(sums)
+    saved, _, bce = _forward(tw, x, y, mask, pre, f)
+    grads = _backward(tw, saved, pre, f)
+    if sums is not None:
+        sums.run()
+    return bce, grads
+
+
 def loss_grad_sums(tw: TrainWeights, x, y, mask, pre: bool = False,
                    plain: bool = False):
     """UNNORMALISED (bce_sum, mask_sum, grad_sums) of one batch, for
     weights of any depth: from the stage kernels, or with ``plain=True``
     from the stage twins on any device."""
-    f = _PLAIN if plain else _KERNEL
     x, y, mask = _inputs(tw, x, y, mask, pre)
-    saved, _, bce = _forward(tw, x, y, mask, pre, f)
-    return bce[0], mask.sum(), grads_to_torch(*_backward(tw, saved, pre, f))
+    bce, grads = _step(tw, x, y, mask, pre, plain)
+    return bce[0], mask.sum(), grads_to_torch(*grads)
 
 
 def kernel_loss_grad_sums(model: ConvAutoencoder, x, y, mask,
@@ -757,22 +855,22 @@ def kernel_loss_grad_sums_plain(model: ConvAutoencoder, x, y, mask,
 
 
 class _KernelBCE(torch.autograd.Function):
-    """The masked BCE sum of a batch through the stage kernels.  forward
-    runs the forward stages, which keep what the backward reads; backward
-    runs the backward stages and returns the parameters' gradients, moved
-    from the kernels' weight layout to torch's and scaled by the incoming
-    gradient (for the mean loss: 1 / (mask_sum * 256 * 128))."""
+    """The masked BCE sum of a batch through the stage kernels.  As the TPU
+    kernel, forward runs the whole step, the forward and the backward
+    stages (on the card their sums one plan); backward returns the
+    parameters' gradients, moved from the kernels' weight layout to torch's
+    and scaled by the incoming gradient (for the mean loss: 1 / (mask_sum *
+    256 * 128))."""
 
     @staticmethod
     def forward(ctx, x, y, mask, tw, pre, names, *params):
-        saved, _, bce = _forward(tw, x, y, mask, pre)
-        ctx.tw, ctx.pre, ctx.names, ctx.saved = tw, pre, names, saved
+        bce, grads = _step(tw, x, y, mask, pre, False)
+        ctx.names, ctx.grads = names, grads_to_torch(*grads)
         return bce.reshape(())
 
     @staticmethod
     def backward(ctx, g):
-        grads = grads_to_torch(*_backward(ctx.tw, ctx.saved, ctx.pre))
-        ctx.saved = None
+        grads, ctx.grads = ctx.grads, None
         return (None,) * 6 + tuple(grads[n] * g for n in ctx.names)
 
 

@@ -253,19 +253,25 @@ def test_ae3_kernel_grads_match_autograd(cuda, cfg):
     on the kernels' forward and must agree there; the twins' own chain, and
     autograd, must agree unless some gate differs between the forwards:
     the gates of autograd's forward are counted from forward hooks, as the
-    twins' are.  Autograd's backward runs with cuDNN's deterministic
-    algorithms: two runs give the same bits (the default algorithms do
-    not)."""
+    twins' are.  Autograd's backward, and the twins (whose convs are
+    cuDNN's), run with cuDNN's deterministic algorithms: two runs give the
+    same bits (the default algorithms do not, so the twins' chain counted
+    here could gate otherwise than the one compared)."""
     model, x, y, mask = _train_setup(cuda, cfg)
-    sums = ttk3.kernel_loss_grad_sums3(model, x, y, mask, torch.float32)
-    plain = ttk3.kernel_loss_grad_sums3_plain(model, x, y, mask, torch.float32)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sums = ttk3.kernel_loss_grad_sums3(model, x, y, mask, torch.float32)
+        plain = ttk3.kernel_loss_grad_sums3_plain(model, x, y, mask, torch.float32)
+        tw = ttk3.build_train3_weights(model, torch.float32)
+        s, _, _ = ttk._forward(tw, x, y, mask, False)
+        p, _, _ = ttk._forward(tw, x, y, mask, False, ttk._PLAIN)
+        fed = ttk.grads_to_torch(*ttk._backward(tw, s, False, ttk._PLAIN))
+    finally:
+        torch.backends.cudnn.deterministic = old
     torch.testing.assert_close(sums[0], plain[0], rtol=1e-5, atol=0)
-    tw = ttk3.build_train3_weights(model, torch.float32)
-    s, _, _ = ttk._forward(tw, x, y, mask, False)
-    p, _, _ = ttk._forward(tw, x, y, mask, False, ttk._PLAIN)
     routed_apart = sum(int((a != b).sum()) for a, b in zip(s["bits"], p["bits"]))
     relu_apart = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(s["act"][4:], p["act"][4:]))
-    fed = ttk.grads_to_torch(*ttk._backward(tw, s, False, ttk._PLAIN))
     own = 0.0
     for k in sums[2]:
         scale = max(float(plain[2][k].abs().max()), 1.0)
@@ -568,3 +574,70 @@ def test_train_sum_matches_sum64(cuda, shape):
     want = ttk._sum64(part.cpu(), 0)
     assert bool(((got.cpu() - want).abs() <= 1e-6 * part.abs().sum(0).cpu()).all())
     assert torch.equal(got, ttk.ae_train_sum(part))
+    # in one plan beside another array, in either order: the same bits
+    other = torch.rand(4096, 32, device=cuda)
+    sums = ttk.StepSums(2 * (shape[1] + 32), cuda)
+    views = [sums.add(part), sums.add(other), sums.add(other), sums.add(part)]
+    sums.run()
+    assert torch.equal(views[0], got) and torch.equal(views[3], got)
+    assert torch.equal(views[1], ttk.ae_train_sum(other)) and torch.equal(views[2], views[1])
+
+
+@pytest.mark.parametrize("cfg", [ModelConfig(), MODEL_PRESETS["deep3"]], ids=["k3", "deep3"])
+def test_step_sums_match_per_call_sums(cuda, cfg):
+    """A step's sums as one plan: its partial arrays (``step_partials``) in
+    one ``ae_train_sum`` call, each bit for bit the per-call sum; and a
+    whole bf16 step (``loss_grad_sums``, one plan) bit for bit the stages
+    with their per-call sums (K5 and K7)."""
+    model, x, y, mask = _train_setup(cuda, cfg)
+    tw = ttk.build_train_weights(model, torch.bfloat16)
+    g = torch.Generator().manual_seed(6)
+    parts = [torch.randn(n, m, generator=g).to(cuda) for n, m in ttk.step_partials(tw, 3)]
+    sums = ttk.step_sums(tw, cuda)
+    views = [sums.add(p) for p in parts]
+    before = ttk.TRAIN_SUM.launches
+    sums.run()
+    assert ttk.TRAIN_SUM.launches == before + 1
+    assert all(torch.equal(v, ttk.ae_train_sum(p)) for v, p in zip(views, parts))
+    bce, _, grads = ttk.loss_grad_sums(tw, x, y, mask)
+    s, _, pbce = ttk._forward(tw, x, y, mask, False)
+    per_call = ttk.grads_to_torch(*ttk._backward(tw, s, False))
+    assert torch.equal(bce, pbce[0])
+    assert all(torch.equal(grads[k], per_call[k]) for k in grads)
+
+
+CONVT_GEOMETRIES = GEOMETRIES + DEPTH3 + [
+    ModelConfig(filters=(48, 48, 64), kernels=((3, 3),) * 3, out_kernel=(3, 3))]
+CONVT_IDS = ["k3", "k1", "k5", "k7", "manual", "64x64k7"] + DEPTH3_IDS + ["48-48-64k3"]
+
+
+@pytest.mark.parametrize("cfg", CONVT_GEOMETRIES, ids=CONVT_IDS)
+def test_convt_igemm_kernel_matches_twin(cuda, cfg):
+    """The transposed convs (``ae_convt``) of every geometry on 3 tiles of
+    random inputs: bf16 on the tensor-core template ``convt_igemm_kernel``
+    within one bf16 ulp of the twin, two launches bit for bit; float32 on
+    ``convt_relu_kernel`` within 1e-5 of the scale (float32 sums in another
+    order); the libraries' per-template counts."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    w16 = tak.build_kernel_weights(model, torch.bfloat16)
+    w32 = tak.build_kernel_weights(model, torch.float32)
+    g = torch.Generator().manual_seed(8)
+    for i in range(w16.depth, w16.out):
+        h, w = 256 >> (w16.out - i), 128 >> (w16.out - i)
+        x = torch.randn(3, w16.w[i].shape[0], h, w, generator=g).clamp_min(0).to(cuda)
+        x16 = x.to(torch.bfloat16)
+        before = _templates()
+        got = tak.ae_convt(w16, x16, i)
+        want = tak.ae_convt_plain(w16, x16, i)
+        excess = float(((got.float() - want.float()).abs() - 2.0 ** -7 * want.float().abs()
+                        - 1e-5).max())
+        assert excess <= 0, f"layer {i}: beyond one ulp by {excess:.3g}"
+        assert torch.equal(got, tak.ae_convt(w16, x16, i)), i
+        got32 = tak.ae_convt(w32, x, i)
+        want32 = tak.ae_convt_plain(w32, x, i)
+        assert float((got32 - want32).abs().max()) <= 1e-5 * float(want32.abs().max()), i
+        after = _templates()
+        took = {t: after["ae"][t] - before["ae"][t] for t in after["ae"]}
+        assert took == {"conv_quad_kernel": 0, "conv_igemm_kernel": 0, "convt_relu_kernel": 1,
+                        "convt_igemm_kernel": 2}, (i, took)
+        assert after["ae_train"] == before["ae_train"]

@@ -21,12 +21,21 @@ package:
   epilogues (pool; pool and routing bits; the routed input gradient's gate
   and one bias partial row per block); against the twins, JAX's K3 in
   interpret mode and Flax autodiff;
+- the tensor-core transposed conv (``convt_igemm_kernel``, split by
+  ``ops.ae_kernel.convt_igemm_rows``): per (tile, strip) block, the input
+  rows with the taps' halo staged one 16-channel chunk at a time, each
+  output parity a stride-1 product over its taps, each chunk summed on its
+  own and added in order, bias, relu, one rounding; against the twin,
+  Flax's ``ConvTranspose`` and JAX's K3 in interpret mode;
 - ``ae_train_sum``'s order (``sum_rows_kernel``, ``sum_slabs``): against
-  the float64 twin;
+  the float64 twin; a step's sums as one plan (``StepSums``): its segment
+  table covers every partial row once, bit for bit the per-call sums;
 - K1 (``csrc/stft.cu``): per block of 16 frames, detrend by mean and slope,
   the window, the 256-point complex FFT as 16 x 16 with the host's twiddle
   table, the real-to-complex split, per-block min/max; against the twin
   and JAX's ``stft_ft_log`` in interpret mode."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -34,6 +43,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import flax.linen as nn
 
 from specenh.config import ModelConfig as JModelConfig, SpecParams
 from specenh.models.autoencoder import make_model as flax_model
@@ -514,25 +524,165 @@ def test_conv_igemm_strips_cover_the_grid(name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_tensor_core_weight_layouts(dtype):
-    """The layer table arranges the tensor-core kernel's operands once: in
-    bf16 the encoder convs after conv 0 (16 channels or more on each side)
-    get w with the input channel fastest, (K, K, Cout, Cin), and their
-    input-gradient operand (K, K, Cin, Cout); the single-channel layers and
-    every float32 layer keep conv_quad_kernel's layouts."""
+    """The layer table arranges the tensor-core kernels' operands once: in
+    bf16 the encoder convs after conv 0 and the transposed convs (16
+    channels or more on each side) get w with the input channel fastest,
+    (K, K, Cout, Cin), the encoder convs' input-gradient operand (K, K,
+    Cin, Cout) and the transposed convs' (K, K, Cin, Cout), w with dz's
+    channel fastest; the single-channel layers and every float32 layer
+    keep the CUDA-core templates' layouts (and no ``wt``)."""
     cfg = IGEMM_GEOMETRIES["deep3"]
     tw = ttk.build_train_weights(make_model(cfg, generator=torch.Generator().manual_seed(3)),
                                  dtype)
     mma = dtype == torch.bfloat16
     for i in range(tw.fwd.out + 1):
         w = tw.fwd.w[i]
-        enc = 1 <= i < tw.fwd.depth
-        if enc and mma:
+        enc, convt = 1 <= i < tw.fwd.depth, tw.fwd.is_convt(i)
+        if (enc or convt) and mma:
             assert torch.equal(tw.fwd.wt[i], w.permute(1, 2, 3, 0))
-            assert torch.equal(tw.bwd[i], _dgrad_wt(tw, i))
         else:
             assert tw.fwd.wt[i] is None
+        if enc and mma:
+            assert torch.equal(tw.bwd[i], _dgrad_wt(tw, i))
+        if convt:
+            assert torch.equal(tw.bwd[i], w.permute(1, 2, 0, 3))
         if (enc and not mma) or i == tw.fwd.out:
             assert torch.equal(tw.bwd[i], w.flip(1, 2).permute(3, 1, 2, 0))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core transposed conv
+# ---------------------------------------------------------------------------
+
+
+def convt_igemm_emulated(x, wt, bias, k, dtype=torch.bfloat16):
+    """``ae_convt`` as ``convt_igemm_kernel`` computes it, block by block:
+    per (tile, strip of R = 128 / W input rows), the input rows y0 + DMIN
+    .. y0 + R - 1 + DMAX and columns DMIN .. W - 1 + DMAX, zeros outside
+    the tile, staged one 16-channel chunk at a time; output parity (a, b)
+    a stride-1 product over its taps {(i, j): a + i - PA and b + j - PA
+    even}, tap (i, j) the window of the staged strip at shift ((a + i -
+    PA) / 2, (b + j - PA) / 2); each chunk summed on its own and added in
+    order; then bias, relu and one rounding to ``dtype`` (float32: none).
+    x (B, Cin, H, W), wt (K, K, Cout, Cin)."""
+    pa = convt_pad_before(k)
+    dmin, dmax = -(pa // 2), (k - pa) // 2
+    b, cin, h, w = x.shape
+    cout, r = wt.shape[2], tak.convt_igemm_rows(w)
+    xp = torch.nn.functional.pad(x.float(), (-dmin, dmax, -dmin, dmax))
+    strips = xp.unfold(2, r + dmax - dmin, r).permute(0, 2, 1, 4, 3)  # (B, S, Cin, RT, WT)
+    acc = torch.zeros(b, h // r, cout, 2, 2, r, w)                 # parity planes a strip
+    for c0 in range(0, cin, 16):
+        cacc = torch.zeros_like(acc)
+        for a, bb, i, j in itertools.product((0, 1), (0, 1), range(k), range(k)):
+            if (a + i - pa) % 2 or (bb + j - pa) % 2:
+                continue                                          # not a tap of (a, bb)
+            dy, dx = (a + i - pa) // 2 - dmin, (bb + j - pa) // 2 - dmin
+            win = strips[:, :, c0:c0 + 16, dy:dy + r, dx:dx + w]
+            cacc[:, :, :, a, bb] += torch.einsum("bscyx,oc->bsoyx", win,
+                                                 wt[i, j, :, c0:c0 + 16].float())
+        acc += cacc
+    y = acc.permute(0, 2, 1, 5, 3, 6, 4).reshape(b, cout, 2 * h, 2 * w)  # (2m + a, 2n + b)
+    y = torch.relu(y + bias[:, None, None])
+    return y if dtype == torch.float32 else y.to(dtype)
+
+
+def _flax_convt_relu(x, w, bias, k):
+    """Flax's ``ConvTranspose`` (stride 2, 'SAME', the module's) + relu in
+    float32 at HIGHEST precision, on NCHW x with the kernel w (Cin, K, K,
+    Cout) of the layer table."""
+    conv = nn.ConvTranspose(w.shape[-1], (k, k), strides=(2, 2), padding="SAME",
+                            precision=jax.lax.Precision.HIGHEST)
+    params = {"params": {"kernel": w.float().permute(1, 2, 0, 3).numpy(),
+                         "bias": bias.numpy()}}
+    y = conv.apply(params, np.asarray(x.float().permute(0, 2, 3, 1)))
+    return torch.from_numpy(np.array(jax.nn.relu(y))).permute(0, 3, 1, 2)
+
+
+CONVT_WIDTHS = {"flagship": dict(), "deep3": dict(filters=(16, 32, 64))}
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("widths", list(CONVT_WIDTHS))
+def test_convt_igemm_decomposition_matches_twin_and_flax(widths, k):
+    """bf16, every transposed conv of the geometry on 2 tiles of random
+    inputs: the emulated kernel within one bf16 ulp of ``ae_convt_plain``
+    (chip_smoke.py's stage bound; k1's three tapless parities are
+    relu(bias)), and in float32 (no rounding) against Flax's
+    ``ConvTranspose`` on the same values to 1e-5 of the scale (float32 sums
+    in another order)."""
+    kw = CONVT_WIDTHS[widths]
+    depth = len(kw.get("filters", (32, 32)))
+    cfg = ModelConfig(**kw, kernels=((k, k),) * depth, out_kernel=(k, k))
+    wts = tak.build_kernel_weights(make_model(cfg, generator=torch.Generator().manual_seed(1)),
+                                   torch.bfloat16)
+    g = torch.Generator().manual_seed(2)
+    for i in range(wts.depth, wts.out):
+        h, w = 256 >> (wts.out - i), 128 >> (wts.out - i)
+        x = torch.randn(2, wts.w[i].shape[0], h, w, generator=g).clamp_min(0).to(torch.bfloat16)
+        got = convt_igemm_emulated(x, wts.wt[i], wts.b[i], k)
+        assert got.shape == (2, wts.cout(i), 2 * h, 2 * w)
+        assert _bf16_ulp_excess(got, tak.ae_convt_plain(wts, x, i)) <= 0, i
+        got32 = convt_igemm_emulated(x, wts.wt[i], wts.b[i], k, torch.float32)
+        want = _flax_convt_relu(x, wts.w[i], wts.b[i], k)
+        assert float((got32 - want).abs().max()) <= 1e-5 * float(want.abs().max()), i
+
+
+def test_convt_igemm_s3_chain_matches_twin_and_jax():
+    """The flagship's bf16 serving chain with the emulated S2 and S3 in
+    place of their twins: against the twins' chain and against JAX's K3
+    with its parity turns in interpret mode (the bounds of
+    test_conv_igemm_s2_chain_matches_twin_and_jax, 5e-3)."""
+    cfg = JModelConfig()
+    fm = flax_model(cfg)
+    params = fm.init(jax.random.PRNGKey(1), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(ModelConfig(), generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, ModelConfig()))
+    x = np.random.default_rng(3).standard_normal((2, SP.n_samples)).astype(np.float32)
+    specs, k = spectrogram(torch.from_numpy(x), SP), 3
+    wts = tak.build_kernel_weights(model, torch.bfloat16)
+    act = tak.ae_tile_in(wts, specs, k)
+    for i in range(1, wts.depth):
+        act = conv_igemm_emulated(act, wts.wt[i], wts.k(i), "pool", wts.b[i])
+    for i in range(wts.depth, wts.out):
+        act = convt_igemm_emulated(act, wts.wt[i], wts.b[i], wts.k(i))
+    got = tak.ae_tile_out(wts, act, k).numpy()
+    twin = tak.ae_kernel_enhance_specs(wts, specs, k).numpy()
+    want = np.asarray(jak.ae_kernel_enhance_specs(jak.build_kernel_weights(params, cfg),
+                                                  jnp.asarray(specs.numpy()), k, interpret=True))
+    assert got.shape == want.shape == (2, 256, k * 128)
+    np.testing.assert_allclose(got, twin, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+CONVT_GEOMETRIES = {
+    **IGEMM_GEOMETRIES,
+    "k1": ModelConfig(kernels=((1, 1), (1, 1)), out_kernel=(1, 1)),
+    "64-32k5": ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)), out_kernel=(5, 5)),
+    "64-32-64k7": ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
+}
+
+
+@pytest.mark.parametrize("name", list(CONVT_GEOMETRIES))
+def test_convt_igemm_strips_cover_the_grid(name):
+    """The kernel's split of each transposed conv, as the C launcher checks
+    it: strips of R rows tile the input grid, R * W is a block's 128
+    positions (8 warps of one 16-position fragment), the channels are
+    whole 16-channel chunks and groups, and the staged strip and weight
+    chunk, and the (16, 2R, 2W) output stage, fit the 227 KB of shared
+    memory."""
+    wts = tak.build_kernel_weights(make_model(CONVT_GEOMETRIES[name],
+                                              generator=torch.Generator()), torch.bfloat16)
+    for i in range(wts.depth, wts.out):
+        cin, k, cout = wts.w[i].shape[0], wts.k(i), wts.cout(i)
+        h, w = 256 >> (wts.out - i), 128 >> (wts.out - i)
+        r = tak.convt_igemm_rows(w)
+        assert h % r == 0 and r * w == 128 and w % 16 == 0
+        assert cin % 16 == 0 and cout % 16 == 0
+        pa = convt_pad_before(k)
+        nr = (k - pa) // 2 + pa // 2 + 1                      # DMAX - DMIN + 1
+        smem = max(((r + nr - 1) * (w + nr - 1) + k * k * 16) * 32, 16 * (4 * 128 + 8) * 2)
+        assert smem <= 227 * 1024, (i, smem)
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +730,64 @@ def test_sum_order_matches_sum64(shape):
     assert bool(((got - want).abs() <= 1e-6 * part.abs().sum(0)).all())
     slabs = ttk.sum_slabs(n, m)
     assert slabs == 1 or (slabs * -(-m // 32) <= 264 and n // slabs >= 64)
+
+
+def sum_plan_emulated(parts):
+    """A step's sums as ``StepSums`` runs them (``ae_train_sum``'s segment
+    table): pass 1 over every segment's slabs, blocks numbered segment by
+    segment (groups x slabs each, block l taking column group l % groups
+    of slab l // groups), a segment with one slab straight into its output;
+    pass 2 over the slab sums of the others.  Returns the sums and, per
+    segment, how often each (row, column) was read in pass 1."""
+    def one_pass(table):
+        starts = np.cumsum([0] + [-(-m // 32) * slabs for _, m, slabs in table])
+        outs = [torch.empty(slabs, m) for _, m, slabs in table]
+        reads = [torch.zeros(p.shape, dtype=torch.int32) for p, _, _ in table]
+        for blk in range(starts[-1]):
+            i = int(np.searchsorted(starts, blk, side="right")) - 1  # its segment
+            p, m, slabs = table[i]
+            n, groups, l = p.shape[0], -(-m // 32), blk - starts[i]
+            cols = slice(l % groups * 32, min(m, l % groups * 32 + 32))
+            y = l // groups
+            r0, r1 = n * y // slabs, n * (y + 1) // slabs
+            warp = []
+            for w in range(8):
+                s = torch.zeros(cols.stop - cols.start)
+                for r in range(r0 + w, r1, 8):
+                    s = s + p[r, cols]
+                    reads[i][r, cols] += 1
+                warp.append(s)
+            for stride in (4, 2, 1):
+                warp = [warp[w] + warp[w + stride] for w in range(stride)]
+            outs[i][y, cols] = warp[0]
+        return outs, reads
+
+    first, reads = one_pass([(p, p.shape[1], ttk.sum_slabs(*p.shape)) for p in parts])
+    two = [i for i, f in enumerate(first) if f.shape[0] > 1]
+    second, _ = one_pass([(first[i], first[i].shape[1], 1) for i in two])
+    for i, v in zip(two, second):
+        first[i] = v
+    return [f[0] for f in first], reads
+
+
+@pytest.mark.parametrize("name", ["k3", "deep3"])
+def test_step_sums_plan_matches_per_call_order(name):
+    """A step's partial arrays (``step_partials``, 2 tiles; the segments of
+    a K5 or K7 step) summed as one plan: its table reads every partial row
+    once, and each segment's sums equal the per-call order bit for bit;
+    the plan's columns are the step's parameters plus the BCE."""
+    tw = ttk.build_train_weights(make_model(IGEMM_GEOMETRIES[name],
+                                            generator=torch.Generator()), torch.bfloat16)
+    shapes = ttk.step_partials(tw, 2)
+    assert len(shapes) == 4 * tw.fwd.depth + 2 <= 32
+    g = torch.Generator().manual_seed(7)
+    parts = [torch.randn(n, m, generator=g) for n, m in shapes]
+    got, reads = sum_plan_emulated(parts)
+    for p, s, r in zip(parts, got, reads):
+        assert bool((r == 1).all())
+        assert torch.equal(s, sum_rows_emulated(p))
+    n_params = sum(t.numel() for t in (*tw.fwd.w, *tw.fwd.b))
+    assert sum(m for _, m in shapes) == n_params + 1
 
 
 # ---------------------------------------------------------------------------
