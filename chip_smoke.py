@@ -10,22 +10,25 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    limit and turns TF32 off, so the plain float32 references are float32;
 2. builds every kernel from ``specenh_torch/csrc`` with nvcc, in parallel,
    and prints each library's ptxas registers and spills, and each
-   instantiation of the tensor-core templates ``conv_igemm_kernel`` and
-   ``convt_igemm_kernel``;
+   instantiation of the tensor-core templates ``conv_igemm_kernel``,
+   ``convt_igemm_kernel`` and ``conv_out_mma_kernel``;
 3. each kernel against its plain PyTorch twin at the serving path's shapes
    (a 20-channel, 2 s shot; the flagship AE), and the whole AE in float32
    and bf16, plus the k7 and (64, 32)/k5 geometries on one channel; each
    stage launch on the conv template its dtype and channels choose (bf16
-   S2 on ``conv_igemm_kernel``, bf16 S3 on ``convt_igemm_kernel``, float32
-   S3 on ``convt_relu_kernel``, float32 and single-channel convs on
-   ``conv_quad_kernel``, from the libraries' per-template launch counts);
+   S2 on ``conv_igemm_kernel``, bf16 S3 on ``convt_igemm_kernel``, bf16 S4
+   on ``conv_out_mma_kernel``, float32 S3 on ``convt_relu_kernel``, float32
+   convs and S1 on ``conv_quad_kernel``, from the libraries' per-template
+   launch counts); S4 in bf16 at every out-conv geometry (k1 to k7, 16 to
+   64 input channels, an out_kernel apart from the encoder's) on one
+   channel, after the stage kernels' chain, within TOL_F32 of its twin;
 4. the service ``make_enhance_shot_fn(dtype=bfloat16)`` on three synthetic
    shots, with the repo's two gates: spectrogram SSIM >= 0.99 against the
    SciPy recipe, enhanced SSIM >= 0.999 against the plain float32 service
    on every channel; every kernel must have launched during it, every S2
    launch on ``conv_igemm_kernel``, every S3 launch on
-   ``convt_igemm_kernel`` and every S1 and S4 launch on
-   ``conv_quad_kernel``;
+   ``convt_igemm_kernel``, every S4 launch on ``conv_out_mma_kernel`` and
+   every S1 launch on ``conv_quad_kernel``;
 5. CUDA-event timings of each kernel and its twin, ms/shot, spectrograms/s
    and peak device memory;
 6. phases 3-5 for the deep3 preset (filters (16, 32, 64), k5): every stage
@@ -53,8 +56,9 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    training kernel must have launched in the kernel runs, the encoder
    convs' forward and input gradients on ``conv_igemm_kernel``, the
    transposed convs' forward on ``convt_igemm_kernel``, conv 0, the loss
-   and the out-conv's input gradient on ``conv_quad_kernel``, and a step's
-   sums in one ``ae_train_sum`` call;
+   and the out-conv's input gradient on ``conv_quad_kernel`` (none on
+   ``conv_out_mma_kernel``), and a step's sums in one ``ae_train_sum``
+   call;
 10. timings: each training kernel per 128-tile step beside its twin, the
    one PyTorch call that computes the same function and its bound (the
    out-conv's and the encoder convs' ``ae_train_dgrad_conv`` also apart,
@@ -177,8 +181,9 @@ TPU_KERNELS = {
     "K11c": "scripts/probe_mosaic_walls.py:54",
 }
 STAGES = (AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
-# the conv templates of csrc/ae_conv.cuh: stride 1, and the transposed convs'
-QUAD, IGEMM, CT_RELU, CT_IGEMM = _build.CONV_TEMPLATES
+# the conv templates of csrc/ae_conv.cuh: stride 1, the transposed convs' and
+# the bf16 out-conv's
+QUAD, IGEMM, CT_RELU, CT_IGEMM, OUT_MMA = _build.CONV_TEMPLATES
 SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
              3: dict(zip(STAGES, ("K8-in", "K6", "K6", "K8-out")))}
 SERVE_KERNELS = (SF.STFT_KERNEL, *STAGES)
@@ -257,7 +262,8 @@ def ptxas_summary() -> list:
 
 def on_template(lib: str, kind, tag: str, fn, *args):
     """``fn(*args)``, which must launch one conv through library ``lib`` on
-    template ``kind`` (QUAD, IGEMM, CT_RELU or CT_IGEMM), or none (None)."""
+    template ``kind`` (QUAD, IGEMM, CT_RELU, CT_IGEMM or OUT_MMA), or none
+    (None)."""
     before = _build.conv_template_launches(lib)
     out = fn(*args)
     after = _build.conv_template_launches(lib)
@@ -305,8 +311,8 @@ def check_stft(sp, traces) -> float:
 def serve_chain(wts, specs, k):
     """The stage kernels over the layer table, each on the previous
     kernel's output: (the 2d activations, the restitched output).  Each
-    S2 and S3 launch must run on the tensor cores in bf16 and on
-    ``conv_quad_kernel`` / ``convt_relu_kernel`` in float32, S1 and S4 (one
+    S2, S3 and S4 launch must run on the tensor cores in bf16 and on
+    ``conv_quad_kernel`` / ``convt_relu_kernel`` in float32, S1 (one input
     channel) on ``conv_quad_kernel``."""
     s2 = IGEMM if wts.dtype == torch.bfloat16 else QUAD
     xs = [on_template("ae", QUAD, "ae_tile_in", AK.ae_tile_in, wts, specs, k)]
@@ -316,7 +322,8 @@ def serve_chain(wts, specs, k):
     for i in range(wts.depth, wts.out):
         xs.append(on_template("ae", convt_template(wts.dtype), f"{wts.dtype} ae_convt {i}",
                               AK.ae_convt, wts, xs[-1], i))
-    return xs, on_template("ae", QUAD, "ae_tile_out", AK.ae_tile_out, wts, xs[-1], k)
+    s4 = OUT_MMA if wts.dtype == torch.bfloat16 else QUAD
+    return xs, on_template("ae", s4, f"{wts.dtype} ae_tile_out", AK.ae_tile_out, wts, xs[-1], k)
 
 
 def check_serve_stages(wts, specs, k, tag):
@@ -335,6 +342,42 @@ def check_serve_stages(wts, specs, k, tag):
     for kern, e in errs.items():
         log(f"{tag} {kern.symbol} ({tuple(specs.shape)} specs): max|err| {e:.3g}")
     return errs, xs
+
+
+# the out-conv geometries S4 is checked at (phase 3): (name, config)
+S4_GEOMETRIES = (
+    ("k1", ModelConfig(kernels=((1, 1), (1, 1)), out_kernel=(1, 1))),
+    ("k3", FLAGSHIP),
+    ("k5", ModelConfig(kernels=((5, 5), (5, 5)), out_kernel=(5, 5))),
+    ("k7", ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
+    ("(64,32)/k5", ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)), out_kernel=(5, 5))),
+    ("(64,32,64)/k7", ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3,
+                                  out_kernel=(7, 7))),
+    ("deep3", DEEP3),
+    ("(48,48,64)/k3", ModelConfig(filters=(48, 48, 64), kernels=((3, 3),) * 3,
+                                  out_kernel=(3, 3))),
+    ("k3, out-conv k7", ModelConfig(out_kernel=(7, 7))),
+    ("deep3, out-conv k1", ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3,
+                                       out_kernel=(1, 1))),
+)
+
+
+def check_tile_out(dev, specs, k):
+    """Phase 3: S4 in bf16 at each of ``S4_GEOMETRIES`` on the first
+    channel's tiles, fed by the stage kernels' chain (each launch on its
+    template, S4 on ``conv_out_mma_kernel``): within TOL_F32 of its twin on
+    the same input, and two launches bit for bit."""
+    gen = torch.Generator().manual_seed(SEED)
+    for name, cfg in S4_GEOMETRIES:
+        model = make_model(cfg, generator=gen, device=dev).eval()
+        wts = AK.build_kernel_weights(model, torch.bfloat16)
+        xs, y = serve_chain(wts, specs[:1], k)
+        e = max_err(y, AK.ae_tile_out_plain(wts, xs[-1], k))
+        check(e <= TOL_F32, f"S4 {name}: bf16 ae_tile_out |err| {e:.3g} > {TOL_F32}")
+        check(torch.equal(y, AK.ae_tile_out(wts, xs[-1], k)), f"S4 {name}: two launches differ")
+        log(f"S4 {name} bf16 ({xs[-1].shape[1]} ch in, {OUT_MMA}, strips of "
+            f"{AK.conv_out_rows(wts.k(wts.out), xs[-1].shape[1])} rows): max|err| {e:.3g} "
+            f"(tol {TOL_F32}); two launches bit for bit")
 
 
 def check_kernels(dev, cfg, specs, k, dtypes, geometries):
@@ -369,8 +412,8 @@ def check_kernels(dev, cfg, specs, k, dtypes, geometries):
 def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
     """The bf16 service ``fn`` on the shots ``traces`` with every count set
     to 0 just before and read just after: each of ``kernels`` must have
-    launched and none of ``absent``, every S2 and S3 launch on the tensor
-    cores and every S1 and S4 launch on ``conv_quad_kernel``; then the
+    launched and none of ``absent``, every S2, S3 and S4 launch on the
+    tensor cores and every S1 launch on ``conv_quad_kernel``; then the
     repo's two gates on every shot.  Returns the outputs and the counts."""
     for kern in _build.KERNELS:
         kern.launches = 0
@@ -383,12 +426,13 @@ def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
         check(launches[kern] > 0, f"{tag}: {kern.symbol} was not launched")
     for kern in absent:
         check(launches[kern] == 0, f"{tag}: {kern.symbol} was launched")
-    s1s4 = launches[AK.TILE_IN] + launches[AK.TILE_IN_NORM] + launches[AK.TILE_OUT]
-    want = {QUAD: s1s4, IGEMM: launches[AK.CONV_POOL], CT_RELU: 0, CT_IGEMM: launches[AK.CONVT]}
+    s1 = launches[AK.TILE_IN] + launches[AK.TILE_IN_NORM]
+    want = {QUAD: s1, IGEMM: launches[AK.CONV_POOL], CT_RELU: 0, CT_IGEMM: launches[AK.CONVT],
+            OUT_MMA: launches[AK.TILE_OUT]}
     check(took == want, f"{tag}: conv templates {took}, expected {want}")
     log(f"{tag} launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in kernels)
         + f"; {IGEMM}={took[IGEMM]} (every S2), {CT_IGEMM}={took[CT_IGEMM]} (every S3), "
-        f"{QUAD}={took[QUAD]} (every S1, S4)")
+        f"{OUT_MMA}={took[OUT_MMA]} (every S4), {QUAD}={took[QUAD]} (every S1)")
     c, k = traces[0].shape[0], refs[0][1].shape[-1] // 128
     for seed, (specs, enh), (s_ref, e_ref) in zip((0, 1, 2), outs, refs):
         check(specs.shape == (c, 256, refs[0][0].shape[-1]), f"specs {tuple(specs.shape)}")
@@ -982,14 +1026,14 @@ def train_runs(dev, cfg, data, epochs):
         check(launches[kern] > 0, f"{kern.symbol} was not launched by training")
     # a bf16 step: the encoder convs' forward and input gradients and the
     # transposed convs' forward on the tensor cores; conv 0, the loss and
-    # the out-conv's input gradient (one per step) on conv_quad_kernel; its
-    # sums in one call
+    # the out-conv's input gradient (one per step) on conv_quad_kernel, none
+    # on conv_out_mma_kernel; its sums in one call
     steps = launches[TK.TRAIN_LOSS] + launches[TK.TRAIN_LOSS_PRE]
     single = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps + steps
     multi = launches[TK.TRAIN_CONV_POOL] + launches[TK.DGRAD_CONV] - steps
-    want = {QUAD: single, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0}
+    want = {QUAD: single, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0, OUT_MMA: 0}
     check(took == want, f"training conv templates {took}, expected {want}")
-    want = {QUAD: 0, IGEMM: 0, CT_RELU: 0, CT_IGEMM: launches[AK.CONVT]}
+    want = {QUAD: 0, IGEMM: 0, CT_RELU: 0, CT_IGEMM: launches[AK.CONVT], OUT_MMA: 0}
     check(took_ae == want, f"training forward convT templates {took_ae}, expected {want}")
     check(launches[TK.TRAIN_SUM] == steps,
           f"{launches[TK.TRAIN_SUM]} ae_train_sum calls in {steps} steps")
@@ -1301,6 +1345,10 @@ def main() -> int:
         if m:
             log(f"  ptxas {lib}.cu convt_igemm_kernel<K={m.group(1)}>: {regs} registers, "
                 f"{spill} B spill stores")
+        m = re.search(r"conv_out_mma_kernelILi(\d)ELi(\d)E", name)
+        if m:
+            log(f"  ptxas {lib}.cu conv_out_mma_kernel<K={m.group(1)}, ROWS={m.group(2)}>: "
+                f"{regs} registers, {spill} B spill stores")
 
     sp = SpecParams()
     traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)
@@ -1312,6 +1360,7 @@ def main() -> int:
          ("k7", 1, ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
          ("manual (64,32)/k5", 1, ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
                                               out_kernel=(5, 5)))))
+    check_tile_out(dev, specs, sp.n_frames // 128)
     row(SF.STFT_KERNEL, "K1").update(launches=run["launches"][SF.STFT_KERNEL],
                                      max_abs_err=err_k1, **time_stft(sp, gpu, traces))
     fused_front(dev, sp, gpu, traces, model, run)

@@ -47,7 +47,7 @@
 // (16/32/64, k5) does ~498 M MAC per tile, ~598 GFLOP a shot, and moves
 // ~2.9 GB.
 //
-// Design (S1, S4 and every float32 stage): direct convolution, one thread
+// Design (S1 and every float32 stage): direct convolution, one thread
 // per 2x2 quad of output pixels and 16 output channels (64 float
 // accumulators).  The thread loads the (K+1)x(K+1) input patch its quad
 // needs into registers once per input channel, so each load feeds
@@ -59,8 +59,10 @@
 // an implicit GEMM on the bf16 tensor cores over strips of a tile staged
 // once per 16-channel chunk, pooled in registers; the bf16 S3
 // convt_igemm_kernel, four such GEMMs (one per output parity) over one
-// staged strip.  wgmma, TMA and fusing the stages with halo recompute are
-// later work.  The kernel templates
+// staged strip; the bf16 S4 conv_out_mma_kernel, one GEMM an output row (K:
+// tap rows x channels, N: a row's taps) over its input streamed once with
+// cp.async, the taps' column shifts summed in float32 afterwards.  wgmma, TMA and fusing the stages with halo
+// recompute are later work.  The kernel templates
 // live in ae_conv.cuh, shared with the training stages (ae_train.cu).
 
 #include "ae_conv.cuh"
@@ -112,7 +114,8 @@ struct IgPoolEpi {
   }
 };
 
-// S4: one output channel, bias + sigmoid of each quad pixel, float output.
+// The float32 S4: one output channel, bias + sigmoid of each quad pixel,
+// float output (conv_out_mma_kernel computes the sigmoid the same way).
 struct SigmoidEpi {
   float* out;
   Plane dst;
@@ -157,6 +160,25 @@ int launch_convt_igemm(const void* in, const void* w, const float* bias, void* o
   const auto* wt = static_cast<const __nv_bfloat16*>(w);
   auto* o = static_cast<__nv_bfloat16*>(out);
   SX_K_SWITCH(K, return launch_convt_igemm_k<KK>(i, wt, bias, o, B, g, st));
+  return cudaErrorInvalidValue;
+}
+
+// The bf16 S4, conv_out_mma_kernel: in (B, Cin, H, 128) bf16 16-byte
+// aligned, w (Cin, K, K, 1) bf16; out float32 (B / kt, H, >= kt * 128) with
+// 16-byte aligned rows (out_outer and out_ld multiples of 4); K odd up to 7;
+// Cin a multiple of 16 (co_plan: up to 64 at k7); H a multiple of CO_BAND.
+// Returns cudaErrorInvalidValue for anything else: the caller raises.
+int launch_conv_out(const void* in, const void* w, const float* bias, float* out, int B,
+                    int Cin, int H, int W, int K, int kt, long long out_outer, long long out_ld,
+                    cudaStream_t st) {
+  if (W != CO_W || Cin < 16 || Cin % 16 != 0 || H < CO_BAND || H % CO_BAND != 0 || B < 1 ||
+      B > 65535 || kt < 1 || out_outer % 4 != 0 || out_ld % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const CoGeom g{Cin, H, kt, 0, 0, out_outer, out_ld};
+  const auto* i = static_cast<const __nv_bfloat16*>(in);
+  const auto* wt = static_cast<const __nv_bfloat16*>(w);
+  SX_K_SWITCH(K, return launch_conv_out_k<KK>(i, wt, bias, out, B, g, st));
   return cudaErrorInvalidValue;
 }
 
@@ -252,24 +274,18 @@ extern "C" int ae_convt_relu(const void* in, const void* w, const float* bias,
 
 // S4.  in: (B, Cin, H, W) in dtype, w: (Cin, K, K, 1) in dtype.  out:
 // float32 (B / kt, H, >= kt*W) restitched, channel and row strides
-// out_outer / out_ld; tile b lands at columns (b % kt) * W ..
-template <typename T>
-int tile_out(const void* in, const void* w, const float* bias, float* out,
-             Plane dst, int B, int Cin, int H, int W, int K, cudaStream_t st) {
-  return launch_conv_quad<T, 1>(
-      PlaneSrc<T, T>{static_cast<const T*>(in), nchw(Cin, H, W)}, w, bias,
-      SigmoidEpi{out, dst}, B, Cin, 1, H, W, K, st);
-}
-
+// out_outer / out_ld; tile b lands at columns (b % kt) * W ..  float32 runs
+// conv_quad_kernel with SigmoidEpi; bf16 conv_out_mma_kernel (W = 128).
 extern "C" int ae_tile_out(const void* in, const void* w, const float* bias,
                            float* out, int kt, long long out_outer,
                            long long out_ld, int dtype, int B, int Cin, int H,
                            int W, int K, void* stream) {
-  const Plane dst{out_outer, W, 0, out_ld, kt};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
-    return tile_out<float>(in, w, bias, out, dst, B, Cin, H, W, K, st);
+    return launch_conv_quad<float, 1>(
+        PlaneSrc<float, float>{static_cast<const float*>(in), nchw(Cin, H, W)}, w, bias,
+        SigmoidEpi{out, Plane{out_outer, W, 0, out_ld, kt}}, B, Cin, 1, H, W, K, st);
   if (dtype == SX_BF16)
-    return tile_out<__nv_bfloat16>(in, w, bias, out, dst, B, Cin, H, W, K, st);
+    return launch_conv_out(in, w, bias, out, B, Cin, H, W, K, kt, out_outer, out_ld, st);
   return cudaErrorInvalidValue;
 }

@@ -14,14 +14,18 @@
 //                      for float32 launches.
 //   convt_igemm_kernel the same for bf16 launches, as four implicit GEMMs
 //                      (one per output parity) on the tensor cores.
+//   conv_out_mma_kernel  a bf16 conv to one output channel + sigmoid (the
+//                      serving S4), each tap row a GEMM on the tensor cores
+//                      over an input staged once, cp.async double-buffered.
 //   GateOut, block_sums  the training epilogues' per-pixel gate and the
 //                      per-block channel sums (deterministic: warp shuffles
 //                      and a fixed-order sum over the warps, no atomics).
 //
 // Which template a launch takes is decided by its dtype and channel counts
 // alone: the multi-channel stride-1 convs run conv_igemm_kernel in bf16,
-// every other stride-1 conv conv_quad_kernel; the transposed convs run
-// convt_igemm_kernel in bf16 and convt_relu_kernel in float32.  Nothing
+// the serving S4 conv_out_mma_kernel in bf16, every other stride-1 conv
+// conv_quad_kernel; the transposed convs run convt_igemm_kernel in bf16 and
+// convt_relu_kernel in float32.  Nothing
 // falls back from one to the other: a bf16 launch that a tensor-core
 // template refuses raises.
 #pragma once
@@ -374,9 +378,9 @@ inline int quad_blocks(int H, int W) { return ((H / 2) * (W / 2) + NT - 1) / NT;
 
 // Launches of each conv template since the library was loaded (0:
 // conv_quad_kernel, 1: conv_igemm_kernel, 2: convt_relu_kernel, 3:
-// convt_igemm_kernel), counted on the host where a launch succeeds: a run
-// can show which template each launch site took.
-constexpr int SX_TEMPLATES = 4;
+// convt_igemm_kernel, 4: conv_out_mma_kernel), counted on the host where a
+// launch succeeds: a run can show which template each launch site took.
+constexpr int SX_TEMPLATES = 5;
 long long sx_conv_launches[SX_TEMPLATES];
 
 inline int count_conv_launch(int which) {
@@ -927,6 +931,281 @@ int launch_convt_igemm_k(const __nv_bfloat16* in, const __nv_bfloat16* wt, const
   return count_conv_launch(3);
 }
 
+// ---------------------------------------------------------------------------
+// conv_out_mma_kernel: the out-conv of a bf16 launch (Cin -> 1 channel, 'same'
+// K x K, stride 1) + bias + sigmoid, float32 out, on bf16 mma.sync.m16n8k16:
+// the serving S4 (ae_tile_out).  Replaces conv_quad_kernel + SigmoidEpi for
+// bf16 (the float32 S4 stays there); the JAX kernels (K3's L5, K6's out-conv)
+// sum the same taps as matmuls on the MXU, then K4 / K8-out restitch.
+//
+// For output row y and tap row i the input row is y + i - r (r = K / 2), so
+//   S[y, x', j] = sum_i sum_c in[c, y + i - r, x'] * w[c, i, j]
+// is a GEMM for each output row over the input positions x' (M), the pairs
+// (tap row i, input channel c) in 16-channel chunks (K) and the K taps j of a
+// row padded to 8 (N: one n8 fragment for every K <= 7); then
+//   out[y, x] = sigmoid(bias + sum_j S[y, x + j - r, j])
+// each S term outside the tile's columns adding nothing.  A is the input read
+// as staged: no column shift reaches the A fragments, the shifts move to the
+// float32 gather of S.
+//
+// Block: 8 warps, one band of CO_BAND rows of one tile (blockIdx.x: band,
+// blockIdx.y: tile), walked in strips of ROWS output rows.  Warp w holds
+// columns 16 w .. 16 w + 15 of every row of the strip: ROWS x 4 float32 sums
+// a thread, and as many for a chunk's fresh ones.  The band's input rows
+// stream through a ring of NR = 2 r + (PF + 1) ROWS rows in shared memory,
+// every input channel of a row, loaded once per band with cp.async in
+// 16-byte runs (zeros outside the tile's rows): a strip reads its ROWS + 2 r
+// rows from the ring while the rows of the next PF strips are in flight, and
+// each strip loads only its ROWS new rows (its halo rows are in the ring
+// already).  co_plan picks ROWS (8, 4 or 2) and PF (1 to 3): the most that
+// keep two blocks an SM in shared memory.  A channel's ring plane is padded
+// by 8 bf16, so the 8 channel rows of an ldmatrix tile fall in distinct
+// banks.  An 8 x 8 tile of 8 channels x 8 positions is the transpose of an A
+// fragment's quarter: ldmatrix.trans reads it, and one A fragment of staged
+// row t serves every tap row i with an output row t - i in the strip.  The
+// B fragments (w[c][i][j], j = the fragment's column, 0 for j >= K) are
+// built once per block in shared memory from w (Cin, K, K, 1), one 8-byte
+// load a lane, chunk and tap row.  A chunk's products (its K tap rows, 16 K
+// a sum) accumulate in fresh fragments, added into the running sums chunk
+// by chunk in order (as conv_igemm_kernel's chunks).
+//
+// A strip's epilogue: S goes to shared memory (K floats a position: a lane's
+// pixel reads stride K, odd, conflict-free); a thread sums its pixels' taps
+// j in ascending order; then bias, the sigmoid as SigmoidEpi computes it, and
+// float32 stores in 16-byte runs along each restitched row (4 lanes' pixels
+// gathered by shuffles).
+//
+// What bounds it: the input read once (1.26 GB a flagship shot of 32
+// channels, 0.63 GB at deep3's 16) and the float32 output written once
+// (78.6 MB): bytes.  The MMAs (2 x 8 x K x Cin FLOP a position: 30 GFLOP a
+// flagship shot) are ~0.03 ms at the bf16 peak; a band's 2 r halo rows are
+// read again by its neighbours, from L2.
+constexpr int CO_NT = 256;    // 8 warps
+constexpr int CO_W = 128;     // tile width: 8 warps x 16 columns
+constexpr int CO_BAND = 64;   // rows a block walks
+
+struct CoGeom {
+  int Cin, H, kt, PF, NR;       // strips in flight ahead, ring rows
+  long long out_outer, out_ld;  // the restitched output's channel and row strides
+};
+
+// Shared memory of a conv_out_mma_kernel block: the ring (Cin planes of NR
+// rows, +8 bf16 each), a strip's S, the B fragments.
+inline long long co_smem_bytes(int K, int Cin, int rows, int NR) {
+  return (long long)Cin * (NR * CO_W + 8) * 2 + (long long)rows * CO_W * K * 4 +
+         (long long)(Cin / 16) * K * 32 * 8;
+}
+
+// The strip rows and strips ahead of a launch: the largest ROWS of 8, 4, 2
+// whose ring with one strip ahead keeps two blocks an SM (of its 228 KB, 1
+// KB reserved a block), else the largest that fits one block (227 KB); then
+// the most strips ahead (up to 3) that keep as many blocks an SM.  Returns
+// false where nothing fits.  ops/ae_kernel.py conv_out_plan mirrors it.
+inline bool co_plan(int K, int Cin, int& rows, int& pf) {
+  const int r = K / 2;
+  for (int per_sm = 2; per_sm >= 1; --per_sm) {
+    const long long room = per_sm == 2 ? 228 * 1024 / 2 - 1024 : 227 * 1024;
+    for (rows = 8; rows >= 2; rows /= 2) {
+      if (co_smem_bytes(K, Cin, rows, 2 * r + 2 * rows) > room) continue;
+      pf = 1;
+      while (pf < 3 && co_smem_bytes(K, Cin, rows, 2 * r + (pf + 2) * rows) <= room) ++pf;
+      return true;
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !full.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n (1..3) committed groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+}
+
+template <int K, int ROWS>
+__global__ void __launch_bounds__(CO_NT, 2) conv_out_mma_kernel(
+    const __nv_bfloat16* __restrict__ in, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out, CoGeom g) {
+  constexpr int R = K / 2, RT = ROWS + 2 * R;
+  constexpr int NP = ROWS * CO_W / CO_NT;  // output pixels a thread
+  constexpr int NS = CO_BAND / ROWS;       // strips a band
+  extern __shared__ __align__(16) unsigned char co_smem[];
+  const int PS = g.NR * CO_W + 8;  // bf16 a channel's ring plane (+8: banks)
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(co_smem);
+  float* sb = reinterpret_cast<float*>(ring + (long long)g.Cin * PS);  // (r * 128 + x) * K + j
+  uint2* wf = reinterpret_cast<uint2*>(sb + ROWS * CO_W * K);         // (chunk, i, lane)
+
+  const int nch = g.Cin / 16;
+  const int b = blockIdx.y, yb = blockIdx.x * CO_BAND;
+  const int tid = threadIdx.x, lane = tid & 31, x0 = 16 * (tid >> 5);
+  const __nv_bfloat16* inb = in + (long long)b * g.Cin * g.H * CO_W;
+
+  // input rows yb - R + q .. + n - 1 into ring rows (q ..) % NR, one group:
+  // run e is channel e / (16 n), row (e / 16) % n, columns 8 (e % 16) ..;
+  // consecutive threads on consecutive 16 bytes of a channel's rows
+  auto load_rows = [&](int q, int n) {
+#pragma unroll 1
+    for (int e = tid; e < n * g.Cin * 16; e += CO_NT) {
+      const int seg = e & 15, m = (e >> 4) % n, ch = (e >> 4) / n;
+      const int y = yb - R + q + m, slot = (q + m) % g.NR;
+      const bool ok = y >= 0 && y < g.H;
+      cp_async16(ring + ch * PS + slot * CO_W + seg * 8,
+                 inb + ((long long)ch * g.H + (ok ? y : 0)) * CO_W + seg * 8, ok);
+    }
+    cp_async_commit();
+  };
+  // strip s reads ring rows (s ROWS + t) % NR, t < RT; its own new rows are
+  // t >= 2 R (strip 0: all RT); group s holds strip s's
+  load_rows(0, RT);
+  for (int s = 1; s <= g.PF; ++s) {
+    if (s < NS) load_rows(s * ROWS + 2 * R, ROWS);
+    else cp_async_commit();
+  }
+  // B fragments: lane (gq, tq) of chunk c, tap row i holds w[c0 + 2 tq (+1)]
+  // and w[c0 + 2 tq + 8 (+9)] at tap (i, gq), the lower channel in the low half
+  for (int e = tid; e < nch * K * 32; e += CO_NT) {
+    const int ln = e & 31, i = (e >> 5) % K, c = (e >> 5) / K, j = ln >> 2;
+    uint32_t lo = 0u, hi = 0u;
+    if (j < K) {
+      const unsigned short* p = reinterpret_cast<const unsigned short*>(w) +
+                                (long long)(16 * c + 2 * (ln & 3)) * K * K + i * K + j;
+      lo = p[0] | (uint32_t)p[K * K] << 16;
+      hi = p[8 * K * K] | (uint32_t)p[9 * K * K] << 16;
+    }
+    wf[e] = make_uint2(lo, hi);
+  }
+
+  // A: matrix m is channels 8 (m / 2) .., positions x0 + 8 (m % 2) ..; lane l
+  // gives the row of channel l % 8 of matrix l / 8
+  const int arow = ((lane & 7) + 8 * (lane >> 4)) * PS + x0 + 8 * ((lane >> 3) & 1);
+  const int gq = lane >> 2, tq = lane & 3, px = tid % CO_W;
+  float* ob = out + (long long)(b / g.kt) * g.out_outer + (long long)(b % g.kt) * CO_W;
+  const float bv = bias[0];
+
+#pragma unroll 1
+  for (int s = 0; s < NS; ++s) {
+    cp_async_wait(g.PF);  // group s is in; the next PF strips' may not be
+    __syncthreads();
+    // acc[r]: S at output row r, positions x0 + gq and x0 + gq + 8, taps 2 tq
+    // and 2 tq + 1
+    float acc[ROWS][4];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+    const int base = (s * ROWS) % g.NR;
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      uint32_t bq[K][2];
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const uint2 v = wf[(c * K + i) * 32 + lane];
+        bq[i][0] = v.x;
+        bq[i][1] = v.y;
+      }
+      float cacc[ROWS][4];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cacc[r][q] = 0.f;
+      const __nv_bfloat16* ap = ring + c * 16 * PS + arow;
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        const int slot = base + t < g.NR ? base + t : base + t - g.NR;
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, ap + slot * CO_W);
+#pragma unroll
+        for (int i = 0; i < K; ++i) {  // output row t - i, tap rows ascending
+          const int r = t - i;
+          if (r < 0 || r >= ROWS) continue;
+          mma_bf16(cacc[r], a[0], a[1], a[2], a[3], bq[i][0], bq[i][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] += cacc[r][q];
+    }
+    __syncthreads();  // strip s's first ROWS ring rows are free: strip s + PF + 1's
+    if (s + g.PF + 1 < NS) load_rows((s + g.PF + 1) * ROWS + 2 * R, ROWS);
+    else cp_async_commit();
+
+    // the gather: pixel u of a thread is (r, x) = (tid / 128 + 2 u, tid % 128)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = 2 * tq + (q & 1);
+        if (j < K) sb[(r * CO_W + x0 + gq + 8 * (q >> 1)) * K + j] = acc[r][q];
+      }
+    __syncthreads();
+    const int y0 = yb + s * ROWS;
+#pragma unroll
+    for (int u = 0; u < NP; ++u) {
+      const int r = tid / CO_W + 2 * u;
+      float z = 0.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int xs = px + j - R;
+        if (xs >= 0 && xs < CO_W) z += sb[(r * CO_W + xs) * K + j];
+      }
+      const float v = 1.f / (1.f + expf(-(z + bv)));
+      const float v1 = __shfl_down_sync(0xffffffffu, v, 1);
+      const float v2 = __shfl_down_sync(0xffffffffu, v, 2);
+      const float v3 = __shfl_down_sync(0xffffffffu, v, 3);
+      if ((lane & 3) == 0)
+        *reinterpret_cast<float4*>(ob + (long long)(y0 + r) * g.out_ld + px) =
+            make_float4(v, v1, v2, v3);
+    }
+  }
+}
+
+template <int K, int ROWS>
+int launch_conv_out_kr(const __nv_bfloat16* in, const __nv_bfloat16* w, const float* bias,
+                       float* out, int B, const CoGeom& g, cudaStream_t st) {
+  const long long smem = co_smem_bytes(K, g.Cin, ROWS, g.NR);
+  auto kern = conv_out_mma_kernel<K, ROWS>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(g.H / CO_BAND, B), CO_NT, smem, st>>>(in, w, bias, out, g);
+  return count_conv_launch(4);
+}
+
+template <int K>
+int launch_conv_out_k(const __nv_bfloat16* in, const __nv_bfloat16* w, const float* bias,
+                      float* out, int B, CoGeom g, cudaStream_t st) {
+  int rows, pf;
+  if (!co_plan(K, g.Cin, rows, pf)) return cudaErrorInvalidValue;
+  g.PF = pf;
+  g.NR = 2 * (K / 2) + (pf + 1) * rows;
+  switch (rows) {
+    case 8: return launch_conv_out_kr<K, 8>(in, w, bias, out, B, g, st);
+    case 4: return launch_conv_out_kr<K, 4>(in, w, bias, out, B, g, st);
+    case 2: return launch_conv_out_kr<K, 2>(in, w, bias, out, B, g, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Sum v[0..N) over the block's NT threads and write the N sums to out[0..N)
 // (thread 0..N-1 each write one).  Fixed order: a warp shuffle tree, then
 // the warps in order.  Every thread of the block must call it.
@@ -979,7 +1258,7 @@ struct GateOut {
 
 }  // namespace
 
-// The launches of the four conv templates in this library so far, in
+// The launches of the five conv templates in this library so far, in
 // sx_conv_launches' order.
 extern "C" void specenh_conv_launches(long long* out) {
   for (int i = 0; i < SX_TEMPLATES; ++i) out[i] = sx_conv_launches[i];

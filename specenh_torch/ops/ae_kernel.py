@@ -15,7 +15,8 @@ the out-conv 2d.  ``ae_kernel_enhance_specs`` runs four stage kernels of
   ae_convt      S3  stride-2 transposed conv + relu, d times (in bf16 on
                     the tensor cores, ``convt_igemm_kernel``)
   ae_tile_out   S4  out-conv + sigmoid fused with the restitched store
-                    (K4, K8-out)
+                    (K4, K8-out; in bf16 on the tensor cores,
+                    ``conv_out_mma_kernel``)
 
 ``ae_kernel_enhance_raw`` is the same chain with S1 replaced by
 ``ae_tile_in_norm``: S1 reading the raw log-PSD of the STFT kernel and
@@ -55,7 +56,7 @@ __all__ = [
     "AEKernelWeights", "supports", "supports3", "kernel_depth",
     "build_kernel_weights",
     "ae_tile_in", "ae_tile_in_norm", "ae_conv_pool", "ae_convt", "ae_tile_out",
-    "convt_igemm_rows",
+    "convt_igemm_rows", "conv_out_plan", "conv_out_rows", "CONV_OUT_BAND",
     "ae_tile_in_plain", "ae_tile_in_norm_plain", "ae_conv_pool_plain",
     "ae_convt_plain", "ae_tile_out_plain", "normalized_tiles",
     "ae_kernel_enhance_specs", "ae_kernel_enhance_raw", "ae_kernel_apply",
@@ -377,10 +378,47 @@ def ae_convt(wts: AEKernelWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
     return out
 
 
+CONV_OUT_BAND = 64  # rows a conv_out_mma_kernel block walks (CO_BAND)
+
+
+def _conv_out_smem(k: int, cin: int, rows: int, ring: int) -> int:
+    """Shared memory of a ``conv_out_mma_kernel`` block (``co_smem_bytes``):
+    the ring of ``ring`` rows of every channel (+8 bf16 a channel), a
+    strip's tap sums, the weights' B fragments."""
+    return cin * (ring * TILE_T + 8) * 2 + rows * TILE_T * k * 4 + (cin // 16) * k * 32 * 8
+
+
+def conv_out_plan(k: int, cin: int) -> Tuple[int, int]:
+    """(strip rows, strips in flight ahead) of ``conv_out_mma_kernel``
+    (``csrc/ae_conv.cuh`` ``co_plan``) at kernel size ``k`` over ``cin``
+    input channels: the most rows of 8, 4, 2 whose ring with one strip
+    ahead (2 (k // 2) + 2 rows rows of every channel) keeps two blocks an
+    SM in its 228 KB (1 KB reserved a block), else the most that fit one
+    block (227 KB); then the most strips ahead, up to 3, that keep as many
+    blocks an SM.  Raises where nothing fits."""
+    r = k // 2
+    for room in (228 * 1024 // 2 - 1024, 227 * 1024):
+        for rows in (8, 4, 2):
+            if _conv_out_smem(k, cin, rows, 2 * r + 2 * rows) > room:
+                continue
+            pf = 1
+            while pf < 3 and _conv_out_smem(k, cin, rows, 2 * r + (pf + 2) * rows) <= room:
+                pf += 1
+            return rows, pf
+    raise ValueError(f"conv_out_mma_kernel: {cin} channels at k{k} do not fit")
+
+
+def conv_out_rows(k: int, cin: int) -> int:
+    """Output rows of a strip of ``conv_out_mma_kernel``: a block walks a
+    band of ``CONV_OUT_BAND`` rows of one tile in strips of this many."""
+    return conv_out_plan(k, cin)[0]
+
+
 def ae_tile_out(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int
                 ) -> torch.Tensor:
     """S4: (C*k, c1, 256, 128) -> (C, 256, k*128) float32 restitched
-    sigmoid output."""
+    sigmoid output; on the card in bf16 ``conv_out_mma_kernel``, in
+    float32 ``conv_quad_kernel``."""
     o = wts.out
     _check_act(x, wts, o)
     b, cin, h, w = x.shape

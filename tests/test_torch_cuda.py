@@ -558,8 +558,8 @@ def test_conv_igemm_kernel_matches_twins(cuda, cfg):
         after = _templates()
         assert after["ae"]["conv_igemm_kernel"] - before["ae"]["conv_igemm_kernel"] == 2
         assert after["ae_train"]["conv_igemm_kernel"] - before["ae_train"]["conv_igemm_kernel"] == 3
-        assert all(after[lib]["conv_quad_kernel"] == before[lib]["conv_quad_kernel"]
-                   for lib in after)
+        assert all(after[lib][t] == before[lib][t] for lib in after
+                   for t in ("conv_quad_kernel", "conv_out_mma_kernel"))
 
 
 @pytest.mark.parametrize("shape", [(8192, 2), (4096, 64), (4096, 288), (512, 9216),
@@ -639,5 +639,47 @@ def test_convt_igemm_kernel_matches_twin(cuda, cfg):
         after = _templates()
         took = {t: after["ae"][t] - before["ae"][t] for t in after["ae"]}
         assert took == {"conv_quad_kernel": 0, "conv_igemm_kernel": 0, "convt_relu_kernel": 1,
-                        "convt_igemm_kernel": 2}, (i, took)
+                        "convt_igemm_kernel": 2, "conv_out_mma_kernel": 0}, (i, took)
+        assert after["ae_train"] == before["ae_train"]
+
+
+# every out-conv geometry: Cin 16 to 64, k1 to k7, out_kernel apart from the
+# encoder's k
+OUT_GEOMETRIES = CONVT_GEOMETRIES + [
+    ModelConfig(out_kernel=(7, 7)),
+    ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(1, 1)),
+]
+OUT_IDS = CONVT_IDS + ["k3-out7", "deep3-out1"]
+
+
+@pytest.mark.parametrize("cfg", OUT_GEOMETRIES, ids=OUT_IDS)
+def test_conv_out_mma_kernel_matches_twin(cuda, cfg):
+    """S4 (``ae_tile_out``) of every geometry on 6 tiles of random inputs,
+    restitched 3 to a channel: bf16 on the tensor-core template
+    ``conv_out_mma_kernel`` within TOL_F32 (1e-4) of the twin, two launches
+    bit for bit; float32 on ``conv_quad_kernel`` within 1e-5 (float32 sums
+    in another order); S1 (``ae_tile_in``) on ``conv_quad_kernel`` in
+    both; the libraries' per-template counts."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    g = torch.Generator().manual_seed(9)
+    specs = torch.rand(2, 256, 3 * 128, generator=g).to(cuda)
+    for dt, tol, s4 in ((torch.bfloat16, 1e-4, "conv_out_mma_kernel"),
+                        (torch.float32, 1e-5, "conv_quad_kernel")):
+        wts = tak.build_kernel_weights(model, dt)
+        cin = wts.w[wts.out].shape[0]
+        x = torch.rand(6, cin, 256, 128, generator=g).to(cuda, dt)
+        before = _templates()
+        got = tak.ae_tile_out(wts, x, 3)
+        after = _templates()
+        took = {t: after["ae"][t] - before["ae"][t] for t in after["ae"]}
+        assert took == {t: int(t == s4) for t in took}, (dt, took)
+        want = tak.ae_tile_out_plain(wts, x, 3)
+        assert got.shape == want.shape == (2, 256, 3 * 128)
+        assert float((got - want).abs().max()) <= tol, dt
+        assert torch.equal(got, tak.ae_tile_out(wts, x, 3)), dt
+        before = _templates()
+        tak.ae_tile_in(wts, specs, 3)
+        after = _templates()
+        took = {t: after["ae"][t] - before["ae"][t] for t in after["ae"]}
+        assert took == {t: int(t == "conv_quad_kernel") for t in took}, (dt, took)
         assert after["ae_train"] == before["ae_train"]

@@ -27,6 +27,13 @@ package:
   output parity a stride-1 product over its taps, each chunk summed on its
   own and added in order, bias, relu, one rounding; against the twin,
   Flax's ``ConvTranspose`` and JAX's K3 in interpret mode;
+- the tensor-core out-conv (``conv_out_mma_kernel``, the bf16 S4, split
+  by ``ops.ae_kernel.conv_out_plan``): per (tile, strip) block, the input
+  rows with the taps' halo as the ring holds them, each output row's tap
+  rows one product per 16-channel chunk, chunks added in order, then the
+  taps' column shifts summed in float32, bias, sigmoid and the restitch;
+  against the twin for k1 to k7 at 16, 32 and 64 channels, and in the
+  flagship and deep3 chains against JAX's K3 and K6 in interpret mode;
 - ``ae_train_sum``'s order (``sum_rows_kernel``, ``sum_slabs``): against
   the float64 twin; a step's sums as one plan (``StepSums``): its segment
   table covers every partial row once, bit for bit the per-call sums;
@@ -47,10 +54,13 @@ import flax.linen as nn
 
 from specenh.config import ModelConfig as JModelConfig, SpecParams
 from specenh.models.autoencoder import make_model as flax_model
+from specenh.ops import ae3_kernel as jak3
 from specenh.ops import ae_kernel as jak
 from specenh.ops import stft_fused as jsf
 from specenh.train import bce_from_logits as jbce
 from specenh_torch import ModelConfig
+from specenh_torch.config import MODEL_PRESETS
+from specenh_torch.data.tiles import unpatch
 from specenh_torch.models.autoencoder import convt_pad_before, make_model
 from specenh_torch.models.convert import state_dict_from_flax
 from specenh_torch.ops import ae_kernel as tak
@@ -683,6 +693,128 @@ def test_convt_igemm_strips_cover_the_grid(name):
         nr = (k - pa) // 2 + pa // 2 + 1                      # DMAX - DMIN + 1
         smem = max(((r + nr - 1) * (w + nr - 1) + k * k * 16) * 32, 16 * (4 * 128 + 8) * 2)
         assert smem <= 227 * 1024, (i, smem)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core out-conv (S4)
+# ---------------------------------------------------------------------------
+
+
+def conv_out_mma_emulated(x, w, bias, k_tiles):
+    """``ae_tile_out`` in bf16 as ``conv_out_mma_kernel`` computes it, block
+    by block: per (tile, strip of R output rows, ``conv_out_rows``), the
+    input rows y0 - r .. y0 + R - 1 + r (r = K // 2; zeros outside the
+    tile) over the tile's columns, as the ring holds them; per 16-channel
+    chunk, the tap rows' products summed in float32 in fresh sums (tap rows
+    ascending: output row y takes tap row i from input row y + i - r) and
+    added into the running sums S[y, x', j] chunk by chunk in order; then
+    the gather out[y, x] = sum_j S[y, x + j - r, j] (taps ascending, columns
+    outside the tile adding nothing), bias, 1 / (1 + exp(-z)) and the
+    restitch.  x (B, Cin, 256, 128), w (Cin, K, K, 1), bias (1,)."""
+    b, cin, h, wd = x.shape
+    k = w.shape[1]
+    r, rows = k // 2, tak.conv_out_rows(k, cin)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, r, r))          # rows only
+    strips = xp.unfold(2, rows + 2 * r, rows).permute(0, 2, 1, 4, 3)  # (B, S, Cin, RT, W)
+    wf = w.float()[..., 0]                                          # (Cin, K, K)
+    acc = torch.zeros(b, h // rows, rows, wd, k)
+    for c0 in range(0, cin, 16):
+        cacc = torch.zeros_like(acc)
+        for i in range(k):
+            cacc += torch.einsum("bscyx,cj->bsyxj", strips[:, :, c0:c0 + 16, i:i + rows],
+                                 wf[c0:c0 + 16, i])
+        acc += cacc
+    z = torch.zeros(b, h // rows, rows, wd)
+    for j in range(k):
+        d = j - r                                                   # out[x] += S[x + d, j]
+        if d >= 0:
+            z[..., :wd - d] += acc[..., d:, j]
+        else:
+            z[..., -d:] += acc[..., :wd + d, j]
+    y = 1.0 / (1.0 + torch.exp(-(z + bias)))
+    return unpatch(y.reshape(b, h, wd), tiles_per_spec=k_tiles)
+
+
+def _out_conv_cfg(cin, k):
+    """A geometry whose out-conv reads ``cin`` channels through a k x k
+    kernel (the encoder's k may differ)."""
+    filters = {16: (16, 32, 64), 32: (32, 32), 64: (64, 32)}[cin]
+    return ModelConfig(filters=filters, kernels=((3, 3),) * len(filters), out_kernel=(k, k))
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("cin", [16, 32, 64])
+def test_conv_out_mma_decomposition_matches_twin(cin, k):
+    """bf16 weights and activations on 3 tiles (one restitched channel):
+    the emulated kernel against ``ae_tile_out_plain`` (``F.conv2d`` in
+    float32 on the same values, sigmoid, ``unpatch``) within 1e-5, float32
+    sums in another order (``chip_smoke.py`` holds the kernel to TOL_F32,
+    1e-4)."""
+    wts = tak.build_kernel_weights(make_model(_out_conv_cfg(cin, k),
+                                              generator=torch.Generator().manual_seed(k)),
+                                   torch.bfloat16)
+    o = wts.out
+    g = torch.Generator().manual_seed(cin + k)
+    x = torch.rand(3, cin, 256, 128, generator=g).to(torch.bfloat16)
+    got = conv_out_mma_emulated(x, wts.w[o], wts.b[o], 3)
+    want = tak.ae_tile_out_plain(wts, x, 3)
+    assert got.shape == want.shape == (1, 256, 3 * 128)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["flagship", "deep3"])
+def test_conv_out_mma_s4_chain_matches_twin_and_jax(name):
+    """The bf16 serving chain with the emulated S4 in place of its twin:
+    against the twins' chain and against JAX's K3 (flagship) or K6 (deep3)
+    with its tile turns in interpret mode (the bounds of
+    test_conv_igemm_s2_chain_matches_twin_and_jax, 5e-3)."""
+    cfg = ModelConfig() if name == "flagship" else MODEL_PRESETS["deep3"]
+    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
+    params = flax_model(jcfg).init(jax.random.PRNGKey(2), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, cfg))
+    x = np.random.default_rng(5).standard_normal((2, SP.n_samples)).astype(np.float32)
+    specs, k = spectrogram(torch.from_numpy(x), SP), 3
+    wts = tak.build_kernel_weights(model, torch.bfloat16)
+    act = tak.ae_tile_in(wts, specs, k)
+    for i in range(1, wts.depth):
+        act = tak.ae_conv_pool(wts, act, i)
+    for i in range(wts.depth, wts.out):
+        act = tak.ae_convt(wts, act, i)
+    got = conv_out_mma_emulated(act, wts.w[wts.out], wts.b[wts.out], k).numpy()
+    twin = tak.ae_kernel_enhance_specs(wts, specs, k).numpy()
+    if name == "flagship":
+        want = jak.ae_kernel_enhance_specs(jak.build_kernel_weights(params, jcfg),
+                                           jnp.asarray(specs.numpy()), k, interpret=True)
+    else:
+        want = jak3.ae3_kernel_enhance_specs(jak3.build_kernel3_weights(params, jcfg),
+                                             jnp.asarray(specs.numpy()), k, interpret=True)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (2, 256, k * 128)
+    np.testing.assert_allclose(got, twin, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+def test_conv_out_mma_strips_cover_the_tile(k):
+    """The kernel's split of a tile at every supported input width (16, 32,
+    48, 64 channels), as the C launcher plans it: bands of
+    ``CONV_OUT_BAND`` rows, each walked in strips of ``conv_out_rows``
+    rows, cover the 256 rows once; a strip's 128 x R pixels are whole
+    pixels of its 256 threads; the ring holds a strip's R + 2 (k // 2)
+    rows and the next strips' R rows each; the block fits the 227 KB of
+    shared memory."""
+    for cin in (16, 32, 48, 64):
+        rows, pf = tak.conv_out_plan(k, cin)
+        assert rows == tak.conv_out_rows(k, cin) and rows in (2, 4, 8) and 1 <= pf <= 3
+        band = tak.CONV_OUT_BAND
+        covered = [y0 + s * rows + r for y0 in range(0, 256, band)
+                   for s in range(band // rows) for r in range(rows)]
+        assert sorted(covered) == list(range(256)), (cin, rows)
+        assert rows * 128 % 256 == 0
+        ring = 2 * (k // 2) + (pf + 1) * rows
+        assert ring == rows + 2 * (k // 2) + pf * rows
+        assert tak._conv_out_smem(k, cin, rows, ring) <= 227 * 1024, (cin, rows, pf)
 
 
 # ---------------------------------------------------------------------------
