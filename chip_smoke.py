@@ -11,24 +11,28 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
 2. builds every kernel from ``specenh_torch/csrc`` with nvcc, in parallel,
    and prints each library's ptxas registers and spills, and each
    instantiation of the tensor-core templates ``conv_igemm_kernel``,
-   ``convt_igemm_kernel`` and ``conv_out_mma_kernel``;
+   ``convt_igemm_kernel``, ``conv_out_mma_kernel`` and
+   ``conv_in_mma_kernel``;
 3. each kernel against its plain PyTorch twin at the serving path's shapes
    (a 20-channel, 2 s shot; the flagship AE), and the whole AE in float32
    and bf16, plus the k7 and (64, 32)/k5 geometries on one channel; each
    stage launch on the conv template its dtype and channels choose (bf16
-   S2 on ``conv_igemm_kernel``, bf16 S3 on ``convt_igemm_kernel``, bf16 S4
-   on ``conv_out_mma_kernel``, float32 S3 on ``convt_relu_kernel``, float32
-   convs and S1 on ``conv_quad_kernel``, from the libraries' per-template
-   launch counts); S4 in bf16 at every out-conv geometry (k1 to k7, 16 to
-   64 input channels, an out_kernel apart from the encoder's) on one
-   channel, after the stage kernels' chain, within TOL_F32 of its twin;
+   S1 on ``conv_in_mma_kernel``, bf16 S2 on ``conv_igemm_kernel``, bf16 S3
+   on ``convt_igemm_kernel``, bf16 S4 on ``conv_out_mma_kernel``, float32
+   S3 on ``convt_relu_kernel``, float32 convs on ``conv_quad_kernel``, from
+   the libraries' per-template launch counts); at every out-conv geometry
+   (k1 to k7, 16 to 64 channels, an out_kernel apart from the encoder's) on
+   one channel, after the stage kernels' chain: S4 in bf16 within TOL_F32
+   of its twin, and S1 in bf16 within one bf16 ulp of its twin, and
+   ``ae_tile_in_norm`` in both layouts within one ulp of its twin and bit
+   for bit ``ae_tile_in``;
 4. the service ``make_enhance_shot_fn(dtype=bfloat16)`` on three synthetic
    shots, with the repo's two gates: spectrogram SSIM >= 0.99 against the
    SciPy recipe, enhanced SSIM >= 0.999 against the plain float32 service
-   on every channel; every kernel must have launched during it, every S2
-   launch on ``conv_igemm_kernel``, every S3 launch on
-   ``convt_igemm_kernel``, every S4 launch on ``conv_out_mma_kernel`` and
-   every S1 launch on ``conv_quad_kernel``;
+   on every channel; every kernel must have launched during it, every S1
+   launch on ``conv_in_mma_kernel``, every S2 launch on
+   ``conv_igemm_kernel``, every S3 launch on ``convt_igemm_kernel`` and
+   every S4 launch on ``conv_out_mma_kernel``;
 5. CUDA-event timings of each kernel and its twin, ms/shot, spectrograms/s
    and peak device memory;
 6. phases 3-5 for the deep3 preset (filters (16, 32, 64), k5): every stage
@@ -43,7 +47,8 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    flagship in bf16 and float32, and k5, k7 and (64, 32)/k5 on 4 tiles;
    each launch on its conv template (the encoder convs' forward and routed
    input gradient on ``conv_igemm_kernel``, the transposed convs' forward
-   on ``convt_igemm_kernel``, in bf16);
+   on ``convt_igemm_kernel``, the out-conv's input gradient on
+   ``conv_in_mma_kernel``, in bf16);
    for each in float32 the whole kernel chain against the twins' whole
    chain, the twins' backward on their own forward and on the kernels'
    (the pool windows and relu gates the forwards gate differently are
@@ -55,10 +60,10 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    autograd engine in float32; gated on the loss curves, and every
    training kernel must have launched in the kernel runs, the encoder
    convs' forward and input gradients on ``conv_igemm_kernel``, the
-   transposed convs' forward on ``convt_igemm_kernel``, conv 0, the loss
-   and the out-conv's input gradient on ``conv_quad_kernel`` (none on
-   ``conv_out_mma_kernel``), and a step's sums in one ``ae_train_sum``
-   call;
+   transposed convs' forward on ``convt_igemm_kernel``, the out-conv's
+   input gradient on ``conv_in_mma_kernel``, conv 0 and the loss on
+   ``conv_quad_kernel`` (none on ``conv_out_mma_kernel``), and a step's
+   sums in one ``ae_train_sum`` call;
 10. timings: each training kernel per 128-tile step beside its twin, the
    one PyTorch call that computes the same function and its bound (the
    out-conv's and the encoder convs' ``ae_train_dgrad_conv`` also apart,
@@ -86,7 +91,9 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    raw (F, T) log-PSD into ``ae_kernel_enhance_raw``); (d) the three K11
    toolchain probes in process and through ``python -m
    specenh_torch.probe_walls``; (e) the new entry points' times beside
-   their twins, library calls and bounds; (f) ms/shot per ``stft_mode``.
+   their twins, library calls and bounds, and in float32 (both on
+   ``conv_quad_kernel``) ``ae_tile_in`` beside ``ae_tile_in_norm`` in each
+   layout; (f) ms/shot per ``stft_mode``.
 13. (run after phase 6) a geometry no kernel family covers, (16, 32, 128)/k5,
    served in bf16 with ``use_kernel="auto"``: the module route on three
    shots, no serving kernel launched, gated as phase 4; its ms/shot.
@@ -181,9 +188,9 @@ TPU_KERNELS = {
     "K11c": "scripts/probe_mosaic_walls.py:54",
 }
 STAGES = (AK.TILE_IN, AK.CONV_POOL, AK.CONVT, AK.TILE_OUT)
-# the conv templates of csrc/ae_conv.cuh: stride 1, the transposed convs' and
-# the bf16 out-conv's
-QUAD, IGEMM, CT_RELU, CT_IGEMM, OUT_MMA = _build.CONV_TEMPLATES
+# the conv templates of csrc/ae_conv.cuh: stride 1, the transposed convs', the
+# bf16 out-conv's and the bf16 one-channel-in convs'
+QUAD, IGEMM, CT_RELU, CT_IGEMM, OUT_MMA, IN_MMA = _build.CONV_TEMPLATES
 SERVE_IDS = {2: dict(zip(STAGES, ("K2", "K3", "K3", "K4"))),
              3: dict(zip(STAGES, ("K8-in", "K6", "K6", "K8-out")))}
 SERVE_KERNELS = (SF.STFT_KERNEL, *STAGES)
@@ -262,7 +269,7 @@ def ptxas_summary() -> list:
 
 def on_template(lib: str, kind, tag: str, fn, *args):
     """``fn(*args)``, which must launch one conv through library ``lib`` on
-    template ``kind`` (QUAD, IGEMM, CT_RELU, CT_IGEMM or OUT_MMA), or none
+    template ``kind`` (QUAD, IGEMM, CT_RELU, CT_IGEMM, OUT_MMA or IN_MMA), or none
     (None)."""
     before = _build.conv_template_launches(lib)
     out = fn(*args)
@@ -311,11 +318,12 @@ def check_stft(sp, traces) -> float:
 def serve_chain(wts, specs, k):
     """The stage kernels over the layer table, each on the previous
     kernel's output: (the 2d activations, the restitched output).  Each
-    S2, S3 and S4 launch must run on the tensor cores in bf16 and on
-    ``conv_quad_kernel`` / ``convt_relu_kernel`` in float32, S1 (one input
-    channel) on ``conv_quad_kernel``."""
-    s2 = IGEMM if wts.dtype == torch.bfloat16 else QUAD
-    xs = [on_template("ae", QUAD, "ae_tile_in", AK.ae_tile_in, wts, specs, k)]
+    launch must run on the tensor cores in bf16 and on ``conv_quad_kernel``
+    / ``convt_relu_kernel`` in float32."""
+    bf = wts.dtype == torch.bfloat16
+    s2 = IGEMM if bf else QUAD
+    xs = [on_template("ae", IN_MMA if bf else QUAD, f"{wts.dtype} ae_tile_in", AK.ae_tile_in,
+                      wts, specs, k)]
     for i in range(1, wts.depth):
         xs.append(on_template("ae", s2, f"{wts.dtype} ae_conv_pool {i}", AK.ae_conv_pool,
                               wts, xs[-1], i))
@@ -362,22 +370,39 @@ S4_GEOMETRIES = (
 )
 
 
-def check_tile_out(dev, specs, k):
-    """Phase 3: S4 in bf16 at each of ``S4_GEOMETRIES`` on the first
-    channel's tiles, fed by the stage kernels' chain (each launch on its
-    template, S4 on ``conv_out_mma_kernel``): within TOL_F32 of its twin on
-    the same input, and two launches bit for bit."""
+def check_tile_in_out(dev, sp, traces, specs):
+    """Phase 3: the one-channel convs in bf16 at each of ``S4_GEOMETRIES``
+    on the first channel's tiles, fed by the stage kernels' chain (each
+    launch on its template): S1 (``conv_in_mma_kernel``) within one bf16
+    ulp of its twin, ``ae_tile_in_norm`` in both layouts within one ulp of
+    its twin and bit for bit S1; S4 (``conv_out_mma_kernel``) within
+    TOL_F32 of its twin; two launches of each bit for bit."""
+    k = sp.n_frames // 128
     gen = torch.Generator().manual_seed(SEED)
+    raws = {"ft": SF.stft_ft_log(traces[:1], sp), "tf": SF.stft_tf_log(traces[:1], sp)}
     for name, cfg in S4_GEOMETRIES:
         model = make_model(cfg, generator=gen, device=dev).eval()
         wts = AK.build_kernel_weights(model, torch.bfloat16)
         xs, y = serve_chain(wts, specs[:1], k)
+        e1 = check_bf16_stage(f"S1 {name}", xs[0], AK.ae_tile_in_plain(wts, specs[:1], k))
+        check(torch.equal(xs[0], AK.ae_tile_in(wts, specs[:1], k)), f"S1 {name}: two launches differ")
+        en = 0.0
+        for layout, (raw, mn, mx) in raws.items():
+            args = (wts, raw, mn, mx, k, layout)
+            got = on_template("ae", IN_MMA, f"ae_tile_in_norm {name} ({layout})",
+                              AK.ae_tile_in_norm, *args)
+            en = max(en, check_bf16_stage(f"ae_tile_in_norm {name} ({layout})", got,
+                                          AK.ae_tile_in_norm_plain(*args)))
+            check(torch.equal(got, xs[0]), f"ae_tile_in_norm {name} ({layout}) differs from S1")
         e = max_err(y, AK.ae_tile_out_plain(wts, xs[-1], k))
         check(e <= TOL_F32, f"S4 {name}: bf16 ae_tile_out |err| {e:.3g} > {TOL_F32}")
         check(torch.equal(y, AK.ae_tile_out(wts, xs[-1], k)), f"S4 {name}: two launches differ")
-        log(f"S4 {name} bf16 ({xs[-1].shape[1]} ch in, {OUT_MMA}, strips of "
-            f"{AK.conv_out_rows(wts.k(wts.out), xs[-1].shape[1])} rows): max|err| {e:.3g} "
-            f"(tol {TOL_F32}); two launches bit for bit")
+        c1 = xs[0].shape[1]
+        log(f"{name} bf16: S1 ({c1} ch out, {IN_MMA}, strips of "
+            f"{AK.conv_in_strip(c1, True)} rows) max|err| {e1:.3g}, ae_tile_in_norm (ft, tf) "
+            f"{en:.3g} (one bf16 ulp), bit for bit S1; S4 ({xs[-1].shape[1]} ch in, {OUT_MMA}, "
+            f"strips of {AK.conv_out_rows(wts.k(wts.out), xs[-1].shape[1])} rows): max|err| "
+            f"{e:.3g} (tol {TOL_F32}); two launches of each bit for bit")
 
 
 def check_kernels(dev, cfg, specs, k, dtypes, geometries):
@@ -412,9 +437,8 @@ def check_kernels(dev, cfg, specs, k, dtypes, geometries):
 def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
     """The bf16 service ``fn`` on the shots ``traces`` with every count set
     to 0 just before and read just after: each of ``kernels`` must have
-    launched and none of ``absent``, every S2, S3 and S4 launch on the
-    tensor cores and every S1 launch on ``conv_quad_kernel``; then the
-    repo's two gates on every shot.  Returns the outputs and the counts."""
+    launched and none of ``absent``, every S1, S2, S3 and S4 launch on the
+    tensor cores; then the repo's two gates on every shot.  Returns the outputs and the counts."""
     for kern in _build.KERNELS:
         kern.launches = 0
     before = {"ae": _build.conv_template_launches("ae")}
@@ -427,12 +451,13 @@ def gated_run(fn, wts, traces, refs, tag, kernels, absent=()):
     for kern in absent:
         check(launches[kern] == 0, f"{tag}: {kern.symbol} was launched")
     s1 = launches[AK.TILE_IN] + launches[AK.TILE_IN_NORM]
-    want = {QUAD: s1, IGEMM: launches[AK.CONV_POOL], CT_RELU: 0, CT_IGEMM: launches[AK.CONVT],
-            OUT_MMA: launches[AK.TILE_OUT]}
+    want = {QUAD: 0, IGEMM: launches[AK.CONV_POOL], CT_RELU: 0, CT_IGEMM: launches[AK.CONVT],
+            OUT_MMA: launches[AK.TILE_OUT], IN_MMA: s1}
     check(took == want, f"{tag}: conv templates {took}, expected {want}")
     log(f"{tag} launches: " + ", ".join(f"{k.symbol}={launches[k]}" for k in kernels)
-        + f"; {IGEMM}={took[IGEMM]} (every S2), {CT_IGEMM}={took[CT_IGEMM]} (every S3), "
-        f"{OUT_MMA}={took[OUT_MMA]} (every S4), {QUAD}={took[QUAD]} (every S1)")
+        + f"; {IN_MMA}={took[IN_MMA]} (every S1), {IGEMM}={took[IGEMM]} (every S2), "
+        f"{CT_IGEMM}={took[CT_IGEMM]} (every S3), {OUT_MMA}={took[OUT_MMA]} (every S4), "
+        f"{QUAD}={took[QUAD]}")
     c, k = traces[0].shape[0], refs[0][1].shape[-1] // 128
     for seed, (specs, enh), (s_ref, e_ref) in zip((0, 1, 2), outs, refs):
         check(specs.shape == (c, 256, refs[0][0].shape[-1]), f"specs {tuple(specs.shape)}")
@@ -758,11 +783,14 @@ def run_probes(gpu):
     return launches, time_entries(gpu, entries, torch.float32, " (launch-bound)")
 
 
-def time_tile_in_norm(sp, gpu, traces, wts):
+def time_tile_in_norm(sp, gpu, traces, wts, model):
     """Phase 12e: ``ae_tile_in_norm`` per layout at the flagship's 600
     tiles, its twin, the library calls (normalize, cast, ``F.conv2d`` on
     the raw tiles) and the bound (raw float32 read once, the pooled bf16
-    activations written once)."""
+    activations written once); then S1 from the specs beside S1 from the
+    raw log-PSD in each layout, in turns, in bf16 (``conv_in_mma_kernel``)
+    and in float32 (``conv_quad_kernel``: ``PlaneSrc`` loads each thread's
+    patch itself, ``NormPlaneSrc`` stages the block's window)."""
     k, bf = sp.n_frames // 128, torch.bfloat16
     raw_ft, mn, mx = SF.stft_ft_log(traces, sp)
     raws = {"ft": raw_ft, "tf": SF.stft_tf_log(traces, sp)[0]}
@@ -781,6 +809,19 @@ def time_tile_in_norm(sp, gpu, traces, wts):
                  flops, nb)
         times[layout] = time_entries(gpu, {AK.TILE_IN_NORM: entry}, bf,
                                      f" ({layout})")[AK.TILE_IN_NORM]
+    specs = SF.spectrogram_fused(traces, sp)
+    runs = {}
+    for w in (wts, AK.build_kernel_weights(model, torch.float32)):
+        runs[f"{w.dtype} ae_tile_in"] = lambda w=w: AK.ae_tile_in(w, specs, k)
+        for layout, raw in raws.items():
+            runs[f"{w.dtype} ae_tile_in_norm ({layout})"] = (
+                lambda w=w, r=raw, l=layout: AK.ae_tile_in_norm(w, r, mn, mx, k, l))
+    order = list(runs)
+    ms = {n: [] for n in order}
+    for n in order + order[::-1]:  # in turns: drift shows as a gap
+        ms[n].append(time_cuda(runs[n]))
+    log(f"[{gpu}] S1 of one shot from the specs and from the raw log-PSD, in turns: " + ", ".join(
+        f"{n} {ms[n][0]:.4f}/{ms[n][1]:.4f} ms" for n in order))
     return times
 
 
@@ -798,7 +839,7 @@ def fused_front(dev, sp, gpu, traces, model, run):
     launches = serve_modes(dev, sp, gpu, model, run)
     row(SF.STFT_TF_KERNEL, "K1").update(launches=launches["fused"][SF.STFT_TF_KERNEL],
                                         max_abs_err=err_tf, **time_stft(sp, gpu, traces, tf=True))
-    times = time_tile_in_norm(sp, gpu, traces, run["wts"])
+    times = time_tile_in_norm(sp, gpu, traces, run["wts"], model)
     for kid, layout, mode in (("K9", "tf", "fused"), ("K10", "ft", "raw_ft")):
         row(AK.TILE_IN_NORM, kid).update(launches=launches[mode][AK.TILE_IN_NORM],
                                          max_abs_err=errs[layout], **times[layout])
@@ -848,9 +889,9 @@ def check_train_stages(tw, x, y, mask, tag):
     stage), over the layer table from conv 0 to the out-conv and back; at
     depth 2 the K5b entry points must equal K5's bit for bit.  The encoder
     convs' forward and input gradient and the transposed convs' forward
-    must run on the tensor cores in bf16 and on ``conv_quad_kernel`` /
-    ``convt_relu_kernel`` in float32, the single-channel convs (conv 0, the
-    out-conv and its input gradient) on ``conv_quad_kernel``.  Returns the
+    and the out-conv's input gradient must run on the tensor cores in bf16
+    and on ``conv_quad_kernel`` / ``convt_relu_kernel`` in float32, conv 0
+    and the out-conv's forward (the loss) on ``conv_quad_kernel``.  Returns the
     max |err| of each kernel and the stage tensors: ``act[i]`` layer i's
     input, ``bits[i]`` encoder conv i's routing bits, ``dz[i]`` the
     gradient at layer i's output (pooled for the encoder convs)."""
@@ -864,6 +905,7 @@ def check_train_stages(tw, x, y, mask, tag):
 
     x16, y16 = x.to(dt), y.to(dt)
     multi = IGEMM if dt == torch.bfloat16 else QUAD  # the encoder convs' template
+    one_in = IN_MMA if dt == torch.bfloat16 else QUAD  # the out-conv's input gradient's
     p, pm = on_template("ae_train", QUAD, f"{tag} ae_train_in", TK.ae_train_in, tw, x)
     r, rm = TK.ae_train_in_plain(tw, x)
     note(TK.TRAIN_IN, act_(f"{tag} ae_train_in", p, r))
@@ -911,7 +953,7 @@ def check_train_stages(tw, x, y, mask, tag):
         return got
 
     def dgrad(fn, plain, kern, i, dz, gate, *bits_):
-        kind = None if kern is TK.DGRAD_CONVT else multi if bits_ else QUAD
+        kind = None if kern is TK.DGRAD_CONVT else multi if bits_ else one_in
         out, db = on_template("ae_train", kind, f"{tag} dgrad {i}", fn, tw, i, dz, gate, *bits_)
         rout, rdb = plain(tw, i, dz, gate, *bits_)
         note(kern, max(act_(f"{tag} dgrad {i}", out, rout), check_sum(f"{tag} db{i - 1}", db, rdb)))
@@ -1021,19 +1063,20 @@ def train_runs(dev, cfg, data, epochs):
     t_kernel = time.perf_counter() - t0
     log(f"depth-{cfg.depth} training launches: " + ", ".join(
         f"{k.symbol}={n}" for k, n in launches.items() if n)
-        + f"; {IGEMM}={took[IGEMM]}, {QUAD}={took[QUAD]}, {CT_IGEMM}={took_ae[CT_IGEMM]}")
+        + f"; {IGEMM}={took[IGEMM]}, {IN_MMA}={took[IN_MMA]}, {QUAD}={took[QUAD]}, "
+        f"{CT_IGEMM}={took_ae[CT_IGEMM]}")
     for kern in (*(TK.TRAIN_KERNELS if depth2 else TRAIN3_KERNELS), AK.CONVT):
         check(launches[kern] > 0, f"{kern.symbol} was not launched by training")
-    # a bf16 step: the encoder convs' forward and input gradients and the
-    # transposed convs' forward on the tensor cores; conv 0, the loss and
-    # the out-conv's input gradient (one per step) on conv_quad_kernel, none
-    # on conv_out_mma_kernel; its sums in one call
+    # a bf16 step: the encoder convs' forward and input gradients, the
+    # transposed convs' forward and the out-conv's input gradient (one per
+    # step) on the tensor cores; conv 0 and the loss on conv_quad_kernel,
+    # none on conv_out_mma_kernel; its sums in one call
     steps = launches[TK.TRAIN_LOSS] + launches[TK.TRAIN_LOSS_PRE]
-    single = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps + steps
+    single = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps
     multi = launches[TK.TRAIN_CONV_POOL] + launches[TK.DGRAD_CONV] - steps
-    want = {QUAD: single, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0, OUT_MMA: 0}
+    want = {QUAD: single, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0, OUT_MMA: 0, IN_MMA: steps}
     check(took == want, f"training conv templates {took}, expected {want}")
-    want = {QUAD: 0, IGEMM: 0, CT_RELU: 0, CT_IGEMM: launches[AK.CONVT], OUT_MMA: 0}
+    want = {QUAD: 0, IGEMM: 0, CT_RELU: 0, CT_IGEMM: launches[AK.CONVT], OUT_MMA: 0, IN_MMA: 0}
     check(took_ae == want, f"training forward convT templates {took_ae}, expected {want}")
     check(launches[TK.TRAIN_SUM] == steps,
           f"{launches[TK.TRAIN_SUM]} ae_train_sum calls in {steps} steps")
@@ -1176,8 +1219,9 @@ def time_training(gpu, cfg, data, tw, st):
             fl([o]), nbytes(act[o], s["y16"], s["y"], dz[o], s["mask"]))
     times = time_entries(gpu, entries, tw.dtype, f" per {b}-tile step (depth {d})")
     # the two kinds of ae_train_dgrad_conv launch apart: the out-conv's (one
-    # dz channel, conv_quad_kernel) and the encoder convs' (routed dz, the
-    # tensor cores), each with its ae_train_sum, conv2d_input and its bound
+    # dz channel, conv_in_mma_kernel) and the encoder convs' (routed dz,
+    # conv_igemm_kernel), each with its ae_train_sum, conv2d_input and its
+    # bound
     apart = {
         "out-conv": (lambda: TK.ae_train_dgrad_conv(tw, o, dz[o], act[o]),
                      lambda: conv2d_input(act[o].shape, cw[o], dz[o], padding=pad(o)),
@@ -1349,6 +1393,10 @@ def main() -> int:
         if m:
             log(f"  ptxas {lib}.cu conv_out_mma_kernel<K={m.group(1)}, ROWS={m.group(2)}>: "
                 f"{regs} registers, {spill} B spill stores")
+        m = re.search(r"conv_in_mma_kernelILi(\d)ELi(\d)E.*?(Ci\w+?Src).*?(Ci\w+?Epi)", name)
+        if m:
+            log(f"  ptxas {lib}.cu conv_in_mma_kernel<K={m.group(1)}, NF={m.group(2)}, "
+                f"{m.group(3)}, {m.group(4)}>: {regs} registers, {spill} B spill stores")
 
     sp = SpecParams()
     traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)
@@ -1360,7 +1408,7 @@ def main() -> int:
          ("k7", 1, ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7))),
          ("manual (64,32)/k5", 1, ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)),
                                               out_kernel=(5, 5)))))
-    check_tile_out(dev, specs, sp.n_frames // 128)
+    check_tile_in_out(dev, sp, traces, specs)
     row(SF.STFT_KERNEL, "K1").update(launches=run["launches"][SF.STFT_KERNEL],
                                      max_abs_err=err_k1, **time_stft(sp, gpu, traces))
     fused_front(dev, sp, gpu, traces, model, run)

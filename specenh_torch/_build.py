@@ -116,13 +116,14 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 CONV_TEMPLATES = ("conv_quad_kernel", "conv_igemm_kernel", "convt_relu_kernel",
-                  "convt_igemm_kernel", "conv_out_mma_kernel")
+                  "convt_igemm_kernel", "conv_out_mma_kernel", "conv_in_mma_kernel")
 
 
 def conv_template_launches(name: str) -> Dict[str, int]:
     """The launches of each conv template (``csrc/ae_conv.cuh``: the
-    stride-1 convs', the transposed convs' and the bf16 out-conv's) made
-    through library ``name`` since it was loaded."""
+    stride-1 convs', the transposed convs', the bf16 out-conv's and the bf16
+    one-channel-in convs') made through library ``name`` since it was
+    loaded."""
     out = (ctypes.c_longlong * len(CONV_TEMPLATES))()
     _library(name).specenh_conv_launches(out)
     return dict(zip(CONV_TEMPLATES, out))

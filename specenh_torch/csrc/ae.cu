@@ -33,7 +33,9 @@
 //                 zero padding at the tile's border (the reference patches
 //                 before it convolves, so no neighbour columns leak in).
 //   ae_tile_in_norm  S1 on the raw log-PSD, in either layout, normalized as
-//                 the block stages it in shared memory (K9, K10).
+//                 the block stages it in shared memory (K9, K10): in bf16
+//                 the same template and the same bits as ae_tile_in on the
+//                 normalized spectrograms.
 //   ae_conv_pool  S2 = conv2 (and conv3 at depth 3) + relu + maxpool2.
 //   ae_convt_relu S3 = Flax 'SAME' stride-2 transposed conv + relu (once per
 //                 level).
@@ -47,46 +49,48 @@
 // (16/32/64, k5) does ~498 M MAC per tile, ~598 GFLOP a shot, and moves
 // ~2.9 GB.
 //
-// Design (S1 and every float32 stage): direct convolution, one thread
-// per 2x2 quad of output pixels and 16 output channels (64 float
-// accumulators).  The thread loads the (K+1)x(K+1) input patch its quad
-// needs into registers once per input channel, so each load feeds
-// 4*K*K*16/((K+1)^2) FMAs; the weights of 8
-// input channels at a time are staged in shared memory as float and read
-// as warp-wide broadcasts.  Kernel size is a template argument (1, 3, 5,
-// 7), channel counts are runtime: every geometry ae_kernel.supports()
-// accepts.  The bf16 S2 runs conv_igemm_kernel instead:
-// an implicit GEMM on the bf16 tensor cores over strips of a tile staged
-// once per 16-channel chunk, pooled in registers; the bf16 S3
+// Design, float32 (every stage but S3): conv_quad_kernel, a direct
+// convolution, one thread per 2x2 quad of output pixels and 16 output
+// channels (64 float accumulators), the (K+1)x(K+1) input patch of its quad
+// in registers once per input channel, the weights of 8 input channels at a
+// time staged in shared memory as float; float32 S3 convt_relu_kernel.
+// bf16, on the tensor cores (mma.sync): S1 conv_in_mma_kernel, one GEMM
+// whose K is the taps (in pairs of horizontal neighbours, one 32-bit word of
+// the staged window each), pooled in registers, out through shared memory in
+// 16-byte runs; S2 conv_igemm_kernel, an implicit GEMM over strips of a tile
+// staged once per 16-channel chunk, pooled in registers; S3
 // convt_igemm_kernel, four such GEMMs (one per output parity) over one
-// staged strip; the bf16 S4 conv_out_mma_kernel, one GEMM an output row (K:
-// tap rows x channels, N: a row's taps) over its input streamed once with
-// cp.async, the taps' column shifts summed in float32 afterwards.  wgmma, TMA and fusing the stages with halo
-// recompute are later work.  The kernel templates
-// live in ae_conv.cuh, shared with the training stages (ae_train.cu).
+// staged strip; S4 conv_out_mma_kernel, one GEMM an output row (K: tap rows
+// x channels, N: a row's taps) over its input streamed once with cp.async,
+// the taps' column shifts summed in float32 afterwards.  Kernel size is a
+// template argument (1, 3, 5, 7), channel counts are runtime for float32
+// and a template argument for bf16: every geometry ae_kernel.supports()
+// and supports3() accept.  wgmma, TMA and fusing the stages with halo
+// recompute are later work.  The kernel templates live in ae_conv.cuh,
+// shared with the training stages (ae_train.cu).
 
 #include "ae_conv.cuh"
 
 namespace {
 
-// S1 / S2: bias + relu + 2x2 max pool of the quad, output (m, n) in TOUT.
-template <typename TOUT, int CB>
+// The float32 S1 / S2: bias + relu + 2x2 max pool of the quad, output (m,
+// n).
+template <int CB>
 struct PoolEpi {
-  TOUT* out;
+  float* out;
   Plane dst;
   __device__ __forceinline__ void operator()(float (&acc)[4][CB],
                                              const float* bias, bool active,
                                              int b, int m, int n,
                                              int co0) const {
     if (!active) return;
-    TOUT* ob = out + dst.base(b);
+    float* ob = out + dst.base(b);
 #pragma unroll
     for (int co = 0; co < CB; ++co) {
       // max(z_q + bias) == max(z_q) + bias, and relu commutes with max
       const float z = fmaxf(fmaxf(acc[0][co], acc[1][co]),
                             fmaxf(acc[2][co], acc[3][co])) + bias[co0 + co];
-      ob[(long long)(co0 + co) * dst.chan + (long long)m * dst.ld + n] =
-          sx_cast<TOUT>(fmaxf(z, 0.f));
+      ob[(long long)(co0 + co) * dst.chan + (long long)m * dst.ld + n] = fmaxf(z, 0.f);
     }
   }
 };
@@ -113,6 +117,59 @@ struct IgPoolEpi {
       }
   }
 };
+
+// S1 on the tensor cores (conv_in_mma_kernel): PoolEpi's bias + relu + 2x2
+// max pool, the window being the thread's four positions in its fragment
+// pair; out (B, Cout, H/2, 64) bf16 through the stage: channel c's pooled
+// row yp at word c * CS + yp * 32, CS = R / 2 * 32 + 4, so that a put's 4
+// channels x 8 columns fall in 16 banks; then 16-byte runs along each row.
+struct CiPoolEpi {
+  __nv_bfloat16* out;
+  template <int NF>
+  __host__ __device__ static constexpr int rows() { return NF > 4 ? 8 : 16; }
+  template <int NF>
+  __host__ __device__ static constexpr int cs() { return rows<NF>() / 2 * 32 + 4; }
+  template <int NF>
+  __host__ __device__ static constexpr int stage_words() { return 8 * NF * cs<NF>(); }
+  template <int NF>
+  __device__ __forceinline__ void begin(uint32_t*, int, int, int) const {}
+  template <int NF>
+  __device__ __forceinline__ void put(const float (&acc)[2][NF][4], uint32_t* os,
+                                      const float (&bv)[NF][2], int yy, int x0,
+                                      float (&)[NF][2]) const {
+    const int lane = threadIdx.x & 31, tq = lane & 3;
+    unsigned short* o = reinterpret_cast<unsigned short*>(os) + yy / 2 * 64 + x0 / 2 + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // max(z_q + bias) == max(z_q) + bias, and relu commutes with max
+        const float z = fmaxf(fmaxf(acc[0][n][e], acc[0][n][2 + e]),
+                              fmaxf(acc[1][n][e], acc[1][n][2 + e])) + bv[n][e];
+        o[2 * (8 * n + 2 * tq + e) * cs<NF>()] =
+            __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(z, 0.f)));
+      }
+  }
+  template <int NF>
+  __device__ __forceinline__ void end(const uint32_t* os, int b, int y0, int H,
+                                      float (&)[NF][2]) const {
+    constexpr int PER = rows<NF>() / 2 * 8, COUT = 8 * NF;  // 16-byte runs a channel
+    __nv_bfloat16* ob = out + ((long long)b * COUT * (H / 2) + y0 / 2) * 64;
+    for (int e = threadIdx.x; e < COUT * PER; e += CI_NT) {
+      const int co = e / PER, q = e % PER;
+      *reinterpret_cast<uint4*>(ob + (long long)co * (H / 2) * 64 + 8 * q) =
+          *reinterpret_cast<const uint4*>(os + co * cs<NF>() + 4 * q);
+    }
+  }
+};
+
+// The bf16 S1: conv_in_mma_kernel from src, out 16-byte aligned.
+int launch_tile_in(CiSpecSrc src, const void* w, const float* bias, void* out, int B, int Cout,
+                   int H, int W, int K, cudaStream_t st) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return cudaErrorInvalidValue;
+  return launch_conv_in(src, w, bias, CiPoolEpi{static_cast<__nv_bfloat16*>(out)}, B, Cout, H,
+                        W, K, st);
+}
 
 // The float32 S4: one output channel, bias + sigmoid of each quad pixel,
 // float output (conv_out_mma_kernel computes the sigmoid the same way).
@@ -186,24 +243,21 @@ int launch_conv_out(const void* in, const void* w, const float* bias, float* out
 
 // S1.  specs: (C, H, >= kt*W) float32, tile b = (b / kt, b % kt) at columns
 // (b % kt) * W ..; spec_outer / spec_ld are its channel and row strides.
-// out: (B, Cout, H/2, W/2) in dtype.  w: (1, K, K, Cout) in dtype.
+// out: (B, Cout, H/2, W/2) in dtype.  w: (1, K, K, Cout) in dtype.  float32
+// runs conv_quad_kernel, bf16 conv_in_mma_kernel (W = 128).
 extern "C" int ae_tile_in(const float* specs, int kt, long long spec_outer,
                           long long spec_ld, const void* w, const float* bias,
                           void* out, int dtype, int B, int Cout, int H, int W,
                           int K, void* stream) {
-  const Plane src{spec_outer, W, 0, spec_ld, kt};
-  const Plane dst = nchw(Cout, H / 2, W / 2);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
     return launch_conv_quad<float, COB>(
-        PlaneSrc<float, float>{specs, src}, w, bias,
-        PoolEpi<float, COB>{static_cast<float*>(out), dst}, B, 1, Cout, H, W,
-        K, st);
+        PlaneSrc<float, float>{specs, Plane{spec_outer, W, 0, spec_ld, kt}}, w, bias,
+        PoolEpi<COB>{static_cast<float*>(out), nchw(Cout, H / 2, W / 2)}, B, 1, Cout,
+        H, W, K, st);
   if (dtype == SX_BF16)
-    return launch_conv_quad<__nv_bfloat16, COB>(
-        PlaneSrc<float, __nv_bfloat16>{specs, src}, w, bias,
-        PoolEpi<__nv_bfloat16, COB>{static_cast<__nv_bfloat16*>(out), dst}, B,
-        1, Cout, H, W, K, st);
+    return launch_tile_in(CiSpecSrc{specs, nullptr, nullptr, spec_outer, spec_ld, 1, kt}, w,
+                          bias, out, B, Cout, H, W, K, st);
   return cudaErrorInvalidValue;
 }
 
@@ -211,7 +265,9 @@ extern "C" int ae_tile_in(const float* specs, int kt, long long spec_outer,
 // >= kt*W) float32 read through frequency stride raw_fs and time stride
 // raw_ts (the (F, T) layout of stft_logpsd, or the (T, F) layout of
 // stft_logpsd_tf), normalized by the channel's min and max, mn and mx (C,)
-// float32, as each block stages its input (NormPlaneSrc); otherwise as
+// float32, as each block stages its input (float32: NormPlaneSrc on
+// conv_quad_kernel; bf16: CiSpecSrc on conv_in_mma_kernel, the bits
+// ae_tile_in stages from the normalized spectrograms); otherwise as
 // ae_tile_in, for W = 128 and K <= 7.
 extern "C" int ae_tile_in_norm(const float* raw, const float* mn,
                                const float* mx, int kt, long long raw_outer,
@@ -220,20 +276,15 @@ extern "C" int ae_tile_in_norm(const float* raw, const float* mn,
                                int dtype, int B, int Cout, int H, int W, int K,
                                void* stream) {
   if (W != SW || K > 7) return cudaErrorInvalidValue;
-  const Plane dst = nchw(Cout, H / 2, W / 2);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == SX_F32)
     return launch_conv_quad<float, COB>(
-        NormPlaneSrc<float>{raw, mn, mx, raw_outer, raw_fs, raw_ts, kt, H, K},
-        w, bias, PoolEpi<float, COB>{static_cast<float*>(out), dst}, B, 1, Cout,
-        H, W, K, st);
-  if (dtype == SX_BF16)
-    return launch_conv_quad<__nv_bfloat16, COB>(
-        NormPlaneSrc<__nv_bfloat16>{raw, mn, mx, raw_outer, raw_fs, raw_ts, kt,
-                                    H, K},
-        w, bias,
-        PoolEpi<__nv_bfloat16, COB>{static_cast<__nv_bfloat16*>(out), dst}, B,
+        NormPlaneSrc{raw, mn, mx, raw_outer, raw_fs, raw_ts, kt, H, K},
+        w, bias, PoolEpi<COB>{static_cast<float*>(out), nchw(Cout, H / 2, W / 2)}, B,
         1, Cout, H, W, K, st);
+  if (dtype == SX_BF16)
+    return launch_tile_in(CiSpecSrc{raw, mn, mx, raw_outer, raw_fs, raw_ts, kt}, w, bias, out,
+                          B, Cout, H, W, K, st);
   return cudaErrorInvalidValue;
 }
 
@@ -247,7 +298,7 @@ extern "C" int ae_conv_pool(const void* in, const void* w, const float* bias,
   if (dtype == SX_F32)
     return launch_conv_quad<float, COB>(
         PlaneSrc<float, float>{static_cast<const float*>(in), nchw(Cin, H, W)}, w, bias,
-        PoolEpi<float, COB>{static_cast<float*>(out), nchw(Cout, H / 2, W / 2)}, B, Cin,
+        PoolEpi<COB>{static_cast<float*>(out), nchw(Cout, H / 2, W / 2)}, B, Cin,
         Cout, H, W, K, st);
   if (dtype == SX_BF16)
     return launch_conv_igemm(

@@ -17,17 +17,22 @@
 //   conv_out_mma_kernel  a bf16 conv to one output channel + sigmoid (the
 //                      serving S4), each tap row a GEMM on the tensor cores
 //                      over an input staged once, cp.async double-buffered.
+//   conv_in_mma_kernel a bf16 conv from one input channel (the serving S1,
+//                      the out-conv's input gradient), a GEMM whose K is the
+//                      taps, on the tensor cores, with its own source and
+//                      epilogue functors.
 //   GateOut, block_sums  the training epilogues' per-pixel gate and the
 //                      per-block channel sums (deterministic: warp shuffles
 //                      and a fixed-order sum over the warps, no atomics).
 //
 // Which template a launch takes is decided by its dtype and channel counts
-// alone: the multi-channel stride-1 convs run conv_igemm_kernel in bf16,
-// the serving S4 conv_out_mma_kernel in bf16, every other stride-1 conv
+// alone: in bf16 the multi-channel stride-1 convs run conv_igemm_kernel,
+// the serving S4 conv_out_mma_kernel, the serving S1 and the out-conv's
+// input gradient conv_in_mma_kernel; every other stride-1 conv (the
+// training forward's conv 0 and loss, every float32 launch) runs
 // conv_quad_kernel; the transposed convs run convt_igemm_kernel in bf16 and
-// convt_relu_kernel in float32.  Nothing
-// falls back from one to the other: a bf16 launch that a tensor-core
-// template refuses raises.
+// convt_relu_kernel in float32.  Nothing falls back from one to the other:
+// a bf16 launch that a tensor-core template refuses raises.
 #pragma once
 
 #include <stdint.h>
@@ -82,12 +87,14 @@ struct PlaneSrc {
 };
 
 // Source: a raw float32 log-PSD, min-max normalized as the block stages
-// it.  Tile b = (b / kt, b % kt) is channel b / kt at frames (b % kt) * W ..;
-// its value (y, x) lies at p + (b / kt) * outer + y * fs + ((b % kt) * W + x)
-// * ts, so the (F, T) layout has ts = 1 and the (T, F) layout fs = 1.  Each
+// it (the float32 ae_tile_in_norm; bf16 runs CiSpecSrc on
+// conv_in_mma_kernel).  Tile b = (b / kt, b % kt) is channel b / kt at
+// frames (b % kt) * W ..; its value (y, x) lies at p + (b / kt) * outer + y
+// * fs + ((b % kt) * W + x) * ts, so the (F, T) layout has ts = 1 and the
+// (T, F) layout fs = 1.  Each
 // value becomes (v - mn[c]) / (mx[c] - mn[c]) with an IEEE division (no
-// reciprocal), rounded to TACT: the bits that PlaneSrc reads from the
-// normalized spectrogram, where the division is done the same way.
+// reciprocal): the values that PlaneSrc reads from the normalized
+// spectrogram, where the division is done the same way.
 //
 // One input channel (S1).  The block stages the input its quads read (its
 // quad rows' rows with a halo of R = K/2 on each side, the tile's W
@@ -105,7 +112,6 @@ constexpr int SROWS = 2 * NT / SW + 7 + 1;  // K + 3 rows at K <= 7
 constexpr int SCOLS = SW + 7 + 1;           // W + K columns, one spare
 constexpr int SPER = (SROWS * SCOLS + NT - 1) / NT;  // staged values a thread
 
-template <typename TACT>
 struct NormPlaneSrc {
   const float* p;
   const float* mn;
@@ -158,7 +164,7 @@ struct NormPlaneSrc {
       int i, j;
       window(e, i, j);
       if (e < SROWS * SCOLS)  // outside the tile: 0, never read ('same' padding)
-        st[i][j] = (in >> u) & 1 ? sx_round<TACT>(__fdiv_rn(v[u] - lo, span)) : 0.f;
+        st[i][j] = (in >> u) & 1 ? __fdiv_rn(v[u] - lo, span) : 0.f;
     }
     __syncthreads();
     return Tile{Ch{&st[0][0], y0, x0}};
@@ -378,9 +384,10 @@ inline int quad_blocks(int H, int W) { return ((H / 2) * (W / 2) + NT - 1) / NT;
 
 // Launches of each conv template since the library was loaded (0:
 // conv_quad_kernel, 1: conv_igemm_kernel, 2: convt_relu_kernel, 3:
-// convt_igemm_kernel, 4: conv_out_mma_kernel), counted on the host where a
-// launch succeeds: a run can show which template each launch site took.
-constexpr int SX_TEMPLATES = 5;
+// convt_igemm_kernel, 4: conv_out_mma_kernel, 5: conv_in_mma_kernel),
+// counted on the host where a launch succeeds: a run can show which
+// template each launch site took.
+constexpr int SX_TEMPLATES = 6;
 long long sx_conv_launches[SX_TEMPLATES];
 
 inline int count_conv_launch(int which) {
@@ -1206,6 +1213,323 @@ int launch_conv_out_k(const __nv_bfloat16* in, const __nv_bfloat16* w, const flo
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// conv_in_mma_kernel: the 'same' K x K stride-1 convolution of a bf16 launch
+// from ONE input channel to Cout (16, 32, 48 or 64) channels, on bf16
+// mma.sync.m16n8k16 (bf16 in, float32 out):
+//   D[p, co] = sum_kappa A[p, kappa] * W[kappa, co]
+// over the output positions p of a strip of R rows of one 128-wide tile (M),
+// the output channels in 8-channel fragments (N) and the taps (K).  The
+// taps go into K as pairs of horizontal neighbours (i, j), (i, j + 1), j
+// even, so that the two values of an A register are one 32-bit word of the
+// staged input: tap row i's K taps make (K + 1) / 2 pairs, the last one half
+// a pair (its second tap masked to 0), K (K + 1) / 2 pairs in all: 16, 16,
+// 32 and 64 kappa slots (the GEMM's K) for k1, k3, k5 and k7, the slots past
+// the last pair zero in A and in W.  Replaces conv_quad_kernel for the bf16
+// launches that read one channel: the serving S1 (ae_tile_in,
+// ae_tile_in_norm: the JAX kernels K3 and K6 run conv1 on the MXU after the
+// tile turns K2 / K8-in / K9 / K10) and the out-conv's input gradient
+// (ae_train_dgrad_conv, K5 and K7).
+//
+// Block: 8 warps, one tile (blockIdx.y), one strip of R rows (blockIdx.x;
+// Epi::rows).  A warp takes a pair of fragments at a time: a row pair y, y +
+// 1 and 16 columns from x0, fragment m's row q < 8 at (y, x0 + 2 q + m) and
+// row q + 8 at (y + 1, x0 + 2 q + m).  So a thread holds a whole 2x2 pool
+// window across its two fragments (pooled in registers, no shuffle) and
+// horizontal neighbours for 32-bit stage accesses.  Warp w takes pairs w, w
+// + 8, .. of the strip's R / 2 x 8.
+//
+// Staging: the strip's input rows y0 - r .. y0 + R - 1 + r (r = K / 2) and
+// columns -CI_XO .. 131, zeros outside the tile, rounded to bf16 by the
+// source functor (the float32 spectrogram, the raw log-PSD normalized as
+// NormPlaneSrc normalizes it, or a bf16 plane), two columns an element,
+// read along the source's contiguous axis, all of a thread's loads in
+// flight before its first store.  It is held twice: the even copy, word w =
+// staged columns (2w, 2w + 1), and the odd copy, word w = (2w + 1, 2w + 2),
+// built from the even one; a pair starting at column x is one aligned word
+// of one of them.  The columns of a pair's first tap have the parity of r
+// in fragment 0 and the other in fragment 1, so each fragment reads one
+// copy and fragment 1's words are fragment 0's plus a constant.  A lane's
+// pairs (its row and word offsets, and the mask of a half or missing pair)
+// are fixed for the whole block and computed once.  Rows of CI_RS = 76
+// words put the 32 words of every A load in 32 banks, for every K.  The
+// weights' B fragments (at most 64 kappa x 64 channels) are built once a
+// block in shared memory from w (1, K, K, Cout).  The GEMM's chain is at
+// most 64 products: accumulated in one fragment.
+//
+// Epilogue (Epi::put, right after each fragment pair's MMAs): the block's
+// output goes through a stage in shared memory and out in 16-byte runs
+// along each NCHW row (Epi::end): the output is ~80 % of S1's bytes (315 of
+// 393 MB a flagship shot) and all of the input gradient's but dz.
+//
+// What bounds it: the input read once and the output written once (S1:
+// 0.117 ms a flagship shot at 3.35 TB/s; the out-conv's gradient, which
+// also reads its gate, 0.163 ms a 128-tile step): bytes.  The MMAs, padded
+// taps included, are 20 GFLOP a flagship shot (0.02 ms at the bf16 peak);
+// the instructions that stage, assemble A and pool come closer (a first
+// design, one fragment at a time with a shuffle to pool, ran S1 at 2x its
+// bound at 16 and at 32 channels alike).
+constexpr int CI_NT = 256;   // 8 warps
+constexpr int CI_W = 128;    // tile width
+constexpr int CI_XO = 4;     // staged column of input column 0
+constexpr int CI_EW = 68;    // words of the even copy a row: staged columns 0 .. 135
+constexpr int CI_OW = 67;    // words of the odd copy a row
+constexpr int CI_RS = 76;    // words a staged row takes in each copy
+
+template <int K>
+struct CiTaps {
+  static constexpr int NPR = (K + 1) / 2;          // pairs a tap row
+  static constexpr int NP = K * NPR;               // pairs
+  static constexpr int KC = (2 * NP + 15) / 16;    // 16-slot chunks of the GEMM's K
+};
+
+// Shared memory of a conv_in_mma_kernel block: the two copies of RT rows,
+// the B fragments, the epilogue's stage.  ops/ae_kernel.py _conv_in_smem
+// mirrors it.
+__host__ __device__ constexpr long long ci_smem_bytes(int K, int NF, int R, int stage_words) {
+  return (long long)2 * (R + 2 * (K / 2)) * CI_RS * 4 +
+         (long long)((K * (K + 1) + 15) / 16) * NF * 32 * 8 + (long long)stage_words * 4;
+}
+
+// Stage the window of a strip: word (t, w) of the even copy (input row ylo +
+// t, columns x = 2 w - CI_XO and x + 1) is val(load(y, x)) rounded to bf16
+// inside the tile and 0 outside (x even: both columns lie on the same
+// side).  Consecutive threads take consecutive words (along_x) or rows;
+// all loads are issued before the first val (a division's slow path would
+// otherwise hold each load until the one before has been divided).
+template <int RT, class Load, class Val>
+__device__ __forceinline__ void ci_stage(uint32_t* st, int ylo, int H, bool along_x, Load load,
+                                         Val val) {
+  constexpr int TOTAL = RT * CI_EW, PER = (TOTAL + CI_NT - 1) / CI_NT;
+  float2 v[PER];
+  unsigned in = 0;  // bit u: v[u] was loaded
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * CI_NT;
+    const int t = along_x ? e / CI_EW : e % RT, w = along_x ? e % CI_EW : e / RT;
+    const int y = ylo + t, x = 2 * w - CI_XO;
+    v[u] = make_float2(0.f, 0.f);
+    if (e < TOTAL && y >= 0 && y < H && x >= 0 && x < CI_W) {
+      v[u] = load(y, x);
+      in |= 1u << u;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * CI_NT;
+    if (e >= TOTAL) continue;
+    const int t = along_x ? e / CI_EW : e % RT, w = along_x ? e % CI_EW : e / RT;
+    uint32_t word = 0u;
+    if ((in >> u) & 1) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(val(v[u].x), val(v[u].y));
+      word = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    st[t * CI_RS + w] = word;
+  }
+}
+
+// Source: a float32 plane of tiles, tile b = (b / kt, b % kt) at p + (b /
+// kt) * outer + (b % kt) * 128 * ts, value (y, x) at y * fs + x * ts: the
+// spectrograms of ae_tile_in (ts = 1), or, with mn and mx, the raw log-PSD
+// of ae_tile_in_norm in the (F, T) (ts = 1) or (T, F) (fs = 1) layout,
+// each value (v - mn[c]) / (mx[c] - mn[c]) with an IEEE division (no
+// reciprocal), as NormPlaneSrc: the bits ae_tile_in stages from the
+// normalized spectrogram.  Read along its contiguous axis.
+struct CiSpecSrc {
+  const float* p;
+  const float* mn;  // null: no normalization
+  const float* mx;
+  long long outer, fs, ts;
+  int kt;
+  template <int RT>
+  __device__ __forceinline__ void stage(uint32_t* st, int b, int ylo, int H) const {
+    const int c = b / kt;
+    const float* q = p + c * outer + (long long)(b % kt) * CI_W * ts;
+    const long long f = fs, t = ts;
+    const float lo = mn ? mn[c] : 0.f, span = mn ? mx[c] - lo : 1.f;
+    const bool norm = mn != nullptr;
+    ci_stage<RT>(st, ylo, H, ts == 1,
+                 [=](int y, int x) {
+                   const float* r = q + y * f + x * t;
+                   return make_float2(r[0], r[t]);
+                 },
+                 [=](float v) { return norm ? __fdiv_rn(v - lo, span) : v; });
+  }
+};
+
+// Source: a bf16 plane (B, 1, H, 128): the out-conv's dz, a column pair one
+// 32-bit load.
+struct CiDzSrc {
+  const __nv_bfloat16* p;
+  template <int RT>
+  __device__ __forceinline__ void stage(uint32_t* st, int b, int ylo, int H) const {
+    const __nv_bfloat16* q = p + (long long)b * H * CI_W;
+    ci_stage<RT>(st, ylo, H, true,
+                 [=](int y, int x) {
+                   return __bfloat1622float2(
+                       *reinterpret_cast<const __nv_bfloat162*>(q + y * CI_W + x));
+                 },
+                 [](float v) { return v; });
+  }
+};
+
+// W[kappa][co] of w (1, K, K, Cout) for GEMM slot kappa (pair kappa / 2,
+// its tap kappa % 2), 0 past the last pair and for a half pair's second
+// tap; two slots kappa, kappa + 1 in one word, kappa in the low half.
+template <int K>
+__device__ __forceinline__ uint32_t ci_w_pair(const __nv_bfloat16* w, int kappa, int co,
+                                              int Cout) {
+  uint32_t out = 0u;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int p = (kappa + e) / 2, j = 2 * (p % CiTaps<K>::NPR) + (kappa + e) % 2;
+    if (p < CiTaps<K>::NP && j < K)
+      out |= (uint32_t)__bfloat16_as_ushort(w[((p / CiTaps<K>::NPR) * K + j) * Cout + co])
+             << (16 * e);
+  }
+  return out;
+}
+
+// acc[m][n][h * 2 + e] of a fragment pair is position (y + h, x0 + 2 (lane
+// / 4) + m), channel 8 n + 2 (lane % 4) + e; bv[n][e] that channel's bias
+// (0 without one).  epi.put writes each pair into the stage, epi.end the
+// stage out (after the block's last put; every thread reaches both).  db:
+// the epilogue's per-thread sums.
+template <int K, int NF, class Src, class Epi>
+__global__ void __launch_bounds__(CI_NT, NF > 4 ? 2 : 3) conv_in_mma_kernel(
+    Src src, const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias, Epi epi,
+    int H) {
+  using T = CiTaps<K>;
+  constexpr int R = Epi::template rows<NF>(), r = K / 2, RT = R + 2 * r, KC = T::KC;
+  constexpr int OB = RT * CI_RS, COUT = 8 * NF;
+  // fragment 1's word of a pair: the other copy, one word on from the odd one
+  constexpr int D1 = r & 1 ? 1 - OB : OB;
+  extern __shared__ __align__(16) unsigned char ci_smem[];
+  uint32_t* as = reinterpret_cast<uint32_t*>(ci_smem);
+  uint2* wf = reinterpret_cast<uint2*>(as + 2 * OB);             // (chunk, n, lane)
+  uint32_t* os = reinterpret_cast<uint32_t*>(wf + KC * NF * 32);  // the epilogue's stage
+
+  const int b = blockIdx.y, y0 = blockIdx.x * R;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+
+  epi.template begin<NF>(os, b, y0, H);
+  src.template stage<RT>(as, b, y0 - r, H);
+  // B fragments: lane (gq, tq) of chunk c, fragment n holds slots 16 c + 2 tq
+  // (+1) and 16 c + 2 tq + 8 (+9) of channel 8 n + gq
+  for (int e = tid; e < KC * NF * 32; e += CI_NT) {
+    const int ln = e & 31, n = (e >> 5) % NF, c = (e >> 5) / NF;
+    const int co = 8 * n + (ln >> 2), k0 = 16 * c + 2 * (ln & 3);
+    wf[e] = make_uint2(ci_w_pair<K>(w, k0, co, COUT), ci_w_pair<K>(w, k0 + 8, co, COUT));
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");  // an epilogue's prefetch
+  __syncthreads();
+  for (int e = tid; e < RT * CI_OW; e += CI_NT) {
+    const int t = e / CI_OW, q = e % CI_OW;
+    as[OB + t * CI_RS + q] = __funnelshift_r(as[t * CI_RS + q], as[t * CI_RS + q + 1], 16);
+  }
+  __syncthreads();
+
+  // the lane's A words in fragment 0: register h of chunk c is pair 8 c + 4
+  // h + tq at column x0 + 2 gq of the pair's row pair; a missing pair reads
+  // the word of pair 8 c + 4 h (or 0) and masks it to 0
+  int off[KC][2];
+  uint32_t msk[KC][2];
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 8 * c + 4 * h + tq;
+      const int q = p < T::NP ? p : (8 * c + 4 * h < T::NP ? 8 * c + 4 * h : 0);
+      const int i = q / T::NPR, j = 2 * (q % T::NPR);
+      off[c][h] = (r & 1 ? OB : 0) + i * CI_RS + gq + ((j - r + CI_XO) >> 1);
+      msk[c][h] = p >= T::NP ? 0u : j + 1 < K ? 0xffffffffu : 0x0000ffffu;
+    }
+  float bv[NF][2];
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[n][e] = bias ? bias[8 * n + 2 * tq + e] : 0.f;
+
+  float db[NF][2];
+#pragma unroll
+  for (int n = 0; n < NF; ++n) db[n][0] = db[n][1] = 0.f;
+#pragma unroll 1
+  for (int g = warp; g < 4 * R; g += CI_NT / 32) {
+    const int yy = 2 * (g >> 3), x0 = 16 * (g & 7);  // row pair g / 8, columns x0 ..
+    const uint32_t* pa = as + yy * CI_RS + x0 / 2;
+    float acc[2][NF][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NF; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t bq[NF][2];
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        const uint2 v = wf[(c * NF + n) * 32 + lane];
+        bq[n][0] = v.x;
+        bq[n][1] = v.y;
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint32_t* p0 = pa + off[c][0] + m * D1;
+        const uint32_t* p1 = pa + off[c][1] + m * D1;
+        const uint32_t a0 = p0[0] & msk[c][0], a1 = p0[CI_RS] & msk[c][0];
+        const uint32_t a2 = p1[0] & msk[c][1], a3 = p1[CI_RS] & msk[c][1];
+#pragma unroll
+        for (int n = 0; n < NF; ++n) mma_bf16(acc[m][n], a0, a1, a2, a3, bq[n][0], bq[n][1]);
+      }
+    }
+    epi.template put<NF>(acc, os, bv, yy, x0, db);
+  }
+  __syncthreads();
+  epi.template end<NF>(os, b, y0, H, db);
+}
+
+template <int K, int NF, class Src, class Epi>
+int launch_conv_in_knf(Src src, const __nv_bfloat16* w, const float* bias, Epi epi, int B,
+                       int H, cudaStream_t st) {
+  constexpr int R = Epi::template rows<NF>();
+  constexpr long long smem = ci_smem_bytes(K, NF, R, Epi::template stage_words<NF>());
+  static_assert(smem <= 227 * 1024 - 2048, "conv_in_mma_kernel: shared memory");
+  if (H % R != 0) return cudaErrorInvalidValue;
+  auto kern = conv_in_mma_kernel<K, NF, Src, Epi>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(H / R, B), CI_NT, smem, st>>>(src, w, bias, epi, H);
+  return count_conv_launch(5);
+}
+
+template <int K, class Src, class Epi>
+int launch_conv_in_k(Src src, const __nv_bfloat16* w, const float* bias, Epi epi, int B,
+                     int Cout, int H, cudaStream_t st) {
+  switch (Cout / 8) {
+    case 2: return launch_conv_in_knf<K, 2>(src, w, bias, epi, B, H, st);
+    case 4: return launch_conv_in_knf<K, 4>(src, w, bias, epi, B, H, st);
+    case 6: return launch_conv_in_knf<K, 6>(src, w, bias, epi, B, H, st);
+    case 8: return launch_conv_in_knf<K, 8>(src, w, bias, epi, B, H, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The launch: one input channel, W = 128, K odd up to 7, Cout 16, 32, 48 or
+// 64, H a multiple of the epilogue's strip rows; w (1, K, K, Cout) bf16.
+// Returns cudaErrorInvalidValue for anything else: the caller raises.
+template <class Src, class Epi>
+int launch_conv_in(Src src, const void* w, const float* bias, Epi epi, int B, int Cout, int H,
+                   int W, int K, cudaStream_t st) {
+  if (W != CI_W || Cout < 16 || Cout > 64 || Cout % 16 != 0 || H < 2 || B < 1 ||
+      B > 65535 || reinterpret_cast<uintptr_t>(w) % 2 != 0)
+    return cudaErrorInvalidValue;
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  SX_K_SWITCH(K, return launch_conv_in_k<KK>(src, wb, bias, epi, B, Cout, H, st));
+  return cudaErrorInvalidValue;
+}
+
 // Sum v[0..N) over the block's NT threads and write the N sums to out[0..N)
 // (thread 0..N-1 each write one).  Fixed order: a warp shuffle tree, then
 // the warps in order.  Every thread of the block must call it.
@@ -1258,7 +1582,7 @@ struct GateOut {
 
 }  // namespace
 
-// The launches of the five conv templates in this library so far, in
+// The launches of the six conv templates in this library so far, in
 // sx_conv_launches' order.
 extern "C" void specenh_conv_launches(long long* out) {
   for (int i = 0; i < SX_TEMPLATES; ++i) out[i] = sx_conv_launches[i];

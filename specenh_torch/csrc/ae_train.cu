@@ -49,18 +49,21 @@
 // step, 0.15 ms at the card's 989 TFLOP/s peak for bf16 operands.  The
 // stages write ~7 MB per tile in bf16 and read it back: ~3 GB per step,
 // 0.9 ms at 3.35 TB/s.  So the step is bound by bytes.  That some stages
-// (the single-channel convs, every float32 stage) run their FMAs on the
-// CUDA cores (67 TFLOP/s fp32) is a choice of the design, not the bound.
+// (conv 0 and the loss, every float32 stage) run their FMAs on the CUDA
+// cores (67 TFLOP/s fp32) is a choice of the design, not the bound.
 // The deep3 preset
 // (16/32/64, k5) does ~0.5 G MAC per tile forward and twice that backward:
 // ~379 GFLOP per 128-tile step, 0.38 ms at the bf16 peak, about as long as
 // its ~1 GB of stored activations and gradients take at 3.35 TB/s.
 //
 // Design: the forward and stride-1 input-gradient stages reuse the serving
-// stages' conv templates (ae_conv.cuh) with new epilogues: the multi-channel
-// ones in bf16 (ae_train_conv_pool, the encoder convs' ae_train_dgrad_conv)
-// the implicit GEMM conv_igemm_kernel on the tensor cores, the others
-// conv_quad_kernel.  The weight gradient
+// stages' conv templates (ae_conv.cuh) with new epilogues: in bf16 the
+// multi-channel ones (ae_train_conv_pool, the encoder convs'
+// ae_train_dgrad_conv) the implicit GEMM conv_igemm_kernel and the
+// out-conv's input gradient (one dz channel) conv_in_mma_kernel, whose GEMM
+// K is the taps, both on the tensor cores; conv 0 (ae_train_in[_pre]), the
+// loss (ae_train_loss[_pre]) and every float32 launch conv_quad_kernel.
+// The weight gradient
 // (wgrad_kernel) and the transposed convs' input gradient
 // (convt_dgrad_kernel) are implicit GEMMs over strips of a tile staged
 // once per block for all taps, on the bf16 tensor cores (mma.sync) or, in
@@ -136,12 +139,12 @@ struct LossEpi {
   }
 };
 
-// Input gradient of a stride-1 'same' conv, computed by conv_quad_kernel as
-// a conv of dz with the flipped, transposed weights; gated per pixel, with
-// the bias-gradient partials of the COB channels.
-template <typename T, int MODE>
+// Input gradient of a stride-1 'same' conv in float32, computed by
+// conv_quad_kernel as a conv of dz with the flipped, transposed weights;
+// gated per pixel, with the bias-gradient partials of the COB channels.
+template <int MODE>
 struct GateQuadEpi {
-  GateOut<T, MODE> g;  // (B, Cout, H, W)
+  GateOut<float, MODE> g;  // (B, Cout, H, W)
   float* part;
   int Cout, H, W;
   __device__ __forceinline__ void operator()(float (&acc)[4][COB],
@@ -241,6 +244,93 @@ struct IgGateEpi {
       float s = 0.f;
       for (int w = 0; w < pw; ++w) s += red[grp * pw + w][c];
       part[((long long)b * gridDim.x + blockIdx.x) * Cout + threadIdx.x] = s;
+    }
+  }
+};
+
+// The out-conv's input gradient on the tensor cores (conv_in_mma_kernel):
+// GateOut<bf16, GATE_RELU>'s gate against the layer input e (B, Cout, H,
+// 128), read into the stage with cp.async in 16-byte runs when the block
+// starts (channel c's row yy at word c * CS + yy * 64, CS = R * 64 + 4: a
+// put's 4 channels x 8 column pairs fall in 32 banks); each thread gates
+// its values there, a column pair a word, and writes them back in place,
+// then the stage goes out in 16-byte runs along each row.  The bias-gradient partials, one row per
+// (tile, strip): each thread sums its gated values in a fixed order, then
+// the 8 lanes of a channel by a fixed shuffle tree, then the warps in
+// order.  Strips of R = 8, 4, 2 rows for 16, 32, 48-64 channels keep the
+// stage <= 33 KB (ops/ae_train_kernel.py conv_in_rows).
+struct CiGateEpi {
+  __nv_bfloat16* out;
+  const __nv_bfloat16* gate;
+  float* part;
+  __host__ __device__ static constexpr int rows_of(int Cout) {
+    return Cout <= 16 ? 8 : Cout <= 32 ? 4 : 2;
+  }
+  template <int NF>
+  __host__ __device__ static constexpr int rows() { return rows_of(8 * NF); }
+  template <int NF>
+  __host__ __device__ static constexpr int cs() { return rows<NF>() * 64 + 4; }
+  template <int NF>
+  __host__ __device__ static constexpr int stage_words() { return 8 * NF * cs<NF>(); }
+  template <int NF>
+  __device__ __forceinline__ void begin(uint32_t* os, int b, int y0, int H) const {
+    constexpr int PER = rows<NF>() * 16, COUT = 8 * NF;  // 16-byte runs a channel
+    const __nv_bfloat16* gb = gate + ((long long)b * COUT * H + y0) * CI_W;
+    for (int e = threadIdx.x; e < COUT * PER; e += CI_NT) {
+      const int co = e / PER, q = e % PER;
+      cp_async16(os + co * cs<NF>() + 4 * q, gb + (long long)co * H * CI_W + 8 * q, true);
+    }
+    cp_async_commit();
+  }
+  template <int NF>
+  __device__ __forceinline__ void put(const float (&acc)[2][NF][4], uint32_t* os,
+                                      const float (&)[NF][2], int yy, int x0,
+                                      float (&db)[NF][2]) const {
+    const int lane = threadIdx.x & 31, tq = lane & 3;
+    // the thread's column pair x0 + 2 (lane / 4) + m, m = 0, 1: one word
+    uint32_t* o = os + (yy * CI_W + x0) / 2 + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t* oc = o + (8 * n + 2 * tq + e) * cs<NF>() + h * CI_W / 2;
+          const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(oc));
+          const float v0 = acc[0][n][2 * h + e] * (g.x > 0.f ? 1.f : 0.f);
+          const float v1 = acc[1][n][2 * h + e] * (g.y > 0.f ? 1.f : 0.f);
+          const __nv_bfloat162 s = __floats2bfloat162_rn(v0, v1);
+          *oc = *reinterpret_cast<const uint32_t*>(&s);
+          db[n][e] += v0;
+          db[n][e] += v1;
+        }
+  }
+  template <int NF>
+  __device__ __forceinline__ void end(const uint32_t* os, int b, int y0, int H,
+                                      float (&db)[NF][2]) const {
+    constexpr int PER = rows<NF>() * 16, COUT = 8 * NF;
+    __shared__ float red[CI_NT / 32][64];
+    __nv_bfloat16* ob = out + ((long long)b * COUT * H + y0) * CI_W;
+    for (int e = threadIdx.x; e < COUT * PER; e += CI_NT) {
+      const int co = e / PER, q = e % PER;
+      *reinterpret_cast<uint4*>(ob + (long long)co * H * CI_W + 8 * q) =
+          *reinterpret_cast<const uint4*>(os + co * cs<NF>() + 4 * q);
+    }
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = db[n][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane < 4) red[warp][8 * n + 2 * tq + e] = s;
+      }
+    __syncthreads();
+    if (threadIdx.x < COUT) {
+      float s = 0.f;
+      for (int w = 0; w < CI_NT / 32; ++w) s += red[w][threadIdx.x];
+      part[((long long)b * gridDim.x + blockIdx.x) * COUT + threadIdx.x] = s;
     }
   }
 };
@@ -1080,10 +1170,10 @@ int train_loss(const void* e, const void* w, const float* bias, const void* y,
       B, Cin, 1, H, W, K, st);
 }
 
-// bf16 with a routed dz (the encoder convs) runs conv_igemm_kernel, w
-// (K, K, Cout, Cz), one partial row per (tile, strip); every other launch
-// (the out-conv's one dz channel, float32) conv_quad_kernel, w (Cz, K, K,
-// Cout), one partial row per quad block.
+// In bf16 a routed dz (the encoder convs) runs conv_igemm_kernel, w (K, K,
+// Cout, Cz), and the out-conv's one dz channel conv_in_mma_kernel, w (1, K,
+// K, Cout), each one partial row per (tile, strip); float32
+// conv_quad_kernel, w (Cz, K, K, Cout), one partial row per quad block.
 template <typename T>
 int dgrad_conv(const void* dz, const uint8_t* dz_bits, const void* w,
                const void* gate, void* out, float* part, int rows, int B,
@@ -1098,19 +1188,25 @@ int dgrad_conv(const void* dz, const uint8_t* dz_bits, const void* w,
           IgRouteSrc{d, dz_bits}, w, nullptr,
           IgGateEpi<GATE_ROUTE>{{o, gate}, part, Cout, H, W}, B, Cz, Cout, H, W, K, st);
     }
-  }
-  if (rows != B * quad_blocks(H, W)) return cudaErrorInvalidValue;
-  if (dz_bits == nullptr)
-    return launch_conv_quad<T, COB>(
-        PlaneSrc<T, T>{d, nchw(Cz, H, W)}, w, nullptr,
-        GateQuadEpi<T, GATE_RELU>{{o, gate}, part, Cout, H, W}, B, Cz, Cout,
-        H, W, K, st);
-  if constexpr (std::is_same<T, float>::value)
+    const int R = CiGateEpi::rows_of(Cout);
+    if (Cz != 1 || H % R != 0 || rows != B * (H / R) || reinterpret_cast<uintptr_t>(dz) % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(gate) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return cudaErrorInvalidValue;
+    return launch_conv_in(CiDzSrc{d}, w, nullptr,
+                          CiGateEpi{o, static_cast<const __nv_bfloat16*>(gate), part}, B, Cout,
+                          H, W, K, st);
+  } else {
+    if (rows != B * quad_blocks(H, W)) return cudaErrorInvalidValue;
+    if (dz_bits == nullptr)
+      return launch_conv_quad<T, COB>(
+          PlaneSrc<T, T>{d, nchw(Cz, H, W)}, w, nullptr,
+          GateQuadEpi<GATE_RELU>{{o, gate}, part, Cout, H, W}, B, Cz, Cout,
+          H, W, K, st);
     return launch_conv_quad<T, COB>(
         RouteSrc<T>{d, dz_bits, Cz, H / 2, W / 2}, w, nullptr,
-        GateQuadEpi<T, GATE_ROUTE>{{o, gate}, part, Cout, H, W}, B, Cz, Cout, H,
+        GateQuadEpi<GATE_ROUTE>{{o, gate}, part, Cout, H, W}, B, Cz, Cout, H,
         W, K, st);
-  return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int NF, int MODE>
@@ -1252,14 +1348,14 @@ extern "C" int ae_train_loss_pre(const void* e, const void* w,
 }
 
 // Input gradient of a stride-1 'same' conv over an (H, W) grid.  w is the
-// layer's kernel flipped and transposed: (Cz, K, K, Cout), or for a launch
-// on the tensor cores (bf16, dz routed) (K, K, Cout, Cz).  dz_bits
+// layer's kernel flipped and transposed: (Cz, K, K, Cout), or for a routed
+// launch on the tensor cores (bf16, dz routed) (K, K, Cout, Cz).  dz_bits
 // null: dz (B, Cz, H, W), gate = the layer input (relu), out = gated dz of
-// the layer below.  Otherwise dz is routed from (B, Cz, H/2, W/2) values and
-// dz_bits, gate = the routing bits of the pool below (B, Cout, H, W), out =
-// the pooled gradient.  part (rows, Cout): bias grads, rows = B * quad
-// blocks, or on the tensor cores B * strips (ops/ae_train_kernel.py
-// conv_igemm_rows).
+// the layer below (in bf16 Cz = 1: the out-conv).  Otherwise dz is routed
+// from (B, Cz, H/2, W/2) values and dz_bits, gate = the routing bits of the
+// pool below (B, Cout, H, W), out = the pooled gradient.  part (rows, Cout):
+// bias grads, rows = B * quad blocks in float32, or on the tensor cores B *
+// strips (ops/ae_train_kernel.py conv_igemm_rows, conv_in_rows).
 extern "C" int ae_train_dgrad_conv(const void* dz, const uint8_t* dz_bits,
                                    const void* w, const void* gate, void* out,
                                    float* part, int rows, int dtype, int B,

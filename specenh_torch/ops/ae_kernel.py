@@ -9,7 +9,8 @@ the out-conv 2d.  ``ae_kernel_enhance_specs`` runs four stage kernels of
 ``csrc/ae.cu`` over it:
 
   ae_tile_in    S1  the tile load + cast (K2, K8-in) fused with encoder
-                    conv 0 + relu + pool
+                    conv 0 + relu + pool (in bf16 on the tensor cores,
+                    ``conv_in_mma_kernel``)
   ae_conv_pool  S2  encoder convs 1 .. d-1 + relu + pool (in bf16 on the
                     tensor cores, ``conv_igemm_kernel``)
   ae_convt      S3  stride-2 transposed conv + relu, d times (in bf16 on
@@ -57,6 +58,7 @@ __all__ = [
     "build_kernel_weights",
     "ae_tile_in", "ae_tile_in_norm", "ae_conv_pool", "ae_convt", "ae_tile_out",
     "convt_igemm_rows", "conv_out_plan", "conv_out_rows", "CONV_OUT_BAND",
+    "conv_in_strip",
     "ae_tile_in_plain", "ae_tile_in_norm_plain", "ae_conv_pool_plain",
     "ae_convt_plain", "ae_tile_out_plain", "normalized_tiles",
     "ae_kernel_enhance_specs", "ae_kernel_enhance_raw", "ae_kernel_apply",
@@ -291,10 +293,34 @@ def ae_tile_out_plain(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int
 # ---------------------------------------------------------------------------
 
 
+def conv_in_strip(cout: int, pool: bool) -> int:
+    """Rows of a strip (one block) of ``conv_in_mma_kernel``
+    (``csrc/ae_conv.cuh``) with ``cout`` output channels: S1's pooled stage
+    (``pool``, ``CiPoolEpi``) takes 16 rows up to 32 channels and 8 above;
+    the out-conv's input gradient, whose stage holds every row at full
+    width (``CiGateEpi``), 8, 4 and 2 rows for 16, 32 and 48-64 channels."""
+    if pool:
+        return 16 if cout <= 32 else 8
+    return 8 if cout <= 16 else 4 if cout <= 32 else 2
+
+
+def _conv_in_smem(k: int, cout: int, pool: bool) -> int:
+    """Shared memory of a ``conv_in_mma_kernel`` block (``ci_smem_bytes``):
+    the window's two copies (rows of 76 words), the B fragments of the k (k
+    + 1) / 2 tap pairs in 16-slot chunks, the epilogue's stage (one channel
+    4 words apart from the next)."""
+    rows = conv_in_strip(cout, pool)
+    window = 2 * (rows + 2 * (k // 2)) * 76
+    chunks = (k * (k + 1) + 15) // 16
+    stage = cout * ((rows // 2 * 32 if pool else rows * 64) + 4)
+    return 4 * window + chunks * (cout // 8) * 32 * 8 + 4 * stage
+
+
 def ae_tile_in(wts: AEKernelWeights, specs: torch.Tensor, k_tiles: int
                ) -> torch.Tensor:
     """S1: (C, 256, >= k*128) float32 spectrograms -> (C*k, c1, 128, 64)
-    pooled conv1 activations in the service dtype."""
+    pooled conv1 activations in the service dtype; on the card in bf16
+    ``conv_in_mma_kernel``, in float32 ``conv_quad_kernel``."""
     _check_specs(specs, k_tiles)
     if not specs.is_cuda:
         return ae_tile_in_plain(wts, specs, k_tiles)
@@ -313,7 +339,9 @@ def ae_tile_in_norm(wts: AEKernelWeights, raw: torch.Tensor, mn: torch.Tensor,
     """S1 on the raw log-PSD: (C, F >= 256, T >= k*128) (``layout="ft"``,
     K10's route) or (C, T, F) (``layout="tf"``, K9's route) float32 and the
     per-channel (C, 1) min/max -> (C*k, c1, 128, 64) pooled conv1
-    activations; equal to ``ae_tile_in`` on the normalized spectrograms."""
+    activations; equal to ``ae_tile_in`` on the normalized spectrograms (on
+    the card the same template: ``conv_in_mma_kernel`` in bf16,
+    ``conv_quad_kernel`` in float32)."""
     c, fs, ts = _raw_strides(raw, mn, mx, k_tiles, layout)
     if not raw.is_cuda:
         return ae_tile_in_norm_plain(wts, raw, mn, mx, k_tiles, layout)

@@ -62,7 +62,8 @@ __all__ = [
     "ae_train_sum", "ae_train_in_plain", "ae_train_conv_pool_plain",
     "ae_train_loss_plain", "ae_train_dgrad_conv_plain",
     "ae_train_dgrad_convt_plain", "ae_train_wgrad_plain",
-    "WgradPlan", "wgrad_plan", "dgrad_convt_rows", "conv_igemm_rows", "sum_slabs",
+    "WgradPlan", "wgrad_plan", "dgrad_convt_rows", "conv_igemm_rows", "conv_in_rows",
+    "sum_slabs",
     "StepSums", "step_partials", "step_sums",
     "train_weights", "route_bits", "route_expand",
     "loss_grad_sums", "bce_sum", "normalise",
@@ -106,7 +107,8 @@ class TrainWeights:
     """The forward weights (``ae_kernel.AEKernelWeights``) and, for layers 1
     to 2d, the input-gradient operands ``bwd[i]`` in the kernel dtype: for
     the stride-1 convs the kernel transposed and flipped in space, (Cout,
-    K, K, Cin) for ``conv_quad_kernel`` or, for the encoder convs that run
+    K, K, Cin) for ``conv_quad_kernel`` (and, the out-conv's (1, K, K, C1)
+    in bf16, for ``conv_in_mma_kernel``) or, for the encoder convs that run
     on the tensor cores (those with ``fwd.wt[i]``), (K, K, Cin, Cout) with
     dz's channel fastest; for the transposed convs (K, K, Cin, Cout), the
     kernel with the channel of dz fastest."""
@@ -231,6 +233,26 @@ def conv_igemm_rows(b: int, h: int, w: int, cout: int) -> int:
     (``ig_strip_rows``)."""
     pos = 32 * (8 if cout <= 32 else 4)
     return b * (h // (pos // w))
+
+
+def conv_in_rows(b: int, h: int, cout: int) -> int:
+    """Partial rows of ``conv_in_mma_kernel`` (``csrc/ae_conv.cuh``) as
+    the out-conv's input gradient over an (h, 128) grid with ``cout``
+    channels: one per (tile, strip of ``ae_kernel.conv_in_strip(cout,
+    pool=False)`` rows)."""
+    return b * (h // AK.conv_in_strip(cout, pool=False))
+
+
+def _dgrad_conv_rows(tw: TrainWeights, layer: int, b: int, h: int, w: int) -> int:
+    """Partial rows of a stride-1 input-gradient launch over an (h, w) grid:
+    the encoder convs' on ``conv_igemm_kernel`` and the bf16 out-conv's on
+    ``conv_in_mma_kernel`` one per (tile, strip), else one per quad block."""
+    cout = tw.fwd.w[layer].shape[0]
+    if tw.fwd.wt[layer] is not None:
+        return conv_igemm_rows(b, h, w, cout)
+    if layer == tw.fwd.out and tw.dtype == torch.bfloat16:
+        return conv_in_rows(b, h, cout)
+    return _rows(b, h, w)
 
 
 def dgrad_convt_rows(b: int, h: int, w: int, cout: int) -> int:
@@ -410,8 +432,8 @@ def step_partials(tw: TrainWeights, b: int):
 
     def dgrad(i):  # the input gradient's bias partials, of the layer below
         _, c, h, wd = _act_shape(tw, i, b)
-        rows = (dgrad_convt_rows(b, h, wd, c) if w.is_convt(i) else
-                _rows(b, h, wd) if w.wt[i] is None else conv_igemm_rows(b, h, wd, c))
+        rows = dgrad_convt_rows(b, h, wd, c) if w.is_convt(i) else _dgrad_conv_rows(
+            tw, i, b, h, wd)
         return rows, c
 
     out = [(_rows(b, TILE_F, TILE_T), 2)]
@@ -522,10 +544,11 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
     gate = its input e -> (dz of the last transposed conv, its db).  An
     encoder conv i (1 .. d-1): dz routed from the pooled gradient (B, Ci+1,
     H/2, W/2) and layer i's bits, gate = layer i-1's bits (B, Ci, H, W) ->
-    (the pooled gradient of layer i-1, its db).  On the card the out-conv
-    (one dz channel) and every float32 launch run ``conv_quad_kernel``
-    (one bias partial row per quad block), the encoder convs in bf16
-    ``conv_igemm_kernel`` (one per (tile, strip): ``conv_igemm_rows``)."""
+    (the pooled gradient of layer i-1, its db).  On the card in bf16 the
+    out-conv (one dz channel) runs ``conv_in_mma_kernel`` (one bias partial
+    row per (tile, strip): ``conv_in_rows``) and the encoder convs
+    ``conv_igemm_kernel`` (``conv_igemm_rows``); every float32 launch
+    ``conv_quad_kernel`` (one per quad block)."""
     out_layer = layer == tw.fwd.out
     if not (out_layer or 1 <= layer < tw.fwd.depth):
         raise ValueError(f"stride-1 input gradients are of layers 1..{tw.fwd.depth - 1} "
@@ -548,7 +571,7 @@ def ae_train_dgrad_conv(tw: TrainWeights, layer: int, dz: torch.Tensor,
     _on_device(dz, tw)
     h, w = shape[2:]
     out = torch.empty(shape, dtype=tw.dtype, device=dz.device)
-    rows = _rows(b, h, w) if tw.fwd.wt[layer] is None else conv_igemm_rows(b, h, w, cout)
+    rows = _dgrad_conv_rows(tw, layer, b, h, w)
     part = torch.empty(rows, cout, dtype=torch.float32, device=dz.device)
     DGRAD_CONV(dz.data_ptr(), 0 if dz_bits is None else dz_bits.data_ptr(),
                tw.bwd[layer].data_ptr(), gate.data_ptr(), out.data_ptr(),

@@ -559,7 +559,7 @@ def test_conv_igemm_kernel_matches_twins(cuda, cfg):
         assert after["ae"]["conv_igemm_kernel"] - before["ae"]["conv_igemm_kernel"] == 2
         assert after["ae_train"]["conv_igemm_kernel"] - before["ae_train"]["conv_igemm_kernel"] == 3
         assert all(after[lib][t] == before[lib][t] for lib in after
-                   for t in ("conv_quad_kernel", "conv_out_mma_kernel"))
+                   for t in ("conv_quad_kernel", "conv_out_mma_kernel", "conv_in_mma_kernel"))
 
 
 @pytest.mark.parametrize("shape", [(8192, 2), (4096, 64), (4096, 288), (512, 9216),
@@ -639,7 +639,8 @@ def test_convt_igemm_kernel_matches_twin(cuda, cfg):
         after = _templates()
         took = {t: after["ae"][t] - before["ae"][t] for t in after["ae"]}
         assert took == {"conv_quad_kernel": 0, "conv_igemm_kernel": 0, "convt_relu_kernel": 1,
-                        "convt_igemm_kernel": 2, "conv_out_mma_kernel": 0}, (i, took)
+                        "convt_igemm_kernel": 2, "conv_out_mma_kernel": 0,
+                        "conv_in_mma_kernel": 0}, (i, took)
         assert after["ae_train"] == before["ae_train"]
 
 
@@ -658,13 +659,14 @@ def test_conv_out_mma_kernel_matches_twin(cuda, cfg):
     restitched 3 to a channel: bf16 on the tensor-core template
     ``conv_out_mma_kernel`` within TOL_F32 (1e-4) of the twin, two launches
     bit for bit; float32 on ``conv_quad_kernel`` within 1e-5 (float32 sums
-    in another order); S1 (``ae_tile_in``) on ``conv_quad_kernel`` in
-    both; the libraries' per-template counts."""
+    in another order); S1 (``ae_tile_in``) on ``conv_in_mma_kernel`` in
+    bf16 and ``conv_quad_kernel`` in float32; the libraries' per-template
+    counts."""
     model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
     g = torch.Generator().manual_seed(9)
     specs = torch.rand(2, 256, 3 * 128, generator=g).to(cuda)
-    for dt, tol, s4 in ((torch.bfloat16, 1e-4, "conv_out_mma_kernel"),
-                        (torch.float32, 1e-5, "conv_quad_kernel")):
+    for dt, tol, s4, s1 in ((torch.bfloat16, 1e-4, "conv_out_mma_kernel", "conv_in_mma_kernel"),
+                            (torch.float32, 1e-5, "conv_quad_kernel", "conv_quad_kernel")):
         wts = tak.build_kernel_weights(model, dt)
         cin = wts.w[wts.out].shape[0]
         x = torch.rand(6, cin, 256, 128, generator=g).to(cuda, dt)
@@ -681,5 +683,41 @@ def test_conv_out_mma_kernel_matches_twin(cuda, cfg):
         tak.ae_tile_in(wts, specs, 3)
         after = _templates()
         took = {t: after["ae"][t] - before["ae"][t] for t in after["ae"]}
-        assert took == {t: int(t == "conv_quad_kernel") for t in took}, (dt, took)
+        assert took == {t: int(t == s1) for t in took}, (dt, took)
         assert after["ae_train"] == before["ae_train"]
+
+
+@pytest.mark.parametrize("cfg", OUT_GEOMETRIES, ids=OUT_IDS)
+def test_conv_in_mma_kernel_matches_twins(cuda, cfg):
+    """The one-channel-in convs of every geometry in bf16 on the tensor-core
+    template ``conv_in_mma_kernel``: S1 (``ae_tile_in``) on 2 channels of 3
+    tiles within one bf16 ulp of its twin, and the out-conv's input
+    gradient (``ae_train_dgrad_conv``) on 6 tiles of random dz and e within
+    one ulp, its bias sums to 1e-4 of their scale; two launches of each bit
+    for bit; in float32 both on ``conv_quad_kernel``; the libraries'
+    per-template counts."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    g = torch.Generator().manual_seed(10)
+    specs = torch.rand(2, 256, 3 * 128, generator=g).to(cuda)
+    for dt, kind in ((torch.bfloat16, "conv_in_mma_kernel"), (torch.float32, "conv_quad_kernel")):
+        tw = ttk.build_train_weights(model, dt)
+        o, c1 = tw.fwd.out, tw.fwd.w[tw.fwd.out].shape[0]
+        dz = torch.randn(6, 1, 256, 128, generator=g).to(cuda, dt)
+        e = torch.randn(6, c1, 256, 128, generator=g).to(cuda, dt)
+        ulp = 2.0 ** -7 if dt == torch.bfloat16 else 1e-6
+        before = _templates()
+        got = tak.ae_tile_in(tw.fwd, specs, 3)
+        out, db = ttk.ae_train_dgrad_conv(tw, o, dz, e)
+        after = _templates()
+        for lib in after:
+            took = {t: after[lib][t] - before[lib][t] for t in after[lib]}
+            assert took == {t: int(t == kind) for t in took}, (dt, lib, took)
+        for name, a, b in (("ae_tile_in", got, tak.ae_tile_in_plain(tw.fwd, specs, 3)),
+                           ("out-conv dgrad", out, ttk.ae_train_dgrad_conv_plain(tw, o, dz, e)[0])):
+            excess = float(((a.float() - b.float()).abs() - ulp * b.float().abs() - 1e-5).max())
+            assert excess <= 0, f"{dt} {name}: beyond one ulp by {excess:.3g}"
+        rdb = ttk.ae_train_dgrad_conv_plain(tw, o, dz, e)[1]
+        assert float((db - rdb).abs().max()) <= 1e-4 * max(float(rdb.abs().max()), 1e-6), dt
+        assert torch.equal(got, tak.ae_tile_in(tw.fwd, specs, 3)), dt
+        again = ttk.ae_train_dgrad_conv(tw, o, dz, e)
+        assert torch.equal(out, again[0]) and torch.equal(db, again[1]), dt

@@ -1,4 +1,4 @@
-"""Plain-torch emulations of two CUDA kernels' block decompositions, on the
+"""Plain-torch emulations of the CUDA kernels' block decompositions, on the
 CPU where the kernels cannot run, held against the plain twins and the JAX
 package:
 
@@ -34,6 +34,15 @@ package:
   taps' column shifts summed in float32, bias, sigmoid and the restitch;
   against the twin for k1 to k7 at 16, 32 and 64 channels, and in the
   flagship and deep3 chains against JAX's K3 and K6 in interpret mode;
+- the tensor-core one-channel-in conv (``conv_in_mma_kernel``: the bf16
+  S1 and the out-conv's input gradient, split by
+  ``ops.ae_kernel.conv_in_strip``): per (tile, strip) block, the window
+  staged in bf16 with the taps' halo, the taps as pairs of horizontal
+  neighbours padded to 16-slot chunks, a float32 GEMM over the slots, the
+  pool or the gate epilogue with one bias partial row per block; against
+  the twins for k1 to k7 at 16, 32 and 64 channels, in the flagship and
+  deep3 serving chains against JAX's K3 and K6 in interpret mode, and in a
+  step's chain against Flax autodiff;
 - ``ae_train_sum``'s order (``sum_rows_kernel``, ``sum_slabs``): against
   the float64 twin; a step's sums as one plan (``StepSums``): its segment
   table covers every partial row once, bit for bit the per-call sums;
@@ -60,7 +69,7 @@ from specenh.ops import stft_fused as jsf
 from specenh.train import bce_from_logits as jbce
 from specenh_torch import ModelConfig
 from specenh_torch.config import MODEL_PRESETS
-from specenh_torch.data.tiles import unpatch
+from specenh_torch.data.tiles import patch, unpatch
 from specenh_torch.models.autoencoder import convt_pad_before, make_model
 from specenh_torch.models.convert import state_dict_from_flax
 from specenh_torch.ops import ae_kernel as tak
@@ -818,6 +827,207 @@ def test_conv_out_mma_strips_cover_the_tile(k):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core one-channel-in conv (S1, the out-conv's input gradient)
+# ---------------------------------------------------------------------------
+
+CI_XO, CI_RS = 4, 76  # csrc/ae_conv.cuh: staged column of input column 0, words a row
+
+
+def _tap_pairs(k):
+    """The GEMM's tap pairs (i, j), (i, j + 1), j even: slot 2 p + e is tap
+    (i, j + e) of pair p, none where j + e = k (a half pair)."""
+    return [(i, j) for i in range(k) for j in range(0, k, 2)]
+
+
+def conv_in_mma_emulated(src, w, k, epilogue, bias=None, gate=None, dtype=torch.bfloat16):
+    """``conv_in_mma_kernel`` as it computes, block by block: per (tile,
+    strip of ``conv_in_strip`` rows), the window the block stages (input
+    rows y0 - r .. y0 + R - 1 + r, columns -4 .. 131, zeros outside the
+    tile, rounded to ``dtype``); A's slots the tap pairs of ``_tap_pairs``,
+    padded to 16, 16, 32 and 64 slots for k1, k3, k5 and k7, a half pair's
+    second slot and the slots past the last pair zero in A and in W; each
+    strip a float32 GEMM over the slots; then the epilogue: "pool" (bias,
+    relu, 2x2 max pool -> ``dtype``) or "gate" (the relu gate against
+    ``gate``: the stored output and one bias partial row per (tile, strip),
+    summed by ``ae_train_sum``).  src (B, 256, 128), w (1, K, K, Cout)."""
+    b, h, wd = src.shape
+    cout, r = w.shape[-1], k // 2
+    rows = tak.conv_in_strip(cout, epilogue == "pool")
+    x = src.float() if dtype == torch.float32 else src.to(dtype).float()
+    xp = torch.nn.functional.pad(x, (CI_XO, CI_XO, r, r))  # staged columns -4 .. 131
+    pairs = _tap_pairs(k)
+    slots = 16 * -(-2 * len(pairs) // 16)
+    assert slots == {1: 16, 3: 16, 5: 32, 7: 64}[k]
+    wk = w.float().reshape(k, k, cout)
+    W = torch.zeros(slots, cout)
+    for p, (i, j) in enumerate(pairs):
+        for e in range(2):
+            if j + e < k:
+                W[2 * p + e] = wk[i, j + e]
+    acc = torch.empty(b, cout, h, wd)
+    for y0 in range(0, h, rows):
+        win = xp[:, y0:y0 + rows + 2 * r]                  # the block's staged window
+        A = torch.zeros(b, rows, wd, slots)
+        for p, (i, j) in enumerate(pairs):
+            for e in range(2):
+                if j + e < k:
+                    c0 = CI_XO + j + e - r
+                    A[..., 2 * p + e] = win[:, i:i + rows, c0:c0 + wd]
+        acc[:, :, y0:y0 + rows] = torch.einsum("byxs,sc->bcyx", A, W)
+    if epilogue == "gate":
+        out, g = ttk._gate(acc, gate, dtype)
+        strips = h // rows
+        part = g.reshape(b, cout, strips, rows, wd).sum((3, 4)).permute(0, 2, 1)
+        return out, ttk.ae_train_sum(part.reshape(b * strips, cout).contiguous())
+    pooled = torch.nn.functional.max_pool2d(torch.relu(acc + bias[:, None, None]), 2)
+    return pooled if dtype == torch.float32 else pooled.to(dtype)
+
+
+def _in_conv_cfg(cout, k):
+    """A geometry whose conv 0 and out-conv both have ``cout`` channels on
+    their one-channel side and a k x k kernel."""
+    filters = {16: (16, 32, 64), 32: (32, 32), 64: (64, 32)}[cout]
+    return ModelConfig(filters=filters, kernels=((k, k),) * len(filters), out_kernel=(k, k))
+
+
+def _raw_logpsd(g, c, k_tiles):
+    """A raw (C, F, T) log-PSD a little larger than the tiles read, and its
+    (C, 1) min/max, as the STFT kernel's outputs."""
+    raw = torch.randn(c, 257, k_tiles * 128 + 5, generator=g) * 3 - 20
+    return raw, raw.amin((1, 2))[:, None], raw.amax((1, 2))[:, None]
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("cout", [16, 32, 64])
+def test_conv_in_mma_decomposition_matches_twins(cout, k):
+    """bf16 on 3 tiles (one restitched channel): the emulated kernel with
+    the pool epilogue against ``ae_tile_in_plain`` on spectrograms and
+    ``ae_tile_in_norm_plain`` on a raw log-PSD in both layouts (the same
+    normalized values), and with the gate epilogue against the out-conv's
+    branch of ``ae_train_dgrad_conv_plain`` (dz and e random, the gate
+    off where e <= 0), read from the weights the layer table arranges
+    (``w[0]``, ``bwd[out]``): outputs within one bf16 ulp, bias sums to
+    1e-5 of their scale (float32 sums in another order)."""
+    model = make_model(_in_conv_cfg(cout, k), generator=torch.Generator().manual_seed(k))
+    tw = ttk.build_train_weights(model, torch.bfloat16)
+    wts, o = tw.fwd, tw.fwd.out
+    g = torch.Generator().manual_seed(cout + k)
+    specs = torch.rand(1, 256, 3 * 128, generator=g)
+    got = conv_in_mma_emulated(patch(specs), wts.w[0], k, "pool", wts.b[0])
+    assert got.shape == (3, cout, 128, 64)
+    assert _bf16_ulp_excess(got, tak.ae_tile_in_plain(wts, specs, 3)) <= 0
+    raw, mn, mx = _raw_logpsd(g, 1, 3)
+    for layout, r in (("ft", raw), ("tf", raw.transpose(1, 2).contiguous())):
+        got = conv_in_mma_emulated(tak.normalized_tiles(r, mn, mx, 3, layout), wts.w[0], k,
+                                   "pool", wts.b[0])
+        assert _bf16_ulp_excess(got, tak.ae_tile_in_norm_plain(wts, r, mn, mx, 3, layout)) <= 0
+    dz = torch.randn(3, 1, 256, 128, generator=g).to(torch.bfloat16)
+    e = torch.randn(3, cout, 256, 128, generator=g).to(torch.bfloat16)
+    out, db = conv_in_mma_emulated(dz[:, 0], tw.bwd[o], k, "gate", gate=e)
+    rout, rdb = ttk.ae_train_dgrad_conv_plain(tw, o, dz, e)
+    assert _bf16_ulp_excess(out, rout) <= 0
+    assert float((db - rdb).abs().max()) <= 1e-5 * float(rdb.abs().max())
+
+
+@pytest.mark.parametrize("name", ["flagship", "deep3"])
+def test_conv_in_mma_s1_chain_matches_twin_and_jax(name):
+    """The bf16 serving chain with the emulated S1 in place of its twin:
+    against the twins' chain and against JAX's K3 (flagship) or K6 (deep3)
+    with its tile turns in interpret mode (the bounds of
+    test_conv_out_mma_s4_chain_matches_twin_and_jax, 5e-3)."""
+    cfg = ModelConfig() if name == "flagship" else MODEL_PRESETS["deep3"]
+    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
+    params = flax_model(jcfg).init(jax.random.PRNGKey(3), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, cfg))
+    x = np.random.default_rng(6).standard_normal((2, SP.n_samples)).astype(np.float32)
+    specs, k = spectrogram(torch.from_numpy(x), SP), 3
+    wts = tak.build_kernel_weights(model, torch.bfloat16)
+    act = conv_in_mma_emulated(patch(specs[:, :, :k * 128]), wts.w[0], wts.k(0), "pool",
+                               wts.b[0])
+    got = tak._enhance_pooled(wts, act, k).numpy()
+    twin = tak.ae_kernel_enhance_specs(wts, specs, k).numpy()
+    if name == "flagship":
+        want = jak.ae_kernel_enhance_specs(jak.build_kernel_weights(params, jcfg),
+                                           jnp.asarray(specs.numpy()), k, interpret=True)
+    else:
+        want = jak3.ae3_kernel_enhance_specs(jak3.build_kernel3_weights(params, jcfg),
+                                             jnp.asarray(specs.numpy()), k, interpret=True)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (2, 256, k * 128)
+    np.testing.assert_allclose(got, twin, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+def _out_dgrad_emulated(tw, layer, dz, gate, dz_bits=None):
+    """``ae_train_dgrad_conv`` with the out-conv's launch emulated as
+    ``conv_in_mma_kernel`` computes it (in the kernel dtype; float32: no
+    rounding); the encoder convs' are the twin."""
+    if layer != tw.fwd.out:
+        return ttk.ae_train_dgrad_conv_plain(tw, layer, dz, gate, dz_bits)
+    return conv_in_mma_emulated(dz[:, 0], tw.bwd[layer], tw.fwd.k(layer), "gate", gate=gate,
+                                dtype=tw.dtype)
+
+
+@pytest.mark.parametrize("name", ["k3", "deep3"])
+def test_conv_in_mma_out_conv_gradient_in_the_chain_matches_flax(name):
+    """float32: the twins' backward with the out-conv's input gradient
+    emulated as the tensor-core kernel computes it, normalised, against
+    autodiff of the Flax model (2e-5 of the scale, the bound of
+    test_conv_igemm_routed_gradient_in_the_chain_matches_flax)."""
+    cfg = IGEMM_GEOMETRIES[name]
+    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
+    fm = flax_model(jcfg)
+    params = fm.init(jax.random.PRNGKey(0), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, cfg))
+    x, y, mask = _tiles(n=1, seed=6)
+    tw = ttk.build_train_weights(model, torch.float32)
+    xs, ys, ms = ttk._inputs(tw, torch.from_numpy(x), torch.from_numpy(y),
+                             torch.from_numpy(mask), False)
+    saved, _, bce = ttk._forward(tw, xs, ys, ms, False, ttk._PLAIN)
+    gw, gb = ttk._backward(tw, saved, False, dict(ttk._PLAIN, dgrad_conv=_out_dgrad_emulated))
+    _, grads = ttk.normalise((bce[0], ms.sum(), ttk.grads_to_torch(gw, gb)))
+    _, ref = jax.value_and_grad(lambda p: jbce(fm.apply(p, x, logits=True), y, mask))(params)
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, ref), cfg)
+    scale = max(float(v.abs().max()) for v in want.values())
+    err = max(float((grads[k] - want[k]).abs().max()) for k in want)
+    assert err < 2e-5 * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+def test_conv_in_mma_strips_cover_the_grid(k):
+    """The kernel's split, for every channel count S1 and the out-conv take
+    (16 to 64) and both epilogues, as the C launcher plans it: strips of R
+    rows (R even) tile the 256 rows once, their 4 R fragment pairs (row
+    pair, 16 columns) whole rounds of the 8 warps; the window's two copies,
+    the B fragments and the stage fit the 227 KB of shared memory (less the
+    gate's 2 KB reduction); the gradient's partial rows are one per (tile,
+    strip); and every A load (lane l's pair 8 c + 4 h + l % 4 at column 2 (l
+    / 4) + m of fragment m of a pair) reads one copy of the window and puts
+    its 32 words in 32 banks."""
+    pairs = _tap_pairs(k)
+    for cout in (16, 32, 48, 64):
+        for pool in (True, False):
+            rows = tak.conv_in_strip(cout, pool)
+            assert 256 % rows == 0 and rows % 2 == 0 and 4 * rows % 8 == 0
+            assert sorted(y for y0 in range(0, 256, rows) for y in range(y0, y0 + rows)) \
+                == list(range(256))
+            assert tak._conv_in_smem(k, cout, pool) <= 227 * 1024 - 2048, (cout, pool)
+        assert ttk.conv_in_rows(5, 256, cout) == 5 * 256 // tak.conv_in_strip(cout, False)
+    for c, h, m in itertools.product(range(-(-2 * len(pairs) // 16)), (0, 1), (0, 1)):
+        words = set()
+        for lane in range(32):
+            p = 8 * c + 4 * h + lane % 4
+            q = p if p < len(pairs) else (8 * c + 4 * h if 8 * c + 4 * h < len(pairs) else 0)
+            i, j = pairs[q]
+            col = 2 * (lane // 4) + m + j - k // 2 + CI_XO
+            words.add((col % 2, i * CI_RS + col // 2))  # (copy, word in it)
+        assert len({cp for cp, _ in words}) == 1, (c, h, m)
+        assert len({wd % 32 for _, wd in words}) == len(words), (c, h, m)
+
+
+# ---------------------------------------------------------------------------
 # the fixed-order sum of partial rows
 # ---------------------------------------------------------------------------
 
@@ -907,10 +1117,16 @@ def test_step_sums_plan_matches_per_call_order(name):
     """A step's partial arrays (``step_partials``, 2 tiles; the segments of
     a K5 or K7 step) summed as one plan: its table reads every partial row
     once, and each segment's sums equal the per-call order bit for bit;
-    the plan's columns are the step's parameters plus the BCE."""
-    tw = ttk.build_train_weights(make_model(IGEMM_GEOMETRIES[name],
-                                            generator=torch.Generator()), torch.bfloat16)
+    the plan's columns are the step's parameters plus the BCE; the
+    out-conv's input gradient hands in one bias row per (tile, strip) of
+    ``conv_in_mma_kernel`` in bf16 and one per quad block in float32."""
+    model = make_model(IGEMM_GEOMETRIES[name], generator=torch.Generator())
+    tw = ttk.build_train_weights(model, torch.bfloat16)
     shapes = ttk.step_partials(tw, 2)
+    c1 = tw.fwd.w[tw.fwd.out].shape[0]
+    assert shapes[2] == (ttk.conv_in_rows(2, 256, c1), c1)
+    assert ttk.step_partials(ttk.build_train_weights(model, torch.float32), 2)[2] == \
+        (ttk._rows(2, 256, 128), c1)
     assert len(shapes) == 4 * tw.fwd.depth + 2 <= 32
     g = torch.Generator().manual_seed(7)
     parts = [torch.randn(n, m, generator=g) for n, m in shapes]
