@@ -11,8 +11,9 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
 2. builds every kernel from ``specenh_torch/csrc`` with nvcc, in parallel,
    and prints each library's ptxas registers and spills, and each
    instantiation of the tensor-core templates ``conv_igemm_kernel``,
-   ``convt_igemm_kernel``, ``conv_out_mma_kernel`` and
-   ``conv_in_mma_kernel``;
+   ``convt_igemm_kernel``, ``conv_out_mma_kernel`` (with its epilogue: the
+   serving S4's sigmoid, the training loss) and ``conv_in_mma_kernel``
+   (with its source and epilogue: S1, conv 0, the out-conv's gradient);
 3. each kernel against its plain PyTorch twin at the serving path's shapes
    (a 20-channel, 2 s shot; the flagship AE), and the whole AE in float32
    and bf16, plus the k7 and (64, 32)/k5 geometries on one channel; each
@@ -45,10 +46,13 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
 8. each training kernel (K5 and K5b entry points) against its plain twin,
    stage by stage on the same inputs, on one 128-tile batch of the
    flagship in bf16 and float32, and k5, k7 and (64, 32)/k5 on 4 tiles;
-   each launch on its conv template (the encoder convs' forward and routed
-   input gradient on ``conv_igemm_kernel``, the transposed convs' forward
-   on ``convt_igemm_kernel``, the out-conv's input gradient on
-   ``conv_in_mma_kernel``, in bf16);
+   each launch on its conv template (in bf16 conv 0 and the out-conv's
+   input gradient on ``conv_in_mma_kernel``, the encoder convs' forward
+   and routed input gradient on ``conv_igemm_kernel``, the transposed
+   convs' forward on ``convt_igemm_kernel``, the loss on
+   ``conv_out_mma_kernel``; in float32 every stride-1 conv on
+   ``conv_quad_kernel``); conv 0's routing bits equal the float64 bits
+   but in the near ties ``route_bits64`` counts;
    for each in float32 the whole kernel chain against the twins' whole
    chain, the twins' backward on their own forward and on the kernels'
    (the pool windows and relu gates the forwards gate differently are
@@ -58,12 +62,13 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    (bf16, K5), 1 epoch of K5 and 1 of K5b (``pre_layout=True``) from the
    same weights, which must agree bit for bit, then 3 epochs on the
    autograd engine in float32; gated on the loss curves, and every
-   training kernel must have launched in the kernel runs, the encoder
-   convs' forward and input gradients on ``conv_igemm_kernel``, the
-   transposed convs' forward on ``convt_igemm_kernel``, the out-conv's
-   input gradient on ``conv_in_mma_kernel``, conv 0 and the loss on
-   ``conv_quad_kernel`` (none on ``conv_out_mma_kernel``), and a step's
-   sums in one ``ae_train_sum`` call;
+   training kernel must have launched in the kernel runs, all on the
+   tensor cores (none on ``conv_quad_kernel``): the encoder convs' forward
+   and input gradients on ``conv_igemm_kernel``, the transposed convs'
+   forward on ``convt_igemm_kernel``, conv 0 and the out-conv's input
+   gradient on ``conv_in_mma_kernel``, the loss on
+   ``conv_out_mma_kernel``, and a step's sums in one ``ae_train_sum``
+   call;
 10. timings: each training kernel per 128-tile step beside its twin, the
    one PyTorch call that computes the same function and its bound (the
    out-conv's and the encoder convs' ``ae_train_dgrad_conv`` also apart,
@@ -887,11 +892,10 @@ def check_train_stages(tw, x, y, mask, tag):
     """Phases 8 and 11: every training kernel against its twin, stage by
     stage on the same inputs (the kernels' own outputs feed the next
     stage), over the layer table from conv 0 to the out-conv and back; at
-    depth 2 the K5b entry points must equal K5's bit for bit.  The encoder
-    convs' forward and input gradient and the transposed convs' forward
-    and the out-conv's input gradient must run on the tensor cores in bf16
-    and on ``conv_quad_kernel`` / ``convt_relu_kernel`` in float32, conv 0
-    and the out-conv's forward (the loss) on ``conv_quad_kernel``.  Returns the
+    depth 2 the K5b entry points must equal K5's bit for bit.  Every conv
+    must run on the tensor cores in bf16 and on ``conv_quad_kernel`` /
+    ``convt_relu_kernel`` in float32; conv 0's routing bits must equal the
+    float64 bits but in the near ties ``route_bits64`` counts.  Returns the
     max |err| of each kernel and the stage tensors: ``act[i]`` layer i's
     input, ``bits[i]`` encoder conv i's routing bits, ``dz[i]`` the
     gradient at layer i's output (pooled for the encoder convs)."""
@@ -904,14 +908,23 @@ def check_train_stages(tw, x, y, mask, tag):
         errs[kern] = max(errs.get(kern, 0.0), e)
 
     x16, y16 = x.to(dt), y.to(dt)
-    multi = IGEMM if dt == torch.bfloat16 else QUAD  # the encoder convs' template
-    one_in = IN_MMA if dt == torch.bfloat16 else QUAD  # the out-conv's input gradient's
-    p, pm = on_template("ae_train", QUAD, f"{tag} ae_train_in", TK.ae_train_in, tw, x)
+    bf = dt == torch.bfloat16
+    multi = IGEMM if bf else QUAD  # the encoder convs' template
+    one_in = IN_MMA if bf else QUAD  # conv 0's and the out-conv's input gradient's
+    out_t = OUT_MMA if bf else QUAD  # the loss's
+    p, pm = on_template("ae_train", one_in, f"{tag} ae_train_in", TK.ae_train_in, tw, x)
     r, rm = TK.ae_train_in_plain(tw, x)
     note(TK.TRAIN_IN, act_(f"{tag} ae_train_in", p, r))
     fr = check_mask(f"{tag} pool-0 routing", pm, rm)
+    bits64, near = TK.route_bits64(x16.float(), tw.fwd.w[0].float(), tw.fwd.b[0])
+    n_diff = int((pm != bits64).sum())
+    check(not bool(((pm != bits64) & ~near).any()),
+          f"{tag} pool-0 routing differs from float64 outside the near ties")
+    log(f"{tag} pool-0 routing: {n_diff} of {pm.numel()} windows differ from the float64 bits, "
+        f"all among the {int(near.sum())} near ties")
+    del bits64, near
     if pre:
-        q, qm = on_template("ae_train", QUAD, f"{tag} ae_train_in_pre", TK.ae_train_in, tw,
+        q, qm = on_template("ae_train", one_in, f"{tag} ae_train_in_pre", TK.ae_train_in, tw,
                             x16, True)
         check(torch.equal(q, p) and torch.equal(qm, pm), f"{tag} ae_train_in_pre != ae_train_in")
         note(TK.TRAIN_IN_PRE, act_(f"{tag} ae_train_in_pre", q, r))
@@ -932,7 +945,7 @@ def check_train_stages(tw, x, y, mask, tag):
         fr = max(fr, check_mask(f"{tag} relu {i}", a > 0, r > 0))
         act.append(a)
     e = act[o]
-    logits, dz_o, bce, db_o = on_template("ae_train", QUAD, f"{tag} ae_train_loss",
+    logits, dz_o, bce, db_o = on_template("ae_train", out_t, f"{tag} ae_train_loss",
                                           TK.ae_train_loss, tw, e, y, mask)
     rl, rdz, rbce, rdb = TK.ae_train_loss_plain(tw, e, y, mask)
     note(TK.TRAIN_LOSS, max(check_f32(f"{tag} logits", logits, rl),
@@ -940,7 +953,7 @@ def check_train_stages(tw, x, y, mask, tag):
                             check_sum(f"{tag} BCE sum", bce, rbce),
                             check_sum(f"{tag} db{o}", db_o, rdb)))
     if pre:
-        got = on_template("ae_train", QUAD, f"{tag} ae_train_loss_pre", TK.ae_train_loss,
+        got = on_template("ae_train", out_t, f"{tag} ae_train_loss_pre", TK.ae_train_loss,
                           tw, e, y16, mask, True)
         check(all(torch.equal(a, b) for a, b in zip(got, (logits, dz_o, bce, db_o))),
               f"{tag} ae_train_loss_pre != ae_train_loss")
@@ -1063,18 +1076,19 @@ def train_runs(dev, cfg, data, epochs):
     t_kernel = time.perf_counter() - t0
     log(f"depth-{cfg.depth} training launches: " + ", ".join(
         f"{k.symbol}={n}" for k, n in launches.items() if n)
-        + f"; {IGEMM}={took[IGEMM]}, {IN_MMA}={took[IN_MMA]}, {QUAD}={took[QUAD]}, "
-        f"{CT_IGEMM}={took_ae[CT_IGEMM]}")
+        + f"; {IGEMM}={took[IGEMM]}, {IN_MMA}={took[IN_MMA]}, {OUT_MMA}={took[OUT_MMA]}, "
+        f"{QUAD}={took[QUAD]}, {CT_IGEMM}={took_ae[CT_IGEMM]}")
     for kern in (*(TK.TRAIN_KERNELS if depth2 else TRAIN3_KERNELS), AK.CONVT):
         check(launches[kern] > 0, f"{kern.symbol} was not launched by training")
-    # a bf16 step: the encoder convs' forward and input gradients, the
-    # transposed convs' forward and the out-conv's input gradient (one per
-    # step) on the tensor cores; conv 0 and the loss on conv_quad_kernel,
-    # none on conv_out_mma_kernel; its sums in one call
+    # a bf16 step, every conv on the tensor cores, none on conv_quad_kernel:
+    # the encoder convs' forward and input gradients on conv_igemm_kernel,
+    # conv 0 and the out-conv's input gradient (one each a step) on
+    # conv_in_mma_kernel, the loss (one a step) on conv_out_mma_kernel, the
+    # transposed convs' forward on convt_igemm_kernel; its sums in one call
     steps = launches[TK.TRAIN_LOSS] + launches[TK.TRAIN_LOSS_PRE]
-    single = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps
+    one_in = launches[TK.TRAIN_IN] + launches[TK.TRAIN_IN_PRE] + steps
     multi = launches[TK.TRAIN_CONV_POOL] + launches[TK.DGRAD_CONV] - steps
-    want = {QUAD: single, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0, OUT_MMA: 0, IN_MMA: steps}
+    want = {QUAD: 0, IGEMM: multi, CT_RELU: 0, CT_IGEMM: 0, OUT_MMA: steps, IN_MMA: one_in}
     check(took == want, f"training conv templates {took}, expected {want}")
     want = {QUAD: 0, IGEMM: 0, CT_RELU: 0, CT_IGEMM: launches[AK.CONVT], OUT_MMA: 0, IN_MMA: 0}
     check(took_ae == want, f"training forward convT templates {took_ae}, expected {want}")
@@ -1218,6 +1232,11 @@ def time_training(gpu, cfg, data, tw, st):
             lambda: F.conv2d(act[o], cw[o], padding=pad(o)),
             fl([o]), nbytes(act[o], s["y16"], s["y"], dz[o], s["mask"]))
     times = time_entries(gpu, entries, tw.dtype, f" per {b}-tile step (depth {d})")
+    # conv 0 and the loss are short kernels: their device time (torch.profiler)
+    # beside the CUDA-event time, which includes the wrapper's host path
+    for kern, tmpl in ((TK.TRAIN_IN, IN_MMA), (TK.TRAIN_LOSS, OUT_MMA)):
+        log(f"[{gpu}] {kern.symbol} (depth {d}): device time {device_ms(entries[kern][0], tmpl):.4f} "
+            f"ms ({tmpl}, torch.profiler), CUDA events {times[kern]['ms']:.4f} ms")
     # the two kinds of ae_train_dgrad_conv launch apart: the out-conv's (one
     # dz channel, conv_in_mma_kernel) and the encoder convs' (routed dz,
     # conv_igemm_kernel), each with its ae_train_sum, conv2d_input and its
@@ -1389,10 +1408,11 @@ def main() -> int:
         if m:
             log(f"  ptxas {lib}.cu convt_igemm_kernel<K={m.group(1)}>: {regs} registers, "
                 f"{spill} B spill stores")
-        m = re.search(r"conv_out_mma_kernelILi(\d)ELi(\d)E", name)
+        m = re.search(r"conv_out_mma_kernelILi(\d)ELi(\d)E.*?(Co\w+?Epi)(IfE)?", name)
         if m:
-            log(f"  ptxas {lib}.cu conv_out_mma_kernel<K={m.group(1)}, ROWS={m.group(2)}>: "
-                f"{regs} registers, {spill} B spill stores")
+            ty = "" if m.group(3) != "CoLossEpi" else "<float>" if m.group(4) else "<bf16>"
+            log(f"  ptxas {lib}.cu conv_out_mma_kernel<K={m.group(1)}, ROWS={m.group(2)}, "
+                f"{m.group(3)}{ty}>: {regs} registers, {spill} B spill stores")
         m = re.search(r"conv_in_mma_kernelILi(\d)ELi(\d)E.*?(Ci\w+?Src).*?(Ci\w+?Epi)", name)
         if m:
             log(f"  ptxas {lib}.cu conv_in_mma_kernel<K={m.group(1)}, NF={m.group(2)}, "

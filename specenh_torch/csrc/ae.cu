@@ -118,51 +118,6 @@ struct IgPoolEpi {
   }
 };
 
-// S1 on the tensor cores (conv_in_mma_kernel): PoolEpi's bias + relu + 2x2
-// max pool, the window being the thread's four positions in its fragment
-// pair; out (B, Cout, H/2, 64) bf16 through the stage: channel c's pooled
-// row yp at word c * CS + yp * 32, CS = R / 2 * 32 + 4, so that a put's 4
-// channels x 8 columns fall in 16 banks; then 16-byte runs along each row.
-struct CiPoolEpi {
-  __nv_bfloat16* out;
-  template <int NF>
-  __host__ __device__ static constexpr int rows() { return NF > 4 ? 8 : 16; }
-  template <int NF>
-  __host__ __device__ static constexpr int cs() { return rows<NF>() / 2 * 32 + 4; }
-  template <int NF>
-  __host__ __device__ static constexpr int stage_words() { return 8 * NF * cs<NF>(); }
-  template <int NF>
-  __device__ __forceinline__ void begin(uint32_t*, int, int, int) const {}
-  template <int NF>
-  __device__ __forceinline__ void put(const float (&acc)[2][NF][4], uint32_t* os,
-                                      const float (&bv)[NF][2], int yy, int x0,
-                                      float (&)[NF][2]) const {
-    const int lane = threadIdx.x & 31, tq = lane & 3;
-    unsigned short* o = reinterpret_cast<unsigned short*>(os) + yy / 2 * 64 + x0 / 2 + (lane >> 2);
-#pragma unroll
-    for (int n = 0; n < NF; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        // max(z_q + bias) == max(z_q) + bias, and relu commutes with max
-        const float z = fmaxf(fmaxf(acc[0][n][e], acc[0][n][2 + e]),
-                              fmaxf(acc[1][n][e], acc[1][n][2 + e])) + bv[n][e];
-        o[2 * (8 * n + 2 * tq + e) * cs<NF>()] =
-            __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(z, 0.f)));
-      }
-  }
-  template <int NF>
-  __device__ __forceinline__ void end(const uint32_t* os, int b, int y0, int H,
-                                      float (&)[NF][2]) const {
-    constexpr int PER = rows<NF>() / 2 * 8, COUT = 8 * NF;  // 16-byte runs a channel
-    __nv_bfloat16* ob = out + ((long long)b * COUT * (H / 2) + y0 / 2) * 64;
-    for (int e = threadIdx.x; e < COUT * PER; e += CI_NT) {
-      const int co = e / PER, q = e % PER;
-      *reinterpret_cast<uint4*>(ob + (long long)co * (H / 2) * 64 + 8 * q) =
-          *reinterpret_cast<const uint4*>(os + co * cs<NF>() + 4 * q);
-    }
-  }
-};
-
 // The bf16 S1: conv_in_mma_kernel from src, out 16-byte aligned.
 int launch_tile_in(CiSpecSrc src, const void* w, const float* bias, void* out, int B, int Cout,
                    int H, int W, int K, cudaStream_t st) {
@@ -172,7 +127,7 @@ int launch_tile_in(CiSpecSrc src, const void* w, const float* bias, void* out, i
 }
 
 // The float32 S4: one output channel, bias + sigmoid of each quad pixel,
-// float output (conv_out_mma_kernel computes the sigmoid the same way).
+// float output (CoSigmoidEpi computes the sigmoid the same way).
 struct SigmoidEpi {
   float* out;
   Plane dst;
@@ -188,6 +143,33 @@ struct SigmoidEpi {
       ob[(long long)(2 * m + q / 2) * dst.ld + 2 * n + q % 2] =
           1.f / (1.f + expf(-z));
     }
+  }
+};
+
+// The bf16 S4 on conv_out_mma_kernel: the sigmoid of logit z at pixel (y,
+// x) of tile b, stored into the restitched float32 output (tile b at
+// channel b / kt, columns (b % kt) * 128 ..; channel and row strides outer,
+// ld) in 16-byte runs, 4 lanes' pixels gathered by shuffles.
+struct CoSigmoidEpi {
+  float* out;
+  long long outer, ld;
+  int kt;
+  struct Tile {
+    float* o;  // the tile's row 0 in the restitched output
+    long long ld;
+    __device__ __forceinline__ float pre(int, int) const { return 0.f; }
+    __device__ __forceinline__ void put(float z, float, int y, int x, float (&)[2]) const {
+      const float v = 1.f / (1.f + expf(-z));
+      const float v1 = __shfl_down_sync(0xffffffffu, v, 1);
+      const float v2 = __shfl_down_sync(0xffffffffu, v, 2);
+      const float v3 = __shfl_down_sync(0xffffffffu, v, 3);
+      if ((threadIdx.x & 3) == 0)
+        *reinterpret_cast<float4*>(o + (long long)y * ld + x) = make_float4(v, v1, v2, v3);
+    }
+    __device__ __forceinline__ void end(float (&)[2]) const {}
+  };
+  __device__ __forceinline__ Tile tile(int b) const {
+    return Tile{out + (long long)(b / kt) * outer + (long long)(b % kt) * CO_W, ld};
   }
 };
 
@@ -220,23 +202,18 @@ int launch_convt_igemm(const void* in, const void* w, const float* bias, void* o
   return cudaErrorInvalidValue;
 }
 
-// The bf16 S4, conv_out_mma_kernel: in (B, Cin, H, 128) bf16 16-byte
-// aligned, w (Cin, K, K, 1) bf16; out float32 (B / kt, H, >= kt * 128) with
-// 16-byte aligned rows (out_outer and out_ld multiples of 4); K odd up to 7;
-// Cin a multiple of 16 (co_plan: up to 64 at k7); H a multiple of CO_BAND.
-// Returns cudaErrorInvalidValue for anything else: the caller raises.
-int launch_conv_out(const void* in, const void* w, const float* bias, float* out, int B,
-                    int Cin, int H, int W, int K, int kt, long long out_outer, long long out_ld,
+// The bf16 S4, conv_out_mma_kernel with CoSigmoidEpi: out float32 (B /
+// kt, H, >= kt * 128) with 16-byte aligned rows (out_outer and out_ld
+// multiples of 4); otherwise as launch_conv_out.  Returns
+// cudaErrorInvalidValue for anything else: the caller raises.
+int launch_tile_out(const void* in, const void* w, const float* bias, float* out, int B, int Cin,
+                    int H, int W, int K, int kt, long long out_outer, long long out_ld,
                     cudaStream_t st) {
-  if (W != CO_W || Cin < 16 || Cin % 16 != 0 || H < CO_BAND || H % CO_BAND != 0 || B < 1 ||
-      B > 65535 || kt < 1 || out_outer % 4 != 0 || out_ld % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+  if (kt < 1 || out_outer % 4 != 0 || out_ld % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return cudaErrorInvalidValue;
-  const CoGeom g{Cin, H, kt, 0, 0, out_outer, out_ld};
-  const auto* i = static_cast<const __nv_bfloat16*>(in);
-  const auto* wt = static_cast<const __nv_bfloat16*>(w);
-  SX_K_SWITCH(K, return launch_conv_out_k<KK>(i, wt, bias, out, B, g, st));
-  return cudaErrorInvalidValue;
+  return launch_conv_out(in, w, bias, CoSigmoidEpi{out, out_outer, out_ld, kt}, B, Cin, H, W, K,
+                         st);
 }
 
 }  // namespace
@@ -337,6 +314,6 @@ extern "C" int ae_tile_out(const void* in, const void* w, const float* bias,
         PlaneSrc<float, float>{static_cast<const float*>(in), nchw(Cin, H, W)}, w, bias,
         SigmoidEpi{out, Plane{out_outer, W, 0, out_ld, kt}}, B, Cin, 1, H, W, K, st);
   if (dtype == SX_BF16)
-    return launch_conv_out(in, w, bias, out, B, Cin, H, W, K, kt, out_outer, out_ld, st);
+    return launch_tile_out(in, w, bias, out, B, Cin, H, W, K, kt, out_outer, out_ld, st);
   return cudaErrorInvalidValue;
 }

@@ -14,25 +14,26 @@
 //                      for float32 launches.
 //   convt_igemm_kernel the same for bf16 launches, as four implicit GEMMs
 //                      (one per output parity) on the tensor cores.
-//   conv_out_mma_kernel  a bf16 conv to one output channel + sigmoid (the
-//                      serving S4), each tap row a GEMM on the tensor cores
-//                      over an input staged once, cp.async double-buffered.
+//   conv_out_mma_kernel  a bf16 conv to one output channel (the out-conv:
+//                      the serving S4, the training loss), each tap row a
+//                      GEMM on the tensor cores over an input staged once,
+//                      cp.async double-buffered, with an epilogue functor.
 //   conv_in_mma_kernel a bf16 conv from one input channel (the serving S1,
-//                      the out-conv's input gradient), a GEMM whose K is the
-//                      taps, on the tensor cores, with its own source and
-//                      epilogue functors.
+//                      the training conv 0, the out-conv's input gradient),
+//                      a GEMM whose K is the taps, on the tensor cores, with
+//                      its own source and epilogue functors.
 //   GateOut, block_sums  the training epilogues' per-pixel gate and the
 //                      per-block channel sums (deterministic: warp shuffles
 //                      and a fixed-order sum over the warps, no atomics).
 //
 // Which template a launch takes is decided by its dtype and channel counts
 // alone: in bf16 the multi-channel stride-1 convs run conv_igemm_kernel,
-// the serving S4 conv_out_mma_kernel, the serving S1 and the out-conv's
-// input gradient conv_in_mma_kernel; every other stride-1 conv (the
-// training forward's conv 0 and loss, every float32 launch) runs
-// conv_quad_kernel; the transposed convs run convt_igemm_kernel in bf16 and
-// convt_relu_kernel in float32.  Nothing falls back from one to the other:
-// a bf16 launch that a tensor-core template refuses raises.
+// the out-conv (S4, the loss) conv_out_mma_kernel, the convs from one input
+// channel (S1, conv 0, the out-conv's input gradient) conv_in_mma_kernel;
+// every float32 stride-1 conv runs conv_quad_kernel; the transposed convs
+// run convt_igemm_kernel in bf16 and convt_relu_kernel in float32.  Nothing
+// falls back from one to the other: a bf16 launch that a tensor-core
+// template refuses raises.
 #pragma once
 
 #include <stdint.h>
@@ -940,10 +941,13 @@ int launch_convt_igemm_k(const __nv_bfloat16* in, const __nv_bfloat16* wt, const
 
 // ---------------------------------------------------------------------------
 // conv_out_mma_kernel: the out-conv of a bf16 launch (Cin -> 1 channel, 'same'
-// K x K, stride 1) + bias + sigmoid, float32 out, on bf16 mma.sync.m16n8k16:
-// the serving S4 (ae_tile_out).  Replaces conv_quad_kernel + SigmoidEpi for
-// bf16 (the float32 S4 stays there); the JAX kernels (K3's L5, K6's out-conv)
-// sum the same taps as matmuls on the MXU, then K4 / K8-out restitch.
+// K x K, stride 1) + bias, then an epilogue functor, on bf16
+// mma.sync.m16n8k16: the serving S4 (ae_tile_out, CoSigmoidEpi in ae.cu) and
+// the training loss (ae_train_loss[_pre], CoLossEpi in ae_train.cu).
+// Replaces conv_quad_kernel + SigmoidEpi / LossEpi for bf16 (the float32
+// launches stay there); the JAX kernels (K3's L5, K6's out-conv, K5's and
+// K7's z5) sum the same taps as matmuls on the MXU, then K4 / K8-out
+// restitch or K5 / K7 take the masked BCE and dz5.
 //
 // For output row y and tap row i the input row is y + i - r (r = K / 2), so
 //   S[y, x', j] = sum_i sum_c in[c, y + i - r, x'] * w[c, i, j]
@@ -976,24 +980,39 @@ int launch_convt_igemm_k(const __nv_bfloat16* in, const __nv_bfloat16* wt, const
 // a sum) accumulate in fresh fragments, added into the running sums chunk
 // by chunk in order (as conv_igemm_kernel's chunks).
 //
-// A strip's epilogue: S goes to shared memory (K floats a position: a lane's
+// A strip's gather: S goes to shared memory (K floats a position: a lane's
 // pixel reads stride K, odd, conflict-free); a thread sums its pixels' taps
-// j in ascending order; then bias, the sigmoid as SigmoidEpi computes it, and
-// float32 stores in 16-byte runs along each restitched row (4 lanes' pixels
-// gathered by shuffles).
+// j in ascending order and adds the bias: the logit z.  Then the epilogue,
+// for each of the thread's pixels in turn (every lane of the block calls
+// it: it may gather 4 lanes' pixels by shuffles), through the epilogue of
+// the block's tile, t = epi.tile(b), taken once a block (its output rows'
+// bases, the tile's mask):
+//   t.pre(y, x)           what pixel (y, x) reads from device memory (the
+//                         loss: its label, as stored), loaded at the
+//                         strip's start so that the load's latency hides
+//                         behind the MMAs
+//   t.put(z, v, y, x, s)  writes pixel (y, x), v = t.pre(y, x); s: 2
+//                         float32 running sums of the thread, kept across
+//                         strips
+//   t.end(s)              after the band's last strip (every thread)
+// CoSigmoidEpi stores the sigmoid in 16-byte runs along each restitched row;
+// CoLossEpi the logits and dz5 in 16- and 8-byte runs and, at the band's
+// end, the block's two sums (masked BCE, dz5) as one partial row per (tile,
+// band), in a fixed order.
 //
 // What bounds it: the input read once (1.26 GB a flagship shot of 32
 // channels, 0.63 GB at deep3's 16) and the float32 output written once
 // (78.6 MB): bytes.  The MMAs (2 x 8 x K x Cin FLOP a position: 30 GFLOP a
 // flagship shot) are ~0.03 ms at the bf16 peak; a band's 2 r halo rows are
-// read again by its neighbours, from L2.
+// read again by its neighbours, from L2.  The loss also reads the labels
+// and writes float32 logits and bf16 dz5 (0.31 GB a flagship 128-tile
+// step: 0.093 ms at 3.35 TB/s).
 constexpr int CO_NT = 256;    // 8 warps
 constexpr int CO_W = 128;     // tile width: 8 warps x 16 columns
 constexpr int CO_BAND = 64;   // rows a block walks
 
 struct CoGeom {
-  int Cin, H, kt, PF, NR;       // strips in flight ahead, ring rows
-  long long out_outer, out_ld;  // the restitched output's channel and row strides
+  int Cin, H, PF, NR;  // strips in flight ahead, ring rows
 };
 
 // Shared memory of a conv_out_mma_kernel block: the ring (Cin planes of NR
@@ -1048,10 +1067,10 @@ __device__ __forceinline__ void cp_async_wait(int n) {
     asm volatile("cp.async.wait_group 3;\n" ::: "memory");
 }
 
-template <int K, int ROWS>
+template <int K, int ROWS, class Epi>
 __global__ void __launch_bounds__(CO_NT, 2) conv_out_mma_kernel(
     const __nv_bfloat16* __restrict__ in, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ out, CoGeom g) {
+    const float* __restrict__ bias, Epi epi, CoGeom g) {
   constexpr int R = K / 2, RT = ROWS + 2 * R;
   constexpr int NP = ROWS * CO_W / CO_NT;  // output pixels a thread
   constexpr int NS = CO_BAND / ROWS;       // strips a band
@@ -1105,11 +1124,16 @@ __global__ void __launch_bounds__(CO_NT, 2) conv_out_mma_kernel(
   // gives the row of channel l % 8 of matrix l / 8
   const int arow = ((lane & 7) + 8 * (lane >> 4)) * PS + x0 + 8 * ((lane >> 3) & 1);
   const int gq = lane >> 2, tq = lane & 3, px = tid % CO_W;
-  float* ob = out + (long long)(b / g.kt) * g.out_outer + (long long)(b % g.kt) * CO_W;
   const float bv = bias[0];
+  const auto et = epi.tile(b);
+  float es[2] = {0.f, 0.f};  // the epilogue's running sums
 
 #pragma unroll 1
   for (int s = 0; s < NS; ++s) {
+    const int y0 = yb + s * ROWS;
+    decltype(et.pre(0, 0)) pre[NP];  // what the epilogue reads, loaded before the MMAs
+#pragma unroll
+    for (int u = 0; u < NP; ++u) pre[u] = et.pre(y0 + tid / CO_W + 2 * u, px);
     cp_async_wait(g.PF);  // group s is in; the next PF strips' may not be
     __syncthreads();
     // acc[r]: S at output row r, positions x0 + gq and x0 + gq + 8, taps 2 tq
@@ -1165,7 +1189,6 @@ __global__ void __launch_bounds__(CO_NT, 2) conv_out_mma_kernel(
         if (j < K) sb[(r * CO_W + x0 + gq + 8 * (q >> 1)) * K + j] = acc[r][q];
       }
     __syncthreads();
-    const int y0 = yb + s * ROWS;
 #pragma unroll
     for (int u = 0; u < NP; ++u) {
       const int r = tid / CO_W + 2 * u;
@@ -1175,41 +1198,55 @@ __global__ void __launch_bounds__(CO_NT, 2) conv_out_mma_kernel(
         const int xs = px + j - R;
         if (xs >= 0 && xs < CO_W) z += sb[(r * CO_W + xs) * K + j];
       }
-      const float v = 1.f / (1.f + expf(-(z + bv)));
-      const float v1 = __shfl_down_sync(0xffffffffu, v, 1);
-      const float v2 = __shfl_down_sync(0xffffffffu, v, 2);
-      const float v3 = __shfl_down_sync(0xffffffffu, v, 3);
-      if ((lane & 3) == 0)
-        *reinterpret_cast<float4*>(ob + (long long)(y0 + r) * g.out_ld + px) =
-            make_float4(v, v1, v2, v3);
+      et.put(z + bv, pre[u], y0 + r, px, es);
     }
   }
+  et.end(es);
 }
 
-template <int K, int ROWS>
+template <int K, int ROWS, class Epi>
 int launch_conv_out_kr(const __nv_bfloat16* in, const __nv_bfloat16* w, const float* bias,
-                       float* out, int B, const CoGeom& g, cudaStream_t st) {
+                       Epi epi, int B, const CoGeom& g, cudaStream_t st) {
   const long long smem = co_smem_bytes(K, g.Cin, ROWS, g.NR);
-  auto kern = conv_out_mma_kernel<K, ROWS>;
+  auto kern = conv_out_mma_kernel<K, ROWS, Epi>;
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(g.H / CO_BAND, B), CO_NT, smem, st>>>(in, w, bias, out, g);
+  kern<<<dim3(g.H / CO_BAND, B), CO_NT, smem, st>>>(in, w, bias, epi, g);
   return count_conv_launch(4);
 }
 
-template <int K>
+template <int K, class Epi>
 int launch_conv_out_k(const __nv_bfloat16* in, const __nv_bfloat16* w, const float* bias,
-                      float* out, int B, CoGeom g, cudaStream_t st) {
+                      Epi epi, int B, CoGeom g, cudaStream_t st) {
   int rows, pf;
   if (!co_plan(K, g.Cin, rows, pf)) return cudaErrorInvalidValue;
   g.PF = pf;
   g.NR = 2 * (K / 2) + (pf + 1) * rows;
   switch (rows) {
-    case 8: return launch_conv_out_kr<K, 8>(in, w, bias, out, B, g, st);
-    case 4: return launch_conv_out_kr<K, 4>(in, w, bias, out, B, g, st);
-    case 2: return launch_conv_out_kr<K, 2>(in, w, bias, out, B, g, st);
+    case 8:  // co_plan never takes 8 rows at k7 (16 channels: 4)
+      if constexpr (K < 7) return launch_conv_out_kr<K, 8>(in, w, bias, epi, B, g, st);
+      break;
+    case 4: return launch_conv_out_kr<K, 4>(in, w, bias, epi, B, g, st);
+    case 2: return launch_conv_out_kr<K, 2>(in, w, bias, epi, B, g, st);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The launch: in (B, Cin, H, 128) bf16 16-byte aligned, w (Cin, K, K, 1)
+// bf16; K odd up to 7; Cin a multiple of 16 (co_plan: up to 64 at k7); H a
+// multiple of CO_BAND.  The epilogue checks its own outputs.  Returns
+// cudaErrorInvalidValue for anything else: the caller raises.
+template <class Epi>
+int launch_conv_out(const void* in, const void* w, const float* bias, Epi epi, int B, int Cin,
+                    int H, int W, int K, cudaStream_t st) {
+  if (W != CO_W || Cin < 16 || Cin % 16 != 0 || H < CO_BAND || H % CO_BAND != 0 || B < 1 ||
+      B > 65535 || reinterpret_cast<uintptr_t>(in) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const CoGeom g{Cin, H, 0, 0};
+  const auto* i = static_cast<const __nv_bfloat16*>(in);
+  const auto* wt = static_cast<const __nv_bfloat16*>(w);
+  SX_K_SWITCH(K, return launch_conv_out_k<KK>(i, wt, bias, epi, B, g, st));
   return cudaErrorInvalidValue;
 }
 
@@ -1228,8 +1265,9 @@ int launch_conv_out_k(const __nv_bfloat16* in, const __nv_bfloat16* w, const flo
 // the last pair zero in A and in W.  Replaces conv_quad_kernel for the bf16
 // launches that read one channel: the serving S1 (ae_tile_in,
 // ae_tile_in_norm: the JAX kernels K3 and K6 run conv1 on the MXU after the
-// tile turns K2 / K8-in / K9 / K10) and the out-conv's input gradient
-// (ae_train_dgrad_conv, K5 and K7).
+// tile turns K2 / K8-in / K9 / K10), the training conv 0 (ae_train_in[_pre]:
+// K5, K5b and K7's conv1 with its pool and routing mask) and the out-conv's
+// input gradient (ae_train_dgrad_conv, K5 and K7).
 //
 // Block: 8 warps, one tile (blockIdx.y), one strip of R rows (blockIdx.x;
 // Epi::rows).  A warp takes a pair of fragments at a time: a row pair y, y +
@@ -1260,7 +1298,8 @@ int launch_conv_out_k(const __nv_bfloat16* in, const __nv_bfloat16* w, const flo
 // Epilogue (Epi::put, right after each fragment pair's MMAs): the block's
 // output goes through a stage in shared memory and out in 16-byte runs
 // along each NCHW row (Epi::end): the output is ~80 % of S1's bytes (315 of
-// 393 MB a flagship shot) and all of the input gradient's but dz.
+// 393 MB a flagship shot) and all of the input gradient's but dz.  Conv 0's
+// routing bytes leave the same way, through their own part of the stage.
 //
 // What bounds it: the input read once and the output written once (S1:
 // 0.117 ms a flagship shot at 3.35 TB/s; the out-conv's gradient, which
@@ -1357,9 +1396,10 @@ struct CiSpecSrc {
   }
 };
 
-// Source: a bf16 plane (B, 1, H, 128): the out-conv's dz, a column pair one
-// 32-bit load.
-struct CiDzSrc {
+// Source: a bf16 plane (B, 1, H, 128), 4-byte aligned, a column pair one
+// 32-bit load: the out-conv's dz, or K5b's tiles (the bits CiSpecSrc stages
+// from the float32 tiles).
+struct CiBf16Src {
   const __nv_bfloat16* p;
   template <int RT>
   __device__ __forceinline__ void stage(uint32_t* st, int b, int ylo, int H) const {
@@ -1370,6 +1410,116 @@ struct CiDzSrc {
                        *reinterpret_cast<const __nv_bfloat162*>(q + y * CI_W + x));
                  },
                  [](float v) { return v; });
+  }
+};
+
+// Epilogue: bias + relu + 2x2 max pool, the window being the thread's four
+// positions in its fragment pair; out (B, Cout, H/2, 64) bf16 through the
+// stage: channel c's pooled row yp at word c * CS + yp * 32, CS = R / 2 * 32
+// + 4, so that a put's 4 channels x 8 columns fall in 16 banks; then 16-byte
+// runs along each row.  The serving S1.
+struct CiPoolEpi {
+  __nv_bfloat16* out;
+  template <int NF>
+  __host__ __device__ static constexpr int rows() { return NF > 4 ? 8 : 16; }
+  template <int NF>
+  __host__ __device__ static constexpr int cs() { return rows<NF>() / 2 * 32 + 4; }
+  template <int NF>
+  __host__ __device__ static constexpr int stage_words() { return 8 * NF * cs<NF>(); }
+  template <int NF>
+  __device__ __forceinline__ void begin(uint32_t*, int, int, int) const {}
+  template <int NF>
+  __device__ __forceinline__ void put(const float (&acc)[2][NF][4], uint32_t* os,
+                                      const float (&bv)[NF][2], int yy, int x0,
+                                      float (&)[NF][2]) const {
+    const int lane = threadIdx.x & 31, tq = lane & 3;
+    unsigned short* o = reinterpret_cast<unsigned short*>(os) + yy / 2 * 64 + x0 / 2 + (lane >> 2);
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // max(z_q + bias) == max(z_q) + bias, and relu commutes with max
+        const float z = fmaxf(fmaxf(acc[0][n][e], acc[0][n][2 + e]),
+                              fmaxf(acc[1][n][e], acc[1][n][2 + e])) + bv[n][e];
+        o[2 * (8 * n + 2 * tq + e) * cs<NF>()] =
+            __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(z, 0.f)));
+      }
+  }
+  template <int NF>
+  __device__ __forceinline__ void end(const uint32_t* os, int b, int y0, int H,
+                                      float (&)[NF][2]) const {
+    constexpr int PER = rows<NF>() / 2 * 8, COUT = 8 * NF;  // 16-byte runs a channel
+    __nv_bfloat16* ob = out + ((long long)b * COUT * (H / 2) + y0 / 2) * 64;
+    for (int e = threadIdx.x; e < COUT * PER; e += CI_NT) {
+      const int co = e / PER, q = e % PER;
+      *reinterpret_cast<uint4*>(ob + (long long)co * (H / 2) * 64 + 8 * q) =
+          *reinterpret_cast<const uint4*>(os + co * cs<NF>() + 4 * q);
+    }
+  }
+};
+
+// Epilogue of the training conv 0: CiPoolEpi's pooled output, and the
+// routing byte of each pooled value, bit a * 2 + b (pixel (2m + a, 2n + b):
+// row y + h, column x0 + 2 (lane / 4) + m of fragment m, so a = h, b = m)
+// set where that pixel's float32 relu value equals the window's max and the
+// max is > 0, as PoolMaskEpi sets it.  The bytes go through their own part
+// of the stage after the pooled values (channel c's pooled row yp at byte 4
+// c BS + 64 yp, BS = R / 2 * 16 + 4 words: a put's 4 channels fall 8 banks
+// apart) and out in 16-byte runs along each row of bits (B, Cout, H/2, 64).
+struct CiPoolMaskEpi {
+  __nv_bfloat16* out;
+  uint8_t* bits;
+  template <int NF>
+  __host__ __device__ static constexpr int rows() { return CiPoolEpi::rows<NF>(); }
+  template <int NF>
+  __host__ __device__ static constexpr int bs() { return rows<NF>() / 2 * 16 + 4; }
+  template <int NF>
+  __host__ __device__ static constexpr int stage_words() {
+    return CiPoolEpi::stage_words<NF>() + 8 * NF * bs<NF>();
+  }
+  template <int NF>
+  __device__ __forceinline__ void begin(uint32_t*, int, int, int) const {}
+  template <int NF>
+  __device__ __forceinline__ void put(const float (&acc)[2][NF][4], uint32_t* os,
+                                      const float (&bv)[NF][2], int yy, int x0,
+                                      float (&)[NF][2]) const {
+    const int lane = threadIdx.x & 31, tq = lane & 3;
+    const int at = yy / 2 * 64 + x0 / 2 + (lane >> 2);
+    unsigned short* o = reinterpret_cast<unsigned short*>(os) + at;
+    uint8_t* ob = reinterpret_cast<uint8_t*>(os + CiPoolEpi::stage_words<NF>()) + at;
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // z[2 h + m] before the relu: where the max zm is > 0, relu(z[q])
+        // equals the pooled relu(zm) exactly where z[q] == zm
+        float z[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) z[q] = acc[q & 1][n][(q >> 1) * 2 + e] + bv[n][e];
+        const float zm = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
+        unsigned k = 0;
+        if (zm > 0.f) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) k |= z[q] == zm ? 1u << q : 0u;
+        }
+        const int c = 8 * n + 2 * tq + e;
+        o[2 * c * CiPoolEpi::cs<NF>()] =
+            __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(zm, 0.f)));
+        ob[4 * c * bs<NF>()] = (uint8_t)k;
+      }
+  }
+  template <int NF>
+  __device__ __forceinline__ void end(const uint32_t* os, int b, int y0, int H,
+                                      float (&db)[NF][2]) const {
+    CiPoolEpi{out}.end<NF>(os, b, y0, H, db);
+    constexpr int PER = rows<NF>() / 2 * 4, COUT = 8 * NF;  // 16-byte runs a channel
+    const uint8_t* sb = reinterpret_cast<const uint8_t*>(os + CiPoolEpi::stage_words<NF>());
+    uint8_t* bb = bits + ((long long)b * COUT * (H / 2) + y0 / 2) * 64;
+    for (int e = threadIdx.x; e < COUT * PER; e += CI_NT) {
+      const int co = e / PER, q = e % PER;
+      *reinterpret_cast<uint4*>(bb + (long long)co * (H / 2) * 64 + 16 * q) =
+          *reinterpret_cast<const uint4*>(sb + 4 * co * bs<NF>() + 16 * q);
+    }
   }
 };
 
@@ -1530,12 +1680,13 @@ int launch_conv_in(Src src, const void* w, const float* bias, Epi epi, int B, in
   return cudaErrorInvalidValue;
 }
 
-// Sum v[0..N) over the block's NT threads and write the N sums to out[0..N)
-// (thread 0..N-1 each write one).  Fixed order: a warp shuffle tree, then
-// the warps in order.  Every thread of the block must call it.
-template <int N>
+// Sum v[0..N) over the block's NTH threads (conv_quad_kernel's NT, or
+// conv_out_mma_kernel's CO_NT) and write the N sums to out[0..N) (thread
+// 0..N-1 each write one).  Fixed order: a warp shuffle tree, then the warps
+// in order.  Every thread of the block must call it.
+template <int N, int NTH = NT>
 __device__ __forceinline__ void block_sums(float (&v)[N], float* out) {
-  __shared__ float red[NT / 32][N];
+  __shared__ float red[NTH / 32][N];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -1548,7 +1699,7 @@ __device__ __forceinline__ void block_sums(float (&v)[N], float* out) {
   if (threadIdx.x < N) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < NT / 32; ++w) s += red[w][threadIdx.x];
+    for (int w = 0; w < NTH / 32; ++w) s += red[w][threadIdx.x];
     out[threadIdx.x] = s;
   }
 }

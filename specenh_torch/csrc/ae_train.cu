@@ -48,21 +48,23 @@
 // and weight gradients): ~1.13 GFLOP per tile, ~145 GFLOP per 128-tile
 // step, 0.15 ms at the card's 989 TFLOP/s peak for bf16 operands.  The
 // stages write ~7 MB per tile in bf16 and read it back: ~3 GB per step,
-// 0.9 ms at 3.35 TB/s.  So the step is bound by bytes.  That some stages
-// (conv 0 and the loss, every float32 stage) run their FMAs on the CUDA
-// cores (67 TFLOP/s fp32) is a choice of the design, not the bound.
+// 0.9 ms at 3.35 TB/s.  So the step is bound by bytes.  That every float32
+// stage runs its FMAs on the CUDA cores (67 TFLOP/s fp32) is a choice of
+// the design, not the bound.
 // The deep3 preset
 // (16/32/64, k5) does ~0.5 G MAC per tile forward and twice that backward:
 // ~379 GFLOP per 128-tile step, 0.38 ms at the bf16 peak, about as long as
 // its ~1 GB of stored activations and gradients take at 3.35 TB/s.
 //
 // Design: the forward and stride-1 input-gradient stages reuse the serving
-// stages' conv templates (ae_conv.cuh) with new epilogues: in bf16 the
-// multi-channel ones (ae_train_conv_pool, the encoder convs'
-// ae_train_dgrad_conv) the implicit GEMM conv_igemm_kernel and the
-// out-conv's input gradient (one dz channel) conv_in_mma_kernel, whose GEMM
-// K is the taps, both on the tensor cores; conv 0 (ae_train_in[_pre]), the
-// loss (ae_train_loss[_pre]) and every float32 launch conv_quad_kernel.
+// stages' conv templates (ae_conv.cuh) with new epilogues, in bf16 all on
+// the tensor cores: the multi-channel ones (ae_train_conv_pool, the encoder
+// convs' ae_train_dgrad_conv) the implicit GEMM conv_igemm_kernel; the
+// convs from one input channel (conv 0, ae_train_in[_pre], with
+// CiPoolMaskEpi; the out-conv's input gradient, one dz channel, with
+// CiGateEpi) conv_in_mma_kernel, whose GEMM K is the taps; the out-conv
+// (the loss, ae_train_loss[_pre], with CoLossEpi) conv_out_mma_kernel, one
+// GEMM an output row.  Every float32 launch runs conv_quad_kernel.
 // The weight gradient
 // (wgrad_kernel) and the transposed convs' input gradient
 // (convt_dgrad_kernel) are implicit GEMMs over strips of a tile staged
@@ -75,12 +77,11 @@
 
 namespace {
 
-// conv1 / conv2: bias + relu + 2x2 max pool, plus the routing bits of the
-// window: bit q (q = a * 2 + b for pixel (2m+a, 2n+b)) where that pixel's
-// float32 relu value equals the max and the max is > 0.
-template <typename T>
+// The float32 encoder convs: bias + relu + 2x2 max pool, plus the routing
+// bits of the window: bit q (q = a * 2 + b for pixel (2m+a, 2n+b)) where
+// that pixel's float32 relu value equals the max and the max is > 0.
 struct PoolMaskEpi {
-  T* out;
+  float* out;
   uint8_t* bits;
   int Cout, h2, w2;  // the pooled grid
   __device__ __forceinline__ void operator()(float (&acc)[4][COB],
@@ -99,21 +100,20 @@ struct PoolMaskEpi {
 #pragma unroll
       for (int q = 0; q < 4; ++q) k |= (p > 0.f && r[q] == p) ? (1u << q) : 0u;
       const long long o = (((long long)b * Cout + co0 + co) * h2 + m) * w2 + n;
-      out[o] = sx_cast<T>(p);
+      out[o] = p;
       bits[o] = (uint8_t)k;
     }
   }
 };
 
-// The out-conv's logits z (float32), the labels y rounded to T, the tile
-// mask: dz5 = (sigmoid(z) - y) * mask stored in T, and per block the sums
-// of the masked BCE (from z) and of the float32 dz5.
-template <typename TY, typename T>
+// The float32 loss: the out-conv's logits z, the labels y, the tile mask:
+// dz5 = (sigmoid(z) - y) * mask, and per block the sums of the masked BCE
+// (from z) and of dz5.
 struct LossEpi {
-  const TY* y;
+  const float* y;
   const float* tmask;
   float* logits;
-  T* dz;
+  float* dz;
   float* part;
   int H, W;
   __device__ __forceinline__ void operator()(float (&acc)[4][1],
@@ -127,15 +127,67 @@ struct LossEpi {
         const long long o =
             ((long long)b * H + 2 * m + q / 2) * W + 2 * n + q % 2;
         const float z = acc[q][0] + bv;
-        const float yv = sx_round<T>(sx_load(y + o));
+        const float yv = y[o];
         const float d = (1.f / (1.f + expf(-z)) - yv) * mk;
         logits[o] = z;
-        dz[o] = sx_cast<T>(d);
+        dz[o] = d;
         s[0] += (fmaxf(z, 0.f) - z * yv + log1pf(expf(-fabsf(z)))) * mk;
         s[1] += d;
       }
     }
     block_sums<2>(s, part + ((long long)b * gridDim.x + blockIdx.x) * 2);
+  }
+};
+
+// The loss on the tensor cores (conv_out_mma_kernel): LossEpi for logit z
+// at pixel (y, x) of tile b, the labels read at the strip's start (pre),
+// rounded to bf16 as LossEpi rounds them (TY: float32 for K5, bf16 for K5b:
+// the same bits).  The logits
+// (float32) and dz5 (bf16) leave in 16- and 8-byte runs, 4 lanes' pixels
+// gathered by shuffles; the thread's running sums s of the masked BCE and
+// of the float32 dz5 take its pixels in a fixed order (strips, then its
+// pixels in a strip), and at the band's end the block sums them in a fixed
+// order (block_sums) into one partial row per (tile, band): rows = B * H /
+// CO_BAND.
+template <typename TY>
+struct CoLossEpi {
+  const TY* y;
+  const float* tmask;
+  float* logits;
+  __nv_bfloat16* dz;
+  float* part;
+  int H;
+  struct Tile {  // tile b's planes, its partial row and its mask
+    const TY* y;
+    float* logits;
+    __nv_bfloat16* dz;
+    float* part;
+    float mk;
+    __device__ __forceinline__ TY pre(int yy, int x) const { return y[yy * CO_W + x]; }
+    __device__ __forceinline__ void put(float z, TY label, int yy, int x, float (&s)[2]) const {
+      const int o = yy * CO_W + x;
+      const float yv = sx_round<__nv_bfloat16>(sx_load(&label));
+      const float d = (1.f / (1.f + expf(-z)) - yv) * mk;
+      s[0] += (fmaxf(z, 0.f) - z * yv + log1pf(expf(-fabsf(z)))) * mk;
+      s[1] += d;
+      const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(d));
+      const float z1 = __shfl_down_sync(0xffffffffu, z, 1);
+      const float z2 = __shfl_down_sync(0xffffffffu, z, 2);
+      const float z3 = __shfl_down_sync(0xffffffffu, z, 3);
+      const unsigned h1 = __shfl_down_sync(0xffffffffu, h, 1);
+      const unsigned h2 = __shfl_down_sync(0xffffffffu, h, 2);
+      const unsigned h3 = __shfl_down_sync(0xffffffffu, h, 3);
+      if ((threadIdx.x & 3) == 0) {
+        *reinterpret_cast<float4*>(logits + o) = make_float4(z, z1, z2, z3);
+        *reinterpret_cast<uint2*>(dz + o) = make_uint2(h | h1 << 16, h2 | h3 << 16);
+      }
+    }
+    __device__ __forceinline__ void end(float (&s)[2]) const { block_sums<2, CO_NT>(s, part); }
+  };
+  __device__ __forceinline__ Tile tile(int b) const {
+    const long long o = (long long)b * H * CO_W;
+    return Tile{y + o, logits + o, dz + o, part + ((long long)b * gridDim.x + blockIdx.x) * 2,
+                tmask[b]};
   }
 };
 
@@ -1147,27 +1199,55 @@ int launch_wgrad(TSrc ts, PSrc ps, float* part, int B, WgGeom g, cudaStream_t st
   return cudaErrorInvalidValue;
 }
 
+// In bf16 conv_in_mma_kernel with CiPoolMaskEpi, from the float32 tiles
+// (CiSpecSrc, rounded to bf16 as staged) or the bf16 tiles (CiBf16Src): the
+// same bits; float32 conv_quad_kernel with PoolMaskEpi.
 template <typename TIN, typename T>
 int train_in(const void* x, const void* w, const float* bias, void* out,
              uint8_t* bits, int B, int Cout, int H, int W, int K,
              cudaStream_t st) {
-  return launch_conv_quad<T, COB>(
-      PlaneSrc<TIN, T>{static_cast<const TIN*>(x), nchw(1, H, W)}, w, bias,
-      PoolMaskEpi<T>{static_cast<T*>(out), bits, Cout, H / 2, W / 2}, B, 1,
-      Cout, H, W, K, st);
+  const auto* xi = static_cast<const TIN*>(x);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (reinterpret_cast<uintptr_t>(x) % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(bits) % 16 != 0)
+      return cudaErrorInvalidValue;
+    const CiPoolMaskEpi epi{static_cast<__nv_bfloat16*>(out), bits};
+    if constexpr (std::is_same<TIN, float>::value)
+      return launch_conv_in(CiSpecSrc{xi, nullptr, nullptr, (long long)H * W, W, 1, 1}, w, bias,
+                            epi, B, Cout, H, W, K, st);
+    else
+      return launch_conv_in(CiBf16Src{xi}, w, bias, epi, B, Cout, H, W, K, st);
+  } else {
+    return launch_conv_quad<T, COB>(
+        PlaneSrc<TIN, T>{xi, nchw(1, H, W)}, w, bias,
+        PoolMaskEpi{static_cast<float*>(out), bits, Cout, H / 2, W / 2}, B, 1,
+        Cout, H, W, K, st);
+  }
 }
 
+// In bf16 conv_out_mma_kernel with CoLossEpi, one partial row per (tile,
+// band); float32 conv_quad_kernel with LossEpi, one per quad block.
 template <typename TY, typename T>
 int train_loss(const void* e, const void* w, const float* bias, const void* y,
                const float* tmask, float* logits, void* dz, float* part,
                int rows, int B, int Cin, int H, int W, int K,
                cudaStream_t st) {
-  if (rows != B * quad_blocks(H, W)) return cudaErrorInvalidValue;
-  return launch_conv_quad<T, 1>(
-      PlaneSrc<T, T>{static_cast<const T*>(e), nchw(Cin, H, W)}, w, bias,
-      LossEpi<TY, T>{static_cast<const TY*>(y), tmask, logits,
-                     static_cast<T*>(dz), part, H, W},
-      B, Cin, 1, H, W, K, st);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (H % CO_BAND != 0 || rows != B * (H / CO_BAND) ||
+        reinterpret_cast<uintptr_t>(logits) % 16 != 0 || reinterpret_cast<uintptr_t>(dz) % 8 != 0)
+      return cudaErrorInvalidValue;
+    return launch_conv_out(e, w, bias,
+                           CoLossEpi<TY>{static_cast<const TY*>(y), tmask, logits,
+                                         static_cast<__nv_bfloat16*>(dz), part, H},
+                           B, Cin, H, W, K, st);
+  } else {
+    if (rows != B * quad_blocks(H, W)) return cudaErrorInvalidValue;
+    return launch_conv_quad<T, 1>(
+        PlaneSrc<T, T>{static_cast<const T*>(e), nchw(Cin, H, W)}, w, bias,
+        LossEpi{static_cast<const float*>(y), tmask, logits, static_cast<float*>(dz), part,
+                H, W},
+        B, Cin, 1, H, W, K, st);
+  }
 }
 
 // In bf16 a routed dz (the encoder convs) runs conv_igemm_kernel, w (K, K,
@@ -1192,7 +1272,7 @@ int dgrad_conv(const void* dz, const uint8_t* dz_bits, const void* w,
     if (Cz != 1 || H % R != 0 || rows != B * (H / R) || reinterpret_cast<uintptr_t>(dz) % 4 != 0 ||
         reinterpret_cast<uintptr_t>(gate) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
       return cudaErrorInvalidValue;
-    return launch_conv_in(CiDzSrc{d}, w, nullptr,
+    return launch_conv_in(CiBf16Src{d}, w, nullptr,
                           CiGateEpi{o, static_cast<const __nv_bfloat16*>(gate), part}, B, Cout,
                           H, W, K, st);
   } else {
@@ -1288,6 +1368,7 @@ int wgrad(const void* in, const void* dz, const uint8_t* dz_bits, float* part,
 
 // Forward 1 (K5).  x: (B, H, W) float32 tiles, rounded to dtype as loaded;
 // w (1, K, K, Cout), out (B, Cout, H/2, W/2) in dtype, bits uint8 alike.
+// float32 runs conv_quad_kernel, bf16 conv_in_mma_kernel (W = 128).
 extern "C" int ae_train_in(const float* x, const void* w, const float* bias,
                            void* out, uint8_t* bits, int dtype, int B,
                            int Cout, int H, int W, int K, void* stream) {
@@ -1314,7 +1395,7 @@ extern "C" int ae_train_conv_pool(const void* in, const void* w,
   if (dtype == SX_F32)
     return launch_conv_quad<float, COB>(
         PlaneSrc<float, float>{static_cast<const float*>(in), nchw(Cin, H, W)}, w, bias,
-        PoolMaskEpi<float>{static_cast<float*>(out), bits, Cout, H / 2, W / 2}, B, Cin,
+        PoolMaskEpi{static_cast<float*>(out), bits, Cout, H / 2, W / 2}, B, Cin,
         Cout, H, W, K, st);
   if (dtype == SX_BF16)
     return launch_conv_igemm(
@@ -1326,7 +1407,9 @@ extern "C" int ae_train_conv_pool(const void* in, const void* w,
 
 // Loss (K5).  e (B, Cin, H, W) in dtype, w (Cin, K, K, 1); y (B, H, W)
 // float32 labels, tmask (B,) float32 -> logits (B, H, W) float32, dz
-// (B, 1, H, W) in dtype, part (rows = B * quad blocks, 2): BCE, db5.
+// (B, 1, H, W) in dtype, part (rows, 2): BCE, db5.  float32 runs
+// conv_quad_kernel, rows = B * quad blocks; bf16 conv_out_mma_kernel (W =
+// 128), rows = B * H / CO_BAND (ops/ae_train_kernel.py _loss_rows).
 extern "C" int ae_train_loss(const void* e, const void* w, const float* bias,
                              const float* y, const float* tmask, float* logits,
                              void* dz, float* part, int rows, int dtype, int B,

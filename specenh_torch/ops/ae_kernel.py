@@ -295,24 +295,28 @@ def ae_tile_out_plain(wts: AEKernelWeights, x: torch.Tensor, k_tiles: int
 
 def conv_in_strip(cout: int, pool: bool) -> int:
     """Rows of a strip (one block) of ``conv_in_mma_kernel``
-    (``csrc/ae_conv.cuh``) with ``cout`` output channels: S1's pooled stage
-    (``pool``, ``CiPoolEpi``) takes 16 rows up to 32 channels and 8 above;
-    the out-conv's input gradient, whose stage holds every row at full
-    width (``CiGateEpi``), 8, 4 and 2 rows for 16, 32 and 48-64 channels."""
+    (``csrc/ae_conv.cuh``) with ``cout`` output channels: a pooled stage
+    (``pool``: S1's ``CiPoolEpi``, conv 0's ``CiPoolMaskEpi``) takes 16
+    rows up to 32 channels and 8 above; the out-conv's input gradient,
+    whose stage holds every row at full width (``CiGateEpi``), 8, 4 and 2
+    rows for 16, 32 and 48-64 channels."""
     if pool:
         return 16 if cout <= 32 else 8
     return 8 if cout <= 16 else 4 if cout <= 32 else 2
 
 
-def _conv_in_smem(k: int, cout: int, pool: bool) -> int:
+def _conv_in_smem(k: int, cout: int, pool: bool, bits: bool = False) -> int:
     """Shared memory of a ``conv_in_mma_kernel`` block (``ci_smem_bytes``):
     the window's two copies (rows of 76 words), the B fragments of the k (k
     + 1) / 2 tap pairs in 16-slot chunks, the epilogue's stage (one channel
-    4 words apart from the next)."""
+    4 words apart from the next; with ``bits``, conv 0's routing bytes
+    after the pooled values, ``CiPoolMaskEpi``)."""
     rows = conv_in_strip(cout, pool)
     window = 2 * (rows + 2 * (k // 2)) * 76
     chunks = (k * (k + 1) + 15) // 16
     stage = cout * ((rows // 2 * 32 if pool else rows * 64) + 4)
+    if bits:
+        stage += cout * (rows // 2 * 16 + 4)
     return 4 * window + chunks * (cout // 8) * 32 * 8 + 4 * stage
 
 

@@ -65,7 +65,7 @@ __all__ = [
     "WgradPlan", "wgrad_plan", "dgrad_convt_rows", "conv_igemm_rows", "conv_in_rows",
     "sum_slabs",
     "StepSums", "step_partials", "step_sums",
-    "train_weights", "route_bits", "route_expand",
+    "train_weights", "route_bits", "route_expand", "route_bits64",
     "loss_grad_sums", "bce_sum", "normalise",
     "kernel_loss_grad_sums", "kernel_loss_grad_sums_plain",
     "kernel_bce_sum", "kernel_value_and_grad",
@@ -184,6 +184,31 @@ def route_expand(v: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, c, 2 * h, 2 * w)
 
 
+def route_bits64(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """Conv 0's routing bits computed in float64 (``route_bits`` of
+    relu(conv(x, w) + bias)), and the near ties: (B, Cout, H/2, W/2) bool,
+    the pool windows whose bits float32 rounding may decide, where the
+    window's largest value lies within the bound of 0, or is positive and
+    within the bound of its second largest.  The bound, 2^-17 (128 float32
+    ulps) times the window's largest sum of |terms| (the taps' |w x| and
+    |bias|), is more than twice the error of a float32 sum of its <= 50
+    terms in any order: a float32 evaluation routes a window as float64
+    does, and two float32 evaluations route it alike, outside the near
+    ties.  x (B, H, W) as the kernel reads it (rounded to the kernel
+    dtype), w (1, K, K, Cout), bias (Cout,)."""
+    k = w.shape[1]
+    w64, x64, b64 = w.double().permute(3, 0, 1, 2), x.double()[:, None], bias.double()
+    z = F.conv2d(x64, w64, b64, padding=k // 2)
+    mag = F.conv2d(x64.abs(), w64.abs(), b64.abs(), padding=k // 2)
+    b, c, h, wd = z.shape
+    win = z.reshape(b, c, h // 2, 2, wd // 2, 2).permute(0, 1, 2, 4, 3, 5)
+    top = win.reshape(b, c, h // 2, wd // 2, 4).topk(2, -1).values
+    tol = 2.0 ** -17 * F.max_pool2d(mag, 2)
+    near = (top[..., 0].abs() <= tol) | ((top[..., 0] > tol) & (top[..., 0] - top[..., 1] <= tol))
+    r = F.relu(z)
+    return route_bits(r, F.max_pool2d(r, 2)), near
+
+
 def _popcount(bits: torch.Tensor) -> torch.Tensor:
     return sum(((bits >> q) & 1).float() for q in range(4))
 
@@ -241,6 +266,16 @@ def conv_in_rows(b: int, h: int, cout: int) -> int:
     channels: one per (tile, strip of ``ae_kernel.conv_in_strip(cout,
     pool=False)`` rows)."""
     return b * (h // AK.conv_in_strip(cout, pool=False))
+
+
+def _loss_rows(tw: TrainWeights, b: int) -> int:
+    """Partial rows (BCE, db) of the loss over ``b`` tiles: in bf16
+    ``conv_out_mma_kernel`` writes one per (tile, band of
+    ``ae_kernel.CONV_OUT_BAND`` rows), in float32 ``conv_quad_kernel`` one
+    per quad block."""
+    if tw.dtype == torch.bfloat16:
+        return b * (TILE_F // AK.CONV_OUT_BAND)
+    return _rows(b, TILE_F, TILE_T)
 
 
 def _dgrad_conv_rows(tw: TrainWeights, layer: int, b: int, h: int, w: int) -> int:
@@ -436,7 +471,7 @@ def step_partials(tw: TrainWeights, b: int):
             tw, i, b, h, wd)
         return rows, c
 
-    out = [(_rows(b, TILE_F, TILE_T), 2)]
+    out = [(_loss_rows(tw, b), 2)]
     for i in range(w.out, 0, -1):
         out += [wgrad(i), dgrad(i)]
     return out + [wgrad(0)]
@@ -471,7 +506,9 @@ def ae_train_sum(part: torch.Tensor) -> torch.Tensor:
 
 def ae_train_in(tw: TrainWeights, x: torch.Tensor, pre: bool = False):
     """conv1 + relu + pool: (B, 256, 128) tiles, float32 (K5) or in the
-    kernel dtype (K5b, ``pre=True``) -> p1 (B, C1, 128, 64), bits (uint8)."""
+    kernel dtype (K5b, ``pre=True``) -> p1 (B, C1, 128, 64), bits (uint8).
+    On the card in bf16 ``conv_in_mma_kernel`` (both tile dtypes stage the
+    same bits), in float32 ``conv_quad_kernel``."""
     _check_tiles(x, "tiles", (tw.dtype,) if pre else (torch.float32,))
     if not x.is_cuda:
         return ae_train_in_plain(tw, x)
@@ -512,9 +549,11 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
     """out-conv + masked sigmoid-BCE: e (B, C1, 256, 128), labels y
     (B, 256, 128) float32 (K5) or in the kernel dtype (K5b), tile mask (B,)
     float32 -> (logits (B, 256, 128) float32, dz5 (B, 1, 256, 128) in the
-    kernel dtype, BCE sum (1,), db5 (1,)).  On the card the two sums are
-    taken now, or, given a step's plan ``sums``, when it runs; so for the
-    other stages' sums."""
+    kernel dtype, BCE sum (1,), db5 (1,)).  On the card in bf16
+    ``conv_out_mma_kernel`` (one partial row per (tile, band)), in float32
+    ``conv_quad_kernel`` (one per quad block): ``_loss_rows``.  The two sums
+    are taken now, or, given a step's plan ``sums``, when it runs; so for
+    the other stages' sums."""
     b, o = e.shape[0], tw.fwd.out
     _check(e, "e", tw.dtype, _act_shape(tw, o, b))
     _check_tiles(y, "labels", (tw.dtype,) if pre else (torch.float32,))
@@ -526,7 +565,7 @@ def ae_train_loss(tw: TrainWeights, e: torch.Tensor, y: torch.Tensor,
     _on_device(e, tw)
     logits = torch.empty(b, TILE_F, TILE_T, dtype=torch.float32, device=e.device)
     dz = torch.empty(b, 1, TILE_F, TILE_T, dtype=tw.dtype, device=e.device)
-    rows = _rows(b, TILE_F, TILE_T)
+    rows = _loss_rows(tw, b)
     part = torch.empty(rows, 2, dtype=torch.float32, device=e.device)
     (TRAIN_LOSS_PRE if pre else TRAIN_LOSS)(
         e.data_ptr(), tw.fwd.w[o].data_ptr(), tw.fwd.b[o].data_ptr(),

@@ -123,9 +123,20 @@ def test_train_stages_match_twins(cuda, cfg, dtype):
         assert err <= 1e-4 * scale, f"{name}: |err| {err:.3g} of scale {scale:.3g}"
 
     stages = {name: both(name) for name in ttk._KERNEL}
+    before = _templates()
     saved, _, _ = ttk._forward(tw, x, y, mask, False, stages)
     ttk._backward(tw, saved, False, stages)
+    took = _took(before)
     assert {n for n, _, _ in pairs} == set(ttk._KERNEL)
+    # bf16: conv 0 and the out-conv's input gradient on conv_in_mma_kernel,
+    # the loss on conv_out_mma_kernel, no conv_quad_kernel; float32: every
+    # stride-1 conv on conv_quad_kernel
+    d = tw.fwd.depth
+    bf = dtype == torch.bfloat16
+    want = {"conv_quad_kernel": 0 if bf else 2 * d + 1,
+            "conv_igemm_kernel": 2 * (d - 1) if bf else 0, "convt_relu_kernel": 0,
+            "convt_igemm_kernel": 0, "conv_out_mma_kernel": int(bf), "conv_in_mma_kernel": 2 * bf}
+    assert took["ae_train"] == want, took
     for i, (name, got, want) in enumerate(pairs):
         name = f"{name} (stage {i})"
         if name.startswith(("in_", "conv_pool")):
@@ -513,7 +524,14 @@ IGEMM_IDS = ["k3", "deep3", "k7", "64-32k5", "48-48-64k3"]
 
 
 def _templates():
+    """The per-template conv launch counts of each library with conv templates."""
     return {lib: _build.conv_template_launches(lib) for lib in ("ae", "ae_train")}
+
+
+def _took(before):
+    """Each library's launches per conv template since ``before``."""
+    after = _templates()
+    return {lib: {t: after[lib][t] - before[lib][t] for t in after[lib]} for lib in after}
 
 
 @pytest.mark.parametrize("cfg", IGEMM_GEOMETRIES, ids=IGEMM_IDS)
@@ -560,6 +578,61 @@ def test_conv_igemm_kernel_matches_twins(cuda, cfg):
         assert after["ae_train"]["conv_igemm_kernel"] - before["ae_train"]["conv_igemm_kernel"] == 3
         assert all(after[lib][t] == before[lib][t] for lib in after
                    for t in ("conv_quad_kernel", "conv_out_mma_kernel", "conv_in_mma_kernel"))
+
+
+@pytest.mark.parametrize("cfg", IGEMM_GEOMETRIES, ids=IGEMM_IDS)
+def test_train_in_and_loss_kernels_match_twins(cuda, cfg):
+    """Conv 0 (``ae_train_in``, ``_pre``) and the loss (``ae_train_loss``,
+    ``_pre``) on 3 tiles (the last masked out) of random inputs: in bf16 on
+    the tensor-core templates (``conv_in_mma_kernel``, ``conv_out_mma_kernel``),
+    in float32 on ``conv_quad_kernel``, each launch counted on its
+    template; p1 and dz5 within one ulp of the dtype of their twins, the
+    routing bits equal the float64 bits but in the near ties
+    ``route_bits64`` counts (and the twin's but on <= 1e-4 of them), the
+    logits within 1e-5 of their scale (float32 sums in another order), the
+    BCE sum within 1e-5 of the float64 twin's and db5 within 1e-4 of
+    max(|db5|, 1) (a signed sum); the ``_pre`` entry points bit for bit
+    theirs, two launches bit for bit."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(4), device=cuda)
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand(3, 256, 128, generator=g).to(cuda)
+    y = torch.rand(3, 256, 128, generator=g).to(cuda)
+    mask = torch.tensor([1.0, 1.0, 0.0], device=cuda)
+    for dt in (torch.bfloat16, torch.float32):
+        tw = ttk.build_train_weights(model, dt)
+        o, c1 = tw.fwd.out, tw.fwd.w[tw.fwd.out].shape[0]
+        e = torch.rand(3, c1, 256, 128, generator=g).to(cuda, dt)
+        ulp = 2.0 ** -7 if dt == torch.bfloat16 else 1e-6
+        before = _templates()
+        p, bits = ttk.ae_train_in(tw, x)
+        q, qbits = ttk.ae_train_in(tw, x.to(dt), pre=True)
+        loss = ttk.ae_train_loss(tw, e, y, mask)
+        loss_pre = ttk.ae_train_loss(tw, e, y.to(dt), mask, pre=True)
+        took = _took(before)
+        bf = dt == torch.bfloat16
+        want = {t: 0 for t in took["ae_train"]}
+        want.update({"conv_in_mma_kernel": 2, "conv_out_mma_kernel": 2} if bf
+                    else {"conv_quad_kernel": 4})
+        assert took["ae_train"] == want and not any(took["ae"].values()), (dt, took)
+        assert torch.equal(p, q) and torch.equal(bits, qbits), dt
+        assert all(torch.equal(a, b) for a, b in zip(loss, loss_pre)), dt
+        rp, rbits = ttk.ae_train_in_plain(tw, x)
+        excess = float(((p.float() - rp.float()).abs() - ulp * rp.float().abs() - 1e-5).max())
+        assert excess <= 0, f"{dt} ae_train_in: beyond one ulp by {excess:.3g}"
+        bits64, near = ttk.route_bits64(x.to(dt).float(), tw.fwd.w[0].float(), tw.fwd.b[0])
+        assert not bool(((bits != bits64) & ~near).any()), (dt, int(near.sum()))
+        assert float((bits != rbits).float().mean()) <= 1e-4, dt
+        logits, dz, bce, db = loss
+        rl, rdz, rbce, rdb = ttk.ae_train_loss_plain(tw, e, y, mask)
+        assert float((logits - rl).abs().max()) <= 1e-5 * float(rl.abs().max()), dt
+        excess = float(((dz.float() - rdz.float()).abs() - ulp * rdz.float().abs() - 1e-5).max())
+        assert excess <= 0, f"{dt} dz5: beyond one ulp by {excess:.3g}"
+        assert not bool(dz[2].float().any()), dt
+        assert float((bce - rbce).abs()) <= 1e-5 * float(rbce.abs()), dt
+        assert float((db - rdb).abs()) <= 1e-4 * max(float(rdb.abs()), 1.0), dt
+        again = ttk.ae_train_in(tw, x), ttk.ae_train_loss(tw, e, y, mask)
+        assert torch.equal(again[0][0], p) and torch.equal(again[0][1], bits), dt
+        assert all(torch.equal(a, b) for a, b in zip(again[1], loss)), dt
 
 
 @pytest.mark.parametrize("shape", [(8192, 2), (4096, 64), (4096, 288), (512, 9216),

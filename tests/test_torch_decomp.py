@@ -27,22 +27,26 @@ package:
   output parity a stride-1 product over its taps, each chunk summed on its
   own and added in order, bias, relu, one rounding; against the twin,
   Flax's ``ConvTranspose`` and JAX's K3 in interpret mode;
-- the tensor-core out-conv (``conv_out_mma_kernel``, the bf16 S4, split
-  by ``ops.ae_kernel.conv_out_plan``): per (tile, strip) block, the input
-  rows with the taps' halo as the ring holds them, each output row's tap
-  rows one product per 16-channel chunk, chunks added in order, then the
-  taps' column shifts summed in float32, bias, sigmoid and the restitch;
-  against the twin for k1 to k7 at 16, 32 and 64 channels, and in the
-  flagship and deep3 chains against JAX's K3 and K6 in interpret mode;
+- the tensor-core out-conv (``conv_out_mma_kernel``, the bf16 S4 and the
+  training loss, split by ``ops.ae_kernel.conv_out_plan``): per (tile,
+  strip) block, the input rows with the taps' halo as the ring holds them,
+  each output row's tap rows one product per 16-channel chunk, chunks
+  added in order, then the taps' column shifts summed in float32 and the
+  bias; then the sigmoid and the restitch, or the loss (labels rounded,
+  logits, dz5, the BCE and dz5 sums in the threads' order, one partial row
+  per (tile, band)); against the twins for k1 to k7 at 16, 32 and 64
+  channels, in the flagship and deep3 chains against JAX's K3 and K6 in
+  interpret mode, and the loss against the JAX model's BCE and gradients;
 - the tensor-core one-channel-in conv (``conv_in_mma_kernel``: the bf16
-  S1 and the out-conv's input gradient, split by
+  S1, the training conv 0 and the out-conv's input gradient, split by
   ``ops.ae_kernel.conv_in_strip``): per (tile, strip) block, the window
   staged in bf16 with the taps' halo, the taps as pairs of horizontal
   neighbours padded to 16-slot chunks, a float32 GEMM over the slots, the
-  pool or the gate epilogue with one bias partial row per block; against
-  the twins for k1 to k7 at 16, 32 and 64 channels, in the flagship and
-  deep3 serving chains against JAX's K3 and K6 in interpret mode, and in a
-  step's chain against Flax autodiff;
+  pool, the pool-and-routing-bits or the gate epilogue with one bias
+  partial row per block; against the twins for k1 to k7 at 16, 32 and 64
+  channels, in the flagship and deep3 serving chains against JAX's K3
+  and K6 in interpret mode, conv 0 against JAX's conv 1 and its routing
+  mask, and in a step's chain against Flax autodiff;
 - ``ae_train_sum``'s order (``sum_rows_kernel``, ``sum_slabs``): against
   the float64 twin; a step's sums as one plan (``StepSums``): its segment
   table covers every partial row once, bit for bit the per-call sums;
@@ -65,6 +69,7 @@ from specenh.config import ModelConfig as JModelConfig, SpecParams
 from specenh.models.autoencoder import make_model as flax_model
 from specenh.ops import ae3_kernel as jak3
 from specenh.ops import ae_kernel as jak
+from specenh.ops import ae_train_kernel as jtk
 from specenh.ops import stft_fused as jsf
 from specenh.train import bce_from_logits as jbce
 from specenh_torch import ModelConfig
@@ -709,17 +714,26 @@ def test_convt_igemm_strips_cover_the_grid(name):
 # ---------------------------------------------------------------------------
 
 
-def conv_out_mma_emulated(x, w, bias, k_tiles):
-    """``ae_tile_out`` in bf16 as ``conv_out_mma_kernel`` computes it, block
+def conv_out_mma_emulated(x, w, bias, k_tiles=1, epilogue="sigmoid", y=None, mask=None,
+                          dtype=torch.bfloat16):
+    """The out-conv in bf16 as ``conv_out_mma_kernel`` computes it, block
     by block: per (tile, strip of R output rows, ``conv_out_rows``), the
     input rows y0 - r .. y0 + R - 1 + r (r = K // 2; zeros outside the
     tile) over the tile's columns, as the ring holds them; per 16-channel
     chunk, the tap rows' products summed in float32 in fresh sums (tap rows
     ascending: output row y takes tap row i from input row y + i - r) and
     added into the running sums S[y, x', j] chunk by chunk in order; then
-    the gather out[y, x] = sum_j S[y, x + j - r, j] (taps ascending, columns
-    outside the tile adding nothing), bias, 1 / (1 + exp(-z)) and the
-    restitch.  x (B, Cin, 256, 128), w (Cin, K, K, 1), bias (1,)."""
+    the gather z[y, x] = sum_j S[y, x + j - r, j] (taps ascending, columns
+    outside the tile adding nothing) and the bias.  Then the epilogue:
+    "sigmoid" (``ae_tile_out``: 1 / (1 + exp(-z)) and the restitch) or
+    "loss" (``ae_train_loss``: the labels ``y`` rounded to ``dtype``, the
+    logits z, dz5 = (sigmoid(z) - y) * mask rounded to ``dtype``, and the
+    masked BCE and dz5 sums in the kernel's order: each thread's running
+    sums over its pixels (strips in order, then its pixels u: row t // 128
+    + 2 u, column t % 128), a warp's shuffle-down tree, the 8 warps in
+    order, one partial row per (tile, band of ``CONV_OUT_BAND`` rows),
+    summed by ``ae_train_sum``).  x (B, Cin, 256, 128), w (Cin, K, K, 1),
+    bias (1,)."""
     b, cin, h, wd = x.shape
     k = w.shape[1]
     r, rows = k // 2, tak.conv_out_rows(k, cin)
@@ -740,8 +754,32 @@ def conv_out_mma_emulated(x, w, bias, k_tiles):
             z[..., :wd - d] += acc[..., d:, j]
         else:
             z[..., -d:] += acc[..., :wd + d, j]
-    y = 1.0 / (1.0 + torch.exp(-(z + bias)))
-    return unpatch(y.reshape(b, h, wd), tiles_per_spec=k_tiles)
+    z = (z + bias).reshape(b, h, wd)
+    if epilogue == "sigmoid":
+        return unpatch(1.0 / (1.0 + torch.exp(-z)), tiles_per_spec=k_tiles)
+    yv = y.float() if dtype == torch.float32 else y.to(dtype).float()
+    mk = mask.float()[:, None, None]
+    d = (1.0 / (1.0 + torch.exp(-z)) - yv) * mk
+    per = (z.clamp_min(0) - z * yv + torch.log1p(torch.exp(-z.abs()))) * mk
+    band = tak.CONV_OUT_BAND
+    parts = []
+    for v in (per, d):
+        # (B, bands, strip s, pixel u, t // 128, t % 128)
+        v = v.reshape(b, h // band, band // rows, rows // 2, 2, wd)
+        run = torch.zeros(b, h // band, 2, wd)
+        for si in range(band // rows):
+            for u in range(rows // 2):
+                run = run + v[:, :, si, u]
+        lanes = run.reshape(b, h // band, 8, 32)                    # warp t // 32, lane t % 32
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes[..., :o] + lanes[..., o:2 * o]
+        tot = torch.zeros(b, h // band)
+        for wp in range(8):
+            tot = tot + lanes[..., wp, 0]
+        parts.append(tot.reshape(-1))
+    sums = ttk.ae_train_sum(torch.stack(parts, 1).contiguous())
+    dz = d if dtype == torch.float32 else d.to(dtype)
+    return z, dz[:, None], sums[0:1], sums[1:2]
 
 
 def _out_conv_cfg(cin, k):
@@ -769,6 +807,86 @@ def test_conv_out_mma_decomposition_matches_twin(cin, k):
     want = tak.ae_tile_out_plain(wts, x, 3)
     assert got.shape == want.shape == (1, 256, 3 * 128)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("cin", [16, 32, 64])
+def test_conv_out_mma_loss_decomposition_matches_twin(cin, k):
+    """bf16 weights and activations on 2 tiles (the second masked out),
+    float32 labels in [0, 1]: the emulated kernel with the loss epilogue
+    against ``ae_train_loss_plain`` (``F.conv2d`` in float32 on the same
+    values, the BCE and dz5 in float64): logits within 1e-5 of their scale
+    (float32 sums in another order), dz5 within one bf16 ulp, the BCE and
+    dz5 sums within 1e-5 of their scale (float32 per-thread sums and a
+    fixed tree against float64).  The labels in bf16 (K5b) give the same
+    bits as the float32 labels (K5) rounded as loaded."""
+    wts = tak.build_kernel_weights(make_model(_out_conv_cfg(cin, k),
+                                              generator=torch.Generator().manual_seed(k)),
+                                   torch.bfloat16)
+    tw, o = ttk.train_weights(wts), wts.out
+    g = torch.Generator().manual_seed(cin + k + 1)
+    x = torch.rand(2, cin, 256, 128, generator=g).to(torch.bfloat16)
+    y = torch.rand(2, 256, 128, generator=g)
+    mask = torch.tensor([1.0, 0.0])
+    got = conv_out_mma_emulated(x, wts.w[o], wts.b[o], epilogue="loss", y=y, mask=mask)
+    pre = conv_out_mma_emulated(x, wts.w[o], wts.b[o], epilogue="loss",
+                                y=y.to(torch.bfloat16), mask=mask)
+    assert all(torch.equal(a, c) for a, c in zip(got, pre))
+    logits, dz, bce, db = got
+    rl, rdz, rbce, rdb = ttk.ae_train_loss_plain(tw, x, y, mask)
+    assert logits.shape == rl.shape == (2, 256, 128) and dz.shape == rdz.shape == (2, 1, 256, 128)
+    assert float((logits - rl).abs().max()) <= 1e-5 * float(rl.abs().max())
+    assert _bf16_ulp_excess(dz, rdz) <= 0
+    assert not bool(dz[1].float().any())
+    for a, c in ((bce, rbce), (db, rdb)):
+        assert float((a - c).abs()) <= 1e-5 * float(c.abs()), (a, c)
+
+
+@pytest.mark.parametrize("name", ["k3", "deep3"])
+def test_conv_out_mma_loss_in_the_chain_matches_jax(name):
+    """float32: the twins' forward up to e, then the loss as
+    ``conv_out_mma_kernel`` computes it (the labels and dz5 unrounded),
+    against the JAX model on the same tile (the shapes of
+    test_conv_in_mma_out_conv_gradient_in_the_chain_matches_flax): the
+    logits within 1e-4 of their scale (two float32 chains of five convs in
+    different orders), the BCE sum (``masked_bce_from_logits3d`` times its
+    denominator) within 1e-5 of its scale, dz5 (``jax.grad`` of that sum
+    with respect to the logits) within 1e-5 of 1, and db5 (``jax.grad`` of
+    the model's loss with respect to the out-conv's bias, unnormalised)
+    within 1e-4 of its scale."""
+    cfg = IGEMM_GEOMETRIES[name]
+    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
+    fm = flax_model(jcfg)
+    params = fm.init(jax.random.PRNGKey(1), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, cfg))
+    x, y, mask = _tiles(n=1, seed=8)
+    tw = ttk.build_train_weights(model, torch.float32)
+    xs, ys, ms = ttk._inputs(tw, torch.from_numpy(x), torch.from_numpy(y),
+                             torch.from_numpy(mask), False)
+    saved, _, _ = ttk._forward(tw, xs, ys, ms, False, ttk._PLAIN)
+    o = tw.fwd.out
+    logits, dz, bce, db = conv_out_mma_emulated(saved["act"][o], tw.fwd.w[o], tw.fwd.b[o],
+                                                epilogue="loss", y=ys, mask=ms,
+                                                dtype=torch.float32)
+    denom = float(mask.sum()) * 256 * 128
+    y3 = jnp.asarray(y.reshape(1, 16, 2048))
+
+    def bce_sum(z):
+        return jtk.masked_bce_from_logits3d(z.reshape(1, 16, 2048), y3, jnp.asarray(mask)) * denom
+
+    def model_loss(p):
+        z = fm.apply(p, x, logits=True)
+        return jbce(z, y, mask), z
+
+    grads, jl = jax.grad(model_loss, has_aux=True)(params)
+    want_bce, want_dz = jax.value_and_grad(bce_sum)(jl)
+    want_db = float(grads["params"]["out_conv"]["bias"][0]) * denom
+    jl, want_dz = np.asarray(jl)[..., 0], np.asarray(want_dz)[..., 0]
+    assert float(np.abs(logits.numpy() - jl).max()) <= 1e-4 * float(np.abs(jl).max())
+    assert abs(float(bce[0]) - float(want_bce)) <= 1e-5 * abs(float(want_bce))
+    assert float(np.abs(dz[:, 0].numpy() - want_dz).max()) <= 1e-5
+    assert abs(float(db[0]) - want_db) <= 1e-4 * max(abs(want_db), 1.0), (float(db[0]), want_db)
 
 
 @pytest.mark.parametrize("name", ["flagship", "deep3"])
@@ -816,6 +934,7 @@ def test_conv_out_mma_strips_cover_the_tile(k):
     for cin in (16, 32, 48, 64):
         rows, pf = tak.conv_out_plan(k, cin)
         assert rows == tak.conv_out_rows(k, cin) and rows in (2, 4, 8) and 1 <= pf <= 3
+        assert k < 7 or rows < 8  # the launcher instantiates no 8-row strip at k7
         band = tak.CONV_OUT_BAND
         covered = [y0 + s * rows + r for y0 in range(0, 256, band)
                    for s in range(band // rows) for r in range(rows)]
@@ -824,6 +943,26 @@ def test_conv_out_mma_strips_cover_the_tile(k):
         ring = 2 * (k // 2) + (pf + 1) * rows
         assert ring == rows + 2 * (k // 2) + pf * rows
         assert tak._conv_out_smem(k, cin, rows, ring) <= 227 * 1024, (cin, rows, pf)
+        # the epilogue's pixels: thread t's pixel u of strip s is row s R + t // 128 + 2 u,
+        # column t % 128; over a band's strips every pixel once
+        seen = [s * rows + t // 128 + 2 * u for s in range(band // rows) for u in range(rows // 2)
+                for t in range(256)]
+        assert sorted(zip(seen, [t % 128 for _ in range(band // rows)
+                                 for _ in range(rows // 2) for t in range(256)])) \
+            == [(y, x) for y in range(band) for x in range(128)], (cin, rows)
+
+
+def test_loss_partial_rows_cover_the_tile_once():
+    """The loss's partial rows (``_loss_rows``): in bf16 one per (tile,
+    band of ``CONV_OUT_BAND`` rows), the bands covering each tile's 256
+    rows once; in float32 one per ``conv_quad_kernel`` quad block."""
+    model = make_model(ModelConfig(), generator=torch.Generator())
+    for b in (1, 2, 5):
+        tw = ttk.build_train_weights(model, torch.bfloat16)
+        band = tak.CONV_OUT_BAND
+        assert ttk._loss_rows(tw, b) == b * 256 // band == b * len(range(0, 256, band))
+        assert ttk._loss_rows(ttk.build_train_weights(model, torch.float32), b) \
+            == ttk._rows(b, 256, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -847,12 +986,14 @@ def conv_in_mma_emulated(src, w, k, epilogue, bias=None, gate=None, dtype=torch.
     padded to 16, 16, 32 and 64 slots for k1, k3, k5 and k7, a half pair's
     second slot and the slots past the last pair zero in A and in W; each
     strip a float32 GEMM over the slots; then the epilogue: "pool" (bias,
-    relu, 2x2 max pool -> ``dtype``) or "gate" (the relu gate against
-    ``gate``: the stored output and one bias partial row per (tile, strip),
-    summed by ``ae_train_sum``).  src (B, 256, 128), w (1, K, K, Cout)."""
+    relu, 2x2 max pool -> ``dtype``), "pool_mask" (and the routing bits
+    from the float32 relu values: conv 0's ``CiPoolMaskEpi``) or "gate"
+    (the relu gate against ``gate``: the stored output and one bias
+    partial row per (tile, strip), summed by ``ae_train_sum``).  src (B,
+    256, 128), w (1, K, K, Cout)."""
     b, h, wd = src.shape
     cout, r = w.shape[-1], k // 2
-    rows = tak.conv_in_strip(cout, epilogue == "pool")
+    rows = tak.conv_in_strip(cout, epilogue != "gate")
     x = src.float() if dtype == torch.float32 else src.to(dtype).float()
     xp = torch.nn.functional.pad(x, (CI_XO, CI_XO, r, r))  # staged columns -4 .. 131
     pairs = _tap_pairs(k)
@@ -879,8 +1020,10 @@ def conv_in_mma_emulated(src, w, k, epilogue, bias=None, gate=None, dtype=torch.
         strips = h // rows
         part = g.reshape(b, cout, strips, rows, wd).sum((3, 4)).permute(0, 2, 1)
         return out, ttk.ae_train_sum(part.reshape(b * strips, cout).contiguous())
-    pooled = torch.nn.functional.max_pool2d(torch.relu(acc + bias[:, None, None]), 2)
-    return pooled if dtype == torch.float32 else pooled.to(dtype)
+    relu = torch.relu(acc + bias[:, None, None])
+    pooled = torch.nn.functional.max_pool2d(relu, 2)
+    out = pooled if dtype == torch.float32 else pooled.to(dtype)
+    return out if epilogue == "pool" else (out, ttk.route_bits(relu, pooled))
 
 
 def _in_conv_cfg(cout, k):
@@ -927,6 +1070,88 @@ def test_conv_in_mma_decomposition_matches_twins(cout, k):
     rout, rdb = ttk.ae_train_dgrad_conv_plain(tw, o, dz, e)
     assert _bf16_ulp_excess(out, rout) <= 0
     assert float((db - rdb).abs().max()) <= 1e-5 * float(rdb.abs().max())
+
+
+def _check_routes(bits, want, x, w, bias, tag):
+    """Routing bits equal the reference's, and the float64 bits of
+    ``route_bits64``, outside its near ties (x, w, bias: the values conv 0
+    reads); at most 1e-4 of the windows differ (the bound of the
+    conv_igemm pool-mask tests).  Returns (windows that differ, near
+    ties)."""
+    bits64, near = ttk.route_bits64(x, w, bias)
+    diff = bits != want
+    assert not bool((diff & ~near).any()), tag
+    assert not bool(((bits != bits64) & ~near).any()), tag
+    assert float(diff.float().mean()) <= 1e-4, tag
+    return int(diff.sum()), int(near.sum())
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("cout", [16, 32, 64])
+def test_conv_in_mma_pool_mask_decomposition_matches_twin(cout, k):
+    """Conv 0 of a training step in bf16 on 2 float32 tiles: the emulated
+    kernel with the pool-and-bits epilogue (``CiPoolMaskEpi``) against
+    ``ae_train_in_plain``: p1 within one bf16 ulp, the routing bits equal
+    but in the near ties ``route_bits64`` counts; the float32 tiles
+    rounded as staged (K5, ``CiSpecSrc``) and the bf16 tiles (K5b,
+    ``CiBf16Src``) give the same bits."""
+    model = make_model(_in_conv_cfg(cout, k), generator=torch.Generator().manual_seed(k))
+    tw = ttk.build_train_weights(model, torch.bfloat16)
+    w, bias = tw.fwd.w[0], tw.fwd.b[0]
+    x = torch.rand(2, 256, 128, generator=torch.Generator().manual_seed(cout + k + 2))
+    got, bits = conv_in_mma_emulated(x, w, k, "pool_mask", bias)
+    pre, pbits = conv_in_mma_emulated(x.to(torch.bfloat16), w, k, "pool_mask", bias)
+    assert torch.equal(got, pre) and torch.equal(bits, pbits)
+    want, wbits = ttk.ae_train_in_plain(tw, x)
+    assert got.shape == want.shape == bits.shape == (2, cout, 128, 64)
+    assert _bf16_ulp_excess(got, want) <= 0
+    assert torch.equal(got, conv_in_mma_emulated(x, w, k, "pool", bias))
+    _check_routes(bits, wbits, x.to(torch.bfloat16).float(), w.float(), bias, (cout, k))
+
+
+@pytest.mark.parametrize("name", ["k3", "deep3"])
+def test_conv_in_mma_conv0_matches_jax(name):
+    """Conv 0 of a training step, emulated as ``conv_in_mma_kernel`` with
+    ``CiPoolMaskEpi`` computes it, against JAX's conv 1 (the Flax model's
+    ``enc_conv0``, relu, 2x2 max pool and the routing mask (r == p) * (p >
+    0) of ``specenh/ops/ae_train_kernel.py``) on the same 2 tiles: in
+    float32 p1 within 2^-17 of its scale and, in bf16 (JAX given the tiles
+    and kernel rounded to bf16), within one bf16 ulp; the routing bits
+    equal (and equal the float64 bits) but in the near ties
+    ``route_bits64`` counts."""
+    cfg = IGEMM_GEOMETRIES[name]
+    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
+    params = flax_model(jcfg).init(jax.random.PRNGKey(2), np.zeros((1, 256, 128, 1), np.float32))
+    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_flax(params, cfg))
+    x = _tiles(n=2, seed=9)[0]
+    p0 = params["params"]["enc_conv0"]
+    c1, k = cfg.filters[0], cfg.kernels[0][0]
+    conv = nn.Conv(c1, (k, k), padding="SAME", precision=jax.lax.Precision.HIGHEST)
+    for dt in (torch.float32, torch.bfloat16):
+        tw = ttk.build_train_weights(model, dt)
+        xs = torch.from_numpy(x[..., 0])
+        got, bits = conv_in_mma_emulated(xs, tw.fwd.w[0], k, "pool_mask", tw.fwd.b[0], dtype=dt)
+        bf = dt == torch.bfloat16
+
+        def rnd(a):
+            a = jnp.asarray(a)
+            return a.astype(jnp.bfloat16).astype(jnp.float32) if bf else a
+
+        r = jax.nn.relu(conv.apply({"params": {"kernel": rnd(p0["kernel"]), "bias": p0["bias"]}},
+                                   rnd(x)))
+        rq = r.reshape(2, 128, 2, 64, 2, c1)
+        p = rq.max((2, 4))
+        jbits = sum(((rq[:, :, a, :, c] == p) & (p > 0)).astype(jnp.uint8) << (2 * a + c)
+                    for a in (0, 1) for c in (0, 1))
+        want = torch.from_numpy(np.array(p)).permute(0, 3, 1, 2)
+        wbits = torch.from_numpy(np.array(jbits)).permute(0, 3, 1, 2)
+        if bf:
+            assert _bf16_ulp_excess(got, want) <= 0
+        else:
+            assert float((got - want).abs().max()) <= 2.0 ** -17 * float(want.abs().max())
+        xr = xs.to(torch.bfloat16).float() if bf else xs
+        _check_routes(bits, wbits, xr, tw.fwd.w[0].float(), tw.fwd.b[0], (name, dt))
 
 
 @pytest.mark.parametrize("name", ["flagship", "deep3"])
@@ -1014,6 +1239,7 @@ def test_conv_in_mma_strips_cover_the_grid(k):
             assert sorted(y for y0 in range(0, 256, rows) for y in range(y0, y0 + rows)) \
                 == list(range(256))
             assert tak._conv_in_smem(k, cout, pool) <= 227 * 1024 - 2048, (cout, pool)
+        assert tak._conv_in_smem(k, cout, True, bits=True) <= 227 * 1024 - 2048, cout
         assert ttk.conv_in_rows(5, 256, cout) == 5 * 256 // tak.conv_in_strip(cout, False)
     for c, h, m in itertools.product(range(-(-2 * len(pairs) // 16)), (0, 1), (0, 1)):
         words = set()
@@ -1117,16 +1343,19 @@ def test_step_sums_plan_matches_per_call_order(name):
     """A step's partial arrays (``step_partials``, 2 tiles; the segments of
     a K5 or K7 step) summed as one plan: its table reads every partial row
     once, and each segment's sums equal the per-call order bit for bit;
-    the plan's columns are the step's parameters plus the BCE; the
-    out-conv's input gradient hands in one bias row per (tile, strip) of
-    ``conv_in_mma_kernel`` in bf16 and one per quad block in float32."""
+    the plan's columns are the step's parameters plus the BCE; the loss
+    hands in one row per (tile, band) of ``conv_out_mma_kernel`` and the
+    out-conv's input gradient one bias row per (tile, strip) of
+    ``conv_in_mma_kernel`` in bf16, each one per quad block in float32."""
     model = make_model(IGEMM_GEOMETRIES[name], generator=torch.Generator())
     tw = ttk.build_train_weights(model, torch.bfloat16)
     shapes = ttk.step_partials(tw, 2)
     c1 = tw.fwd.w[tw.fwd.out].shape[0]
+    assert shapes[0] == (2 * 256 // tak.CONV_OUT_BAND, 2)
     assert shapes[2] == (ttk.conv_in_rows(2, 256, c1), c1)
-    assert ttk.step_partials(ttk.build_train_weights(model, torch.float32), 2)[2] == \
-        (ttk._rows(2, 256, 128), c1)
+    f32 = ttk.step_partials(ttk.build_train_weights(model, torch.float32), 2)
+    assert f32[0] == (ttk._rows(2, 256, 128), 2)
+    assert f32[2] == (ttk._rows(2, 256, 128), c1)
     assert len(shapes) == 4 * tw.fwd.depth + 2 <= 32
     g = torch.Generator().manual_seed(7)
     parts = [torch.randn(n, m, generator=g) for n, m in shapes]
