@@ -1,7 +1,7 @@
 """Time the stage kernels of one source tree, to compare two trees of the
 port on the same card in turns (parent, change, change, parent):
 
-    python specenh_torch/bench/turns.py --tree DIR [--out FILE]
+    python specenh_torch/bench/turns.py --tree DIR [--out FILE] [--epochs]
 
 imports ``specenh_torch`` from ``DIR`` (built there, into ``DIR/build``)
 and prints one JSON object: the card's name and power limit, and for
@@ -19,6 +19,12 @@ for the flagship and deep3 in bf16; and a hash of the serving S1's and
 S4's outputs ("sha"), which two trees that compute the same bits share.
 It calls only entry points that the port has had since its training
 stages ran on the tensor cores, so that it can time an older tree.
+
+``--epochs`` also times epochs of the kernel engines (K5 and K7, bf16):
+on the training data that ``DIR/chip_smoke.py`` builds (20 shots, 7200
+training tiles, and that tree's labels), one warm-up epoch then five,
+each on the host clock around a synchronized ``fit``; "epoch" holds their
+median and the five times.
 """
 
 from __future__ import annotations
@@ -52,10 +58,43 @@ def digest(t) -> str:
     return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
 
+def epoch_seconds(dev) -> dict:
+    """s/epoch of K5 and K7 on the data the tree's ``chip_smoke.py`` builds:
+    {"flagship"/"deep3": {"median": s, "runs": [s, ...]}}."""
+    import statistics
+    import time
+
+    import torch
+
+    import chip_smoke
+    from specenh_torch import SpecParams, TrainConfig
+    from specenh_torch import train as TR
+
+    built = chip_smoke.make_data(dev, SpecParams())
+    data = built[0] if isinstance(built, tuple) else built
+    tc = TrainConfig()
+    out = {}
+    for name, cfg in (("flagship", chip_smoke.FLAGSHIP), ("deep3", chip_smoke.DEEP3)):
+        st = TR.create_state(cfg, tc, generator=torch.Generator().manual_seed(0), device=dev)
+        fn = TR.kernel_epoch_for(cfg, tc)
+        st, _ = TR.fit(st, data.x_train, data.y_train, cfg=tc, epochs=1, epoch_fn=fn)
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = TR.fit(st, data.x_train, data.y_train, cfg=tc, epochs=1, epoch_fn=fn)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        out[name] = {"median": statistics.median(runs), "runs": runs}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True, help="root of the port's source tree")
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--epochs", action="store_true",
+                    help="also time epochs of K5 and K7 on the tree's chip_smoke.py data")
     args = ap.parse_args()
     sys.path.insert(0, args.tree)
     import torch
@@ -106,6 +145,8 @@ def main() -> int:
         out["sha"][name] = {k: digest(t) for k, t in (
             ("ae_tile_in", AK.ae_tile_in(tw.fwd, specs, 30)),
             ("ae_tile_out", AK.ae_tile_out(tw.fwd, e, 30)))}
+    if args.epochs:
+        out["epoch"] = epoch_seconds(dev)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -6,16 +6,21 @@ values).  The port imports nothing of the JAX package.
 ``PatchSpec``: 256x128 tiles, 30 per spectrogram (VAE/hyperparam_scan.py:30-38);
 ``ModelConfig``: the conv-AE family (hyperparam_scan.py:152-165,
 manual_scan.py:189-202, manual_scan_3layers.py:185-201);
-``TrainConfig``: the training recipe (hyperparam_scan.py:176-184).
+``TrainConfig``: the training recipe (hyperparam_scan.py:176-184);
+``PipelineConfig``: the classical label pipeline (pipeline_data.py:100-110);
+``SweepConfig``: the sweep grids (hyperparam_scan.py:123, manual_scan.py:120-124,
+manual_scan_3layers.py:119-123), fields only;
+``PathConfig``: where the raw shots, the store and the outputs live;
+``Config``: the tree of all of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
-__all__ = ["SpecParams", "PatchSpec", "ModelConfig", "TrainConfig",
-           "MODEL_PRESETS"]
+__all__ = ["SpecParams", "PatchSpec", "PipelineConfig", "ModelConfig", "TrainConfig",
+           "SweepConfig", "PathConfig", "Config", "MODEL_PRESETS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +76,21 @@ class PatchSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """The label pipeline's fixed stages: quantfilt -> gaussblr(31,3) ->
+    meansub -> morph -> meansub.  Kernel and structuring-element sizes are
+    OpenCV's (width = time taps, height = freq taps); ``emulate_uint8``
+    keeps every uint8 quantisation point of the OpenCV recipe (bit for
+    bit), False keeps everything in float (not reference-exact)."""
+
+    quant_threshold: float = 0.9
+    gauss_ksize: Tuple[int, int] = (31, 3)
+    close_se: Tuple[int, int] = (4, 4)
+    open_se: Tuple[int, int] = (3, 1)
+    emulate_uint8: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Convolutional denoising autoencoder: encoder widths (outermost
     first), their kernels, the kernel of the 1-channel sigmoid head, and the
@@ -103,6 +123,46 @@ class TrainConfig:
     split_fracs: Tuple[float, float] = (0.6, 0.85)
     split_by: str = "tile"
     patience: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepConfig:
+    """Sweep grids: the array sweep's kernels, the 2-layer manual scan's
+    five axes and the 3-layer scan's four, and the epochs of a config."""
+
+    kernel_vals: Sequence[Tuple[int, int]] = ((3, 3), (5, 5), (7, 7))
+    ker1_vals: Sequence[Tuple[int, int]] = ((5, 5),)
+    ker2_vals: Sequence[Tuple[int, int]] = ((5, 5),)
+    ker3_vals: Sequence[Tuple[int, int]] = ((5, 5),)
+    conv1_vals: Sequence[int] = (64,)
+    conv2_vals: Sequence[int] = (32,)
+    conv3_vals: Sequence[int] = (64,)
+    ker_vals_3layer: Sequence[Tuple[int, int]] = ((5, 5),)
+    conv1_vals_3layer: Sequence[int] = (16,)
+    conv2_vals_3layer: Sequence[int] = (32,)
+    conv3_vals_3layer: Sequence[int] = (64,)
+    epochs: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class PathConfig:
+    """Filesystem layout: the raw shots, the HDF5 store, the outputs."""
+
+    data_dir: str = "data/raw"
+    dataset_file: str = "data/spectrogram_data.hdf5"
+    out_dir: str = "out"
+    frames_dir: str = "out/frames"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    spec: SpecParams = dataclasses.field(default_factory=SpecParams)
+    patch: PatchSpec = dataclasses.field(default_factory=PatchSpec)
+    pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    sweep: SweepConfig = dataclasses.field(default_factory=SweepConfig)
+    paths: PathConfig = dataclasses.field(default_factory=PathConfig)
 
 
 MODEL_PRESETS = {

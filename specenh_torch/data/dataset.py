@@ -1,23 +1,30 @@
 """Dataset assembly on the host (the counterpart of
 ``specenh.data.dataset``): tiles from spectrograms, the reference's
-60/25/15 split by tile, and the synthetic raw campaign.
+60/25/15 split by tile, the train/tune/test arrays from the HDF5 store, and
+the synthetic raw campaign.
 
-The reference splits BY TILE after patching (VAE/hyperparam_scan.py:148-149),
-which leaks tiles of one shot across the splits; ``split_tiles`` keeps that
-quirk.  Reading the HDF5 store (``assemble_from_store``) is not ported yet.
+``assemble_from_store`` reproduces VAE/hyperparam_scan.py:126-149: sample N
+shots, read ``spec`` and ``pipeline_out`` for their channels, ``patch`` into
+(30 * N * C, 256, 128) tiles, split at 60 % / 85 %.  The reference splits
+BY TILE after patching (hyperparam_scan.py:148-149), which leaks tiles of
+one shot across the splits; that quirk is the default (``split_by="tile"``),
+``split_by="shot"`` splits the shot list 60/25/15 before tiling
+(dataset.ipynb cell 3).
 """
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from specenh_torch.config import PatchSpec
+from specenh_torch.config import PatchSpec, TrainConfig
 from specenh_torch.data.tiles import n_tiles_for
+from specenh_torch.io.store import SpectrogramStore
 
-__all__ = ["SplitArrays", "split_tiles", "synthetic_shot_batch"]
+__all__ = ["SplitArrays", "assemble_from_store", "split_tiles", "synthetic_shot_batch"]
 
 
 @dataclass
@@ -54,6 +61,55 @@ def split_tiles(x: np.ndarray, y: np.ndarray,
     """Split at int(len*0.6) / int(len*0.85) (hyperparam_scan.py:148-149)."""
     a, b = int(len(x) * fracs[0]), int(len(x) * fracs[1])
     return SplitArrays(x[:a], x[a:b], x[b:], y[:a], y[a:b], y[b:])
+
+
+def assemble_from_store(
+    store: SpectrogramStore,
+    num_samples: int = 20,
+    channels: Optional[Sequence[int]] = None,
+    ps: PatchSpec = PatchSpec(),
+    cfg: TrainConfig = TrainConfig(),
+    seed: Optional[int] = None,
+) -> SplitArrays:
+    """Sample shots (``random.sample(file.keys(), n)``,
+    hyperparam_scan.py:133), stack channels, patch, split, on the host.
+    ``channels=None`` uses every channel of the first sampled shot; more
+    samples than shots take them all, in a sampled order."""
+    rng = random.Random(seed)
+    keys = store.shots()
+    keys = rng.sample(keys, min(num_samples, len(keys)))
+    if channels is None:
+        channels = store.channels_of(keys[0])
+    spec_list, label_list = [], []
+    for key in keys:
+        s, l = store.read_spec_and_labels(key, channels)
+        spec_list.append(s)
+        label_list.append(l)
+
+    if cfg.split_by == "shot":
+        # every channel of a shot lands on the same side
+        a = int(len(keys) * cfg.split_fracs[0])
+        b = int(len(keys) * cfg.split_fracs[1])
+        if a == 0 or b == a:
+            raise ValueError(
+                f"{len(keys)} shots are too few for a shot-level "
+                f"{cfg.split_fracs} split (train or tune would be empty); "
+                "sample more shots or use split_by='tile'"
+            )
+
+        def tiled(lst):
+            if not lst:
+                f = spec_list[0].shape[-2]
+                return np.zeros((0, f, ps.tile_time), np.float32)
+            return _patch_host(np.concatenate(lst, axis=0), ps)
+
+        return SplitArrays(
+            tiled(spec_list[:a]), tiled(spec_list[a:b]), tiled(spec_list[b:]),
+            tiled(label_list[:a]), tiled(label_list[a:b]), tiled(label_list[b:]),
+        )
+    specs = np.concatenate(spec_list, axis=0)
+    labels = np.concatenate(label_list, axis=0)
+    return split_tiles(_patch_host(specs, ps), _patch_host(labels, ps), cfg.split_fracs)
 
 
 def synthetic_shot_batch(n_shots: int = 2, n_channels: int = 4,

@@ -37,6 +37,8 @@ __all__ = [
     "stft_psd",
     "log_psd",
     "spectrogram",
+    "spectrogram_freqs",
+    "spectrogram_times",
 ]
 
 
@@ -158,3 +160,15 @@ def spectrogram(x: torch.Tensor, sp: SpecParams) -> torch.Tensor:
     mn = sxx.amin(dim=(-2, -1), keepdim=True)
     mx = sxx.amax(dim=(-2, -1), keepdim=True)
     return (sxx[..., : sp.n_freqs_kept, :] - mn) / (mx - mn)
+
+
+def spectrogram_freqs(sp: SpecParams, drop_nyquist: bool = True) -> np.ndarray:
+    """Frequency axis in Hz (pipeline_data.py:32,35)."""
+    n = sp.n_freqs_kept if drop_nyquist else sp.n_freqs_onesided
+    return np.arange(n) * sp.fs / sp.nperseg
+
+
+def spectrogram_times(sp: SpecParams, n_samples: int | None = None) -> np.ndarray:
+    """Segment-centre time axis in seconds, matching SciPy."""
+    n = sp.n_samples if n_samples is None else n_samples
+    return np.arange(sp.nperseg / 2, n - sp.nperseg / 2 + 1, sp.hop) / sp.fs
