@@ -6,7 +6,9 @@ goes through the STFT kernel (K1), then the conv-AE stage kernels on
 256x128 tiles (K2+K3+K4 at depth 2, K8-in+K6+K8-out at depth 3), and comes
 back restitched.  ``stft_mode`` picks the STFT front as the JAX service's
 does, and ``use_kernel`` the route (the kernels, or the ``nn.Module`` for
-a geometry no kernel family covers).  ``enhance_shot_plain`` is the
+a geometry no kernel family covers).  ``make_production_predict_fn`` is
+the AE alone on a tile batch, on the same routes (what a sweep's
+``pred_times`` times).  ``enhance_shot_plain`` is the
 same service composed of the plain twins (matmul STFT, the ``nn.Module``):
 the float32 reference the service is gated against.
 """
@@ -25,10 +27,75 @@ from specenh_torch.models.autoencoder import ConvAutoencoder
 from specenh_torch.ops import ae_kernel, stft_fused
 from specenh_torch.ops.stft import spectrogram
 
-__all__ = ["make_enhance_shot_fn", "enhance_shot_plain", "example_shot",
-           "time_cuda", "STFT_MODES"]
+__all__ = ["make_enhance_shot_fn", "make_production_predict_fn", "enhance_shot_plain",
+           "example_shot", "time_cuda", "STFT_MODES"]
 
 STFT_MODES = ("auto", "fused", "fused_ft", "xla")
+
+
+def _route_depth(cfg: ModelConfig, use_kernel) -> int | None:
+    """The kernel family's depth for ``use_kernel`` (JAX's rules), or None
+    for the module route."""
+    if use_kernel not in ("auto", True, False):
+        raise ValueError(f"use_kernel must be 'auto', True or False: {use_kernel!r}")
+    if use_kernel is False:
+        return None
+    try:
+        return ae_kernel.kernel_depth(cfg)
+    except NotImplementedError:
+        if use_kernel is True:
+            raise
+        return None
+
+
+def _preparer(depth: int | None, dtype):
+    """``fn.prepare`` of a route: on the kernels (``depth``) the kernels'
+    weights built from a module once, weights of that depth passed through;
+    on the module route (None) the module as it is."""
+    def prepare(model_or_weights):
+        is_wts = isinstance(model_or_weights, ae_kernel.AEKernelWeights)
+        if depth is None:
+            if is_wts:
+                raise TypeError("the module route serves the nn.Module, not kernel weights")
+            return model_or_weights
+        if not is_wts:
+            return ae_kernel.build_kernel_weights(model_or_weights, dtype, depth)
+        if model_or_weights.depth != depth:
+            raise ValueError(f"depth-{model_or_weights.depth} weights for a "
+                             f"depth-{depth} service")
+        return model_or_weights
+
+    return prepare
+
+
+def make_production_predict_fn(model_cfg: ModelConfig, dtype=torch.bfloat16,
+                               use_kernel: object = "auto", device="cuda") -> Callable:
+    """Tile-batch predictor on the serving path: ``fn(model_or_weights,
+    tiles) -> probabilities``, tiles (B, 256, 128) or (B, 256, 128, 1),
+    float32 out in the tiles' layout.  The AE kernels
+    (``ae_kernel.ae_kernel_apply``, the family ``kernel_depth`` picks)
+    where a family covers ``model_cfg``, else the ``nn.Module`` computing
+    in ``dtype`` (None: float32); ``use_kernel`` has the rules of
+    ``make_enhance_shot_fn`` (``True`` on an uncovered geometry raises
+    ``NotImplementedError``).  ``fn.prepare(model)`` gives the kernels'
+    weights (kernel weights are returned as they are) or, on the module
+    route, the module.  This is what a sweep's ``pred_times`` times."""
+    dtype = torch.float32 if dtype is None else dtype
+    device = torch.device(device)
+    depth = _route_depth(model_cfg, use_kernel)
+    prepare = _preparer(depth, dtype)
+
+    def fn(model_or_weights, tiles):
+        wts = prepare(model_or_weights)
+        t = torch.as_tensor(tiles, dtype=torch.float32, device=device)
+        x = (t[..., 0] if t.ndim == 4 else t).contiguous()
+        with torch.no_grad():
+            out = (wts.forward_as(x, dtype) if depth is None
+                   else ae_kernel.ae_kernel_apply(wts, x))
+        return out[..., None] if t.ndim == 4 else out
+
+    fn.prepare = prepare
+    return fn
 
 
 def _k_tiles(sp: SpecParams, ps: PatchSpec) -> int:
@@ -98,18 +165,8 @@ def make_enhance_shot_fn(
     device = torch.device(device)
     if stft_mode not in STFT_MODES:
         raise ValueError(f"stft_mode must be one of {STFT_MODES}: {stft_mode!r}")
-    if use_kernel not in ("auto", True, False):
-        raise ValueError(f"use_kernel must be 'auto', True or False: {use_kernel!r}")
     k_tiles = _k_tiles(sp, ps)
-    if use_kernel is False:
-        depth = None
-    else:
-        try:
-            depth = ae_kernel.kernel_depth(cfg)
-        except NotImplementedError:
-            if use_kernel is True:
-                raise
-            depth = None
+    depth = _route_depth(cfg, use_kernel)
     if stft_mode == "fused" and not (depth == 2 and dtype == torch.bfloat16
                                      and stft_fused.supported(sp)):
         raise NotImplementedError(
@@ -123,14 +180,7 @@ def make_enhance_shot_fn(
     if depth is None:
         return _module_route(sp, dtype, device, k_tiles)
     matmul_front = stft_mode == "xla" or not stft_fused.supported(sp)
-
-    def prepare(model_or_weights):
-        if isinstance(model_or_weights, ae_kernel.AEKernelWeights):
-            if model_or_weights.depth != depth:
-                raise ValueError(f"depth-{model_or_weights.depth} weights for a "
-                                 f"depth-{depth} service")
-            return model_or_weights
-        return ae_kernel.build_kernel_weights(model_or_weights, dtype, depth)
+    prepare = _preparer(depth, dtype)
 
     def front(wts, traces):
         if stft_mode == "fused":
@@ -156,11 +206,7 @@ def make_enhance_shot_fn(
 def _module_route(sp: SpecParams, dtype, device, k_tiles: int) -> Callable:
     """The service on the ``nn.Module`` (JAX's Flax route): the matmul
     STFT, then the module computing in ``dtype``."""
-
-    def prepare(model):
-        if isinstance(model, ae_kernel.AEKernelWeights):
-            raise TypeError("the module route serves the nn.Module, not kernel weights")
-        return model
+    prepare = _preparer(None, dtype)
 
     def fn(model, traces):
         model = prepare(model)

@@ -42,15 +42,15 @@ def convt_pad_before(k: int, stride: int = 2) -> int:
 
 
 def conv_transpose_same(x: torch.Tensor, weight: torch.Tensor,
-                        bias: torch.Tensor | None) -> torch.Tensor:
+                        bias: torch.Tensor | None, groups: int = 1) -> torch.Tensor:
     """Flax 'SAME' stride-2 transposed conv: (B, Cin, H, W) -> (B, Cout,
-    2H, 2W).  ``weight`` is torch's (Cin, Cout, kh, kw), i.e. the Flax
-    kernel flipped in space."""
+    2H, 2W).  ``weight`` is torch's (Cin, Cout / groups, kh, kw), i.e. the
+    Flax kernel flipped in space."""
     kh, kw = weight.shape[-2:]
     pad = (kh - 1 - convt_pad_before(kh), kw - 1 - convt_pad_before(kw))
     h, w = x.shape[-2:]
     y = F.conv_transpose2d(x, weight, bias, stride=2, padding=pad,
-                           output_padding=1)
+                           output_padding=1, groups=groups)
     return y[..., : 2 * h, : 2 * w]
 
 

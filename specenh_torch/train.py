@@ -37,7 +37,7 @@ from specenh_torch.models.autoencoder import ConvAutoencoder, make_model
 
 __all__ = [
     "TrainState", "create_state", "bce_from_logits", "train_step",
-    "train_epoch", "eval_epoch", "evaluate", "kernel_epoch_for", "fit",
+    "train_epoch", "eval_epoch", "eval_loss", "evaluate", "kernel_epoch_for", "fit",
     "predict", "restore_checkpoint", "latest_checkpoint_epoch",
     "write_run_meta", "check_run_meta", "weighted_epoch_mean", "save_model",
     "load_model",
@@ -111,10 +111,17 @@ def train_epoch(state: TrainState, x: torch.Tensor, y: torch.Tensor,
 
 
 @torch.no_grad()
+def eval_loss(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """The module's masked mean BCE on one batch, left on the device."""
+    state.model.eval()
+    return bce_from_logits(state.model(x, logits=True), y, mask)
+
+
+@torch.no_grad()
 def eval_epoch(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                batch_idx: torch.Tensor, batch_mask: torch.Tensor) -> torch.Tensor:
-    state.model.eval()
-    return torch.stack([bce_from_logits(state.model(x[idx], logits=True), y[idx], m)
+    return torch.stack([eval_loss(state, x[idx], y[idx], m)
                         for idx, m in zip(batch_idx, batch_mask)])
 
 

@@ -794,3 +794,75 @@ def test_conv_in_mma_kernel_matches_twins(cuda, cfg):
         assert torch.equal(got, tak.ae_tile_in(tw.fwd, specs, 3)), dt
         again = ttk.ae_train_dgrad_conv(tw, o, dz, e)
         assert torch.equal(out, again[0]) and torch.equal(db, again[1]), dt
+
+
+SWEEP_GRID = [ModelConfig(), ModelConfig(kernels=((5, 5), (5, 5)), out_kernel=(5, 5))]
+
+
+def _sweep_data(cuda, n=256):
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(n, 256, 128, generator=g).to(cuda)
+    return x[:192], (0.8 * x[:192] + 0.1).clamp(0, 1), x[192:], (0.8 * x[192:] + 0.1).clamp(0, 1)
+
+
+def _launches(fn, *args, **kw):
+    """fn's result and each kernel's launches during it."""
+    before = {k: k.launches for k in _build.KERNELS}
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, {k: k.launches - before[k] for k in _build.KERNELS if k.launches - before[k]}
+
+
+def test_serial_sweep_trains_on_kernels(cuda):
+    """A 2-config serial sweep (k3 and k5 at full width, 192 tiles, 1
+    epoch, bf16): every config's steps on the training kernels (2 per
+    config), finite val losses."""
+    from specenh_torch import TrainConfig
+    from specenh_torch.sweep import sweep_fit_serial
+
+    res, took = _launches(sweep_fit_serial, SWEEP_GRID, *_sweep_data(cuda), TrainConfig(),
+                          epochs=1, dtype=torch.bfloat16, device=cuda)
+    assert took[ttk.TRAIN_LOSS] == took[ttk.TRAIN_IN] == took[ttk.TRAIN_SUM] == 4
+    assert ttk.TRAIN_LOSS_PRE not in took
+    assert np.isfinite(res.val_losses).all() and res.val_history.shape == (1, 2)
+
+
+def test_envelope_matches_serial_kernels_f32(cuda):
+    """The envelope engine (float32, TF32 off) against the serial engine on
+    the float32 kernels, 2 epochs: per config and epoch within 1e-4
+    relative (float32 sums in other orders), the same best config; the
+    envelope launches no kernel."""
+    from specenh_torch import TrainConfig
+    from specenh_torch.sweep import sweep_fit, sweep_fit_serial
+
+    data = _sweep_data(cuda)
+    env, took = _launches(sweep_fit, SWEEP_GRID, *data, TrainConfig(), epochs=2, device=cuda)
+    assert not took
+    ser = sweep_fit_serial(SWEEP_GRID, *data, TrainConfig(), epochs=2, dtype=torch.float32,
+                           device=cuda)
+    np.testing.assert_allclose(env.train_history, ser.train_history, rtol=1e-4)
+    np.testing.assert_allclose(env.val_history, ser.val_history, rtol=1e-4)
+    assert env.best_index == ser.best_index
+
+
+@pytest.mark.parametrize("cfg", [ModelConfig(), MODEL_PRESETS["deep3"]], ids=["k3", "deep3"])
+def test_production_predict_fn_launches_serving_kernels(cuda, cfg):
+    """make_production_predict_fn on 4 tiles: one launch of each serving
+    stage (S2 and S3 once per layer), within 2e-2 of the module in float32
+    in bf16, within 1e-4 in float32; the module route on an uncovered
+    geometry launches none."""
+    model = make_model(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+    tiles = torch.rand(4, 256, 128, generator=torch.Generator().manual_seed(5)).to(cuda)
+    with torch.no_grad():
+        want = model(tiles)
+    d = cfg.depth
+    for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        fn = harness.make_production_predict_fn(cfg, dtype=dtype, device=cuda)
+        w = fn.prepare(model)
+        got, took = _launches(fn, w, tiles)
+        assert took == {tak.TILE_IN: 1, tak.CONV_POOL: d - 1, tak.CONVT: d, tak.TILE_OUT: 1}
+        assert float((got - want).abs().max()) < atol, dtype
+    unc = ModelConfig(filters=(16, 32))
+    m16 = make_model(unc, generator=torch.Generator().manual_seed(1), device=cuda)
+    out, took = _launches(harness.make_production_predict_fn(unc, device=cuda), m16, tiles)
+    assert not took and out.shape == tiles.shape

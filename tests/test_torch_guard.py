@@ -1,14 +1,17 @@
 """Guards of the port: it imports nothing of the JAX package and serves
 and trains without jax, flax, h5py or ``specenh``, also from a tree that
-has no ``specenh/``; h5py is imported only inside the calls that open a
-store; its own copies of the JAX package's config, references, Q8.8
-tables, STFT axes and host IO equal the originals; the native reader
-builds outside ``native/``; ``chip_smoke.py`` fails where there is no
-GPU; the kernel wrappers check their inputs before either path."""
+has no ``specenh/``, where ``python -m specenh_torch.cli sweep`` runs too;
+h5py is imported only inside the calls that open a store, matplotlib only
+where a figure is drawn; its own copies of the JAX package's config,
+references, Q8.8 tables, STFT axes, host IO, record pipeline and plots
+equal the originals; the native reader builds outside ``native/``;
+``chip_smoke.py`` fails where there is no GPU; the kernel wrappers check
+their inputs before either path."""
 
 import ast
 import dataclasses
 import functools
+import json
 import os
 import re
 import shutil
@@ -205,6 +208,79 @@ def test_io_copies_equal_jax_modules(module):
     port = (ROOT / "specenh_torch" / "io" / f"{module}.py").read_text()
     orig = (ROOT / "specenh" / "io" / f"{module}.py").read_text()
     assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
+
+
+def _top_level_source(path: Path, name: str) -> str:
+    """The source of the module's top-level definition ``name``, decorators
+    included."""
+    lines = path.read_text().splitlines()
+    for node in ast.parse("\n".join(lines)).body:
+        if getattr(node, "name", None) == name:
+            start = min([node.lineno] + [d.lineno for d in node.decorator_list])
+            return "\n".join(lines[start - 1:node.end_lineno])
+    raise AssertionError(f"{name} not in {path}")
+
+
+@pytest.mark.parametrize("module,name", [("data/grain_pipeline", "RecordSlice"),
+                                         ("viz/plots", "plot_val_loss")])
+def test_data_and_viz_copies_equal_jax_modules(module, name):
+    """The streamed split plan's unit (``RecordSlice``) and the sweep's
+    loss figure are the JAX package's code, docstrings aside; each copy
+    holds that definition alone."""
+    port_path = ROOT / "specenh_torch" / f"{module}.py"
+    port = _top_level_source(port_path, name)
+    orig = _top_level_source(ROOT / "specenh" / f"{module}.py", name)
+    assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
+    defs = [n.name for n in ast.parse(port_path.read_text()).body if hasattr(n, "name")]
+    assert defs == [name]
+
+
+def test_sweep_modules_load_without_jax():
+    """The sweep, its CLI and the streamed split plan import without jax,
+    flax, ``specenh``, h5py or matplotlib, and load none of them."""
+    code = textwrap.dedent("""
+        import sys
+        blocked = ("jax", "flax", "specenh", "h5py", "matplotlib")
+        for name in blocked:
+            sys.modules[name] = None
+        import specenh_torch.sweep, specenh_torch.cli, specenh_torch.train_stream
+        import specenh_torch.data.grain_pipeline
+        from specenh_torch.train import eval_loss
+        from specenh_torch.bench.harness import make_production_predict_fn
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in blocked]
+        print("loaded")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "loaded" in res.stdout
+
+
+def test_cli_sweep_runs_without_the_jax_package(tmp_path):
+    """``python -m specenh_torch.cli sweep --device cpu`` in a tree without
+    ``specenh/``, on a store the port wrote: the artifacts and the final
+    JSON line."""
+    from specenh_torch.io.store import SpectrogramStore
+
+    shutil.copytree(ROOT / "specenh_torch", tmp_path / "specenh_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    rng = np.random.default_rng(0)
+    with SpectrogramStore(str(tmp_path / "s.hdf5")) as st:
+        for chn in (1, 2):
+            x = rng.random((256, 3 * 128)).astype(np.float32)
+            st.write_channel("7", chn, x, np.arange(256.0), np.arange(384.0), x.round())
+    cmd = [sys.executable, "-m", "specenh_torch.cli", "sweep", "--dataset", "s.hdf5",
+           "--out-dir", "out", "--grid", "2layer", "--ker1", "3", "--ker2", "3", "--ker3",
+           "3", "--conv1", "8", "--conv2", "8", "--epochs", "1", "--device", "cpu",
+           "--no-time-configs", "--quiet"]
+    res = subprocess.run(cmd, cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(tmp_path)},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["n_configs"] == 1 and line["best_index"] == 0
+    assert sorted(os.listdir(tmp_path / "out")) == \
+        ["best_model", "best_val_loss.png", "loss_comparisons.npz", "val_losses.npy"]
 
 
 _PIPELINE_REFS = ("rescale_ref", "quantfilt_ref", "gaussblr_ref", "meansub_ref",
