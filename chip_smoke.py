@@ -139,6 +139,24 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    2layer grid with conv1 (16, 32) at k3, 1 epoch on the cut tiles: the
    16-filter config on the module engine, the 32-filter one on the
    kernels (one config's steps).  The kernels line counts these launches.
+15. (run after phase 14) the analyses and the raw-to-model path: (a) the
+   SVD denoiser (``ops.svd``) batched over 20 channels, on K1's
+   spectrograms of the serving shot and on the headline's low-rank batch
+   (headline.py:178-193): ``denoise_signal()`` and ``denoise_signal(
+   use_optimal=True)`` against the float64 ``svd_denoise_ref`` on channel
+   0 (SSIM >= 0.99), ``deflate_top1`` against the default band on the
+   spectrograms, ``compute_signal`` against ``svd_compute_signal_ref`` on
+   the well-conditioned gate matrix (SSIM >= 0.99); ms a spectrogram of
+   each; on the spectrograms their device time split into eigh, QR and
+   matmul (torch.profiler), cuSOLVER's batched eigh and
+   ``torch.linalg.svd`` on the same batch;
+   (b) ``ops.crosspower`` on two 2 s chords at 1.667 MHz sharing one line:
+   the self-cross equals the PSD, the line stands over the floor; ms a
+   call; (c) ``python -m specenh_torch.cli`` in process: ``synth-shots``
+   (4 shots x 20 channels), ``convert-bin``, ``train-raw --binary --engine
+   kernel`` for scan_k3 (2 epochs, val loss falling) and deep3 (1 epoch),
+   counted: K1 once, every step on K5 or K7; ``model/`` written.  The
+   kernels line counts these launches.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -149,6 +167,7 @@ from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -164,7 +183,8 @@ import torch.nn.functional as F
 from specenh_torch import ModelConfig, SpecParams, TrainConfig, _build
 from specenh_torch.bench.harness import (enhance_shot_plain, example_shot,
                                          make_enhance_shot_fn, time_cuda)
-from specenh_torch.bench.reference import HAS_CV2, pipeline_ref, spectrogram_ref, ssim
+from specenh_torch.bench.reference import (HAS_CV2, pipeline_ref, spectrogram_ref, ssim,
+                                           svd_compute_signal_ref, svd_denoise_ref)
 from specenh_torch.config import MODEL_PRESETS, Config, SweepConfig
 from specenh_torch.data.dataset import split_tiles, synthetic_shot_batch
 from specenh_torch.data.tiles import patch
@@ -175,7 +195,10 @@ from specenh_torch.ops import enhance as EN
 from specenh_torch.ops import ae3_train_kernel as TK3
 from specenh_torch.ops import ae_kernel as AK
 from specenh_torch.ops import ae_train_kernel as TK
+from specenh_torch.ops import crosspower as CP
 from specenh_torch.ops import stft_fused as SF
+from specenh_torch.ops import svd as SVD
+from specenh_torch.ops.stft import stft_psd
 from specenh_torch import probe_walls as PW
 from specenh_torch import sweep as SW
 from specenh_torch import train as TR
@@ -232,6 +255,15 @@ TOL_LOSS_CURVE = 1e-3
 # epoch needs 1.28 (flagship epoch 3: 0.228 % against 0.178 %); deep3's
 # epochs sit under the 0.1 % floor
 TOL_PIPE_CURVE = 2.0
+# phase 15: the SVD denoiser's gates (headline.py:195-229), the deflation's
+# bound against the default band (tests/test_svd.py: 1e-4 of max |x|), the
+# self-cross against the PSD (tests/test_crosspower.py), the chords' rate
+# (the crosspower command's --fs default) and their shared line
+GATE_SVD_SSIM = 0.99
+TOL_DEFLATE = 1e-4
+TOL_SELF_CROSS = 1e-4
+CP_FS, CP_LINE = 1.667e6, 8e4
+RAW_SHOTS = 4       # phase 15 (c): synth-shots --shots 4 --channels 20
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): operands' type -> FLOP/s
 PEAK = {torch.bfloat16: (989e12, "bf16 tensor 989 TFLOP/s"),
         torch.float32: (67e12, "fp32 67 TFLOP/s")}
@@ -1615,14 +1647,14 @@ def counted(fn, *args, **kw):
     return out, {kern: kern.launches for kern in _build.KERNELS if kern.launches}
 
 
-def add_sweep_launches(launches: dict, depth: int, serving: bool) -> None:
-    """A sweep run's launches into the kernels line's rows: a training
-    run's (the training kernels and the forward transposed convs) or a
-    pred_times run's (the serving stages), at ``depth``."""
+def add_sweep_launches(launches: dict, depth: int, serving: bool, phase: str = "14") -> None:
+    """A run's launches into the kernels line's rows: a training run's (the
+    training kernels and the forward transposed convs) or a pred_times
+    run's (the serving stages), at ``depth``."""
     for kern, n in launches.items():
         kid = SERVE_IDS[depth].get(kern) if serving else train_id(kern, depth)
         check(kid is not None and (kern, kid) in ROWS,
-              f"phase 14: {kern.symbol} launched outside its rows (depth {depth})")
+              f"phase {phase}: {kern.symbol} launched outside its rows (depth {depth})")
         ROWS[(kern, kid)]["launches"] += n
 
 
@@ -1784,6 +1816,263 @@ def sweep_phase(dev, gpu, data):
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
 
+def lowrank_batch(dev, n: int, seed: int) -> torch.Tensor:
+    """The headline's SVD test batch (headline.py:178-193), drawn with
+    numpy: 6 smooth modes x 3 plus 0.3 noise, (n, 256, 3905) float32."""
+    f_, t_, rank = 256, 3905, 6
+    rng = np.random.default_rng(seed)
+    ph_u, ph_v = rng.uniform(0, 6.28, (2, n, rank))
+    amps = rng.uniform(0.5, 1.0, (n, rank))
+    f = torch.linspace(0.0, 1.0, f_, device=dev)[None, :, None]
+    t = torch.linspace(0.0, 1.0, t_, device=dev)[None, None, :]
+    x = 0.3 * torch.from_numpy(rng.standard_normal((n, f_, t_), dtype=np.float32)).to(dev)
+    amps, ph_u, ph_v = (torch.from_numpy(a).float().to(dev)[..., None, None]
+                        for a in (amps, ph_u, ph_v))
+    for k in range(rank):
+        x += 3.0 * amps[:, k] * torch.sin(3.1 * (k + 1) * f + ph_u[:, k]) \
+            * torch.cos(2.3 * (k + 1) * t + ph_v[:, k])
+    return x
+
+
+def gate_matrix(seed: int) -> np.ndarray:
+    """A well-conditioned (256, 3905) float64 matrix, sigma_k = 100 x
+    0.93^k (headline.py:211-217): every component compute_signal keeps is
+    well determined."""
+    rng = np.random.default_rng(seed)
+    q1, _ = np.linalg.qr(rng.standard_normal((256, 256)))
+    q2, _ = np.linalg.qr(rng.standard_normal((3905, 256)))
+    return (q1 * (100.0 * 0.93 ** np.arange(256))) @ q2.T
+
+
+# phase 15 (a) splits the device time by kernel name: cuSOLVER's eigh (the
+# batched Jacobi kernels PyTorch calls for eigh and eigvalsh, or syevd's),
+# its QR (Householder panels and the forming of Q) and the products
+# (cuBLAS and CUTLASS GEMM and GEMV); a GEMM inside cuSOLVER counts as a
+# product (the names seen on an H100 under torch 2.11)
+NAME_CLASSES = (("eigh", ("syev", "sytrd", "stedc", "ormtr", "rotate_batch", "jacobi")),
+                ("qr", ("geqr", "orgqr", "org2r", "orm2r", "ormqr", "larf", "householder")),
+                ("matmul", ("gemm", "gemv", "xmma", "cutlass")))
+
+
+def linalg_split(fn) -> dict:
+    """Device milliseconds of one call of ``fn`` (after a warm-up), from
+    torch.profiler's device events, split by kernel name (NAME_CLASSES);
+    the longest kernels of the call and of what no class claims; None
+    where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts, names = dict.fromkeys(("eigh", "qr", "matmul", "other"), 0.0), {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0.0) + e.device_time_total / 1e3
+    cls = {nm: next((c for c, keys in NAME_CLASSES if any(k in nm.lower() for k in keys)), "other")
+           for nm in names}
+    for nm, ms in names.items():
+        parts[cls[nm]] += ms
+    total = sum(parts.values())
+    if not total:
+        return dict.fromkeys((*parts, "kernels", "top", "top_other"))
+    top = sorted(names.items(), key=lambda kv: -kv[1])
+    return {**parts, "kernels": total, "top": top[:3],
+            "top_other": [kv for kv in top if cls[kv[0]] == "other"][:3]}
+
+
+def svd_phase(dev, sp, gpu) -> None:
+    """Phase 15 (a): the SVD denoiser on K1's spectrograms and on the
+    headline's low-rank batch (see the docstring)."""
+    traces = torch.from_numpy(example_shot(sp, N_CHANNELS, SEED)).to(dev)
+    specs, k1 = counted(SF.spectrogram_fused, traces, sp)
+    check(k1 == {SF.STFT_KERNEL: 1}, f"phase 15 (a): K1 launches {k1}")
+    row(SF.STFT_KERNEL, "K1")["launches"] += 1
+    del traces
+    fns = {"denoise_signal": SVD.denoise_signal,
+           "denoise_signal(use_optimal)": lambda x: SVD.denoise_signal(x, use_optimal=True),
+           "compute_signal": SVD.compute_signal, "deflate_top1": SVD.deflate_top1}
+    for name, x in (("K1 spectrograms", specs), ("low-rank batch", lowrank_batch(dev, N_CHANNELS, 7))):
+        outs = {k: f(x) for k, f in fns.items()}
+        for k, o in outs.items():
+            check(o.shape == x.shape and bool(torch.isfinite(o).all()),
+                  f"phase 15 (a) {name} {k}: shape {tuple(o.shape)} or non-finite")
+        x0 = x[0].double().cpu().numpy()
+        q = ssim(outs["denoise_signal"][0].cpu().numpy(), svd_denoise_ref(x0))
+        q_opt = ssim(outs["denoise_signal(use_optimal)"][0].cpu().numpy(),
+                     svd_denoise_ref(x0, use_optimal=True))
+        scale = float(x.abs().max())
+        defl = max_err(outs["deflate_top1"], outs["denoise_signal"]) / scale
+        count = SVD.gavish_donoho_count(SVD._full_spectrum_for_median(x), x.shape)
+        log(f"[{gpu}] phase 15 (a) {name} {tuple(x.shape)}: channel 0 vs float64 "
+            f"svd_denoise_ref SSIM {q:.6f}, use_optimal {q_opt:.6f} (gates "
+            f">= {GATE_SVD_SSIM}); deflate_top1 vs denoise_signal {defl:.3g} of max |x|"
+            f"{'' if name == 'K1 spectrograms' else ' (not a log spectrogram: not gated)'}; "
+            f"Gavish-Donoho counts "
+            f"{count.tolist()}")
+        check(q >= GATE_SVD_SSIM and q_opt >= GATE_SVD_SSIM,
+              f"phase 15 (a) {name}: denoise SSIM {q:.6f}, use_optimal {q_opt:.6f}")
+        if name == "K1 spectrograms":  # log spectrograms: sigma_0 dominates
+            check(defl <= TOL_DEFLATE, f"phase 15 (a): deflate_top1 off by {defl:.3g}")
+        del outs
+        real = name == "K1 spectrograms"  # the split and the library calls: on this input
+        for k, f in fns.items():
+            ms = time_cuda(f, x, warmup=2, iters=10)
+            split = ""
+            if real:
+                sp_ = linalg_split(lambda: f(x))
+                split = ("; device split not measured (no profiler device time)"
+                         if sp_["kernels"] is None else
+                         "; device ms: eigh/eigvalsh {eigh:.4f}, QR {qr:.4f}, matmul "
+                         "{matmul:.4f}, other {other:.4f}, all kernels {kernels:.4f}; longest "
+                         .format(**sp_) + ", ".join(f"{nm[:48]} {t:.4f}" for nm, t in sp_["top"])
+                         + "; longest other " + ", ".join(f"{nm[:48]} {t:.4f}"
+                                                          for nm, t in sp_["top_other"]))
+            log(f"[{gpu}]   {k}: {ms:.4f} ms a call, {ms / N_CHANNELS:.4f} ms a spectrogram "
+                f"({N_CHANNELS / ms * 1e3:.1f} specs/s){split}")
+        if not real:
+            continue
+        # the library calls inside, at their shapes, beside their bounds, from
+        # the textbook operation counts (Golub & Van Loan, Matrix Computations:
+        # Householder QR with Q formed 4 n k^2 - 4 k^3 / 3, the symmetric QR
+        # algorithm 9 m^3 with vectors and 4 m^3 / 3 without, the R-SVD
+        # 4 n m^2 + 22 m^3; m <= n)
+        m, n, b = x.shape[-2], x.shape[-1], x.shape[0]
+        g = x @ x.mT
+        basis = torch.randn(b, m, SVD.K_MAX, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED))
+        y = torch.linalg.qr(x.mT @ basis).Q
+        calls = (("torch.linalg.eigh", torch.linalg.eigh, g, 9 * m**3, (g, g[..., 0])),
+                 ("torch.linalg.eigvalsh", torch.linalg.eigvalsh, g, 4 / 3 * m**3, (g[..., 0],)),
+                 ("torch.linalg.qr (n x 64)", torch.linalg.qr, y,
+                  4 * n * 64**2 - 4 / 3 * 64**3, (y, y[..., :64, :])),
+                 ("torch.linalg.qr (m x 64)", torch.linalg.qr, y[:, :m],
+                  4 * m * 64**2 - 4 / 3 * 64**3, (y[:, :m], y[..., :64, :])),
+                 ("torch.linalg.svd(full_matrices=False)",
+                  lambda a: torch.linalg.svd(a, full_matrices=False), x, 4 * n * m**2 + 22 * m**3,
+                  (x, x[..., :m], x[..., 0])))
+        for i, (k, f, a, flops, outs) in enumerate(calls):
+            last = i == len(calls) - 1  # the SVD: ~0.15 s a call
+            ms = time_cuda(f, a, warmup=1 if last else 2, iters=3 if last else 10)
+            b_ms, b_by = bound(b * flops, nbytes(a, *outs), torch.float32)
+            log(f"[{gpu}]   {k} of the batch {tuple(a.shape)}: {ms:.4f} ms ({ms / b:.4f} ms a "
+                f"matrix); bound {b_ms:.4f} ms ({b_by}; {b * flops / 1e9:.3f} GFLOP, "
+                f"{PEAK[torch.float32][1]}), {ms / b_ms:.0f}x")
+        del g, y
+    xg = gate_matrix(11)
+    cs = SVD.compute_signal(torch.from_numpy(xg).float().to(dev)[None])[0]
+    q = ssim(cs.cpu().numpy(), svd_compute_signal_ref(xg))
+    log(f"[{gpu}] phase 15 (a) compute_signal on the gate matrix (sigma_k = 100 x 0.93^k) vs "
+        f"float64 svd_compute_signal_ref: SSIM {q:.6f} (gate >= {GATE_SVD_SSIM})")
+    check(q >= GATE_SVD_SSIM, f"phase 15 (a): compute_signal SSIM {q:.6f}")
+
+
+def crosspower_phase(dev, gpu) -> None:
+    """Phase 15 (b): ``ae_co2`` on two 2 s chords at 1.667 MHz with one
+    coherent line and independent noise (tests/test_crosspower.py's
+    construction), nperseg 1024."""
+    n = int(2.0 * CP_FS)
+    t = np.arange(n) / CP_FS
+    rng = np.random.default_rng(SEED)
+    mode = np.sin(2 * np.pi * CP_LINE * t)
+    x1 = torch.from_numpy((mode + rng.standard_normal(n)).astype(np.float32)).to(dev)
+    x2 = torch.from_numpy((0.7 * mode + rng.standard_normal(n)).astype(np.float32)).to(dev)
+    ampsp, freq, time_ms = CP.ae_co2(x1, x2, t)
+    check(tuple(ampsp.shape) == (len(time_ms), 513) and bool((ampsp > 0).all())
+          and bool(torch.isfinite(ampsp.log()).all()), f"phase 15 (b): ampsp {tuple(ampsp.shape)}")
+    by_freq = ampsp.mean(dim=0)
+    peak, floor = int(by_freq.argmax()), float(by_freq.median())
+    want = int(round(CP_LINE / (CP_FS / 1024)))
+    check(abs(peak - want) <= 1 and float(by_freq[peak]) > 20 * floor,
+          f"phase 15 (b): peak bin {peak} (line at {want}), {float(by_freq[peak]) / floor:.1f}x "
+          f"the floor")
+    dt = float(np.median(np.diff(t)))
+    sp = SpecParams(nperseg=1024, noverlap=512, fs=1.0 / dt, cut_shot=n * dt)
+    x = x1[: sp.n_samples]
+    self_cross, psd = CP.cross_power(x, x, sp).mT, stft_psd(x, sp)
+    # |diff| over its allowance 1e-12 + rtol |psd| (tests/test_crosspower.py)
+    worst = float(((self_cross - psd).abs() / (1e-12 + TOL_SELF_CROSS * psd.abs())).max())
+    check(worst <= 1.0, f"phase 15 (b): self-cross vs PSD at {worst:.3g}x its allowance")
+    ms = time_cuda(CP.cross_power, x1, x2, sp, warmup=2, iters=10)
+    ms_psd = time_cuda(stft_psd, x1, sp, warmup=2, iters=10)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        CP.ae_co2(x1, x2, t)
+    torch.cuda.synchronize()
+    ms_co2 = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"[{gpu}] phase 15 (b) cross power, 2 x {n} samples at {CP_FS:g} Hz, nperseg 1024 -> "
+        f"{tuple(ampsp.shape)}: line at bin {peak} (want {want}), {float(by_freq[peak]) / floor:.1f}x "
+        f"the median; self-cross vs float64 PSD at {worst:.3g}x its allowance 1e-12 + "
+        f"{TOL_SELF_CROSS} |psd|; "
+        f"cross_power {ms:.4f} ms (CUDA events; float64 stft_psd of one chord {ms_psd:.4f} ms); "
+        f"ae_co2 with its host axes {ms_co2:.3f} ms (host clock)")
+
+
+def train_raw_phase(dev, gpu) -> None:
+    """Phase 15 (c): the CLI's raw-to-model path in process (see the
+    docstring), counted."""
+    from specenh_torch import cli
+
+    n_train = int(RAW_SHOTS * N_CHANNELS * 30 * TrainConfig().split_fracs[0])
+    with tempfile.TemporaryDirectory() as d:
+        raw, bins = os.path.join(d, "raw"), os.path.join(d, "bin")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["synth-shots", "--out", raw, "--shots", str(RAW_SHOTS), "--channels",
+                      str(N_CHANNELS)])
+            cli.main(["convert-bin", "--data-dir", raw, "--out-dir", bins, "--channels",
+                      str(N_CHANNELS)])
+        check(len(os.listdir(bins)) == RAW_SHOTS, f"phase 15 (c): {os.listdir(bins)}")
+        log(f"[{gpu}] phase 15 (c) synth-shots + convert-bin: {RAW_SHOTS} shots x {N_CHANNELS} "
+            f"channels x 1e6 samples in {time.perf_counter() - t0:.1f} s (host)")
+        for model, epochs, depth in (("scan_k3", 2, 2), ("deep3", 1, 3)):
+            out, buf = os.path.join(d, model), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, tl = counted(cli.main, [
+                    "train-raw", "--binary", "--data-dir", bins, "--out-dir", out,
+                    "--channels", str(N_CHANNELS), "--engine", "kernel", "--model", model,
+                    "--epochs", str(epochs)])
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            final = json.loads(text.strip().splitlines()[-1])
+            vals = [float(v) for v in re.findall(r"val_loss=([0-9.eE+-]+)", text)]
+            check(final["channels"] == RAW_SHOTS * N_CHANNELS and len(vals) == epochs
+                  and np.isfinite(final["val_loss"]) and abs(vals[-1] - final["val_loss"]) < 1e-5,
+                  f"phase 15 (c) {model}: {final}, val_loss per epoch {vals}")
+            if epochs > 1:
+                check(vals[-1] < vals[0], f"phase 15 (c) {model}: val_loss {vals} did not fall")
+            steps = epochs * -(-n_train // BATCH)
+            check(tl.pop(SF.STFT_KERNEL, 0) == 1, "phase 15 (c): K1 not launched once")
+            check(tl.get(TK.TRAIN_LOSS, 0) == steps and tl.get(TK.TRAIN_SUM, 0) == steps,
+                  f"phase 15 (c) {model}: {tl.get(TK.TRAIN_LOSS, 0)} kernel steps, want {steps}")
+            want = set(TK.TRAIN_KERNELS if depth == 2 else TRAIN3_KERNELS) - set(K5B_KERNELS)
+            check(set(tl) == want | {AK.CONVT},
+                  f"phase 15 (c) {model}: launched {sorted(k.symbol for k in tl)}")
+            check(os.path.isfile(os.path.join(out, "model", "params.pt")),
+                  f"phase 15 (c) {model}: no model/")
+            row(SF.STFT_KERNEL, "K1")["launches"] += 1
+            add_sweep_launches(tl, depth, serving=False, phase="15 (c)")
+            epoch_lines = [ln for ln in text.splitlines() if ln.startswith("epoch ")]
+            log(f"[{gpu}] phase 15 (c) train-raw --binary --engine kernel --model {model} "
+                f"--epochs {epochs}: {wall:.1f} s (host clock: reading {RAW_SHOTS} binaries, K1 and the "
+                f"label pipeline on {RAW_SHOTS * N_CHANNELS} channels, {steps} kernel steps, validation, "
+                f"model/); "
+                + "; ".join(epoch_lines) + "; launches K1=1, " + ", ".join(
+                    f"{k.symbol}={v}" for k, v in tl.items()))
+
+
+def analyses_phase(dev, gpu) -> None:
+    """Phase 15: the SVD denoiser, the cross power and train-raw."""
+    t0 = time.perf_counter()
+    svd_phase(dev, SpecParams(), gpu)
+    crosspower_phase(dev, gpu)
+    train_raw_phase(dev, gpu)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1869,6 +2158,8 @@ def main() -> int:
                                                 out_kernel=(3, 3)))),
                  EPOCHS3, TK3.kernel_value_and_grad3, TK3.build_train3_weights)
     sweep_phase(dev, gpu, data)
+    del data
+    analyses_phase(dev, gpu)
 
     out = []
     for (kern, kid), r in ROWS.items():

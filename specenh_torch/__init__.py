@@ -3,8 +3,9 @@
 The JAX package ``specenh`` stays the reference; this package runs the
 serving path (raw shot -> STFT -> depth-2 conv-AE -> restitch), the
 dataset build (``pipeline``: raw shots -> spectrograms + classical-pipeline
-labels -> HDF5 store) and the training path (``train.fit`` on the kernel
-engine) on an H100, with every
+labels -> HDF5 store), the training path (``train.fit`` on the kernel
+engine; ``e2e``: raw shots -> model with no store), sweeps and the
+analyses (``ops.svd``, ``ops.crosspower``) on an H100, with every
 TPU kernel of those paths rewritten by hand in CUDA C++
 (``specenh_torch/csrc``).  Each kernel wrapper launches its kernel for a
 CUDA tensor and runs its plain PyTorch twin for a CPU tensor.

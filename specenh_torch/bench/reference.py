@@ -1,5 +1,6 @@
 """Host-side references of the port, in numpy, SciPy and OpenCV: the
-reference spectrogram recipe, the label pipeline's stages and SSIM (the
+reference spectrogram recipe, the label pipeline's stages, the SVD
+denoiser's float64 recipes (denoising_by_svd.ipynb cell 1) and SSIM (the
 counterparts of ``specenh.bench.reference_cpu`` and
 ``specenh.utils.metrics.ssim``).
 
@@ -26,8 +27,8 @@ except Exception:  # pragma: no cover
 from specenh_torch.config import PipelineConfig, SpecParams
 
 __all__ = ["spectrogram_ref", "rescale_ref", "quantfilt_ref", "gaussblr_ref",
-           "meansub_ref", "morph_ref", "pipeline_ref", "pipeline_stages_ref", "ssim",
-           "HAS_CV2"]
+           "meansub_ref", "morph_ref", "pipeline_ref", "pipeline_stages_ref",
+           "svd_denoise_ref", "svd_compute_signal_ref", "ssim", "HAS_CV2"]
 
 
 def spectrogram_ref(sig: np.ndarray, sp: SpecParams) -> np.ndarray:
@@ -130,6 +131,44 @@ def pipeline_stages_ref(spec: np.ndarray, cfg: PipelineConfig = PipelineConfig()
     out["mean"] = meansub_ref(out["gauss"])
     out["morph"] = morph_ref(out["mean"], cfg)
     out["final"] = meansub_ref(out["morph"])
+    return out
+
+
+def _omega_ref(beta: float) -> float:
+    """denoising_by_svd.ipynb cell 1 (omega cubic fit)."""
+    coef = [0.56, -0.95, 1.82, 1.43]
+    return sum(c * beta ** (3 - n) for n, c in enumerate(coef))
+
+
+def svd_denoise_ref(
+    matrix: np.ndarray, start=None, stop=None, use_optimal: bool = False
+) -> np.ndarray:
+    """denoising_by_svd.ipynb cell 1, ``denoiseSignal`` — including the
+    clamp-and-default quirks (start=1 by default: drop only sigma_0)."""
+    u, s, vh = np.linalg.svd(matrix, full_matrices=False)
+    if use_optimal:
+        beta = np.min(matrix.shape) / np.max(matrix.shape)
+        t_star = _omega_ref(beta) * np.median(s)
+        num_sing = int((s > t_star).sum())
+        start, stop = 0, num_sing - 1
+    else:
+        start = 1 if start is None else start
+        stop = len(s) if stop is None else stop
+    start = max(start, 0)
+    stop = min(stop, len(s))
+    return u[:, start:stop] @ np.diag(s[start:stop]) @ vh[start:stop, :]
+
+
+def svd_compute_signal_ref(matrix: np.ndarray) -> np.ndarray:
+    """denoising_by_svd.ipynb cell 1, ``computeSignal`` — keeps components
+    1 .. 2*num_sing - 1 via accumulated rank-1 outer products."""
+    u, s, vh = np.linalg.svd(matrix, full_matrices=False)
+    beta = np.min(matrix.shape) / np.max(matrix.shape)
+    t_star = _omega_ref(beta) * np.median(s)
+    num_sing = int((s > t_star).sum())
+    out = np.zeros_like(matrix, dtype=float)
+    for idx in range(1, min(2 * num_sing, len(s))):
+        out += s[idx] * np.outer(u[:, idx], vh[idx, :])
     return out
 
 

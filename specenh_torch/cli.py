@@ -1,17 +1,28 @@
 """Command-line interface of the port (the counterpart of ``specenh.cli``):
-the reference's sweep scripts as the ``sweep`` subcommand.
+the reference's scripts as subcommands.
 
     python -m specenh_torch.cli sweep --dataset DATA.hdf5 --out-dir OUT \\
         [--grid kernel|2layer|3layer] [--engine envelope|kernel] [--device cuda]
+    python -m specenh_torch.cli train-raw --data-dir RAW --out-dir OUT \\
+        [--binary] [--engine f32|bf16|kernel] [--model scan_k3] [--device cuda]
 
-``sweep`` <- VAE/hyperparam_scan.py's kernel array, VAE/manual_scan.py and
-manual_scan_3layers.py, with the JAX package's flags, defaults and
-artifacts: ``val_losses.npy`` in the grid's shape, ``loss_comparisons.npz``,
-``best_model/``, ``best_val_loss.png`` and a final JSON line.  One flag is
-the port's own: ``--device`` (default ``cuda``; the CPU tests pass
-``--device cpu``).  Flags of paths not ported yet (more than one device,
-the streamed sweep) exit naming their ROADMAP item.  The other
-subcommands of the JAX CLI are not ported yet.
+``sweep``       <- VAE/hyperparam_scan.py's kernel array, VAE/manual_scan.py
+                   and manual_scan_3layers.py
+``train-raw``   -- raw shots -> trained model on the device, no store
+                   (``e2e.train_from_raw``: K1, the label pipeline, the
+                   training kernels with ``--engine kernel``)
+``denoise``     <- denoising_by_svd.ipynb (SVD denoise one channel of a store)
+``crosspower``  <- interferometer/crosspowerspec.py
+``synth-shots`` -- synthetic raw campaign generator (ECE pickles)
+``convert-bin`` -- pickle shots -> SPEC binaries (``--binary`` input)
+
+Each has the JAX package's flags, defaults, artifacts and final JSON line.
+One flag is the port's own: ``--device`` (default ``cuda``; the CPU tests
+pass ``--device cpu``) on ``sweep``, ``train-raw``, ``denoise`` and
+``crosspower``.  Flags of paths not ported yet (more than one device, the
+streamed sweep) exit naming their ROADMAP item.  The JAX CLI's
+``build-data``, ``merge-shards``, ``train``, ``serve``, ``bench``,
+``movie`` and ``import-keras`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,12 +30,208 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 
 import numpy as np
 
-from specenh_torch.config import ModelConfig, SweepConfig, TrainConfig
+from specenh_torch.config import MODEL_PRESETS, Config, ModelConfig, SweepConfig, TrainConfig
 
-__all__ = ["build_parser", "cmd_sweep", "main"]
+__all__ = ["build_parser", "cmd_convert_bin", "cmd_crosspower", "cmd_denoise", "cmd_sweep",
+           "cmd_synth_shots", "cmd_train_raw", "main"]
+
+
+def _cfg_from_args(args) -> Config:
+    cfg = Config()
+    if getattr(args, "cut_shot", None):
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, cut_shot=args.cut_shot))
+    return cfg
+
+
+def _device(name: str):
+    """The torch device of ``--device``; a CUDA device where there is none
+    exits (there is no CPU fallback)."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device (pass --device cpu to run "
+                         "on the CPU)")
+    return dev
+
+
+def cmd_convert_bin(args):
+    """pickle shots -> SPEC binary (the native streaming input)."""
+    import glob as _glob
+
+    from specenh_torch.io.binfmt import convert_ece_pickle
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    channels = list(range(1, args.channels + 1))
+    n = 0
+    for pkl in sorted(_glob.glob(os.path.join(args.data_dir, "*.pkl"))):
+        base = os.path.splitext(os.path.basename(pkl))[0] + ".bin"
+        convert_ece_pickle(pkl, os.path.join(args.out_dir, base), channels)
+        n += 1
+    print(json.dumps({"converted": n}))
+
+
+def cmd_synth_shots(args):
+    """Generate synthetic raw ECE pickle shots (chirp + tone + noise) so the
+    whole stack can run without DIII-D data access."""
+    from specenh_torch.data.dataset import synthetic_shot_batch
+    from specenh_torch.io.shots import ece_key
+
+    os.makedirs(args.out, exist_ok=True)
+    batch = synthetic_shot_batch(
+        n_shots=args.shots, n_channels=args.channels, n_samples=args.samples, seed=args.seed
+    )
+    for s in range(args.shots):
+        shot = 100000 + args.seed * 1000 + s
+        data = {ece_key(c + 1): batch[s, c] for c in range(args.channels)}
+        path = os.path.join(args.out, f"ece_{shot}.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump(data, fh)
+        print(path)
+
+
+def cmd_train_raw(args):
+    """Raw shots -> trained model on the device, no HDF5 round-trip
+    (``e2e.train_from_raw``)."""
+    import glob as _glob
+
+    import torch
+
+    from specenh_torch.e2e import train_from_raw
+    from specenh_torch.io.native import read_shot
+    from specenh_torch.io.shots import read_ece_channels
+    from specenh_torch.ops import ae_kernel
+    from specenh_torch.train import kernel_epoch_for, save_model
+
+    if args.devices > 1:
+        raise SystemExit("--devices > 1: multi-GPU training is not ported yet "
+                         "(ROADMAP Queue 1 item 9, Multi-GPU)")
+    cfg = _cfg_from_args(args)
+    model_cfg = MODEL_PRESETS[args.model]
+    if args.engine == "kernel" and not (ae_kernel.supports(model_cfg)
+                                   or ae_kernel.supports3(model_cfg)):
+        raise SystemExit(
+            f"--engine kernel does not support the '{args.model}' "
+            "geometry; use f32/bf16"
+        )
+    device = _device(args.device)
+    traces = []
+    if args.binary:
+        for p in sorted(_glob.glob(os.path.join(args.data_dir, "*.bin"))):
+            traces.append(read_shot(p, args.channels, cfg.spec.n_samples))
+    else:
+        for p in sorted(_glob.glob(os.path.join(args.data_dir, "*.pkl"))):
+            traces.append(
+                read_ece_channels(p, list(range(1, args.channels + 1)), cfg.spec.n_samples)
+            )
+    traces = np.concatenate(traces, axis=0)
+    train_cfg = TrainConfig(
+        epochs=args.epochs, seed=args.seed, split_by=args.split_by,
+        batch_size=args.batch_size, learning_rate=args.lr,
+        patience=args.patience,
+    )
+    state, hist = train_from_raw(
+        traces, cfg, model_cfg, train_cfg,
+        # shot-major stacking above: each file contributed args.channels
+        # traces, so the leak-free split groups them back into shots
+        channels_per_shot=args.channels,
+        dtype=torch.bfloat16 if args.engine == "bf16" else None,
+        epoch_fn=kernel_epoch_for(model_cfg, train_cfg) if args.engine == "kernel" else None,
+        verbose=not args.quiet,
+        device=device,
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+    save_model(state, os.path.join(args.out_dir, "model"), model_cfg)
+    print(json.dumps({"val_loss": hist["val_loss"][-1], "channels": int(traces.shape[0])}))
+
+
+def cmd_denoise(args):
+    """SVD-denoise one channel of a store (denoising_by_svd.ipynb cells
+    2-3): ``svd_denoised.npy`` and ``svd_compare.png``."""
+    import torch
+
+    from specenh_torch.io.store import SpectrogramStore
+    from specenh_torch.ops.svd import denoise_signal
+    from specenh_torch.viz.plots import plot_svd_compare
+
+    device = _device(args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    with SpectrogramStore(args.dataset, "r") as store:
+        shot = store.shots()[0] if args.shot is None else f"ece_{args.shot}"
+        d = store.read_channel(shot, args.channel)
+    sv = denoise_signal(torch.as_tensor(d["spec"], dtype=torch.float32, device=device))
+    sv = sv.cpu().numpy()
+    np.save(os.path.join(args.out_dir, "svd_denoised.npy"), sv)
+    plot_svd_compare(
+        d["spec"], d["pipeline_out"], sv, shot, args.channel,
+        os.path.join(args.out_dir, "svd_compare.png"),
+    )
+    print(json.dumps({"shot": shot, "channel": args.channel}))
+
+
+def cmd_crosspower(args):
+    """Cross-power spectrogram of two chord signals
+    (interferometer/crosspowerspec.py workflow).  Signals from .npy files
+    or the site HDF5 layout (--base-dir/--fid-file/--shot)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import torch
+    from matplotlib import gridspec
+
+    from specenh_torch.ops.crosspower import ae_co2
+
+    device = _device(args.device)
+    if args.signal1 and args.signal2:
+        sig1 = np.load(args.signal1)
+        sig2 = np.load(args.signal2)
+        t = (
+            np.load(args.time)
+            if args.time
+            else np.arange(len(sig1)) / args.fs
+        )
+    else:
+        from specenh_torch.io.shots import load_time_series_tensor, lookup_fid
+
+        fid = lookup_fid(args.fid_file, int(args.shot))
+        # reference quirk kept (crosspowerspec.py:33-34): signal1 comes
+        # from the v1v3 pair and signal2 from the v2r0 pair — the cross
+        # power is v1 x r0, exactly as the reference computes it
+        sig1, _, _ = load_time_series_tensor(args.base_dir, fid, "v1", "v3")
+        _, sig2, shots = load_time_series_tensor(args.base_dir, fid, "v2", "r0")
+        i = int(np.abs(shots - int(args.shot)).argmin())
+        sig1, sig2 = sig1[i], sig2[i]
+        import h5py
+
+        with h5py.File(os.path.join(args.base_dir, "tsignal.h5"), "r") as fh:
+            t = fh["time"][()]
+
+    ampsp, freq, time_ms = ae_co2(
+        torch.as_tensor(sig1, dtype=torch.float32, device=device),
+        torch.as_tensor(sig2, dtype=torch.float32, device=device), t,
+        nperseg=args.nperseg,
+    )
+    ampsp = ampsp.cpu().numpy()
+    os.makedirs(args.out_dir, exist_ok=True)
+    np.save(os.path.join(args.out_dir, "ampsp.npy"), ampsp)
+    fig = plt.figure(figsize=(8, 4), dpi=100)
+    gs = gridspec.GridSpec(2, 1)
+    ax = plt.subplot(gs[:])
+    ax.imshow(np.log(ampsp).T, origin="lower", cmap="hot", aspect="auto",
+              extent=[time_ms.min(), time_ms.max(), freq.min(), freq.max()])
+    plt.ylabel("Frequency [kHz]")
+    plt.xlabel("Time [ms]")
+    out = os.path.join(args.out_dir, "crosspower.png")
+    fig.savefig(out)
+    plt.close(fig)
+    print(json.dumps({"ampsp": list(ampsp.shape), "plot": out}))
 
 
 def cmd_sweep(args):
@@ -156,6 +363,46 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    cb = sub.add_parser("convert-bin", help="pickle shots -> SPEC binaries")
+    cb.add_argument("--data-dir", required=True)
+    cb.add_argument("--out-dir", required=True)
+    cb.add_argument("--channels", type=int, default=20)
+    cb.set_defaults(fn=cmd_convert_bin)
+
+    s = sub.add_parser("synth-shots", help="generate synthetic raw shots")
+    s.add_argument("--out", required=True)
+    s.add_argument("--shots", type=int, default=3)
+    s.add_argument("--channels", type=int, default=20)
+    s.add_argument("--samples", type=int, default=1_000_000)
+    s.add_argument("--seed", type=int, default=0)
+    s.set_defaults(fn=cmd_synth_shots)
+
+    tr = sub.add_parser("train-raw", help="raw shots -> model on the device (no HDF5)")
+    tr.add_argument("--data-dir", required=True)
+    tr.add_argument("--out-dir", required=True)
+    tr.add_argument("--model", choices=sorted(MODEL_PRESETS), default="scan_k3")
+    tr.add_argument("--channels", type=int, default=20)
+    tr.add_argument("--epochs", type=int, default=15)
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--cut-shot", type=float, default=None)
+    tr.add_argument("--split-by", choices=["tile", "shot"], default="tile",
+                    help="'tile' = reference-exact leaky split; 'shot' = leak-free")
+    tr.add_argument("--batch-size", type=int, default=128)
+    tr.add_argument("--lr", type=float, default=1e-3)
+    tr.add_argument("--patience", type=int, default=None,
+                    help="early-stop after N stale val epochs (default off)")
+    tr.add_argument("--binary", action="store_true")
+    tr.add_argument("--engine", choices=["f32", "bf16", "kernel"], default="f32",
+                    help="training engine: f32 (autograd, the default), bf16 "
+                         "(autograd, bfloat16 activations), kernel (the CUDA "
+                         "training kernels, bf16)")
+    tr.add_argument("--devices", type=int, default=0,
+                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+    tr.add_argument("--device", default="cuda",
+                    help="the torch device training runs on (default cuda)")
+    tr.add_argument("--quiet", action="store_true")
+    tr.set_defaults(fn=cmd_train_raw)
+
     w = sub.add_parser("sweep", help="hyperparameter sweep")
     w.add_argument("--dataset", required=True)
     w.add_argument("--out-dir", required=True)
@@ -217,6 +464,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the torch device the sweep runs on (default cuda)")
     w.add_argument("--quiet", action="store_true")
     w.set_defaults(fn=cmd_sweep)
+
+    d = sub.add_parser("denoise", help="SVD denoise one channel")
+    d.add_argument("--dataset", required=True)
+    d.add_argument("--out-dir", required=True)
+    d.add_argument("--shot", default=None)
+    d.add_argument("--channel", type=int, default=1)
+    d.add_argument("--device", default="cuda",
+                   help="the torch device the SVD runs on (default cuda)")
+    d.set_defaults(fn=cmd_denoise)
+
+    cp = sub.add_parser("crosspower", help="two-chord cross-power spectrogram")
+    cp.add_argument("--signal1", default=None, help=".npy chord signal 1")
+    cp.add_argument("--signal2", default=None, help=".npy chord signal 2")
+    cp.add_argument("--time", default=None, help=".npy time base (seconds)")
+    cp.add_argument("--fs", type=float, default=1.667e6)
+    cp.add_argument("--base-dir", default=None, help="site HDF5 layout root")
+    cp.add_argument("--fid-file", default=None)
+    cp.add_argument("--shot", default=None)
+    cp.add_argument("--nperseg", type=int, default=1024)
+    cp.add_argument("--out-dir", required=True)
+    cp.add_argument("--device", default="cuda",
+                    help="the torch device the transform runs on (default cuda)")
+    cp.set_defaults(fn=cmd_crosspower)
     return p
 
 

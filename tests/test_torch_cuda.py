@@ -1,6 +1,7 @@
 """The CUDA kernels (serving in every STFT mode and training, depth 2 and 3,
-and the toolchain probes) against their plain twins, on a GPU (marker ``gpu``;
-skipped where no CUDA device is present).  This file imports no jax, so it
+and the toolchain probes) against their plain twins, and the SVD denoiser,
+the cross power and ``e2e.train_from_raw`` on the card against the CPU, on a
+GPU (marker ``gpu``; skipped where no CUDA device is present).  This file imports no jax, so it
 runs where only torch is installed:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
@@ -866,3 +867,94 @@ def test_production_predict_fn_launches_serving_kernels(cuda, cfg):
     m16 = make_model(unc, generator=torch.Generator().manual_seed(1), device=cuda)
     out, took = _launches(harness.make_production_predict_fn(unc, device=cuda), m16, tiles)
     assert not took and out.shape == tiles.shape
+
+
+def _lowrank(shape=(2, 256, 500), rank=6, seed=0):
+    """A batch of rank-6 matrices plus noise (tests/test_svd.py's)."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros(shape)
+    for b in range(shape[0]):
+        for i in range(rank):
+            m[b] += np.outer(rng.standard_normal(shape[1]),
+                             rng.standard_normal(shape[2])) * (4.0 / (i + 1))
+    return torch.from_numpy(m + 0.1 * rng.standard_normal(shape)).float()
+
+
+def _norm(x):
+    x = x.double().cpu().numpy()
+    return (x - x.min()) / (x.max() - x.min())
+
+
+def test_svd_on_the_card_matches_the_cpu(cuda):
+    """ops.svd on the card (cuSOLVER) against the same functions on the
+    CPU: the default band and the deflation within 1e-4 of max |x|, the
+    use_optimal band and compute_signal (band edges in the noise spectrum)
+    at SSIM >= 0.995 per matrix, as tests/test_svd.py holds float32 to
+    float64."""
+    from specenh_torch.ops import svd
+
+    x = _lowrank()
+    scale = float(x.abs().max())
+    for name, fn in (("denoise", svd.denoise_signal), ("deflate", svd.deflate_top1)):
+        got, want = fn(x.to(cuda)).cpu(), fn(x)
+        assert float((got - want).abs().max()) / scale < 1e-4, name
+    for name, fn in (("optimal", lambda a: svd.denoise_signal(a, use_optimal=True)),
+                     ("gram", svd.compute_signal),
+                     ("subspace", lambda a: svd.compute_signal(a, method="subspace")),
+                     ("svd", lambda a: svd.compute_signal(a, method="svd"))):
+        got, want = fn(x.to(cuda)).cpu(), fn(x)
+        for b in range(x.shape[0]):
+            assert ssim(_norm(got[b]), _norm(want[b])) > 0.995, (name, b)
+
+
+def test_svd_ignores_the_callers_tf32(cuda):
+    """With TF32 turned on by the caller, the SVD functions give the same
+    bits as with it off, and the caller's setting is back afterwards."""
+    from specenh_torch.ops import svd
+
+    x = _lowrank(seed=3).to(cuda)
+    fns = (svd.denoise_signal, lambda a: svd.denoise_signal(a, use_optimal=True),
+           svd.compute_signal, svd.deflate_top1)
+    want = [fn(x) for fn in fns]
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = [fn(x) for fn in fns]
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_crosspower_on_the_card_matches_the_cpu(cuda):
+    """ae_co2 on the card against the CPU: ampsp within 1e-4 of its largest
+    value, the same axes."""
+    from specenh_torch.ops.crosspower import ae_co2
+
+    t = np.arange(1 << 16) / 1.667e6
+    rng = np.random.default_rng(2)
+    s1, s2 = (torch.from_numpy((np.sin(2 * np.pi * 8e4 * t + p) + rng.standard_normal(t.size))
+                               .astype(np.float32)) for p in (0.0, 0.3))
+    got, f, tm = ae_co2(s1.to(cuda), s2.to(cuda), t)
+    want, wf, wt = ae_co2(s1, s2, t)
+    assert got.is_cuda and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.max()))
+    assert (f == wf).all() and (tm == wt).all()
+
+
+def test_train_from_raw_on_the_kernels(cuda):
+    """e2e.train_from_raw with the kernel engine, 3 channels of 0.2 s (9
+    tiles, 5 trained): K1 once, every step on K5, finite losses."""
+    from specenh_torch import Config, TrainConfig
+    from specenh_torch.e2e import train_from_raw
+    from specenh_torch.train import kernel_epoch_for
+
+    x = np.random.default_rng(0).standard_normal((3, SP.n_samples)).astype(np.float32)
+    tc = TrainConfig(epochs=2, batch_size=2)
+    (_, hist), took = _launches(train_from_raw, x, Config(spec=SP), ModelConfig(), tc,
+                                device=cuda, epoch_fn=kernel_epoch_for(ModelConfig(), tc))
+    assert took[tsf.STFT_KERNEL] == 1
+    assert took[ttk.TRAIN_LOSS] == took[ttk.TRAIN_SUM] == 2 * 3
+    assert np.isfinite(hist["loss"]).all() and np.isfinite(hist["val_loss"]).all()

@@ -2,31 +2,6 @@
 CPU where the kernels cannot run, held against the plain twins and the JAX
 package:
 
-- the weight-gradient kernel (``csrc/ae_train.cu`` ``wgrad_kernel``, split
-  by ``ops.ae_train_kernel.wgrad_plan``): per (tile, row group, slice of
-  D's rows) block, strips of rows with the taps' halo (zeros at the tile's
-  edges), the transposed convs' dz as four phase planes with the S = 2 /
-  OFF shifts, routed dz decoded once per strip, each tap read from the
-  staged strip, sums over the strips in order and partial rows summed in
-  order; against the twin and Flax autodiff for k3, k5 and k7;
-- the transposed convs' input gradient (``convt_dgrad_kernel``, split by
-  ``ops.ae_train_kernel.dgrad_convt_rows``): per (tile, strip) block, dz's
-  phase planes staged with the taps' halo one channel chunk at a time,
-  each chunk summed on its own and added in order, the gate, one bias
-  partial row per block; against the twin and Flax autodiff;
-- the tensor-core stride-1 conv (``csrc/ae_conv.cuh`` ``conv_igemm_kernel``,
-  split by ``ops.ae_train_kernel.conv_igemm_rows``): per (tile, strip)
-  block, the input rows with the taps' halo staged one 16-channel chunk at
-  a time, each chunk summed on its own and added in order, its three
-  epilogues (pool; pool and routing bits; the routed input gradient's gate
-  and one bias partial row per block); against the twins, JAX's K3 in
-  interpret mode and Flax autodiff;
-- the tensor-core transposed conv (``convt_igemm_kernel``, split by
-  ``ops.ae_kernel.convt_igemm_rows``): per (tile, strip) block, the input
-  rows with the taps' halo staged one 16-channel chunk at a time, each
-  output parity a stride-1 product over its taps, each chunk summed on its
-  own and added in order, bias, relu, one rounding; against the twin,
-  Flax's ``ConvTranspose`` and JAX's K3 in interpret mode;
 - the tensor-core out-conv (``conv_out_mma_kernel``, the bf16 S4 and the
   training loss, split by ``ops.ae_kernel.conv_out_plan``): per (tile,
   strip) block, the input rows with the taps' halo as the ring holds them,
@@ -53,7 +28,11 @@ package:
 - K1 (``csrc/stft.cu``): per block of 16 frames, detrend by mean and slope,
   the window, the 256-point complex FFT as 16 x 16 with the host's twiddle
   table, the real-to-complex split, per-block min/max; against the twin
-  and JAX's ``stft_ft_log`` in interpret mode."""
+  and JAX's ``stft_ft_log`` in interpret mode.
+
+The weight gradient, the transposed convs and the stride-1 conv are in
+``tests/test_torch_decomp_wgrad.py``, ``_convt.py`` and ``_igemm.py``;
+shared helpers in ``tests/_torch_decomp_common.py``."""
 
 import itertools
 
@@ -65,7 +44,7 @@ import jax
 import jax.numpy as jnp
 import flax.linen as nn
 
-from specenh.config import ModelConfig as JModelConfig, SpecParams
+from specenh.config import ModelConfig as JModelConfig
 from specenh.models.autoencoder import make_model as flax_model
 from specenh.ops import ae3_kernel as jak3
 from specenh.ops import ae_kernel as jak
@@ -75,638 +54,14 @@ from specenh.train import bce_from_logits as jbce
 from specenh_torch import ModelConfig
 from specenh_torch.config import MODEL_PRESETS
 from specenh_torch.data.tiles import patch, unpatch
-from specenh_torch.models.autoencoder import convt_pad_before, make_model
+from specenh_torch.models.autoencoder import make_model
 from specenh_torch.models.convert import state_dict_from_flax
 from specenh_torch.ops import ae_kernel as tak
 from specenh_torch.ops import ae_train_kernel as ttk
 from specenh_torch.ops.stft import spectrogram
 from specenh_torch.ops import stft as tstft
 from specenh_torch.ops import stft_fused as tsf
-
-# ---------------------------------------------------------------------------
-# the weight-gradient kernel
-# ---------------------------------------------------------------------------
-
-
-def wgrad_emulated(tw, layer, inp, dz, dz_bits=None, pre=False):
-    """``ae_train_wgrad`` as the kernel computes it, block by block."""
-    k, convt = tw.fwd.k(layer), tw.fwd.is_convt(layer)
-    x = inp.to(tw.dtype).float()
-    x = x[:, None] if x.ndim == 3 else x
-    b, cin, h, w = x.shape
-    cout, kk = tw.fwd.cout(layer), k * k
-    stride, off = (2, convt_pad_before(k)) if convt else (1, k // 2)
-    plan = ttk.wgrad_plan(cin, cout, k, h, w, stride, off, tw.dtype.itemsize)
-    taps, lo, r = plan.taps(), plan.hlo, plan.rows
-    m_rows, per_slice = plan.ct * kk, plan.gm * plan.mw * 16
-    part = torch.empty(b * plan.sg, cin * kk * cout)
-    for bi in range(b):
-        if convt:  # T: dz's phase planes (Cout, 4, H, W); P: the input
-            d = dz[bi].float()
-            t_all = torch.stack([d[:, ry::2, rx::2] for ry in (0, 1) for rx in (0, 1)], 1)
-            p_src = x[bi]
-        else:  # T: the input (Cin, 1, H, W); P: dz, routed below if pooled
-            t_all, p_src = x[bi][:, None], dz[bi].float()
-        # the 'same' padding: T is zero outside its (H, W) grid
-        t_pad = torch.nn.functional.pad(t_all, (-lo, plan.hhi, -lo, plan.hhi))
-        for s in range(plan.slices):
-            row0, row1 = s * per_slice, min(m_rows, (s + 1) * per_slice)
-            tc0 = row0 // kk
-            for g in range(plan.sg):
-                acc = torch.zeros(row1 - row0, plan.cp)
-                for y0 in range(g * h // plan.sg, (g + 1) * h // plan.sg, r):
-                    # the strip: T rows y0 + hlo .. y0 + R - 1 + hhi of the
-                    # slice's channels, and P's R rows (decoded once)
-                    ts = t_pad[tc0:(row1 - 1) // kk + 1, :, y0:y0 + r + plan.hhi - lo]
-                    if dz_bits is None or convt:
-                        ps = p_src[:, y0:y0 + r]
-                    else:
-                        ps = ttk.route_expand(dz[bi:bi + 1, :, y0 // 2:(y0 + r) // 2].float(),
-                                              dz_bits[bi:bi + 1, :, y0 // 2:(y0 + r) // 2])[0]
-                    for row in range(row0, row1):
-                        plane, dy, dx = taps[row % kk]
-                        win = ts[row // kk - tc0, plane, dy - lo:dy - lo + r, dx - lo:dx - lo + w]
-                        acc[row - row0] += torch.einsum("yx,cyx->c", win, ps)
-                for row in range(row0, row1):
-                    t, tap = divmod(row, kk)
-                    for c in range(plan.cp):
-                        ci, co = (t, c) if stride == 1 else (c, t)
-                        part[bi * plan.sg + g, (ci * kk + tap) * cout + co] = acc[row - row0, c]
-    return ttk.ae_train_sum(part).reshape(cin, k, k, cout)
-
-
-GEOMETRIES = {
-    "k3": dict(),
-    "k5": dict(kernels=((5, 5), (5, 5)), out_kernel=(5, 5)),
-    "k7": dict(kernels=((7, 7), (7, 7)), out_kernel=(7, 7)),
-}
-
-
-def _tiles(n=2, seed=2):
-    rng = np.random.default_rng(seed)
-    x = rng.random((n, 256, 128, 1)).astype(np.float32)
-    y = (rng.random((n, 256, 128, 1)) > 0.6).astype(np.float32)
-    return x, y, np.ones(n, np.float32)
-
-
-def _emulated_grads(model, x, y, mask, dtype):
-    """Gradient sums of the twins' chain with the emulated weight
-    gradients in place of the twin's, normalised."""
-    tw = ttk.build_train_weights(model, dtype)
-    xs, ys, ms = ttk._inputs(tw, torch.from_numpy(x), torch.from_numpy(y),
-                             torch.from_numpy(mask), False)
-    saved, _, bce = ttk._forward(tw, xs, ys, ms, False, ttk._PLAIN)
-    f = dict(ttk._PLAIN, wgrad=wgrad_emulated)
-    gw, gb = ttk._backward(tw, saved, False, f)
-    plain = ttk._backward(tw, saved, False, ttk._PLAIN)
-    return ttk.normalise((bce[0], ms.sum(), ttk.grads_to_torch(gw, gb))), \
-        ttk.grads_to_torch(*plain), ttk.grads_to_torch(gw, gb)
-
-
-@pytest.mark.parametrize("name", list(GEOMETRIES))
-def test_wgrad_decomposition_matches_twin_and_flax(name):
-    """float32: the emulated weight gradients of every layer against the
-    twin's (f32 sums in another order: 1e-5 of each layer's scale) and,
-    normalised, against autodiff of the Flax model (2e-5 of the scale, the
-    bound of test_torch_train_kernel.py)."""
-    kw = GEOMETRIES[name]
-    fm = flax_model(JModelConfig(**kw))
-    params = fm.init(jax.random.PRNGKey(0), np.zeros((1, 256, 128, 1), np.float32))
-    model = make_model(ModelConfig(**kw), generator=torch.Generator().manual_seed(0))
-    model.load_state_dict(state_dict_from_flax(params, ModelConfig(**kw)))
-    x, y, mask = _tiles()
-    (_, grads), twin, emu = _emulated_grads(model, x, y, mask, torch.float32)
-    for key in twin:
-        if key.endswith("weight"):
-            scale = float(twin[key].abs().max())
-            assert float((emu[key] - twin[key]).abs().max()) <= 1e-5 * max(scale, 1e-6), key
-    _, ref = jax.value_and_grad(lambda p: jbce(fm.apply(p, x, logits=True), y, mask))(params)
-    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, ref), ModelConfig(**kw))
-    scale = max(float(v.abs().max()) for v in want.values())
-    err = max(float((grads[k] - want[k]).abs().max()) for k in want)
-    assert err < 2e-5 * max(scale, 1.0), (err, scale)
-
-
-def test_wgrad_decomposition_bf16_and_deep3_match_twin():
-    """bf16 operands (the values the kernel stages) and the depth-3 family's
-    layer kinds (16 -> 32 -> 64 channels, k5): the emulation against the
-    twin, layer by layer, to 1e-5 of each layer's scale."""
-    x, y, mask = _tiles(n=1, seed=5)
-    for cfg, dt in ((ModelConfig(), torch.bfloat16),
-                    (ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3,
-                                 out_kernel=(5, 5)), torch.bfloat16)):
-        model = make_model(cfg, generator=torch.Generator().manual_seed(1))
-        _, twin, emu = _emulated_grads(model, x, y, mask, dt)
-        for key in twin:
-            scale = float(twin[key].abs().max())
-            assert float((emu[key] - twin[key]).abs().max()) <= 1e-5 * max(scale, 1e-6), key
-
-
-@pytest.mark.parametrize("args", [
-    (1, 32, 3, 256, 128, 1, 1), (32, 32, 3, 128, 64, 1, 1), (32, 32, 3, 64, 32, 2, 2),
-    (32, 1, 3, 256, 128, 1, 1), (64, 64, 5, 32, 16, 2, 3), (32, 64, 5, 64, 32, 1, 2),
-    (64, 32, 7, 128, 64, 1, 3), (48, 48, 3, 128, 64, 1, 1), (1, 64, 7, 256, 128, 1, 3),
-])
-@pytest.mark.parametrize("item", [2, 4], ids=["bf16", "f32"])
-def test_wgrad_plan_covers_the_layer(args, item):
-    """Every plan covers D's rows with whole slices, splits the tile's rows
-    into whole strips, bounds the steps an accumulator takes, keeps a
-    thread's accumulators at 64 and a block's shared memory within the
-    card's 227 KB."""
-    cin, cout, k, h, w, stride, off = args
-    p = ttk.wgrad_plan(cin, cout, k, h, w, stride, off, item)
-    mf, np_ = -(-p.ct * k * k // 16), -(-p.cp // 8)
-    assert p.gm in (1, 2, 4, 8) and p.slices * p.gm * p.mw >= mf
-    assert (p.slices - 1) * p.gm * p.mw < mf
-    assert h % (p.sg * p.rows) == 0 and p.rows % 2 == 0
-    assert h // p.sg * w // 16 <= ttk._WG_CHAIN * (8 // p.gm)
-    assert p.mw * np_ * 4 <= 64
-    shifts = [d for _, d, _ in p.taps()]
-    assert (p.hlo, p.hhi) == (min(shifts), max(shifts))
-    nph = 4 if stride == 2 else 1
-    assert ttk._wg_bytes(p.ct, p.cp, k, h, w, p.rows, nph, p.hlo, p.hhi, p.gm, p.mw,
-                         item) <= 227 * 1024
-
-
-# ---------------------------------------------------------------------------
-# the transposed convs' input-gradient kernel
-# ---------------------------------------------------------------------------
-
-
-def dgrad_convt_emulated(tw, layer, dz, gate):
-    """``ae_train_dgrad_convt`` as ``convt_dgrad_kernel`` computes it: per
-    (tile, strip of R rows) block, dz's four phase planes staged with the
-    taps' halo (zeros outside the grid) one channel chunk at a time (16
-    channels in bf16, 8 in float32), every tap a shifted window of a
-    plane, each chunk summed on its own and added in order, the gate, one
-    bias partial row per block, the rows summed in order."""
-    k = tw.fwd.k(layer)
-    pa = convt_pad_before(k)
-    hlo, hhi = (pa - k + 1) >> 1, pa >> 1
-    b, cz, h2, w2 = dz.shape
-    h, w = h2 // 2, w2 // 2
-    cout = tw.fwd.w[layer].shape[0]
-    strips = ttk.dgrad_convt_rows(1, h, w, cout)
-    r = h // strips
-    ch = 16 if tw.dtype == torch.bfloat16 else 8
-    wt = tw.bwd[layer].float()                                  # (K, K, Cout, Cz)
-    out = torch.empty(b, cout, h, w, dtype=tw.dtype)
-    part = torch.empty(b * strips, cout)
-    for bi in range(b):
-        d = dz[bi].float()
-        planes = torch.stack([d[:, ry::2, rx::2] for ry in (0, 1) for rx in (0, 1)], 1)
-        planes = torch.nn.functional.pad(planes, (-hlo, hhi, -hlo, hhi))
-        for s in range(strips):
-            y0 = s * r
-            strip = planes[:, :, y0:y0 + r + hhi - hlo]         # staged once
-            acc = torch.zeros(cout, r, w)
-            for c0 in range(0, cz, ch):
-                cacc = torch.zeros(cout, r, w)
-                for tap in range(k * k):
-                    ai, aj = pa - tap // k, pa - tap % k
-                    plane = (ai & 1) * 2 + (aj & 1)
-                    dy, dx = (ai >> 1) - hlo, (aj >> 1) - hlo
-                    win = strip[c0:c0 + ch, plane, dy:dy + r, dx:dx + w]
-                    cacc += torch.einsum("cyx,oc->oyx", win, wt[tap // k, tap % k, :, c0:c0 + ch])
-                acc += cacc
-            g = gate[bi:bi + 1, :, y0:y0 + r]
-            o, gv = ttk._gate(acc[None], g, tw.dtype)
-            out[bi, :, y0:y0 + r] = o[0]
-            part[bi * strips + s] = gv[0].sum((1, 2))
-    return out, ttk.ae_train_sum(part)
-
-
-DGRAD_GEOMETRIES = {
-    "k3": ModelConfig(),
-    "deep3": ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(5, 5)),
-    "64-32-64k7": ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
-    "48-16-48mixed": ModelConfig(filters=(48, 16, 48), kernels=((3, 3), (5, 5), (1, 1)),
-                                 out_kernel=(3, 3)),
-}
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", list(DGRAD_GEOMETRIES))
-def test_dgrad_convt_decomposition_matches_twin(name, dtype):
-    """Every transposed-conv layer (the first gated by random routing bits,
-    the others by their relu'd input) on one tile of random inputs: the
-    emulated kernel against the twin, the output within one ulp of the
-    dtype (float32: 1e-5 of the scale) and the bias sums to 1e-5 of their
-    scale."""
-    model = make_model(DGRAD_GEOMETRIES[name], generator=torch.Generator().manual_seed(1))
-    tw = ttk.build_train_weights(model, dtype)
-    g = torch.Generator().manual_seed(2)
-    for i in range(tw.fwd.depth, tw.fwd.out):
-        shape = ttk._act_shape(tw, i, 1)
-        dz = torch.randn(1, tw.fwd.cout(i), 2 * shape[2], 2 * shape[3], generator=g).to(dtype)
-        gate = (torch.randint(0, 16, shape, generator=g, dtype=torch.uint8) if i == tw.fwd.depth
-                else torch.randn(shape, generator=g).clamp_min(0).to(dtype))
-        out, db = dgrad_convt_emulated(tw, i, dz, gate)
-        rout, rdb = ttk.ae_train_dgrad_convt_plain(tw, i, dz, gate)
-        d, ref = (out.float() - rout.float()).abs(), rout.float().abs()
-        if dtype == torch.bfloat16:
-            assert float((d - 2.0 ** -7 * ref - 1e-5).max()) <= 0, i
-        else:
-            assert float(d.max()) <= 1e-5 * float(ref.max()), i
-        assert float((db - rdb).abs().max()) <= 1e-5 * float(rdb.abs().max()), i
-
-
-@pytest.mark.parametrize("name", ["k3", "deep3"])
-def test_dgrad_convt_decomposition_in_the_chain_matches_flax(name):
-    """float32: the twins' backward with the emulated transposed-conv input
-    gradients in place of the twin's, normalised, against autodiff of the
-    Flax model (2e-5 of the scale, as the weight-gradient emulation)."""
-    cfg = DGRAD_GEOMETRIES[name]
-    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
-    fm = flax_model(jcfg)
-    params = fm.init(jax.random.PRNGKey(0), np.zeros((1, 256, 128, 1), np.float32))
-    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
-    model.load_state_dict(state_dict_from_flax(params, cfg))
-    x, y, mask = _tiles(n=1, seed=3)
-    tw = ttk.build_train_weights(model, torch.float32)
-    xs, ys, ms = ttk._inputs(tw, torch.from_numpy(x), torch.from_numpy(y),
-                             torch.from_numpy(mask), False)
-    saved, _, bce = ttk._forward(tw, xs, ys, ms, False, ttk._PLAIN)
-    gw, gb = ttk._backward(tw, saved, False, dict(ttk._PLAIN, dgrad_convt=dgrad_convt_emulated))
-    _, grads = ttk.normalise((bce[0], ms.sum(), ttk.grads_to_torch(gw, gb)))
-    _, ref = jax.value_and_grad(lambda p: jbce(fm.apply(p, x, logits=True), y, mask))(params)
-    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, ref), cfg)
-    scale = max(float(v.abs().max()) for v in want.values())
-    err = max(float((grads[k] - want[k]).abs().max()) for k in want)
-    assert err < 2e-5 * max(scale, 1.0), (err, scale)
-
-
-@pytest.mark.parametrize("name", list(DGRAD_GEOMETRIES))
-def test_dgrad_convt_strips_cover_the_grid(name):
-    """The kernel's split of each transposed-conv layer, as the C launcher
-    checks it: strips of R rows tile the output grid, a block's R * W
-    positions fit its 8 warps of 16-position fragments, and its staged
-    strip and weight chunk fit the 227 KB of shared memory (less the 2 KB
-    of its bias reduction)."""
-    tw = ttk.build_train_weights(make_model(DGRAD_GEOMETRIES[name],
-                                            generator=torch.Generator()), torch.bfloat16)
-    for i in range(tw.fwd.depth, tw.fwd.out):
-        _, cout, h, w = ttk._act_shape(tw, i, 1)
-        k, nf = tw.fwd.k(i), cout // 8
-        strips = ttk.dgrad_convt_rows(1, h, w, cout)
-        r = h // strips
-        assert strips * r == h and w % 16 == 0 and cout % 16 == 0
-        assert r * w <= 8 * 16 * (1 if nf >= 6 else 8 // nf)
-        pa = convt_pad_before(k)
-        halo = (pa >> 1) - ((pa - k + 1) >> 1)
-        smem = (4 * (r + halo) * (w + halo) + k * k * cout) * 32
-        assert smem <= 227 * 1024 - 2048, (i, smem)
-        assert ttk.dgrad_convt_rows(5, h, w, cout) == 5 * strips
-
-
-# ---------------------------------------------------------------------------
-# the tensor-core stride-1 conv
-# ---------------------------------------------------------------------------
-
-
-def conv_igemm_emulated(x, wt, k, epi, bias=None, dz_bits=None, gate=None,
-                        dtype=torch.bfloat16):
-    """``conv_igemm_kernel`` as it computes, block by block: per (tile,
-    strip of R rows), the input rows y0 - r .. y0 + R - 1 + r (r = K // 2)
-    with the taps' halo columns, zeros outside the tile, staged one
-    16-channel chunk at a time; every tap a shifted window of the strip;
-    each chunk summed on its own and added in order; then the epilogue:
-    "pool" (bias, relu, 2x2 max pool -> the output in ``dtype``),
-    "pool_mask" (and the routing bits) or "gate" (the routed input
-    gradient: the stored output and one bias partial row per block, summed
-    by ``ae_train_sum``).  x (B, Cin, H, W), or with ``dz_bits`` the pooled
-    gradient (B, Cin, H/2, W/2) routed through them (each value decoded
-    once); wt (K, K, Cout, Cin)."""
-    x = x.float() if dz_bits is None else ttk.route_expand(x.float(), dz_bits)
-    b, cin, h, w = x.shape
-    cout, r, wt = wt.shape[2], k // 2, wt.float()
-    strips = ttk.conv_igemm_rows(1, h, w, cout)
-    rows = h // strips
-    xp = torch.nn.functional.pad(x, (r, r, r, r))
-    acc = torch.empty(b, cout, h, w)
-    for s in range(strips):
-        y0 = s * rows
-        strip = xp[:, :, y0:y0 + rows + 2 * r]                 # staged once a chunk
-        sacc = torch.zeros(b, cout, rows, w)
-        for c0 in range(0, cin, 16):
-            cacc = torch.zeros(b, cout, rows, w)
-            for tap in range(k * k):
-                i, j = divmod(tap, k)
-                win = strip[:, c0:c0 + 16, i:i + rows, j:j + w]
-                cacc += torch.einsum("bcyx,oc->boyx", win, wt[i, j, :, c0:c0 + 16])
-            sacc += cacc
-        acc[:, :, y0:y0 + rows] = sacc
-    if epi == "gate":
-        out, g = ttk._gate(acc, gate, dtype)
-        part = g.reshape(b, cout, strips, rows, w).sum((3, 4)).permute(0, 2, 1)
-        return out, ttk.ae_train_sum(part.reshape(b * strips, cout).contiguous())
-    relu = torch.relu(acc + bias[:, None, None])
-    pooled = torch.nn.functional.max_pool2d(relu, 2)
-    out = pooled.to(dtype)
-    return out if epi == "pool" else (out, ttk.route_bits(relu, pooled))
-
-
-def _dgrad_wt(tw, layer):
-    """The encoder conv's input-gradient operand in the tensor-core layout
-    (K, K, Cin, Cout): the kernel flipped, dz's channel fastest."""
-    return tw.fwd.w[layer].flip(1, 2).permute(1, 2, 0, 3)
-
-
-def dgrad_conv_emulated(tw, layer, dz, gate, dz_bits=None):
-    """``ae_train_dgrad_conv`` with the encoder convs' launches emulated as
-    ``conv_igemm_kernel`` computes them; the out-conv's (one dz channel,
-    ``conv_quad_kernel``) is the twin."""
-    if dz_bits is None:
-        return ttk.ae_train_dgrad_conv_plain(tw, layer, dz, gate)
-    return conv_igemm_emulated(dz, _dgrad_wt(tw, layer), tw.fwd.k(layer), "gate",
-                               dz_bits=dz_bits, gate=gate, dtype=tw.dtype)
-
-
-IGEMM_GEOMETRIES = {
-    "k3": ModelConfig(),
-    "deep3": ModelConfig(filters=(16, 32, 64), kernels=((5, 5),) * 3, out_kernel=(5, 5)),
-    "k7": ModelConfig(kernels=((7, 7), (7, 7)), out_kernel=(7, 7)),
-    "48-48-64k3": ModelConfig(filters=(48, 48, 64), kernels=((3, 3),) * 3, out_kernel=(3, 3)),
-}
-
-
-def _bf16_ulp_excess(got, want):
-    """How far |got - want| exceeds one bf16 ulp of want (+ 1e-5): <= 0."""
-    return float(((got.float() - want.float()).abs() - 2.0 ** -7 * want.float().abs()
-                  - 1e-5).max())
-
-
-@pytest.mark.parametrize("name", list(IGEMM_GEOMETRIES))
-def test_conv_igemm_decomposition_matches_twins(name):
-    """bf16, every encoder conv after conv 0 on 2 tiles of random inputs:
-    the emulated kernel with each epilogue against the twin of its entry
-    point (``ae_conv_pool``, ``ae_train_conv_pool``, the encoder convs'
-    ``ae_train_dgrad_conv``), read from the weights in the layouts the
-    layer table arranges: outputs within one bf16 ulp (chip_smoke.py's
-    stage bound), routing bits equal but on ties (<= 1e-4 of them), bias
-    sums to 1e-5 of their scale (float32 sums in another order)."""
-    model = make_model(IGEMM_GEOMETRIES[name], generator=torch.Generator().manual_seed(1))
-    tw = ttk.build_train_weights(model, torch.bfloat16)
-    g = torch.Generator().manual_seed(2)
-    for i in range(1, tw.fwd.depth):
-        shape = ttk._act_shape(tw, i, 2)
-        k, cout = tw.fwd.k(i), tw.fwd.cout(i)
-        x = torch.randn(shape, generator=g).clamp_min(0).to(torch.bfloat16)
-        got = conv_igemm_emulated(x, tw.fwd.wt[i], k, "pool", tw.fwd.b[i])
-        assert _bf16_ulp_excess(got, tak.ae_conv_pool_plain(tw.fwd, x, i)) <= 0, i
-        got, bits = conv_igemm_emulated(x, tw.fwd.wt[i], k, "pool_mask", tw.fwd.b[i])
-        want, wbits = ttk.ae_train_conv_pool_plain(tw, x, i)
-        assert _bf16_ulp_excess(got, want) <= 0, i
-        assert float((bits != wbits).float().mean()) <= 1e-4, i
-        pooled = (2, cout, shape[2] // 2, shape[3] // 2)
-        dz = torch.randn(pooled, generator=g).to(torch.bfloat16)
-        dz_bits = torch.randint(0, 16, pooled, generator=g, dtype=torch.uint8)
-        gate = torch.randint(0, 16, shape, generator=g, dtype=torch.uint8)
-        out, db = conv_igemm_emulated(dz, tw.bwd[i], k, "gate", dz_bits=dz_bits, gate=gate)
-        rout, rdb = ttk.ae_train_dgrad_conv_plain(tw, i, dz, gate, dz_bits)
-        assert _bf16_ulp_excess(out, rout) <= 0, i
-        assert float((db - rdb).abs().max()) <= 1e-5 * float(rdb.abs().max()), i
-
-
-def test_conv_igemm_s2_chain_matches_twin_and_jax():
-    """The flagship's bf16 serving chain with the emulated S2 in place of
-    its twin: against the twins' chain (the whole AE in bf16, 5e-3) and
-    against JAX's K3 with its parity turns in interpret mode (the bound of
-    tests/test_torch_ae.py, 5e-3)."""
-    cfg = JModelConfig()
-    fm = flax_model(cfg)
-    params = fm.init(jax.random.PRNGKey(0), np.zeros((1, 256, 128, 1), np.float32))
-    model = make_model(ModelConfig(), generator=torch.Generator().manual_seed(0))
-    model.load_state_dict(state_dict_from_flax(params, ModelConfig()))
-    x = np.random.default_rng(1).standard_normal((2, SP.n_samples)).astype(np.float32)
-    specs, k = spectrogram(torch.from_numpy(x), SP), 3
-    wts = tak.build_kernel_weights(model, torch.bfloat16)
-    act = tak.ae_tile_in(wts, specs, k)
-    for i in range(1, wts.depth):
-        act = conv_igemm_emulated(act, wts.wt[i], wts.k(i), "pool", wts.b[i])
-    for i in range(wts.depth, wts.out):
-        act = tak.ae_convt(wts, act, i)
-    got = tak.ae_tile_out(wts, act, k).numpy()
-    twin = tak.ae_kernel_enhance_specs(wts, specs, k).numpy()
-    want = np.asarray(jak.ae_kernel_enhance_specs(jak.build_kernel_weights(params, cfg),
-                                                  jnp.asarray(specs.numpy()), k, interpret=True))
-    assert got.shape == want.shape == (2, 256, k * 128)
-    np.testing.assert_allclose(got, twin, rtol=0, atol=5e-3)
-    np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
-
-
-@pytest.mark.parametrize("name", ["k3", "deep3"])
-def test_conv_igemm_routed_gradient_in_the_chain_matches_flax(name):
-    """float32: the twins' backward with the encoder convs' input gradients
-    emulated as the tensor-core kernel computes them, normalised, against
-    autodiff of the Flax model (2e-5 of the scale, as the other
-    emulations)."""
-    cfg = IGEMM_GEOMETRIES[name]
-    jcfg = JModelConfig(filters=cfg.filters, kernels=cfg.kernels, out_kernel=cfg.out_kernel)
-    fm = flax_model(jcfg)
-    params = fm.init(jax.random.PRNGKey(0), np.zeros((1, 256, 128, 1), np.float32))
-    model = make_model(cfg, generator=torch.Generator().manual_seed(0))
-    model.load_state_dict(state_dict_from_flax(params, cfg))
-    x, y, mask = _tiles(n=1, seed=4)
-    tw = ttk.build_train_weights(model, torch.float32)
-    xs, ys, ms = ttk._inputs(tw, torch.from_numpy(x), torch.from_numpy(y),
-                             torch.from_numpy(mask), False)
-    saved, _, bce = ttk._forward(tw, xs, ys, ms, False, ttk._PLAIN)
-    gw, gb = ttk._backward(tw, saved, False, dict(ttk._PLAIN, dgrad_conv=dgrad_conv_emulated))
-    _, grads = ttk.normalise((bce[0], ms.sum(), ttk.grads_to_torch(gw, gb)))
-    _, ref = jax.value_and_grad(lambda p: jbce(fm.apply(p, x, logits=True), y, mask))(params)
-    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, ref), cfg)
-    scale = max(float(v.abs().max()) for v in want.values())
-    err = max(float((grads[k] - want[k]).abs().max()) for k in want)
-    assert err < 2e-5 * max(scale, 1.0), (err, scale)
-
-
-@pytest.mark.parametrize("name", list(IGEMM_GEOMETRIES))
-def test_conv_igemm_strips_cover_the_grid(name):
-    """The kernel's split of each encoder conv's launches (the forward over
-    the layer's input grid with its Cout, the input gradient with the
-    layer's Cin), as the C launcher checks it: strips of R rows (R even)
-    tile the grid, R * W is the 256 (<= 32 channels) or 128 positions of a
-    block, each of its warps a row pair x 16 columns, and the staged strip
-    and weight chunk fit the 227 KB of shared memory (less the 1 KB of the
-    bias reduction)."""
-    tw = ttk.build_train_weights(make_model(IGEMM_GEOMETRIES[name], generator=torch.Generator()),
-                                 torch.bfloat16)
-    for i in range(1, tw.fwd.depth):
-        _, cin, h, w = ttk._act_shape(tw, i, 1)
-        k, r = tw.fwd.k(i), tw.fwd.k(i) // 2
-        for cout in (tw.fwd.cout(i), cin):
-            strips = ttk.conv_igemm_rows(1, h, w, cout)
-            rows = h // strips
-            assert strips * rows == h and rows % 2 == 0 and w % 16 == 0
-            assert rows * w == (256 if cout <= 32 else 128)
-            xo = (r + 1) & ~1
-            smem = (2 * (rows + 2 * r) * ((xo + w + r + 1) // 2) + k * k * cout) * 32
-            assert smem <= 227 * 1024 - 1024, (i, smem)
-            assert ttk.conv_igemm_rows(5, h, w, cout) == 5 * strips
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_tensor_core_weight_layouts(dtype):
-    """The layer table arranges the tensor-core kernels' operands once: in
-    bf16 the encoder convs after conv 0 and the transposed convs (16
-    channels or more on each side) get w with the input channel fastest,
-    (K, K, Cout, Cin), the encoder convs' input-gradient operand (K, K,
-    Cin, Cout) and the transposed convs' (K, K, Cin, Cout), w with dz's
-    channel fastest; the single-channel layers and every float32 layer
-    keep the CUDA-core templates' layouts (and no ``wt``)."""
-    cfg = IGEMM_GEOMETRIES["deep3"]
-    tw = ttk.build_train_weights(make_model(cfg, generator=torch.Generator().manual_seed(3)),
-                                 dtype)
-    mma = dtype == torch.bfloat16
-    for i in range(tw.fwd.out + 1):
-        w = tw.fwd.w[i]
-        enc, convt = 1 <= i < tw.fwd.depth, tw.fwd.is_convt(i)
-        if (enc or convt) and mma:
-            assert torch.equal(tw.fwd.wt[i], w.permute(1, 2, 3, 0))
-        else:
-            assert tw.fwd.wt[i] is None
-        if enc and mma:
-            assert torch.equal(tw.bwd[i], _dgrad_wt(tw, i))
-        if convt:
-            assert torch.equal(tw.bwd[i], w.permute(1, 2, 0, 3))
-        if (enc and not mma) or i == tw.fwd.out:
-            assert torch.equal(tw.bwd[i], w.flip(1, 2).permute(3, 1, 2, 0))
-
-
-# ---------------------------------------------------------------------------
-# the tensor-core transposed conv
-# ---------------------------------------------------------------------------
-
-
-def convt_igemm_emulated(x, wt, bias, k, dtype=torch.bfloat16):
-    """``ae_convt`` as ``convt_igemm_kernel`` computes it, block by block:
-    per (tile, strip of R = 128 / W input rows), the input rows y0 + DMIN
-    .. y0 + R - 1 + DMAX and columns DMIN .. W - 1 + DMAX, zeros outside
-    the tile, staged one 16-channel chunk at a time; output parity (a, b)
-    a stride-1 product over its taps {(i, j): a + i - PA and b + j - PA
-    even}, tap (i, j) the window of the staged strip at shift ((a + i -
-    PA) / 2, (b + j - PA) / 2); each chunk summed on its own and added in
-    order; then bias, relu and one rounding to ``dtype`` (float32: none).
-    x (B, Cin, H, W), wt (K, K, Cout, Cin)."""
-    pa = convt_pad_before(k)
-    dmin, dmax = -(pa // 2), (k - pa) // 2
-    b, cin, h, w = x.shape
-    cout, r = wt.shape[2], tak.convt_igemm_rows(w)
-    xp = torch.nn.functional.pad(x.float(), (-dmin, dmax, -dmin, dmax))
-    strips = xp.unfold(2, r + dmax - dmin, r).permute(0, 2, 1, 4, 3)  # (B, S, Cin, RT, WT)
-    acc = torch.zeros(b, h // r, cout, 2, 2, r, w)                 # parity planes a strip
-    for c0 in range(0, cin, 16):
-        cacc = torch.zeros_like(acc)
-        for a, bb, i, j in itertools.product((0, 1), (0, 1), range(k), range(k)):
-            if (a + i - pa) % 2 or (bb + j - pa) % 2:
-                continue                                          # not a tap of (a, bb)
-            dy, dx = (a + i - pa) // 2 - dmin, (bb + j - pa) // 2 - dmin
-            win = strips[:, :, c0:c0 + 16, dy:dy + r, dx:dx + w]
-            cacc[:, :, :, a, bb] += torch.einsum("bscyx,oc->bsoyx", win,
-                                                 wt[i, j, :, c0:c0 + 16].float())
-        acc += cacc
-    y = acc.permute(0, 2, 1, 5, 3, 6, 4).reshape(b, cout, 2 * h, 2 * w)  # (2m + a, 2n + b)
-    y = torch.relu(y + bias[:, None, None])
-    return y if dtype == torch.float32 else y.to(dtype)
-
-
-def _flax_convt_relu(x, w, bias, k):
-    """Flax's ``ConvTranspose`` (stride 2, 'SAME', the module's) + relu in
-    float32 at HIGHEST precision, on NCHW x with the kernel w (Cin, K, K,
-    Cout) of the layer table."""
-    conv = nn.ConvTranspose(w.shape[-1], (k, k), strides=(2, 2), padding="SAME",
-                            precision=jax.lax.Precision.HIGHEST)
-    params = {"params": {"kernel": w.float().permute(1, 2, 0, 3).numpy(),
-                         "bias": bias.numpy()}}
-    y = conv.apply(params, np.asarray(x.float().permute(0, 2, 3, 1)))
-    return torch.from_numpy(np.array(jax.nn.relu(y))).permute(0, 3, 1, 2)
-
-
-CONVT_WIDTHS = {"flagship": dict(), "deep3": dict(filters=(16, 32, 64))}
-
-
-@pytest.mark.parametrize("k", [1, 3, 5, 7])
-@pytest.mark.parametrize("widths", list(CONVT_WIDTHS))
-def test_convt_igemm_decomposition_matches_twin_and_flax(widths, k):
-    """bf16, every transposed conv of the geometry on 2 tiles of random
-    inputs: the emulated kernel within one bf16 ulp of ``ae_convt_plain``
-    (chip_smoke.py's stage bound; k1's three tapless parities are
-    relu(bias)), and in float32 (no rounding) against Flax's
-    ``ConvTranspose`` on the same values to 1e-5 of the scale (float32 sums
-    in another order)."""
-    kw = CONVT_WIDTHS[widths]
-    depth = len(kw.get("filters", (32, 32)))
-    cfg = ModelConfig(**kw, kernels=((k, k),) * depth, out_kernel=(k, k))
-    wts = tak.build_kernel_weights(make_model(cfg, generator=torch.Generator().manual_seed(1)),
-                                   torch.bfloat16)
-    g = torch.Generator().manual_seed(2)
-    for i in range(wts.depth, wts.out):
-        h, w = 256 >> (wts.out - i), 128 >> (wts.out - i)
-        x = torch.randn(2, wts.w[i].shape[0], h, w, generator=g).clamp_min(0).to(torch.bfloat16)
-        got = convt_igemm_emulated(x, wts.wt[i], wts.b[i], k)
-        assert got.shape == (2, wts.cout(i), 2 * h, 2 * w)
-        assert _bf16_ulp_excess(got, tak.ae_convt_plain(wts, x, i)) <= 0, i
-        got32 = convt_igemm_emulated(x, wts.wt[i], wts.b[i], k, torch.float32)
-        want = _flax_convt_relu(x, wts.w[i], wts.b[i], k)
-        assert float((got32 - want).abs().max()) <= 1e-5 * float(want.abs().max()), i
-
-
-def test_convt_igemm_s3_chain_matches_twin_and_jax():
-    """The flagship's bf16 serving chain with the emulated S2 and S3 in
-    place of their twins: against the twins' chain and against JAX's K3
-    with its parity turns in interpret mode (the bounds of
-    test_conv_igemm_s2_chain_matches_twin_and_jax, 5e-3)."""
-    cfg = JModelConfig()
-    fm = flax_model(cfg)
-    params = fm.init(jax.random.PRNGKey(1), np.zeros((1, 256, 128, 1), np.float32))
-    model = make_model(ModelConfig(), generator=torch.Generator().manual_seed(0))
-    model.load_state_dict(state_dict_from_flax(params, ModelConfig()))
-    x = np.random.default_rng(3).standard_normal((2, SP.n_samples)).astype(np.float32)
-    specs, k = spectrogram(torch.from_numpy(x), SP), 3
-    wts = tak.build_kernel_weights(model, torch.bfloat16)
-    act = tak.ae_tile_in(wts, specs, k)
-    for i in range(1, wts.depth):
-        act = conv_igemm_emulated(act, wts.wt[i], wts.k(i), "pool", wts.b[i])
-    for i in range(wts.depth, wts.out):
-        act = convt_igemm_emulated(act, wts.wt[i], wts.b[i], wts.k(i))
-    got = tak.ae_tile_out(wts, act, k).numpy()
-    twin = tak.ae_kernel_enhance_specs(wts, specs, k).numpy()
-    want = np.asarray(jak.ae_kernel_enhance_specs(jak.build_kernel_weights(params, cfg),
-                                                  jnp.asarray(specs.numpy()), k, interpret=True))
-    assert got.shape == want.shape == (2, 256, k * 128)
-    np.testing.assert_allclose(got, twin, rtol=0, atol=5e-3)
-    np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
-
-
-CONVT_GEOMETRIES = {
-    **IGEMM_GEOMETRIES,
-    "k1": ModelConfig(kernels=((1, 1), (1, 1)), out_kernel=(1, 1)),
-    "64-32k5": ModelConfig(filters=(64, 32), kernels=((5, 5), (5, 5)), out_kernel=(5, 5)),
-    "64-32-64k7": ModelConfig(filters=(64, 32, 64), kernels=((7, 7),) * 3, out_kernel=(7, 7)),
-}
-
-
-@pytest.mark.parametrize("name", list(CONVT_GEOMETRIES))
-def test_convt_igemm_strips_cover_the_grid(name):
-    """The kernel's split of each transposed conv, as the C launcher checks
-    it: strips of R rows tile the input grid, R * W is a block's 128
-    positions (8 warps of one 16-position fragment), the channels are
-    whole 16-channel chunks and groups, and the staged strip and weight
-    chunk, and the (16, 2R, 2W) output stage, fit the 227 KB of shared
-    memory."""
-    wts = tak.build_kernel_weights(make_model(CONVT_GEOMETRIES[name],
-                                              generator=torch.Generator()), torch.bfloat16)
-    for i in range(wts.depth, wts.out):
-        cin, k, cout = wts.w[i].shape[0], wts.k(i), wts.cout(i)
-        h, w = 256 >> (wts.out - i), 128 >> (wts.out - i)
-        r = tak.convt_igemm_rows(w)
-        assert h % r == 0 and r * w == 128 and w % 16 == 0
-        assert cin % 16 == 0 and cout % 16 == 0
-        pa = convt_pad_before(k)
-        nr = (k - pa) // 2 + pa // 2 + 1                      # DMAX - DMIN + 1
-        smem = max(((r + nr - 1) * (w + nr - 1) + k * k * 16) * 32, 16 * (4 * 128 + 8) * 2)
-        assert smem <= 227 * 1024, (i, smem)
+from tests._torch_decomp_common import IGEMM_GEOMETRIES, SP, _bf16_ulp_excess, _tiles
 
 
 # ---------------------------------------------------------------------------
@@ -968,6 +323,7 @@ def test_loss_partial_rows_cover_the_tile_once():
 # ---------------------------------------------------------------------------
 # the tensor-core one-channel-in conv (S1, the out-conv's input gradient)
 # ---------------------------------------------------------------------------
+
 
 CI_XO, CI_RS = 4, 76  # csrc/ae_conv.cuh: staged column of input column 0, words a row
 
@@ -1371,7 +727,7 @@ def test_step_sums_plan_matches_per_call_order(name):
 # K1
 # ---------------------------------------------------------------------------
 
-SP = SpecParams(cut_shot=0.2)  # 389 frames: not a multiple of 16
+
 TB = 16  # frames per block
 
 

@@ -221,18 +221,22 @@ def _top_level_source(path: Path, name: str) -> str:
     raise AssertionError(f"{name} not in {path}")
 
 
-@pytest.mark.parametrize("module,name", [("data/grain_pipeline", "RecordSlice"),
-                                         ("viz/plots", "plot_val_loss")])
+# module -> the JAX package's definitions it copies, and nothing else
+_COPIES = {"data/grain_pipeline": ["RecordSlice"],
+           "viz/plots": ["plot_val_loss", "plot_svd_compare"]}
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in _COPIES.items() for n in names])
 def test_data_and_viz_copies_equal_jax_modules(module, name):
-    """The streamed split plan's unit (``RecordSlice``) and the sweep's
-    loss figure are the JAX package's code, docstrings aside; each copy
-    holds that definition alone."""
+    """The streamed split plan's unit (``RecordSlice``), the sweep's loss
+    figure and the SVD comparison figure are the JAX package's code,
+    docstrings aside; each copy holds the definitions it copies alone."""
     port_path = ROOT / "specenh_torch" / f"{module}.py"
     port = _top_level_source(port_path, name)
     orig = _top_level_source(ROOT / "specenh" / f"{module}.py", name)
     assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
     defs = [n.name for n in ast.parse(port_path.read_text()).body if hasattr(n, "name")]
-    assert defs == [name]
+    assert defs == _COPIES[module]
 
 
 def test_sweep_modules_load_without_jax():
@@ -304,6 +308,91 @@ def test_pipeline_reference_copies_equal_jax_references():
             got, want = treference.pipeline_stages_ref(img), jreference.pipeline_stages_ref(img)
             for k in want:
                 np.testing.assert_array_equal(got[k], want[k], err_msg=f"{k}, cv2 {has_cv2}")
+
+
+@pytest.mark.parametrize("name", ["_omega_ref", "svd_denoise_ref", "svd_compute_signal_ref"])
+def test_svd_reference_copies_equal_jax_references(name):
+    """The SVD denoiser's float64 oracles are the JAX package's functions,
+    and give its numbers (every band: default, explicit, use_optimal)."""
+    import inspect
+
+    port = textwrap.dedent(inspect.getsource(getattr(treference, name)))
+    orig = textwrap.dedent(inspect.getsource(getattr(jreference, name)))
+    assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
+    m = np.random.default_rng(9).standard_normal((24, 40))
+    if name == "_omega_ref":
+        assert treference._omega_ref(0.6) == jreference._omega_ref(0.6)
+    elif name == "svd_denoise_ref":
+        for kw in ({}, {"start": 2, "stop": 5}, {"use_optimal": True}):
+            np.testing.assert_array_equal(treference.svd_denoise_ref(m, **kw),
+                                          jreference.svd_denoise_ref(m, **kw))
+    else:
+        np.testing.assert_array_equal(treference.svd_compute_signal_ref(m),
+                                      jreference.svd_compute_signal_ref(m))
+
+
+def test_analyses_and_raw_training_run_without_jax(tmp_path):
+    """``ops.svd``, ``ops.crosspower``, ``e2e`` and the ``synth-shots``,
+    ``convert-bin``, ``train-raw``, ``crosspower`` and ``denoise`` commands
+    load and run on the CPU with jax, flax, h5py and ``specenh`` blocked;
+    ``specenh_torch.cli`` imports without matplotlib; ``denoise`` loads
+    h5py only to open its store."""
+    code = textwrap.dedent("""
+        import json, os, sys
+        blocked = ("jax", "flax", "h5py", "specenh", "matplotlib")
+        for name in blocked:
+            sys.modules[name] = None
+        import numpy as np, torch
+        import specenh_torch.cli as cli
+        from specenh_torch import Config, SpecParams, TrainConfig
+        from specenh_torch.e2e import train_from_raw
+        from specenh_torch.ops import svd
+        from specenh_torch.ops.crosspower import ae_co2
+        assert not [m for m, v in sys.modules.items()
+                    if v is not None and m.split(".")[0] in blocked]
+        del sys.modules["matplotlib"]
+        m = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 40, 70))).float()
+        for out in (svd.denoise_signal(m), svd.denoise_signal(m, use_optimal=True),
+                    svd.compute_signal(m), svd.deflate_top1(m)):
+            assert out.shape == m.shape and torch.isfinite(out).all()
+        x = torch.randn(3000)
+        ampsp, f, t = ae_co2(x, x, np.arange(3000) / 1e6, nperseg=256)
+        assert ampsp.shape == (len(t), 129) and (ampsp > 0).all()
+        sp = SpecParams(cut_shot=0.07)
+        traces = np.random.default_rng(1).standard_normal((2, sp.n_samples)).astype(np.float32)
+        _, hist = train_from_raw(traces, Config(spec=sp), train_cfg=TrainConfig(epochs=1),
+                                 device="cpu")
+        assert np.isfinite(hist["val_loss"]).all()
+        cli.main(["synth-shots", "--out", "raw", "--shots", "3", "--channels", "1",
+                  "--samples", "40000"])
+        cli.main(["convert-bin", "--data-dir", "raw", "--out-dir", "bin", "--channels", "1"])
+        cli.main(["train-raw", "--binary", "--data-dir", "bin", "--out-dir", "tr",
+                  "--channels", "1", "--cut-shot", "0.07", "--epochs", "1",
+                  "--engine", "kernel", "--device", "cpu", "--quiet"])
+        np.save("s.npy", np.random.default_rng(2).standard_normal(5000).astype(np.float32))
+        cli.main(["crosspower", "--signal1", "s.npy", "--signal2", "s.npy", "--out-dir", "cp",
+                  "--nperseg", "256", "--device", "cpu"])
+        assert sorted(os.listdir("cp")) == ["ampsp.npy", "crosspower.png"]
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in ("jax", "flax", "h5py", "specenh")]
+        del sys.modules["h5py"]
+        from specenh_torch.io.store import SpectrogramStore
+        with SpectrogramStore("s.hdf5") as st:
+            spec = np.random.default_rng(3).random((256, 140)).astype(np.float32)
+            st.write_channel("1", 1, spec, np.arange(256.0), np.arange(140.0), spec)
+        cli.main(["denoise", "--dataset", "s.hdf5", "--out-dir", "den", "--device", "cpu"])
+        assert sorted(os.listdir("den")) == ["svd_compare.png", "svd_denoised.npy"]
+        assert "h5py" in sys.modules
+        assert not [m for m, v in sys.modules.items()
+                    if v is not None and m.split(".")[0] in ("jax", "flax", "specenh")]
+        print("ran")
+    """)
+    # one BLAS and torch thread: the suite runs a worker per core
+    env = {**_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "ran" in res.stdout
 
 
 def test_q88_tables_and_stft_axes_equal_jax():
