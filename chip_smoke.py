@@ -157,6 +157,21 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    kernel`` for scan_k3 (2 epochs, val loss falling) and deep3 (1 epoch),
    counted: K1 once, every step on K5 or K7; ``model/`` written.  The
    kernels line counts these launches.
+16. (run after phase 15, in its work directory) the watch-directory
+   service ``serve.serve_once`` over 8 SPEC binaries of 20 x 1e6 samples
+   (phase 15 (c)'s 4 and 4 more) and a truncated one, into in-memory
+   sinks (the card has no h5py): phase 15 (c)'s scan_k3 model with 1 and
+   2 writer threads, its deep3 model on 2 shots, then a second drain of
+   the same directory; gated: 8 done and 1 quarantined, then nothing to
+   do; every persisted channel bit for bit ``service.fn`` called directly
+   on the same traces; one ``shot_enhanced`` event per shot and one
+   ``serve_batch``; per shot K1, ``ae_tile_in`` and ``ae_tile_out`` once,
+   ``ae_conv_pool`` depth - 1 times and ``ae_convt_relu`` depth times,
+   none on ``conv_quad_kernel``; printed: shots/s, latency and read
+   time, the bare service's ms/shot (traces on the card, from the host,
+   and with the outputs copied back), the device's busy share of a
+   profiled drain, peak memory and the warm start.  The kernels line
+   counts these launches.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -189,6 +204,7 @@ from specenh_torch.config import MODEL_PRESETS, Config, SweepConfig
 from specenh_torch.data.dataset import split_tiles, synthetic_shot_batch
 from specenh_torch.data.tiles import patch
 from specenh_torch.io.binfmt import write_shot_bin
+from specenh_torch.io.store import StoreWriterPool
 from specenh_torch.io.native import NativePrefetcher, native_available
 from specenh_torch.models.autoencoder import convt_pad_before, make_model
 from specenh_torch.ops import enhance as EN
@@ -264,6 +280,7 @@ TOL_DEFLATE = 1e-4
 TOL_SELF_CROSS = 1e-4
 CP_FS, CP_LINE = 1.667e6, 8e4
 RAW_SHOTS = 4       # phase 15 (c): synth-shots --shots 4 --channels 20
+SERVE_SHOTS = 8     # phase 16: phase 15 (c)'s 4 binaries and 4 more
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): operands' type -> FLOP/s
 PEAK = {torch.bfloat16: (989e12, "bf16 tensor 989 TFLOP/s"),
         torch.float32: (67e12, "fp32 67 TFLOP/s")}
@@ -2010,67 +2027,292 @@ def crosspower_phase(dev, gpu) -> None:
         f"ae_co2 with its host axes {ms_co2:.3f} ms (host clock)")
 
 
-def train_raw_phase(dev, gpu) -> None:
+def train_raw_phase(dev, gpu, d: str) -> None:
     """Phase 15 (c): the CLI's raw-to-model path in process (see the
-    docstring), counted."""
+    docstring), counted, in the work directory ``d`` (its binaries and
+    model directories serve phase 16)."""
     from specenh_torch import cli
 
     n_train = int(RAW_SHOTS * N_CHANNELS * 30 * TrainConfig().split_fracs[0])
-    with tempfile.TemporaryDirectory() as d:
-        raw, bins = os.path.join(d, "raw"), os.path.join(d, "bin")
+    raw, bins = os.path.join(d, "raw"), os.path.join(d, "bin")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["synth-shots", "--out", raw, "--shots", str(RAW_SHOTS), "--channels",
+                  str(N_CHANNELS)])
+        cli.main(["convert-bin", "--data-dir", raw, "--out-dir", bins, "--channels",
+                  str(N_CHANNELS)])
+    check(len(os.listdir(bins)) == RAW_SHOTS, f"phase 15 (c): {os.listdir(bins)}")
+    log(f"[{gpu}] phase 15 (c) synth-shots + convert-bin: {RAW_SHOTS} shots x {N_CHANNELS} "
+        f"channels x 1e6 samples in {time.perf_counter() - t0:.1f} s (host)")
+    for model, epochs, depth in (("scan_k3", 2, 2), ("deep3", 1, 3)):
+        out, buf = os.path.join(d, model), io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli.main(["synth-shots", "--out", raw, "--shots", str(RAW_SHOTS), "--channels",
-                      str(N_CHANNELS)])
-            cli.main(["convert-bin", "--data-dir", raw, "--out-dir", bins, "--channels",
-                      str(N_CHANNELS)])
-        check(len(os.listdir(bins)) == RAW_SHOTS, f"phase 15 (c): {os.listdir(bins)}")
-        log(f"[{gpu}] phase 15 (c) synth-shots + convert-bin: {RAW_SHOTS} shots x {N_CHANNELS} "
-            f"channels x 1e6 samples in {time.perf_counter() - t0:.1f} s (host)")
-        for model, epochs, depth in (("scan_k3", 2, 2), ("deep3", 1, 3)):
-            out, buf = os.path.join(d, model), io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                _, tl = counted(cli.main, [
-                    "train-raw", "--binary", "--data-dir", bins, "--out-dir", out,
-                    "--channels", str(N_CHANNELS), "--engine", "kernel", "--model", model,
-                    "--epochs", str(epochs)])
-            wall = time.perf_counter() - t0
-            text = buf.getvalue()
-            final = json.loads(text.strip().splitlines()[-1])
-            vals = [float(v) for v in re.findall(r"val_loss=([0-9.eE+-]+)", text)]
-            check(final["channels"] == RAW_SHOTS * N_CHANNELS and len(vals) == epochs
-                  and np.isfinite(final["val_loss"]) and abs(vals[-1] - final["val_loss"]) < 1e-5,
-                  f"phase 15 (c) {model}: {final}, val_loss per epoch {vals}")
-            if epochs > 1:
-                check(vals[-1] < vals[0], f"phase 15 (c) {model}: val_loss {vals} did not fall")
-            steps = epochs * -(-n_train // BATCH)
-            check(tl.pop(SF.STFT_KERNEL, 0) == 1, "phase 15 (c): K1 not launched once")
-            check(tl.get(TK.TRAIN_LOSS, 0) == steps and tl.get(TK.TRAIN_SUM, 0) == steps,
-                  f"phase 15 (c) {model}: {tl.get(TK.TRAIN_LOSS, 0)} kernel steps, want {steps}")
-            want = set(TK.TRAIN_KERNELS if depth == 2 else TRAIN3_KERNELS) - set(K5B_KERNELS)
-            check(set(tl) == want | {AK.CONVT},
-                  f"phase 15 (c) {model}: launched {sorted(k.symbol for k in tl)}")
-            check(os.path.isfile(os.path.join(out, "model", "params.pt")),
-                  f"phase 15 (c) {model}: no model/")
-            row(SF.STFT_KERNEL, "K1")["launches"] += 1
-            add_sweep_launches(tl, depth, serving=False, phase="15 (c)")
-            epoch_lines = [ln for ln in text.splitlines() if ln.startswith("epoch ")]
-            log(f"[{gpu}] phase 15 (c) train-raw --binary --engine kernel --model {model} "
-                f"--epochs {epochs}: {wall:.1f} s (host clock: reading {RAW_SHOTS} binaries, K1 and the "
-                f"label pipeline on {RAW_SHOTS * N_CHANNELS} channels, {steps} kernel steps, validation, "
-                f"model/); "
-                + "; ".join(epoch_lines) + "; launches K1=1, " + ", ".join(
-                    f"{k.symbol}={v}" for k, v in tl.items()))
+        with contextlib.redirect_stdout(buf):
+            _, tl = counted(cli.main, [
+                "train-raw", "--binary", "--data-dir", bins, "--out-dir", out,
+                "--channels", str(N_CHANNELS), "--engine", "kernel", "--model", model,
+                "--epochs", str(epochs)])
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        final = json.loads(text.strip().splitlines()[-1])
+        vals = [float(v) for v in re.findall(r"val_loss=([0-9.eE+-]+)", text)]
+        check(final["channels"] == RAW_SHOTS * N_CHANNELS and len(vals) == epochs
+              and np.isfinite(final["val_loss"]) and abs(vals[-1] - final["val_loss"]) < 1e-5,
+              f"phase 15 (c) {model}: {final}, val_loss per epoch {vals}")
+        if epochs > 1:
+            check(vals[-1] < vals[0], f"phase 15 (c) {model}: val_loss {vals} did not fall")
+        steps = epochs * -(-n_train // BATCH)
+        check(tl.pop(SF.STFT_KERNEL, 0) == 1, "phase 15 (c): K1 not launched once")
+        check(tl.get(TK.TRAIN_LOSS, 0) == steps and tl.get(TK.TRAIN_SUM, 0) == steps,
+              f"phase 15 (c) {model}: {tl.get(TK.TRAIN_LOSS, 0)} kernel steps, want {steps}")
+        want = set(TK.TRAIN_KERNELS if depth == 2 else TRAIN3_KERNELS) - set(K5B_KERNELS)
+        check(set(tl) == want | {AK.CONVT},
+              f"phase 15 (c) {model}: launched {sorted(k.symbol for k in tl)}")
+        check(os.path.isfile(os.path.join(out, "model", "params.pt")),
+              f"phase 15 (c) {model}: no model/")
+        row(SF.STFT_KERNEL, "K1")["launches"] += 1
+        add_sweep_launches(tl, depth, serving=False, phase="15 (c)")
+        epoch_lines = [ln for ln in text.splitlines() if ln.startswith("epoch ")]
+        log(f"[{gpu}] phase 15 (c) train-raw --binary --engine kernel --model {model} "
+            f"--epochs {epochs}: {wall:.1f} s (host clock: reading {RAW_SHOTS} binaries, K1 and the "
+            f"label pipeline on {RAW_SHOTS * N_CHANNELS} channels, {steps} kernel steps, validation, "
+            f"model/); "
+            + "; ".join(epoch_lines) + "; launches K1=1, " + ", ".join(
+                f"{k.symbol}={v}" for k, v in tl.items()))
 
 
-def analyses_phase(dev, gpu) -> None:
+def analyses_phase(dev, gpu, d: str) -> None:
     """Phase 15: the SVD denoiser, the cross power and train-raw."""
     t0 = time.perf_counter()
     svd_phase(dev, SpecParams(), gpu)
     crosspower_phase(dev, gpu)
-    train_raw_phase(dev, gpu)
+    train_raw_phase(dev, gpu, d)
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+
+class MemorySink:
+    """An in-memory store for ``serve_once``'s writers (the card has no
+    h5py): the arrays each ``write_channel`` persists, by (group,
+    channel)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.channels: dict = {}
+
+    def write_channel(self, shot, chn, spec, f, t, out, prefix="ece"):
+        self.channels[(f"{prefix}_{shot}", chn)] = (spec, out)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def device_busy(prof) -> tuple:
+    """(busy ms, copy ms) of the card in a torch.profiler run: the union of
+    its device events' intervals, and the part in memory copies; (None,
+    None) where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+
+    spans, copy_us = [], 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+            if "memcpy" in e.name.lower():
+                copy_us += e.time_range.end - e.time_range.start
+    if not spans:
+        return None, None
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, copy_us / 1e3
+
+
+def drain(dev, model_cfg, model, watch: str, writers: int, tag: str, profiled=False):
+    """One ``serve_once`` of the shots in ``watch`` by a new
+    ``EnhanceService`` into ``writers`` in-memory sinks, counted (or, with
+    ``profiled``, under torch.profiler); returns what it measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from specenh_torch.io.store import CampaignManifest
+    from specenh_torch.serve import EnhanceService, serve_once
+    from specenh_torch.utils.logging import MetricsLogger
+
+    work = os.path.join(os.path.dirname(watch), f"{tag}-{writers}{'-prof' if profiled else ''}")
+    os.makedirs(work)
+    sinks = [MemorySink(f"sink{k}") for k in range(writers)]
+    manifest = CampaignManifest(os.path.join(work, "serve.jsonl"))
+    mpath = os.path.join(work, "metrics.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t_made = time.time()
+    service = EnhanceService(Config(), model_cfg, model, n_channels=N_CHANNELS, device=dev)
+    before = {"ae": _build.conv_template_launches("ae")}
+    prof = None
+    with MetricsLogger(mpath) as metrics:
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                counts = serve_once(service, watch, StoreWriterPool.from_stores(sinks),
+                                    manifest, metrics, verbose=False)
+                torch.cuda.synchronize()
+            launches = {}
+        else:
+            counts, launches = counted(serve_once, service, watch,
+                                       StoreWriterPool.from_stores(sinks), manifest, metrics,
+                                       verbose=False)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with open(mpath) as fh:
+        events = [json.loads(line) for line in fh]
+    return dict(service=service, sinks=sinks, manifest=manifest, counts=counts,
+                launches=launches, templates=template_deltas(before)["ae"], events=events,
+                t_made=t_made, peak=peak, base=base,
+                busy=device_busy(prof) if prof is not None else (None, None))
+
+
+def serve_phase(dev, gpu, d: str, nvcc_s: dict) -> None:
+    """Phase 16: the watch-directory service (``serve.serve_once``) on the
+    card, over 8 SPEC binaries of 20 x 1e6 samples (phase 15 (c)'s 4 and 4
+    more) and a truncated one, with phase 15 (c)'s trained scan_k3 model
+    (1 and 2 writer threads) and deep3 model (2 shots); then a second
+    drain of the same directory.  Gated: the counts, every persisted
+    channel bit for bit the service called directly, the metrics events,
+    the launches per shot.  Printed: shots/s, latency, read time, the bare
+    service's ms/shot, the device's busy share, peak memory, warm start."""
+    from specenh_torch.io.native import read_shot
+    from specenh_torch.serve import serve_once
+
+    t_phase = time.perf_counter()
+    sp = SpecParams()
+    check(torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev),
+          "phase 16: the dispatching thread is not on the default stream")
+    watch, watch3 = os.path.join(d, "watch"), os.path.join(d, "watch3")
+    os.makedirs(watch)
+    os.makedirs(watch3)
+    bins = sorted(os.listdir(os.path.join(d, "bin")))
+    check(len(bins) == RAW_SHOTS, f"phase 16: phase 15 (c) left {bins}")
+    for name in bins:
+        os.link(os.path.join(d, "bin", name), os.path.join(watch, name))
+    # the campaign's next shots, 100004-100007 (the writer pool routes
+    # 100000-100003 to one shard of two and these to the other)
+    extra = synthetic_shot_batch(n_shots=SERVE_SHOTS - RAW_SHOTS, n_channels=N_CHANNELS,
+                                 n_samples=sp.n_samples, seed=1)
+    for s, x in enumerate(extra):
+        write_shot_bin(os.path.join(watch, f"ece_{100000 + RAW_SHOTS + s}.bin"), x)
+    del extra
+    with open(os.path.join(watch, bins[0]), "rb") as fh:
+        head = fh.read(4096)
+    with open(os.path.join(watch, "ece_100000a.bin"), "wb") as fh:  # truncated, sorts mid-stream
+        fh.write(head)
+    shots = sorted(f for f in os.listdir(watch) if f != "ece_100000a.bin")
+    deep3_shots = shots[RAW_SHOTS - 1:RAW_SHOTS + 1]  # 100003 and 100004: one on each shard
+    for name in deep3_shots:
+        os.link(os.path.join(watch, name), os.path.join(watch3, name))
+    heads = set()
+    for name in shots:
+        with open(os.path.join(watch, name), "rb") as fh:
+            heads.add(fh.read(1 << 16))
+    check(len(heads) == len(shots), "phase 16: two shots share their traces")
+
+    models = {}
+    for tag in ("scan_k3", "deep3"):
+        state, model_cfg = TR.load_model(os.path.join(d, tag, "model"), device=dev)
+        models[tag] = (model_cfg, state.model)
+    for tag, where, writers, n_good in (("scan_k3", watch, 1, SERVE_SHOTS),
+                                        ("scan_k3", watch, 2, SERVE_SHOTS),
+                                        ("deep3", watch3, 2, 2)):
+        model_cfg, model = models[tag]
+        depth = model_cfg.depth
+        r = drain(dev, model_cfg, model, where, writers, tag)
+        n_bad = 1 if where == watch else 0
+        check(r["counts"] == {"done": n_good, "failed": n_bad},
+              f"phase 16 {tag}/{writers}: counts {r['counts']}")
+        per_shot = {SF.STFT_KERNEL: 1, AK.TILE_IN: 1, AK.CONV_POOL: depth - 1,
+                    AK.CONVT: depth, AK.TILE_OUT: 1}
+        want = {k: n * n_good for k, n in per_shot.items()}
+        check(r["launches"] == want, f"phase 16 {tag}/{writers}: launches "
+              f"{[(k.symbol, v) for k, v in r['launches'].items()]}, want "
+              f"{[(k.symbol, v) for k, v in want.items()]}")
+        check(r["templates"][QUAD] == 0 and r["templates"][CT_RELU] == 0,
+              f"phase 16 {tag}/{writers}: conv templates {r['templates']}")
+        row(SF.STFT_KERNEL, "K1")["launches"] += want[SF.STFT_KERNEL]
+        add_sweep_launches({k: v for k, v in want.items() if k is not SF.STFT_KERNEL}, depth,
+                           serving=True, phase="16")
+        shot_ev = [e for e in r["events"] if e["event"] == "shot_enhanced"]
+        batch = [e for e in r["events"] if e["event"] == "serve_batch"]
+        check(len(shot_ev) == n_good and len(batch) == 1
+              and all(e["read_s"] >= 0 and e["latency_s"] >= e["read_s"] for e in shot_ev)
+              and batch[0]["done"] == n_good and batch[0]["writers"] == writers,
+              f"phase 16 {tag}/{writers}: metrics events {r['events']}")
+        check(all(s.channels for s in r["sinks"]),
+              f"phase 16 {tag}/{writers}: a writer persisted nothing")
+        # every persisted channel bit for bit the service called directly
+        service = r["service"]
+        persisted = {k: v for s in r["sinks"] for k, v in s.channels.items()}
+        names = shots if where == watch else deep3_shots
+        check(len(persisted) == n_good * N_CHANNELS, f"phase 16: {len(persisted)} channels")
+        host = []
+        for name in names:
+            traces = read_shot(os.path.join(where, name), N_CHANNELS, sp.n_samples)
+            host.append(traces)
+            specs, enh = (t.cpu().numpy() for t in service.fn(service.params, traces))
+            group = "enhanced_" + name[len("ece_"):-len(".bin")]
+            for c in range(N_CHANNELS):
+                got_s, got_e = persisted[(group, c + 1)]
+                check(np.array_equal(got_s, specs[c]) and np.array_equal(got_e, enh[c]),
+                      f"phase 16 {tag}/{writers}: {group} channel {c + 1} differs from the "
+                      "direct call")
+        del persisted, r["sinks"]
+        lat = np.array([e["latency_s"] for e in shot_ev])
+        reads = np.array([e["read_s"] for e in shot_ev])
+        warm = min(e["time"] for e in shot_ev) - r["t_made"]
+        daemon_ms = batch[0]["seconds"] / n_good * 1e3
+        # the bare service on the same shots: traces on the card, from the
+        # host, and from the host with the outputs copied back
+        on_card = torch.from_numpy(host[0]).to(dev)
+        bare = time_cuda(service.fn, service.params, on_card, warmup=2, iters=5)
+        from_host = time_cuda(service.fn, service.params, host[0], warmup=1, iters=5)
+        round_trip = time_cuda(lambda: [t.cpu() for t in service.fn(service.params, host[0])],
+                               warmup=1, iters=5)
+        del on_card, host
+        p = drain(dev, model_cfg, model, where, writers, tag, profiled=True)
+        busy, copy = p["busy"]
+        p_batch = [e for e in p["events"] if e["event"] == "serve_batch"][0]
+        check(p["counts"] == r["counts"], f"phase 16 {tag}/{writers}: profiled counts "
+              f"{p['counts']}")
+        share = ("not measured (the profiler recorded no device time)" if busy is None else
+                 f"{busy / (p_batch['seconds'] * 1e3):.4f} ({busy:.1f} ms of a "
+                 f"{p_batch['seconds'] * 1e3:.1f} ms profiled drain; memory copies "
+                 f"{copy:.1f} ms)")
+        log(f"[{gpu}] phase 16 {tag} ({model_cfg.filters}/k{model_cfg.kernels[0][0]}), "
+            f"{writers} writer(s), {n_good} shots + {n_bad} truncated: counts {r['counts']}; "
+            f"{batch[0]['shots_per_sec']:.3f} shots/s ({daemon_ms:.1f} ms a shot; drain "
+            f"{batch[0]['seconds']:.3f} s); latency_s median {np.median(lat):.3f}, p90 "
+            f"{np.percentile(lat, 90):.3f}; read_s median {np.median(reads):.4f}; bare service "
+            f"{bare:.4f} ms a shot on the card, {from_host:.4f} from host numpy, "
+            f"{round_trip:.4f} with the outputs copied back (CUDA events); device busy share "
+            f"{share}; peak allocated {p['peak'] / 2**30:.3f} GiB profiled, "
+            f"{r['peak'] / 2**30:.3f} GiB ({(r['peak'] - r['base']) / 2**30:.3f} above the "
+            f"{r['base'] / 2**30:.3f} held before); warm start {warm:.3f} s from "
+            f"EnhanceService(...) to the first shot persisted (kernels built; the cold "
+            f"start's build share: phase 2's nvcc, ae.cu {nvcc_s.get('ae', 0):.1f} s and "
+            f"stft.cu {nvcc_s.get('stft', 0):.1f} s in parallel); launches per shot "
+            + ", ".join(f"{k.symbol}={v}" for k, v in per_shot.items()))
+        if (tag, writers) == ("scan_k3", 1):
+            # a second drain of the same directory with the same manifest: idempotent
+            again, took = counted(serve_once, service, watch,
+                                  StoreWriterPool.from_stores([MemorySink("again")]),
+                                  r["manifest"], verbose=False)
+            check(again == {"done": 0, "failed": 0} and not took,
+                  f"phase 16: the second drain gave {again}, launches {took}")
+            log(f"[{gpu}] phase 16 second drain of the same directory: {again}, no launch")
+        r["manifest"].close()
+        p["manifest"].close()
+        del r, p, service
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2159,7 +2401,9 @@ def main() -> int:
                  EPOCHS3, TK3.kernel_value_and_grad3, TK3.build_train3_weights)
     sweep_phase(dev, gpu, data)
     del data
-    analyses_phase(dev, gpu)
+    with tempfile.TemporaryDirectory() as work:
+        analyses_phase(dev, gpu, work)
+        serve_phase(dev, gpu, work, secs)
 
     out = []
     for (kern, kid), r in ROWS.items():

@@ -1,8 +1,8 @@
 """Host-side references of the port, in numpy, SciPy and OpenCV: the
 reference spectrogram recipe, the label pipeline's stages, the SVD
-denoiser's float64 recipes (denoising_by_svd.ipynb cell 1) and SSIM (the
-counterparts of ``specenh.bench.reference_cpu`` and
-``specenh.utils.metrics.ssim``).
+denoiser's float64 recipes (denoising_by_svd.ipynb cell 1), and SSIM
+from ``utils.metrics`` (the counterparts of ``specenh.bench.reference_cpu``
+and ``specenh.utils.metrics.ssim``).
 
 The label stages call OpenCV where it imports, as the reference scripts
 do; without it the uint8 stages run a bit-exact emulation (integer Q8.8
@@ -25,6 +25,7 @@ except Exception:  # pragma: no cover
     HAS_CV2 = False
 
 from specenh_torch.config import PipelineConfig, SpecParams
+from specenh_torch.utils.metrics import ssim
 
 __all__ = ["spectrogram_ref", "rescale_ref", "quantfilt_ref", "gaussblr_ref",
            "meansub_ref", "morph_ref", "pipeline_ref", "pipeline_stages_ref",
@@ -170,33 +171,3 @@ def svd_compute_signal_ref(matrix: np.ndarray) -> np.ndarray:
     for idx in range(1, min(2 * num_sing, len(s))):
         out += s[idx] * np.outer(u[:, idx], vh[idx, :])
     return out
-
-
-def _uniform_filter(x: np.ndarray, size: int) -> np.ndarray:
-    """Mean over size x size windows of the last two axes ('valid' region
-    only), via cumulative sums."""
-    pad = np.cumsum(np.cumsum(x, axis=-2), axis=-1)
-    pad = np.pad(pad, [(0, 0)] * (x.ndim - 2) + [(1, 0), (1, 0)])
-    s = (pad[..., size:, size:] - pad[..., :-size, size:]
-         - pad[..., size:, :-size] + pad[..., :-size, :-size])
-    return s / (size * size)
-
-
-def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0,
-         win_size: int = 7, k1: float = 0.01, k2: float = 0.03) -> float:
-    """Mean SSIM with a uniform window and sample (ddof=1) moments, as
-    skimage's structural_similarity defaults."""
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    c1 = (k1 * data_range) ** 2
-    c2 = (k2 * data_range) ** 2
-    mu_a = _uniform_filter(a, win_size)
-    mu_b = _uniform_filter(b, win_size)
-    n = win_size * win_size
-    cov_norm = n / (n - 1)
-    var_a = cov_norm * (_uniform_filter(a * a, win_size) - mu_a * mu_a)
-    var_b = cov_norm * (_uniform_filter(b * b, win_size) - mu_b * mu_b)
-    cov = cov_norm * (_uniform_filter(a * b, win_size) - mu_a * mu_b)
-    num = (2 * mu_a * mu_b + c1) * (2 * cov + c2)
-    den = (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2)
-    return float(np.mean(num / den))

@@ -1,28 +1,38 @@
 """Command-line interface of the port (the counterpart of ``specenh.cli``):
 the reference's scripts as subcommands.
 
+    python -m specenh_torch.cli build-data --data-dir RAW --out DATA.hdf5 [--binary]
+    python -m specenh_torch.cli train --dataset DATA.hdf5 --out-dir OUT \\
+        [--model scan_k3] [--engine f32|bf16|kernel] [--device cuda]
+    python -m specenh_torch.cli serve --watch-dir IN --out ENH.hdf5 \\
+        [--model-dir OUT/model] [--once] [--writers 2] [--device cuda]
     python -m specenh_torch.cli sweep --dataset DATA.hdf5 --out-dir OUT \\
         [--grid kernel|2layer|3layer] [--engine envelope|kernel] [--device cuda]
     python -m specenh_torch.cli train-raw --data-dir RAW --out-dir OUT \\
         [--binary] [--engine f32|bf16|kernel] [--model scan_k3] [--device cuda]
 
-``sweep``       <- VAE/hyperparam_scan.py's kernel array, VAE/manual_scan.py
-                   and manual_scan_3layers.py
-``train-raw``   -- raw shots -> trained model on the device, no store
-                   (``e2e.train_from_raw``: K1, the label pipeline, the
-                   training kernels with ``--engine kernel``)
-``denoise``     <- denoising_by_svd.ipynb (SVD denoise one channel of a store)
-``crosspower``  <- interferometer/crosspowerspec.py
-``synth-shots`` -- synthetic raw campaign generator (ECE pickles)
-``convert-bin`` -- pickle shots -> SPEC binaries (``--binary`` input)
+``build-data``   <- spec_denoising/pipeline_data.py (raw shots -> HDF5 store)
+``merge-shards`` -- fold a writer pool's shard files into one store
+``train``        <- VAE/hyperparam_scan.py (one config)
+``sweep``        <- VAE/hyperparam_scan.py's kernel array, VAE/manual_scan.py
+                    and manual_scan_3layers.py
+``train-raw``    -- raw shots -> trained model on the device, no store
+                    (``e2e.train_from_raw``: K1, the label pipeline, the
+                    training kernels with ``--engine kernel``)
+``serve``        -- the watch-directory enhancement service (``serve.py``)
+``denoise``      <- denoising_by_svd.ipynb (SVD denoise one channel of a store)
+``crosspower``   <- interferometer/crosspowerspec.py
+``movie``        <- graphs.ipynb cells 18-19 (frame dump + mp4)
+``synth-shots``  -- synthetic raw campaign generator (ECE pickles)
+``convert-bin``  -- pickle shots -> SPEC binaries (``--binary`` input)
 
 Each has the JAX package's flags, defaults, artifacts and final JSON line.
 One flag is the port's own: ``--device`` (default ``cuda``; the CPU tests
-pass ``--device cpu``) on ``sweep``, ``train-raw``, ``denoise`` and
-``crosspower``.  Flags of paths not ported yet (more than one device, the
-streamed sweep) exit naming their ROADMAP item.  The JAX CLI's
-``build-data``, ``merge-shards``, ``train``, ``serve``, ``bench``,
-``movie`` and ``import-keras`` are not ported yet.
+pass ``--device cpu``) on every command that computes.  Flags of paths not
+ported yet (more than one device, the streamed epoch and sweep) exit naming
+their ROADMAP item.  The JAX CLI's ``bench`` and ``import-keras`` are not
+ported yet.  A model directory is the port's own (``train.save_model``:
+``params.pt`` and ``model_config.json``), not the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,13 +41,15 @@ import argparse
 import json
 import os
 import pickle
+import time
 
 import numpy as np
 
 from specenh_torch.config import MODEL_PRESETS, Config, ModelConfig, SweepConfig, TrainConfig
 
-__all__ = ["build_parser", "cmd_convert_bin", "cmd_crosspower", "cmd_denoise", "cmd_sweep",
-           "cmd_synth_shots", "cmd_train_raw", "main"]
+__all__ = ["build_parser", "cmd_build_data", "cmd_convert_bin", "cmd_crosspower", "cmd_denoise",
+           "cmd_merge_shards", "cmd_movie", "cmd_serve", "cmd_sweep", "cmd_synth_shots",
+           "cmd_train", "cmd_train_raw", "main"]
 
 
 def _cfg_from_args(args) -> Config:
@@ -47,6 +59,10 @@ def _cfg_from_args(args) -> Config:
 
         cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, cut_shot=args.cut_shot))
     return cfg
+
+
+_ITEM7 = "ROADMAP Queue 1 item 7, Out-of-core training"
+_ITEM9 = "ROADMAP Queue 1 item 9, Multi-GPU"
 
 
 def _device(name: str):
@@ -59,6 +75,56 @@ def _device(name: str):
         raise SystemExit(f"--device {name}: no CUDA device (pass --device cpu to run "
                          "on the CPU)")
     return dev
+
+
+def cmd_build_data(args):
+    """Raw shots -> spectrograms and pipeline labels in an HDF5 store
+    (``pipeline.build_dataset``, or ``build_dataset_streaming`` over SPEC
+    binaries with ``--binary``)."""
+    import glob as _glob
+
+    cfg = _cfg_from_args(args)
+    if not args.binary and args.writers != 1:
+        # a flag the selected path never reads is an error, not a no-op
+        raise SystemExit(
+            "--writers applies to the streaming (--binary) campaign; the "
+            "pickle path is the reference-parity synchronous loop"
+        )
+    device = _device(args.device)
+    if args.binary:
+        from specenh_torch.pipeline import build_dataset_streaming
+
+        files = sorted(_glob.glob(os.path.join(args.data_dir, "*.bin")))
+        summary = build_dataset_streaming(
+            cfg, files, n_channels=args.channels, store_path=args.out,
+            writers=args.writers, verbose=not args.quiet, device=device,
+        )
+    else:
+        from specenh_torch.pipeline import build_dataset
+
+        files = (
+            sorted(_glob.glob(os.path.join(args.data_dir, "*.pkl")))
+            if args.data_dir else None
+        )
+        summary = build_dataset(
+            cfg,
+            shot_files=files,
+            channels=list(range(1, args.channels + 1)),
+            store_path=args.out,
+            verbose=not args.quiet,
+            device=device,
+        )
+    print(json.dumps(summary))
+
+
+def cmd_merge_shards(args):
+    """Fold a writer-pool store's sidecar shards into one HDF5 file."""
+    from specenh_torch.io.store import consolidate_shards
+
+    n = consolidate_shards(
+        args.store, out_path=args.out, remove=not args.keep_shards
+    )
+    print(json.dumps({"channels_merged": n, "out": args.out or args.store}))
 
 
 def cmd_convert_bin(args):
@@ -96,6 +162,156 @@ def cmd_synth_shots(args):
         print(path)
 
 
+def cmd_train(args):
+    """One config on a store (hyperparam_scan.py's recipe): the resident
+    single-device ``fit`` on the f32 or bf16 autograd engine or the CUDA
+    training kernels, then the reference's artifacts (``model/``,
+    ``ex_specs.png``, ``val_loss.png/.txt``, ``metrics.jsonl``,
+    ``plot_chn_{10,11,12}.png``, ``t_pred.txt`` timed on the serving
+    path).  The streamed epoch and more than one device exit naming their
+    ROADMAP items."""
+    import contextlib
+
+    import torch
+
+    from specenh_torch import train as _train
+    from specenh_torch.bench.harness import make_production_predict_fn
+    from specenh_torch.config import PatchSpec
+    from specenh_torch.data.dataset import assemble_from_store
+    from specenh_torch.data.tiles import n_tiles_for, patch, unpatch
+    from specenh_torch.io.store import SpectrogramStore
+    from specenh_torch.ops import ae_kernel
+    from specenh_torch.train_stream import estimate_resident_bytes, plan_stream_split
+
+    if args.devices > 1:
+        raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9})")
+    if args.stream == "always":
+        raise SystemExit(f"--stream always: the streamed epoch is not ported yet ({_ITEM7})")
+    if args.chunk_tiles or args.chunk_dtype or args.tile_cache:
+        raise SystemExit("--chunk-tiles/--chunk-dtype/--tile-cache: the streamed epoch "
+                         f"is not ported yet ({_ITEM7})")
+    model_cfg = MODEL_PRESETS[args.model]
+    engine = args.engine or ("bf16" if args.bf16 else "f32")
+    if engine == "kernel" and not (ae_kernel.supports(model_cfg)
+                                   or ae_kernel.supports3(model_cfg)):
+        raise SystemExit(
+            f"--engine kernel does not support the '{args.model}' "
+            "geometry; use f32/bf16"
+        )
+    device = _device(args.device)
+    train_cfg = TrainConfig(
+        epochs=args.epochs, seed=args.seed, split_by=args.split_by,
+        batch_size=args.batch_size, learning_rate=args.lr,
+        patience=args.patience,
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    store = SpectrogramStore(args.dataset, "r")
+    try:
+        # metadata only: spec_shape reads no data
+        _shot0 = store.shots()[0]
+        k_tiles = n_tiles_for(
+            store.spec_shape(_shot0, store.channels_of(_shot0)[0])[-1], PatchSpec()
+        )
+        # resident or streamed, from the store's metadata (as the JAX CLI)
+        plan = plan_stream_split(
+            store, num_samples=args.num_shots, cfg=train_cfg, seed=args.seed
+        )
+        n_total = sum(plan.n_tiles(s) for s in ("train", "tune", "test"))
+        budget = float(os.environ.get("SPECENH_HBM_BUDGET_GB", "12")) * 2**30
+        if args.stream == "auto" and estimate_resident_bytes(n_total) > budget:
+            raise SystemExit(
+                f"this run's {n_total} tiles exceed the resident budget "
+                f"({budget / 2**30:g} GB, SPECENH_HBM_BUDGET_GB): the streamed epoch is "
+                f"not ported yet ({_ITEM7})")
+        state = _train.create_state(
+            model_cfg, train_cfg, device=device,
+            dtype=torch.bfloat16 if engine == "bf16" else None,
+        )
+        epoch_fn = _train.kernel_epoch_for(model_cfg, train_cfg) if engine == "kernel" else None
+        trace_cm = contextlib.nullcontext()
+        if args.trace_dir:
+            from specenh_torch.utils.logging import profile_trace
+
+            trace_cm = profile_trace(args.trace_dir)
+        splits = assemble_from_store(
+            store, num_samples=args.num_shots, cfg=train_cfg, seed=args.seed
+        ).reshaped()
+        with trace_cm:
+            state, hist = _train.fit(
+                state,
+                splits.x_train, splits.y_train, splits.x_tune, splits.y_tune,
+                train_cfg,
+                epoch_fn=epoch_fn,
+                metrics_path=os.path.join(args.out_dir, "metrics.jsonl"),
+                checkpoint_dir=(os.path.join(args.out_dir, "checkpoints")
+                                if args.checkpoints else None),
+                resume=args.resume,
+                verbose=not args.quiet,
+            )
+        x_test = splits.x_test
+        _train.save_model(state, os.path.join(args.out_dir, "model"), model_cfg)
+        if not hist["val_loss"] or hist.get("new_epochs", 1) == 0:
+            # resumed a finished run: nothing new to report
+            print(json.dumps({"resumed": "already complete"}))
+            return
+
+        from specenh_torch.viz.plots import display, plot_val_loss, plt_spec_shot
+
+        # predictions and the display artifact (hyperparam_scan.py:194-205);
+        # skipped when the test split cannot restitch one spectrogram
+        sample_shot = store.shots()[0]
+        if x_test is not None and x_test.shape[0] >= k_tiles:
+            preds = _train.predict(state, x_test)[..., 0].cpu()
+            noisy = unpatch(torch.from_numpy(x_test[..., 0]), tiles_per_spec=k_tiles).numpy()
+            final = unpatch(preds, tiles_per_spec=k_tiles).numpy()
+            d = store.read_axes(sample_shot, 1)  # axes only: no spec data read
+            display(noisy, final, os.path.join(args.out_dir, "ex_specs.png"), d["f"], d["t"],
+                    seed=0)
+        elif not args.quiet:
+            print("test split too small for ex_specs.png; skipped")
+        plot_val_loss(
+            hist["val_loss"],
+            os.path.join(args.out_dir, "val_loss.png"),
+            os.path.join(args.out_dir, "val_loss.txt"),
+        )
+
+        # timed per-channel inference on a reference shot
+        # (hyperparam_scan.py:214-244), on the serving path: the AE kernels
+        # where a family covers the geometry, else the module
+        prod_predict = make_production_predict_fn(model_cfg, device=device)
+        prod_params = prod_predict.prepare(state.model)
+        shot_key = (f"ece_{args.bench_shot}" if f"ece_{args.bench_shot}" in store.shots()
+                    else sample_shot)
+        t_predict = 0.0
+        chns = store.channels_of(shot_key)
+        for i in chns:
+            d = store.read_channel(shot_key, i)
+            tiles = patch(torch.from_numpy(d["spec"][None]))[..., None]
+            start = time.time()
+            p = prod_predict(prod_params, tiles)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t_predict += time.time() - start
+            if i in (10, 11, 12):
+                ax = store.read_axes(shot_key, i)
+                plt_spec_shot(
+                    unpatch(tiles[..., 0], tiles_per_spec=k_tiles)[0].numpy(),
+                    unpatch(p[..., 0].cpu(), tiles_per_spec=k_tiles)[0].numpy(),
+                    unpatch(patch(torch.from_numpy(d["pipeline_out"][None])),
+                            tiles_per_spec=k_tiles)[0].numpy(),
+                    shot_key, i, os.path.join(args.out_dir, f"plot_chn_{i}.png"),
+                    ax["f"], ax["t"],
+                )
+        t_predict /= max(len(chns), 1)
+        with open(os.path.join(args.out_dir, "t_pred.txt"), "w") as fh:
+            fh.write(str(t_predict))
+            fh.write(str(torch.cuda.device_count() if device.type == "cuda" else 1))
+    finally:
+        store.close()
+    print(json.dumps({"val_loss": hist["val_loss"][-1], "t_pred": t_predict}))
+
+
 def cmd_train_raw(args):
     """Raw shots -> trained model on the device, no HDF5 round-trip
     (``e2e.train_from_raw``)."""
@@ -110,8 +326,7 @@ def cmd_train_raw(args):
     from specenh_torch.train import kernel_epoch_for, save_model
 
     if args.devices > 1:
-        raise SystemExit("--devices > 1: multi-GPU training is not ported yet "
-                         "(ROADMAP Queue 1 item 9, Multi-GPU)")
+        raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9})")
     cfg = _cfg_from_args(args)
     model_cfg = MODEL_PRESETS[args.model]
     if args.engine == "kernel" and not (ae_kernel.supports(model_cfg)
@@ -271,14 +486,12 @@ def cmd_sweep(args):
             + ")"
         )
     if args.devices > 1:
-        raise SystemExit("--devices > 1: multi-GPU sweeps are not ported yet "
-                         "(ROADMAP Queue 1 item 9, Multi-GPU)")
+        raise SystemExit(f"--devices > 1: multi-GPU sweeps are not ported yet ({_ITEM9})")
     if args.chunk_tiles or args.chunk_dtype or args.tile_cache:
         raise SystemExit("--chunk-tiles/--chunk-dtype/--tile-cache: the streamed sweep "
-                         "is not ported yet (ROADMAP Queue 1 item 7, Out-of-core training)")
+                         f"is not ported yet ({_ITEM7})")
     if args.stream == "always":
-        raise SystemExit("--stream always: the streamed sweep is not ported yet "
-                         "(ROADMAP Queue 1 item 7, Out-of-core training)")
+        raise SystemExit(f"--stream always: the streamed sweep is not ported yet ({_ITEM7})")
     over = {}
     if args.kernel_vals:
         over["kernel_vals"] = _kers(args.kernel_vals)
@@ -324,7 +537,7 @@ def cmd_sweep(args):
             raise SystemExit(
                 f"this sweep's {n_total} tiles exceed the resident budget "
                 f"({budget / 2**30:g} GB, SPECENH_HBM_BUDGET_GB): the streamed sweep is "
-                "not ported yet (ROADMAP Queue 1 item 7, Out-of-core training)")
+                f"not ported yet ({_ITEM7})")
         splits = assemble_from_store(store, num_samples=args.num_shots, cfg=train_cfg,
                                      seed=args.seed).reshaped()
     finally:
@@ -358,10 +571,120 @@ def cmd_sweep(args):
     }))
 
 
+def cmd_serve(args):
+    """Watch a directory of SPEC .bin shots; enhance and persist each."""
+    import sys as _sys
+
+    from specenh_torch.serve import EnhanceService, serve_forever
+
+    if args.devices > 1:
+        raise SystemExit(f"--devices > 1: multi-GPU serving is not ported yet ({_ITEM9})")
+    cfg = _cfg_from_args(args)
+    device = _device(args.device)
+    params = None
+    model_cfg = MODEL_PRESETS[args.model]
+    if args.model_dir:
+        from specenh_torch.train import load_model
+
+        state, model_cfg = load_model(args.model_dir, device=device)
+        params = state.model
+    else:
+        print(
+            "WARNING: no --model-dir given — serving an UNTRAINED "
+            f"randomly-initialised '{args.model}' model; outputs are not "
+            "meaningful denoisings",
+            file=_sys.stderr,
+        )
+    service = EnhanceService(cfg, model_cfg, params, n_channels=args.channels, device=device)
+    totals = serve_forever(
+        service, args.watch_dir, args.out,
+        poll_s=args.poll, max_shots=args.max_shots, once=args.once,
+        writers=args.writers, verbose=not args.quiet,
+    )
+    print(json.dumps(totals))
+
+
+def cmd_movie(args):
+    """Per-frame freq-x-channel JPGs of one shot and their mp4 (graphs.ipynb
+    cells 18-19): the spectrograms, the pipeline's labels and the model's
+    predictions (``--model``, a model directory; else the labels)."""
+    import torch
+
+    from specenh_torch.config import PatchSpec
+    from specenh_torch.data.tiles import n_tiles_for, patch_nchw, unpatch
+    from specenh_torch.io.store import SpectrogramStore
+    from specenh_torch.train import load_model, predict
+    from specenh_torch.viz.movie import dump_frames, render_movie
+
+    with SpectrogramStore(args.dataset, "r") as store:
+        shot = store.shots()[0] if args.shot is None else f"ece_{args.shot}"
+        chns = [c for c in range(1, args.channels + 1) if store.has_channel(shot, c)]
+        if not chns:
+            raise SystemExit(
+                f"no channels 1..{args.channels} found in {shot} of {args.dataset}"
+            )
+        specs = []
+        labels = []
+        for c in chns:
+            d = store.read_channel(shot, c)
+            specs.append(d["spec"])
+            labels.append(d["pipeline_out"])
+        f_ax, t_ax = d["f"], d["t"]
+    specs = np.stack(specs)
+    labels = np.stack(labels)
+    # truncate to whole tiles (3840 at the reference geometry) so the three
+    # stacks share the prediction width whatever cut_shot built the store
+    k_t = n_tiles_for(specs.shape[-1], PatchSpec())
+    t_keep = k_t * PatchSpec().tile_time
+    if args.model:
+        state, _ = load_model(args.model, device=_device(args.device))
+        preds = unpatch(predict(state, patch_nchw(specs))[..., 0].cpu(),
+                        tiles_per_spec=k_t).numpy()
+    else:
+        preds = labels[:, :, :t_keep]
+    # (C, F, T) -> (F, T, C) stacks as graphs.ipynb cell 16 dstacks them
+    noisy = specs[:, :, :t_keep].transpose(1, 2, 0)
+    proc = labels[:, :, :t_keep].transpose(1, 2, 0)
+    pred = preds.transpose(1, 2, 0)
+    n = dump_frames(
+        noisy, proc, pred, t_ax, f_ax, shot.replace("ece_", ""), args.out_dir,
+        start=args.start, stop=args.stop,
+    )
+    path = render_movie(args.out_dir, shot.replace("ece_", ""), fps=args.fps)
+    print(json.dumps({"frames": n, "movie": path}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="specenh_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    b = sub.add_parser("build-data", help="raw shots -> spectrogram HDF5 dataset")
+    b.add_argument("--data-dir", default=None)
+    b.add_argument("--out", required=True)
+    b.add_argument("--channels", type=int, default=20)
+    b.add_argument("--cut-shot", type=float, default=None)
+    b.add_argument("--binary", action="store_true",
+                   help="stream SPEC .bin shots via the native prefetcher")
+    b.add_argument("--writers", type=int, default=1,
+                   help="parallel HDF5 writer threads/files on the streaming "
+                        "(--binary) path; readers see one union store")
+    b.add_argument("--device", default="cuda",
+                   help="the torch device the STFT and labels run on (default cuda)")
+    b.add_argument("--quiet", action="store_true")
+    b.set_defaults(fn=cmd_build_data)
+
+    ms = sub.add_parser(
+        "merge-shards",
+        help="fold a writer-pool store (base + .shardK) into one HDF5 file",
+    )
+    ms.add_argument("--store", required=True, help="base store path")
+    ms.add_argument("--out", default=None,
+                    help="write the merged copy here instead of "
+                         "consolidating in place")
+    ms.add_argument("--keep-shards", action="store_true",
+                    help="leave absorbed sidecars on disk (in-place mode)")
+    ms.set_defaults(fn=cmd_merge_shards)
 
     cb = sub.add_parser("convert-bin", help="pickle shots -> SPEC binaries")
     cb.add_argument("--data-dir", required=True)
@@ -376,6 +699,58 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--samples", type=int, default=1_000_000)
     s.add_argument("--seed", type=int, default=0)
     s.set_defaults(fn=cmd_synth_shots)
+
+    t = sub.add_parser("train", help="train one autoencoder config")
+    t.add_argument("--dataset", required=True)
+    t.add_argument("--out-dir", required=True)
+    t.add_argument("--model", choices=sorted(MODEL_PRESETS), default="scan_k3")
+    t.add_argument("--epochs", type=int, default=15)
+    t.add_argument("--num-shots", type=int, default=20)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--split-by", choices=["tile", "shot"], default="tile",
+                   help="'tile' = reference-exact leaky split "
+                        "(hyperparam_scan.py:148-149); 'shot' = leak-free "
+                        "shot-level split (dataset.ipynb cell 3)")
+    t.add_argument("--batch-size", type=int, default=128,
+                   help="training batch size (reference recipe: 128)")
+    t.add_argument("--lr", type=float, default=1e-3,
+                   help="Adam learning rate (reference/Keras default 1e-3)")
+    t.add_argument("--chunk-tiles", type=int, default=None,
+                   help="streamed epoch only (not ported yet)")
+    t.add_argument("--chunk-dtype", choices=["f32", "bf16"], default=None,
+                   help="streamed epoch only (not ported yet)")
+    t.add_argument("--tile-cache", default=None, metavar="BASE",
+                   help="streamed epoch only (not ported yet)")
+    t.add_argument("--stream-cache", choices=["auto", "always", "never"],
+                   default="auto",
+                   help="the streamed epoch's host-RAM chunk cache (not ported "
+                        "yet; a resident run does not read it)")
+    t.add_argument("--patience", type=int, default=None,
+                   help="early-stop after N epochs without val_loss "
+                        "improvement (the reference's commented-out "
+                        "EarlyStopping(patience=15); default: off)")
+    t.add_argument("--bench-shot", default="176053")
+    t.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace of training")
+    t.add_argument("--stream", choices=["auto", "always", "never"], default="auto",
+                   help="streamed epochs are not ported yet (ROADMAP Queue 1 "
+                        "item 7): 'always', or 'auto' over the resident budget "
+                        "(SPECENH_HBM_BUDGET_GB, default 12), exits")
+    t.add_argument("--devices", type=int, default=0,
+                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+    t.add_argument("--bf16", action="store_true",
+                   help="bfloat16 activations (parameters and Adam float32)")
+    t.add_argument("--engine", choices=["f32", "bf16", "kernel"], default=None,
+                   help="training engine: f32 (autograd, the default), bf16 "
+                        "(autograd, bfloat16 activations), kernel (the CUDA "
+                        "training kernels, bf16)")
+    t.add_argument("--checkpoints", action="store_true")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from the latest epoch checkpoint")
+    t.add_argument("--device", default="cuda",
+                   help="the torch device training runs on (default cuda)")
+    t.add_argument("--quiet", action="store_true")
+    t.set_defaults(fn=cmd_train)
 
     tr = sub.add_parser("train-raw", help="raw shots -> model on the device (no HDF5)")
     tr.add_argument("--data-dir", required=True)
@@ -487,6 +862,41 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--device", default="cuda",
                     help="the torch device the transform runs on (default cuda)")
     cp.set_defaults(fn=cmd_crosspower)
+
+    sv = sub.add_parser("serve", help="watch-dir enhancement service")
+    sv.add_argument("--watch-dir", required=True)
+    sv.add_argument("--out", required=True)
+    sv.add_argument("--model", choices=sorted(MODEL_PRESETS), default="scan_k3")
+    sv.add_argument("--model-dir", default=None,
+                    help="trained model dir (overrides --model preset)")
+    sv.add_argument("--channels", type=int, default=20)
+    sv.add_argument("--devices", type=int, default=0,
+                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+    sv.add_argument("--cut-shot", type=float, default=None)
+    sv.add_argument("--poll", type=float, default=1.0)
+    sv.add_argument("--max-shots", type=int, default=None)
+    sv.add_argument("--once", action="store_true",
+                    help="drain the current backlog and exit")
+    sv.add_argument("--writers", type=int, default=1,
+                    help="parallel HDF5 writer threads/files (readers see one "
+                         "union store)")
+    sv.add_argument("--device", default="cuda",
+                    help="the torch device the service runs on (default cuda)")
+    sv.add_argument("--quiet", action="store_true")
+    sv.set_defaults(fn=cmd_serve)
+
+    m = sub.add_parser("movie", help="frame dump + mp4 render")
+    m.add_argument("--dataset", required=True)
+    m.add_argument("--out-dir", required=True)
+    m.add_argument("--shot", default=None)
+    m.add_argument("--model", default=None)
+    m.add_argument("--channels", type=int, default=20)
+    m.add_argument("--start", type=int, default=0)
+    m.add_argument("--stop", type=int, default=None)
+    m.add_argument("--fps", type=int, default=30)
+    m.add_argument("--device", default="cuda",
+                   help="the torch device --model predicts on (default cuda)")
+    m.set_defaults(fn=cmd_movie)
     return p
 
 

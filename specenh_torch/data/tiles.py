@@ -3,7 +3,9 @@
 Reference semantics (VAE/hyperparam_scan.py:30-56): each (256, 3905)
 spectrogram becomes 30 tiles of (256, 128), tile x of spectrogram i at index
 x + 30 * i; the trailing columns 3840..3904 are dropped.  ``unpatch`` is the
-inverse on the kept columns.
+inverse on the kept columns; ``reshape`` appends the channel axis of the
+JAX layout, (B, 256, 128, 1), and ``patch_nchw`` is ``patch`` then
+``reshape``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 
 from specenh_torch.config import PatchSpec
 
-__all__ = ["n_tiles_for", "patch", "unpatch"]
+__all__ = ["n_tiles_for", "patch", "unpatch", "reshape", "patch_nchw"]
 
 
 def n_tiles_for(time_cols: int, ps: PatchSpec = PatchSpec()) -> int:
@@ -41,3 +43,15 @@ def unpatch(tiles: torch.Tensor, ps: PatchSpec = PatchSpec(),
     n = m // k
     grouped = tiles[: n * k].reshape(n, k, f, w)
     return grouped.permute(0, 2, 1, 3).reshape(n, f, k * w)
+
+
+def reshape(tiles: torch.Tensor) -> torch.Tensor:
+    """(B, F, W) -> (B, F, W, 1), the JAX package's tile layout
+    (hyperparam_scan.py:54-56)."""
+    return torch.as_tensor(tiles)[..., None]
+
+
+def patch_nchw(specs: torch.Tensor, ps: PatchSpec = PatchSpec()) -> torch.Tensor:
+    """``patch`` and ``reshape`` in one step: (N, F, T) -> (k * N, F,
+    tile_time, 1)."""
+    return reshape(patch(torch.as_tensor(specs), ps))

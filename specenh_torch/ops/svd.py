@@ -56,14 +56,30 @@ _BASIS_SEED = 20240816
 
 @contextlib.contextmanager
 def _fp32_matmul():
-    """float32 products without TF32 (JAX's Precision.HIGHEST), the
-    caller's setting restored after; a context or, called, a decorator."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 products without TF32 (JAX's Precision.HIGHEST), whatever
+    precision API the caller used, its settings restored after; a context
+    or, called, a decorator.  The products follow the CUDA matmul precision
+    of the current API (``fp32_precision``), pinned to "ieee".  Where the
+    caller's settings read consistently through the legacy API
+    (``allow_tf32``, ``set_float32_matmul_precision``), that API's global
+    precision is pinned to "highest" as well, so the legacy flag reads
+    False inside rather than raising on a mix of the two APIs; restoring it
+    also resets the CPU matmul precision, which is saved with the CUDA one."""
+    cuda, cpu = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
+    saved = (cuda.fp32_precision, cpu.fp32_precision)
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the caller set the current API: the legacy one reads as a mix
+        legacy = None
+    if legacy is not None:
+        torch.set_float32_matmul_precision("highest")
+    cuda.fp32_precision = "ieee"
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        if legacy is not None:
+            torch.set_float32_matmul_precision(legacy)
+        cuda.fp32_precision, cpu.fp32_precision = saved
 
 
 def omega(beta) -> torch.Tensor:
@@ -277,7 +293,7 @@ def denoise_signal(
     if method != "svd" and hi >= n_min and lo <= K_MAX:
         # band = everything minus the leading ``lo`` components
         if lo == 0:
-            return a
+            return a.clone()  # a new tensor, as JAX returns a new array
         u, s, vh = top_k_svd(a, max(lo, 2))
         idx = torch.arange(s.shape[-1], device=s.device)
         return a - _band_reconstruct(u, s, vh, idx < lo)

@@ -1,1 +1,2 @@
-"""Figures (``plots``), imported where a figure is drawn."""
+"""Figures (``plots``) and the frame movie (``movie``), imported where a
+figure is drawn."""

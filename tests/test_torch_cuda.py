@@ -958,3 +958,115 @@ def test_train_from_raw_on_the_kernels(cuda):
     assert took[tsf.STFT_KERNEL] == 1
     assert took[ttk.TRAIN_LOSS] == took[ttk.TRAIN_SUM] == 2 * 3
     assert np.isfinite(hist["loss"]).all() and np.isfinite(hist["val_loss"]).all()
+
+
+# the three ways a caller sets the float32 matmul precision
+_PRECISION_SETTINGS = {
+    "legacy": lambda: setattr(torch.backends.cuda.matmul, "allow_tf32", True),
+    "current": lambda: setattr(torch.backends.cuda.matmul, "fp32_precision", "tf32"),
+    "medium": lambda: torch.set_float32_matmul_precision("medium"),
+}
+
+
+def _precision_reads():
+    reads = {}
+    for name, get in (("allow_tf32", lambda: torch.backends.cuda.matmul.allow_tf32),
+                      ("fp32_precision", lambda: torch.backends.cuda.matmul.fp32_precision),
+                      ("cpu_fp32_precision", lambda: torch.backends.mkldnn.matmul.fp32_precision),
+                      ("float32_matmul_precision", torch.get_float32_matmul_precision)):
+        try:
+            reads[name] = get()
+        except RuntimeError as e:
+            reads[name] = type(e).__name__
+    return reads
+
+
+@pytest.mark.parametrize("setting", sorted(_PRECISION_SETTINGS))
+def test_svd_keeps_each_precision_api(cuda, setting):
+    """After the caller set TF32 on through the legacy flag, the current
+    API or ``set_float32_matmul_precision("medium")``, the SVD functions
+    and the cross power give the bits they give with it off, and every
+    API reads as the caller left it."""
+    from specenh_torch.config import SpecParams as SPs
+    from specenh_torch.ops import crosspower, svd
+
+    x = _lowrank(seed=4).to(cuda)
+    fns = (svd.denoise_signal, svd.compute_signal, svd.deflate_top1,
+           lambda a: svd.top_k_svd(a, 6)[1],
+           lambda a: crosspower.cross_power(a[0].flatten(), a[1].flatten(),
+                                            SPs(nperseg=1024, noverlap=512)))
+    want = [fn(x) for fn in fns]
+    saved = (torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.mkldnn.matmul.fp32_precision)
+    _PRECISION_SETTINGS[setting]()
+    try:
+        before = _precision_reads()
+        got = [fn(x) for fn in fns]
+        assert _precision_reads() == before
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision = saved
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_denoise_from_zero_copies_on_the_card(cuda):
+    from specenh_torch.ops import svd
+
+    x = _lowrank(seed=5).to(cuda)
+    keep = x.clone()
+    y = svd.denoise_signal(x, start=0)
+    assert y is not x and torch.equal(y, keep)
+    y.zero_()
+    assert torch.equal(x, keep)
+
+
+class _Sink:
+    """An in-memory store: what ``serve_once``'s writers persist."""
+
+    def __init__(self, path):
+        self.path = path
+        self.channels = {}
+
+    def write_channel(self, shot, chn, spec, f, t, out, prefix="ece"):
+        self.channels[(f"{prefix}_{shot}", chn)] = (spec.copy(), out.copy())
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def test_serve_once_on_the_card_bit_for_bit(cuda, tmp_path):
+    """``serve_once`` with two writer threads over four distinct 20-channel
+    shots and a truncated one: 4 done, 1 quarantined; every persisted
+    channel bit for bit the service called directly; per shot K1 and each
+    serving stage once, the transposed conv twice."""
+    from specenh_torch import Config
+    from specenh_torch.io.binfmt import write_shot_bin
+    from specenh_torch.io.store import CampaignManifest, StoreWriterPool
+    from specenh_torch.serve import EnhanceService, serve_once
+
+    cfg = Config(spec=SP)
+    shots = {s: harness.example_shot(SP, 20, seed=s) for s in range(4)}
+    for s, x in shots.items():  # 176052-176055: two shots on each shard
+        write_shot_bin(str(tmp_path / f"shot_{176052 + s}.bin"), x)
+    (tmp_path / "shot_176099.bin").write_bytes(b"x" * 64)
+    service = EnhanceService(cfg, ModelConfig(), n_channels=20, device=cuda)
+    sinks = [_Sink("a"), _Sink("b")]
+    manifest = CampaignManifest(str(tmp_path / "m.jsonl"))
+    counts, took = _launches(serve_once, service, str(tmp_path),
+                             StoreWriterPool.from_stores(sinks), manifest, verbose=False)
+    manifest.close()
+    assert counts == {"done": 4, "failed": 1}
+    assert all(s.channels for s in sinks)
+    assert took[tsf.STFT_KERNEL] == took[tak.TILE_IN] == took[tak.CONV_POOL] == 4
+    assert took[tak.CONVT] == 8 and took[tak.TILE_OUT] == 4
+    persisted = {**sinks[0].channels, **sinks[1].channels}
+    for s, x in shots.items():
+        specs, enhanced = (t.cpu().numpy() for t in service.fn(service.params, x))
+        for c in range(20):
+            spec, out = persisted[(f"enhanced_{176052 + s}", c + 1)]
+            assert np.array_equal(spec, specs[c]) and np.array_equal(out, enhanced[c])

@@ -3,8 +3,10 @@ and trains without jax, flax, h5py or ``specenh``, also from a tree that
 has no ``specenh/``, where ``python -m specenh_torch.cli sweep`` runs too;
 h5py is imported only inside the calls that open a store, matplotlib only
 where a figure is drawn; its own copies of the JAX package's config,
-references, Q8.8 tables, STFT axes, host IO, record pipeline and plots
-equal the originals; the native reader builds outside ``native/``;
+references, Q8.8 tables, STFT axes, host IO, record pipeline, plots,
+frame movie, metrics and metrics logger equal the originals; the
+watch-directory service runs with none of jax, flax, ``specenh``, h5py or
+matplotlib loaded; the native reader builds outside ``native/``;
 ``chip_smoke.py`` fails where there is no GPU; the kernel wrappers check
 their inputs before either path."""
 
@@ -221,22 +223,114 @@ def _top_level_source(path: Path, name: str) -> str:
     raise AssertionError(f"{name} not in {path}")
 
 
-# module -> the JAX package's definitions it copies, and nothing else
+# module -> the JAX package's definitions it copies, in its order
 _COPIES = {"data/grain_pipeline": ["RecordSlice"],
-           "viz/plots": ["plot_val_loss", "plot_svd_compare"]}
+           "viz/plots": ["_axes", "display", "plt_spec_shot", "plot_stages", "plot_svd_compare",
+                         "plot_frame_view", "plot_val_loss"],
+           "viz/movie": ["dump_frames", "render_movie"],
+           "utils/metrics": ["_uniform_filter", "ssim", "psnr"],
+           "utils/logging": ["MetricsLogger", "SpanTimer"]}
+# module -> its own definitions after the copies (where it has any)
+_OWN = {"utils/logging": ["_SpanHandle", "_cuda_devices", "span", "profile_trace", "nan_guard"]}
 
 
 @pytest.mark.parametrize("module,name", [(m, n) for m, names in _COPIES.items() for n in names])
 def test_data_and_viz_copies_equal_jax_modules(module, name):
-    """The streamed split plan's unit (``RecordSlice``), the sweep's loss
-    figure and the SVD comparison figure are the JAX package's code,
-    docstrings aside; each copy holds the definitions it copies alone."""
+    """The streamed split plan's unit (``RecordSlice``), the figures, the
+    frame movie, SSIM and PSNR, and the metrics logger and span timer are
+    the JAX package's code, docstrings aside; each copy module holds the
+    definitions it copies and, after them, its own listed in ``_OWN``."""
     port_path = ROOT / "specenh_torch" / f"{module}.py"
     port = _top_level_source(port_path, name)
     orig = _top_level_source(ROOT / "specenh" / f"{module}.py", name)
     assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
     defs = [n.name for n in ast.parse(port_path.read_text()).body if hasattr(n, "name")]
-    assert defs == _COPIES[module]
+    assert defs == _COPIES[module] + _OWN.get(module, [])
+
+
+def test_metrics_copies_give_jax_numbers():
+    """``utils.metrics`` gives the JAX package's SSIM and PSNR, and
+    ``bench.reference.ssim`` is that function."""
+    from specenh.utils.metrics import psnr as jpsnr
+    from specenh_torch.utils import metrics
+
+    rng = np.random.default_rng(5)
+    a, b = rng.random((2, 30, 40)), rng.random((2, 30, 40))
+    assert metrics.ssim(a, b) == jssim(a, b)
+    assert metrics.psnr(a, b) == jpsnr(a, b) and metrics.psnr(a, a) == float("inf")
+    assert ssim is metrics.ssim
+
+
+def test_serving_and_store_commands_load_without_jax(tmp_path):
+    """``serve``, ``utils`` and the store commands import with jax, flax,
+    ``specenh``, h5py and matplotlib blocked and load none of them;
+    ``serve_once`` runs on the CPU into an in-memory sink without h5py;
+    ``serve --once`` loads h5py only to open its store, and no matplotlib."""
+    code = textwrap.dedent("""
+        import json, sys
+        blocked = ("jax", "flax", "h5py", "specenh", "matplotlib")
+        for name in blocked:
+            sys.modules[name] = None
+        import numpy as np, torch
+        import specenh_torch.cli as cli, specenh_torch.serve as serve, specenh_torch.utils
+        import specenh_torch.data.tiles, specenh_torch.viz
+        from specenh_torch import Config, ModelConfig, SpecParams
+        from specenh_torch.io.binfmt import write_shot_bin
+        from specenh_torch.io.store import CampaignManifest, StoreWriterPool
+        from specenh_torch.utils import MetricsLogger, span
+        def loaded(names):
+            return [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in names]
+        assert not loaded(blocked)
+
+        class Sink:
+            path = "sink"
+            def __init__(self):
+                self.channels = {}
+            def write_channel(self, shot, chn, spec, f, t, out, prefix="ece"):
+                self.channels[(f"{prefix}_{shot}", chn)] = (spec, out)
+            def flush(self):
+                pass
+            def close(self):
+                pass
+
+        cfg = Config(spec=SpecParams(cut_shot=0.1))
+        rng = np.random.default_rng(0)
+        import os
+        os.makedirs("in")
+        for s in (1, 2):
+            write_shot_bin(f"in/shot_{s}.bin", rng.standard_normal((1, 50000)).astype(np.float32))
+        svc = serve.EnhanceService(cfg, ModelConfig(filters=(4, 4)), n_channels=1, device="cpu")
+        sink, manifest = Sink(), CampaignManifest("m.jsonl")
+        with MetricsLogger("metrics.jsonl") as metrics, span("drain", metrics, sync=True):
+            counts = serve.serve_once(svc, "in", StoreWriterPool.from_stores([sink]), manifest,
+                                      metrics, verbose=False)
+        assert counts == {"done": 2, "failed": 0}, counts
+        assert sorted(sink.channels) == [("enhanced_1", 1), ("enhanced_2", 1)]
+        assert not loaded(blocked)
+        del sys.modules["h5py"]
+        cli.main(["serve", "--watch-dir", "in", "--out", "e.hdf5", "--channels", "1",
+                  "--cut-shot", "0.1", "--once", "--quiet", "--device", "cpu"])
+        assert loaded(("h5py",)) and not loaded(("jax", "flax", "specenh", "matplotlib"))
+        print("served")
+    """)
+    env = {**_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "served" in res.stdout
+
+
+def test_cli_serve_help_runs_without_the_jax_package(tmp_path):
+    """``python -m specenh_torch.cli serve --help`` in a tree without
+    ``specenh/``: the port's flags, ``--device`` among them."""
+    shutil.copytree(ROOT / "specenh_torch", tmp_path / "specenh_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    res = subprocess.run([sys.executable, "-m", "specenh_torch.cli", "serve", "--help"],
+                         cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(tmp_path)},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    for flag in ("--watch-dir", "--model-dir", "--once", "--writers", "--device"):
+        assert flag in res.stdout, flag
 
 
 def test_sweep_modules_load_without_jax():

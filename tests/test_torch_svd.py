@@ -264,6 +264,77 @@ def test_products_run_without_tf32(mat, call):
     assert mode.seen and not any(mode.seen)
 
 
+# the three ways a caller sets the float32 matmul precision
+_PRECISION_SETTINGS = {
+    "legacy": lambda: setattr(torch.backends.cuda.matmul, "allow_tf32", True),
+    "current": lambda: setattr(torch.backends.cuda.matmul, "fp32_precision", "tf32"),
+    "medium": lambda: torch.set_float32_matmul_precision("medium"),
+}
+
+
+def _precision_reads():
+    """What each precision API reads (an error's type where it raises)."""
+    reads = {}
+    for name, get in (("allow_tf32", lambda: torch.backends.cuda.matmul.allow_tf32),
+                      ("fp32_precision", lambda: torch.backends.cuda.matmul.fp32_precision),
+                      ("cpu_fp32_precision", lambda: torch.backends.mkldnn.matmul.fp32_precision),
+                      ("generic", lambda: torch.backends.fp32_precision),
+                      ("float32_matmul_precision", torch.get_float32_matmul_precision)):
+        try:
+            reads[name] = get()
+        except RuntimeError as e:
+            reads[name] = type(e).__name__
+    return reads
+
+
+@pytest.fixture
+def precision_restored():
+    saved = (torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.mkldnn.matmul.fp32_precision, torch.backends.fp32_precision)
+    before = _precision_reads()
+    yield
+    torch.set_float32_matmul_precision("highest")
+    (torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision,
+     torch.backends.fp32_precision) = saved
+    assert _precision_reads() == before
+
+
+@pytest.mark.parametrize("setting", sorted(_PRECISION_SETTINGS))
+@pytest.mark.parametrize("call", ["compute", "denoise", "top_k", "deflate", "cross_power"])
+def test_every_precision_api_is_kept(mat, setting, call, precision_restored):
+    """After the caller set the precision through the legacy flag, the
+    current API or ``set_float32_matmul_precision``, each function runs
+    (the legacy flag reading False at every product) and leaves every
+    API's reading as it found it."""
+    from specenh_torch.config import SpecParams
+    from specenh_torch.ops import crosspower
+
+    x = _t(mat[:64, :96])
+    fn = {"compute": svd.compute_signal, "denoise": svd.denoise_signal,
+          "top_k": lambda a: svd.top_k_svd(a, 4)[1], "deflate": svd.deflate_top1,
+          "cross_power": lambda a: crosspower.cross_power(
+              a.flatten(), a.flatten(), SpecParams(nperseg=256, noverlap=128))}[call]
+    _PRECISION_SETTINGS[setting]()
+    before = _precision_reads()
+    with _MatmulPrecision() as mode:
+        out = fn(x)
+    assert bool(torch.isfinite(out).all())
+    assert mode.seen and not any(mode.seen)
+    assert _precision_reads() == before
+
+
+def test_denoise_from_zero_returns_a_new_tensor(mat):
+    """``start=0`` keeps every component: the result equals the input and
+    is a new tensor, as JAX returns a new array; writing to it leaves the
+    input as it was."""
+    x = _t(mat[:64, :96])
+    keep = x.clone()
+    y = svd.denoise_signal(x, start=0)
+    assert y is not x and torch.equal(y, keep)
+    y.zero_()
+    assert torch.equal(x, keep)
+
+
 def test_unknown_method_raises(mat):
     with pytest.raises(ValueError, match="unknown method"):
         svd.compute_signal(_t(mat), method="qdwh")
