@@ -172,6 +172,24 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    and with the outputs copied back), the device's busy share of a
    profiled drain, peak memory and the warm start.  The kernels line
    counts these launches.
+17. (run after phase 14) out-of-core training (``train_stream``) on phase
+   7's tiles, laid out as 400 records of (256, 3840) in an in-memory store
+   (``MemoryStore``; the card has no h5py), split 7200/3000/1800, chunks
+   of 2048: the flagship on K5 resident and streamed (``cache`` "never"
+   and "auto", bf16 chunks, the f32 and bf16 tile caches on disk, a
+   resume), deep3 on K7 from f32 and bf16 chunks, the kernel grid through
+   ``sweep_fit_serial_streamed`` with a tile cache; gated on the training
+   losses and parameters bit for bit (val_loss, the float32 module on
+   cuDNN, within TOL_F32_REL): (a) shuffle off and one chunk, streamed ==
+   resident ``fit``; (b) "auto" == the f32 tile cache; (c) bf16 chunks ==
+   f32 chunks, on K5 and K7; (d) 2 epochs and a resumed third == 3
+   epochs; (e) the streamed sweep == ``sweep_fit_serial`` per config,
+   configs 2-3 reading nothing from the store; (f) only K5 (K7) entry
+   points launched, ``ae_train_loss`` once a step; printed: s/epoch
+   (epoch 1 apart), the upload rates pinned and pageable and the cost of
+   pinning, the card's busy share of a profiled streamed epoch, the
+   synchronizing calls of an epoch, peak device memory, host RSS.  The
+   tile caches are deleted.  The kernels line counts these launches.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -200,9 +218,9 @@ from specenh_torch.bench.harness import (enhance_shot_plain, example_shot,
                                          make_enhance_shot_fn, time_cuda)
 from specenh_torch.bench.reference import (HAS_CV2, pipeline_ref, spectrogram_ref, ssim,
                                            svd_compute_signal_ref, svd_denoise_ref)
-from specenh_torch.config import MODEL_PRESETS, Config, SweepConfig
+from specenh_torch.config import MODEL_PRESETS, Config, PatchSpec, SweepConfig
 from specenh_torch.data.dataset import split_tiles, synthetic_shot_batch
-from specenh_torch.data.tiles import patch
+from specenh_torch.data.tiles import patch, unpatch
 from specenh_torch.io.binfmt import write_shot_bin
 from specenh_torch.io.store import StoreWriterPool
 from specenh_torch.io.native import NativePrefetcher, native_available
@@ -250,6 +268,7 @@ EPOCHS = 3
 EPOCHS3 = 2          # deep3
 EPOCHS_SWEEP = 2     # phase 14, each config
 N_CUT, N_CUT_TUNE = 1024, 512  # phase 14 (c), (d): the envelope's and the mixed grid's cut
+STREAM_CHUNK = 2048  # phase 17: tiles a streamed chunk
 BATCH = 128          # one step of the recipe
 TOL_GRAD_SUM = 1e-4  # a gradient sum vs its twin on the same inputs: f32 order
 TOL_F32_REL = 1e-5   # a float32 stage vs its twin, relative to its scale
@@ -1833,6 +1852,305 @@ def sweep_phase(dev, gpu, data):
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
 
+class MemoryStore:
+    """Phase 17's store: phase 7's tiles as records of (256, 3840), one a
+    (shot, channel), in host memory, with the read protocol of the
+    streamed trainer (``shots``, ``channels_of``, ``spec_shape``,
+    ``read_column_slice``); the card has no h5py.  ``reads`` counts the
+    column reads."""
+
+    path = None  # no file: the tile cache's store identity is "None"
+
+    def __init__(self, x: torch.Tensor, y: torch.Tensor, n_channels: int):
+        self.x = unpatch(x).cpu().numpy()
+        self.y = unpatch(y).cpu().numpy()
+        self.n_channels = n_channels
+        self._shots = [f"ece_{100000 + s}" for s in range(len(self.x) // n_channels)]
+        self.reads = 0
+
+    def shots(self):
+        return list(self._shots)
+
+    def channels_of(self, shot):
+        return list(range(1, self.n_channels + 1))
+
+    def iter_channels(self):
+        return ((s, c) for s in self._shots for c in self.channels_of(s))
+
+    def spec_shape(self, shot, chn):
+        return self.x.shape[1:]
+
+    def read_column_slice(self, shot, chn, lo, hi):
+        self.reads += 1
+        r = self._shots.index(shot) * self.n_channels + chn - 1
+        return self.x[r, :, lo:hi], self.y[r, :, lo:hi]
+
+
+def host_rss() -> str:
+    """This process's resident host memory and its peak (getrusage)."""
+    import resource
+
+    with open("/proc/self/status") as fh:
+        st = dict(ln.split(":", 1) for ln in fh if ":" in ln)
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return f"host RSS {st.get('VmRSS', 'not reported').strip()}, peak {peak:.2f} GiB"
+
+
+def same_state(a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(a.model.state_dict().values(),
+                                                  b.model.state_dict().values()))
+
+
+def host_syncs(fn, *args, **kw) -> int:
+    """The synchronizing CUDA calls ``torch.cuda.set_sync_debug_mode("warn")``
+    reports while ``fn`` runs."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+
+
+def upload_rates(gpu, host: np.ndarray) -> None:
+    """Phase 17: one chunk's x (host float32) to the card from pageable
+    and from pinned memory (CUDA events); and on the host, what keeping a
+    chunk pinned would cost (page-locking a new chunk with
+    ``cudaHostRegister``) against what the staging copy costs (a copy into
+    a buffer pinned once)."""
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    gb = src.nbytes / 1e9
+    dst = torch.empty(src.shape, device="cuda")
+    pinned = torch.empty(src.shape, pin_memory=True)
+    fills = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pinned.copy_(src)
+        fills.append(time.perf_counter() - t0)
+    t_fill = float(np.median(fills))
+    fresh = np.array(host)  # a new chunk, its pages touched
+    cudart = torch.cuda.cudart()
+    t0 = time.perf_counter()
+    err = cudart.cudaHostRegister(fresh.ctypes.data, fresh.nbytes, 0)
+    t_reg = time.perf_counter() - t0
+    check(int(err) == 0, f"cudaHostRegister: error {err}")
+    t0 = time.perf_counter()
+    cudart.cudaHostUnregister(fresh.ctypes.data)
+    t_unreg = time.perf_counter() - t0
+    ms_pinned = time_cuda(lambda: dst.copy_(pinned, non_blocking=True), warmup=1, iters=5)
+    ms_page = time_cuda(lambda: dst.copy_(src), warmup=1, iters=3)
+    log(f"[{gpu}] phase 17 upload of one chunk's x ({gb:.3f} GB): pinned {ms_pinned:.3f} ms "
+        f"({gb / ms_pinned * 1e3:.2f} GB/s), pageable {ms_page:.3f} ms ({gb / ms_page * 1e3:.2f} "
+        f"GB/s) (CUDA events); host side: the staging copy into a buffer pinned once "
+        f"{t_fill * 1e3:.1f} ms ({gb / t_fill:.2f} GB/s), page-locking a new chunk "
+        f"(cudaHostRegister) {t_reg * 1e3:.1f} ms ({gb / t_reg:.2f} GB/s) and unlocking it "
+        f"{t_unreg * 1e3:.1f} ms")
+    del pinned, dst
+
+
+def stream_phase(dev, gpu, data) -> None:
+    """Phase 17: out-of-core training (``train_stream.fit_streaming``) on
+    phase 7's tiles, laid out as 400 records of (256, 3840) in an
+    in-memory store, chunks of STREAM_CHUNK tiles: the flagship on K5
+    resident, streamed from the store with ``cache`` "never" and "auto",
+    with bf16 chunks, from the f32 and the bf16 tile caches, and resumed;
+    deep3 on K7 from f32 and bf16 chunks; the kernel grid through
+    ``sweep_fit_serial_streamed`` (tile cache) against ``sweep_fit_serial``.
+    Gates, each fatal, on the training losses and the parameters bit for
+    bit (val_loss, from the float32 module on cuDNN, within TOL_F32_REL):
+    (a) shuffle off and one chunk: the streamed fit is the resident fit;
+    (b) the "auto" run is the f32 tile-cache run; (c) bf16 chunks train as
+    the f32 chunks, on K5 and K7; (d) 2 epochs and a resumed third are 3
+    epochs; (e) the streamed sweep is the resident one per config,
+    configs 2-3 reading nothing from the store; (f) every launch is a K5
+    (K7) entry point, ``ae_train_loss`` once a step.
+    Printed: s/epoch (epoch 1 apart), the upload rates, the card's busy
+    share of a profiled streamed epoch, host syncs an epoch, peak device
+    memory, host RSS."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from specenh_torch import train_stream as TS
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="stream-")
+    shuffled, ordered = TrainConfig(), TrainConfig(shuffle=False)
+    store = MemoryStore(torch.cat([data.x_train, data.x_tune, data.x_test]),
+                        torch.cat([data.y_train, data.y_tune, data.y_test]), N_CHANNELS)
+    plan = TS.plan_stream_split(store, num_samples=N_SHOTS, cfg=shuffled, seed=SEED)
+    n, nv = plan.n_tiles("train"), plan.n_tiles("tune")
+    check((n, nv, plan.n_tiles("test")) == (7200, 3000, 1800),
+          f"phase 17 plan {n}, {nv}, {plan.n_tiles('test')}")
+    resident = [a for split in ("train", "tune")
+                for a in TS._read_chunk(store, getattr(plan, split), PatchSpec())]
+    nb = -(-n // BATCH)
+    log(f"phase 17: {len(store.x)} records of {store.x.shape[1:]} in host memory ("
+        f"{(store.x.nbytes + store.y.nbytes) / 1e9:.2f} GB), plan 7200/3000/1800 tiles "
+        f"(shots sampled with seed {SEED}), chunks of {STREAM_CHUNK}; {host_rss()}")
+
+    def run(tag, cfg, epochs, tc=shuffled, streamed=True, **kw):
+        """One counted run from the seed's weights: (state, history)."""
+        depth = cfg.depth
+        state = TR.create_state(cfg, tc, generator=torch.Generator().manual_seed(SEED),
+                                device=dev)
+        mpath = os.path.join(work, f"{tag}.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reads = store.reads
+        epoch_fn = TR.kernel_epoch_for(cfg, tc)
+        if streamed:
+            kw.setdefault("chunk_tiles", STREAM_CHUNK)
+            (st, hist), tl = counted(TS.fit_streaming, state, store, plan, tc, epochs=epochs,
+                                     epoch_fn=epoch_fn, metrics_path=mpath, **kw)
+        else:
+            (st, hist), tl = counted(TR.fit, state, *resident, cfg=tc, epochs=epochs,
+                                     epoch_fn=epoch_fn, metrics_path=mpath, **kw)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        with open(mpath) as fh:
+            secs = [json.loads(ln)["sec"] for ln in fh]
+        want = (set(TK.TRAIN_KERNELS if depth == 2 else TRAIN3_KERNELS) - set(K5B_KERNELS)
+                | {AK.CONVT})
+        steps = hist["new_epochs"] * nb
+        check(set(tl) == want and tl[TK.TRAIN_LOSS] == steps and tl[TK.TRAIN_SUM] == steps,
+              f"phase 17 {tag}: launches {[(k.symbol, v) for k, v in tl.items()]} for {steps} "
+              "steps")  # gate (f)
+        add_sweep_launches(tl, depth, serving=False, phase="17")
+        later = f", later epochs {np.mean(secs[1:]):.4f} s ({secs[1:]})" if len(secs) > 1 else ""
+        log(f"[{gpu}] phase 17 {tag}: epoch 1 {secs[0]:.4f} s{later}; {tl[TK.TRAIN_LOSS]} "
+            f"steps; store reads {store.reads - reads}; peak device memory "
+            f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held; {host_rss()}; loss "
+            f"{hist['loss']}, val_loss {hist['val_loss']}")
+        return st, hist
+
+    def same(a, b, tag, val=True):
+        """A gate: the training losses and the parameters bit for bit; with
+        ``val``, val_loss within TOL_F32_REL (the validation pass is the
+        float32 module on cuDNN, whose algorithm may differ between runs)."""
+        gap = max(abs(u - v) / v for u, v in zip(a[1]["val_loss"], b[1]["val_loss"]))
+        check(a[1]["loss"] == b[1]["loss"] and same_state(a[0], b[0])
+              and (not val or gap <= TOL_F32_REL), f"phase 17 gate {tag}: {a[1]} vs {b[1]}")
+        log(f"  gate {tag}: losses and parameters bit for bit; val_loss "
+            + (f"bit for bit: {a[1]['val_loss'] == b[1]['val_loss']} (gap {gap:.3g})" if val
+               else f"not compared (bf16-rounded tune tiles; gap {gap:.3g})"))
+
+    # (a) the identity contract
+    same(run("resident fit (shuffle off)", FLAGSHIP, 2, tc=ordered, streamed=False),
+         run("streamed, one chunk (shuffle off)", FLAGSHIP, 2, tc=ordered, chunk_tiles=8192),
+         "(a) streamed == resident")
+    run("cache never", FLAGSHIP, 1, cache="never")
+    auto = run("cache auto", FLAGSHIP, 3)
+    bf16 = run("cache auto, bf16 chunks", FLAGSHIP, 3, cache_dtype="bf16")
+    same(bf16, auto, "(c) bf16 chunks == f32 chunks, K5", val=False)
+    tc32, tc16 = os.path.join(work, "tc32"), os.path.join(work, "tc16")
+    same(run("f32 tile cache (built)", FLAGSHIP, 3, tile_cache=tc32), auto,
+         "(b) auto == f32 tile cache")
+    same(run("bf16 tile cache (built)", FLAGSHIP, 3, tile_cache=tc16, cache_dtype="bf16"), bf16,
+         "(b) bf16 chunks == bf16 tile cache")
+    ck = os.path.join(work, "ck")
+    run("2 epochs, checkpointed", FLAGSHIP, 2, checkpoint_dir=ck)
+    same(run("resumed to 3", FLAGSHIP, 3, checkpoint_dir=ck, resume=True), auto,
+         "(d) 2 + resumed 1 == 3 epochs")
+    same(run("deep3 K7, bf16 chunks", DEEP3, 1, cache_dtype="bf16"),
+         run("deep3 K7, f32 chunks", DEEP3, 1), "(c) bf16 chunks == f32 chunks, K7", val=False)
+
+    # the card's busy share of one epoch from the RAM chunk cache: a
+    # 2-epoch "auto" run with torch.profiler (device events) started once
+    # epoch 1's last validation chunk is done and the card has drained
+    state = TR.create_state(FLAGSHIP, shuffled, generator=torch.Generator().manual_seed(SEED),
+                            device=dev)
+    epoch_fn = TR.kernel_epoch_for(FLAGSHIP, shuffled)
+    prof, t_start, evals = profile(activities=[ProfilerActivity.CUDA]), [], []
+    n_tune = len(TS._chunk_plans(plan.tune, STREAM_CHUNK))
+    eval_epoch = TS.eval_epoch
+
+    def eval_then_profile(*a, **k):
+        out = eval_epoch(*a, **k)
+        evals.append(1)
+        if len(evals) == n_tune:
+            torch.cuda.synchronize()
+            prof.start()
+            t_start.append(time.perf_counter())
+        return out
+
+    TS.eval_epoch = eval_then_profile
+    try:
+        TS.fit_streaming(state, store, plan, shuffled, epochs=2, chunk_tiles=STREAM_CHUNK,
+                         epoch_fn=epoch_fn)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_start[0]) * 1e3
+        prof.stop()
+    finally:
+        TS.eval_epoch = eval_epoch
+    busy, copy = device_busy(prof)
+    share = ("not measured (the profiler recorded no device time)" if busy is None else
+             f"{busy / wall:.4f} ({busy:.1f} ms of {wall:.1f}; memory copies {copy:.1f} ms)")
+    # the synchronizing calls of one streamed epoch (from the f32 tile
+    # cache) and of one resident epoch
+    kw = dict(epochs=1, chunk_tiles=STREAM_CHUNK, epoch_fn=epoch_fn, tile_cache=tc32)
+    syncs = host_syncs(TS.fit_streaming, state, store, plan, shuffled, **kw)
+    syncs_res = host_syncs(TR.fit, state, *resident, cfg=shuffled, epochs=1, epoch_fn=epoch_fn)
+    log(f"[{gpu}] phase 17 epoch 2 of a cache=\"auto\" run (from RAM), profiled: the card busy "
+        f"{share}; synchronizing calls (set_sync_debug_mode): {syncs} in one streamed epoch, "
+        f"{syncs_res} in one resident fit's epoch")
+    upload_rates(gpu, resident[0][:STREAM_CHUNK, ..., 0])
+    del state, prof
+    for f in os.listdir(work):
+        if f.startswith(("tc32", "tc16")):
+            os.remove(os.path.join(work, f))
+
+    # (e) the kernel grid streamed through a new tile cache, against the
+    # resident serial sweep; each config's store reads
+    grid = [ModelConfig(filters=(32, 32), kernels=(k, k), out_kernel=k)
+            for k in SweepConfig().kernel_vals]
+    ref, tl = counted(SW.sweep_fit_serial, grid, *resident, ordered, epochs=1, device=dev)
+    add_sweep_launches(tl, 2, serving=False, phase="17")
+    reads, fit_streaming = [], TS.fit_streaming
+
+    def logged(*a, **k):
+        r0 = store.reads
+        out = fit_streaming(*a, **k)
+        reads.append(store.reads - r0)
+        return out
+
+    TS.fit_streaming = logged
+    try:
+        t0 = time.perf_counter()
+        got, tl = counted(SW.sweep_fit_serial_streamed, grid, store, plan, ordered, epochs=1,
+                          chunk_tiles=8192, tile_cache=os.path.join(work, "sweep"), device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        TS.fit_streaming = fit_streaming
+    check(tl[TK.TRAIN_LOSS] == len(grid) * nb, f"phase 17 (e): {tl[TK.TRAIN_LOSS]} steps")
+    add_sweep_launches(tl, 2, serving=False, phase="17")
+    check(reads[0] > 0 and reads[1:] == [0, 0], f"phase 17 (e): store reads per config {reads}")
+    # the steps are the kernels' (a fixed order); the validation pass is
+    # the float32 module on cuDNN, whose algorithm may differ between two
+    # runs: val is held to TOL_F32_REL
+    val_gap = float(np.max(np.abs(got.val_history - ref.val_history) / ref.val_history))
+    check(np.array_equal(got.train_history, ref.train_history) and val_gap <= TOL_F32_REL
+          and all(torch.equal(got.stacked_params[k], v) for k, v in ref.stacked_params.items()),
+          f"phase 17 (e): streamed sweep {got.train_history}, {got.val_history} vs resident "
+          f"{ref.train_history}, {ref.val_history}")
+    log(f"[{gpu}] phase 17 (e) sweep_fit_serial_streamed, k3/k5/k7 x 1 epoch through a new "
+        f"tile cache: {wall:.2f} s, store reads per config {reads}; train losses and "
+        f"parameters == sweep_fit_serial's bit for bit, val_loss {got.val_losses.tolist()} "
+        f"(relative gap {val_gap:.3g}, bit for bit: "
+        f"{np.array_equal(got.val_history, ref.val_history)})")
+    shutil.rmtree(work)
+    log(f"gates (training losses and parameters bit for bit): (a) streamed == resident, "
+        f"(b) auto == tile cache, (c) bf16 == f32 chunks on K5 and K7, (d) resume == "
+        f"uninterrupted, (e) streamed sweep == resident sweep with configs 2-3 reading "
+        f"nothing; (f) K5/K7 launches only, one ae_train_loss a step; {host_rss()}")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
 def lowrank_batch(dev, n: int, seed: int) -> torch.Tensor:
     """The headline's SVD test batch (headline.py:178-193), drawn with
     numpy: 6 smooth modes x 3 plus 0.3 noise, (n, 256, 3905) float32."""
@@ -2400,6 +2718,7 @@ def main() -> int:
                                                 out_kernel=(3, 3)))),
                  EPOCHS3, TK3.kernel_value_and_grad3, TK3.build_train3_weights)
     sweep_phase(dev, gpu, data)
+    stream_phase(dev, gpu, data)
     del data
     with tempfile.TemporaryDirectory() as work:
         analyses_phase(dev, gpu, work)

@@ -28,9 +28,9 @@ the reference's scripts as subcommands.
 
 Each has the JAX package's flags, defaults, artifacts and final JSON line.
 One flag is the port's own: ``--device`` (default ``cuda``; the CPU tests
-pass ``--device cpu``) on every command that computes.  Flags of paths not
-ported yet (more than one device, the streamed epoch and sweep) exit naming
-their ROADMAP item.  The JAX CLI's ``bench`` and ``import-keras`` are not
+pass ``--device cpu``) on every command that computes.  More than one
+device (``--devices``) is not ported yet and exits naming its ROADMAP
+item.  The JAX CLI's ``bench`` and ``import-keras`` are not
 ported yet.  A model directory is the port's own (``train.save_model``:
 ``params.pt`` and ``model_config.json``), not the JAX package's.
 """
@@ -61,7 +61,6 @@ def _cfg_from_args(args) -> Config:
     return cfg
 
 
-_ITEM7 = "ROADMAP Queue 1 item 7, Out-of-core training"
 _ITEM9 = "ROADMAP Queue 1 item 9, Multi-GPU"
 
 
@@ -164,12 +163,16 @@ def cmd_synth_shots(args):
 
 def cmd_train(args):
     """One config on a store (hyperparam_scan.py's recipe): the resident
-    single-device ``fit`` on the f32 or bf16 autograd engine or the CUDA
-    training kernels, then the reference's artifacts (``model/``,
+    single-device ``fit``, or with ``--stream`` (``always``, or ``auto``
+    when the tile tensors exceed SPECENH_HBM_BUDGET_GB) the streamed
+    ``fit_streaming``, on the f32 or bf16 autograd engine or the CUDA
+    training kernels; then the reference's artifacts (``model/``,
     ``ex_specs.png``, ``val_loss.png/.txt``, ``metrics.jsonl``,
     ``plot_chn_{10,11,12}.png``, ``t_pred.txt`` timed on the serving
-    path).  The streamed epoch and more than one device exit naming their
-    ROADMAP items."""
+    path).  A streamed run's artifacts read a bounded test sample, and
+    with ``--tile-cache`` the test and bench tiles come from float32 tile
+    caches (the JAX package reads them in the chunk dtype).  More than one
+    device exits naming its ROADMAP item."""
     import contextlib
 
     import torch
@@ -181,15 +184,11 @@ def cmd_train(args):
     from specenh_torch.data.tiles import n_tiles_for, patch, unpatch
     from specenh_torch.io.store import SpectrogramStore
     from specenh_torch.ops import ae_kernel
-    from specenh_torch.train_stream import estimate_resident_bytes, plan_stream_split
+    from specenh_torch.train_stream import (_iter_chunks, estimate_resident_bytes,
+                                            fit_streaming, plan_stream_split)
 
     if args.devices > 1:
         raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9})")
-    if args.stream == "always":
-        raise SystemExit(f"--stream always: the streamed epoch is not ported yet ({_ITEM7})")
-    if args.chunk_tiles or args.chunk_dtype or args.tile_cache:
-        raise SystemExit("--chunk-tiles/--chunk-dtype/--tile-cache: the streamed epoch "
-                         f"is not ported yet ({_ITEM7})")
     model_cfg = MODEL_PRESETS[args.model]
     engine = args.engine or ("bf16" if args.bf16 else "f32")
     if engine == "kernel" and not (ae_kernel.supports(model_cfg)
@@ -219,37 +218,72 @@ def cmd_train(args):
         )
         n_total = sum(plan.n_tiles(s) for s in ("train", "tune", "test"))
         budget = float(os.environ.get("SPECENH_HBM_BUDGET_GB", "12")) * 2**30
-        if args.stream == "auto" and estimate_resident_bytes(n_total) > budget:
+        use_stream = args.stream == "always" or (
+            args.stream == "auto" and estimate_resident_bytes(n_total) > budget
+        )
+        if (args.chunk_tiles or args.chunk_dtype or args.tile_cache) and not use_stream:
+            # a knob the selected path never reads is an error, not a no-op
             raise SystemExit(
-                f"this run's {n_total} tiles exceed the resident budget "
-                f"({budget / 2**30:g} GB, SPECENH_HBM_BUDGET_GB): the streamed epoch is "
-                f"not ported yet ({_ITEM7})")
+                "--chunk-tiles/--chunk-dtype/--tile-cache apply to the streamed "
+                "epoch only; this run is resident (dataset fits the HBM budget) "
+                "— use --stream always to force streaming"
+            )
         state = _train.create_state(
             model_cfg, train_cfg, device=device,
             dtype=torch.bfloat16 if engine == "bf16" else None,
         )
         epoch_fn = _train.kernel_epoch_for(model_cfg, train_cfg) if engine == "kernel" else None
+        fit_common = dict(
+            metrics_path=os.path.join(args.out_dir, "metrics.jsonl"),
+            checkpoint_dir=(os.path.join(args.out_dir, "checkpoints")
+                            if args.checkpoints else None),
+            resume=args.resume,
+            verbose=not args.quiet,
+        )
         trace_cm = contextlib.nullcontext()
         if args.trace_dir:
             from specenh_torch.utils.logging import profile_trace
 
             trace_cm = profile_trace(args.trace_dir)
-        splits = assemble_from_store(
-            store, num_samples=args.num_shots, cfg=train_cfg, seed=args.seed
-        ).reshaped()
-        with trace_cm:
-            state, hist = _train.fit(
-                state,
-                splits.x_train, splits.y_train, splits.x_tune, splits.y_tune,
-                train_cfg,
-                epoch_fn=epoch_fn,
-                metrics_path=os.path.join(args.out_dir, "metrics.jsonl"),
-                checkpoint_dir=(os.path.join(args.out_dir, "checkpoints")
-                                if args.checkpoints else None),
-                resume=args.resume,
-                verbose=not args.quiet,
-            )
-        x_test = splits.x_test
+        if use_stream:
+            if not args.quiet:
+                print(f"streaming {plan.n_tiles('train')} train tiles "
+                      f"(resident estimate {estimate_resident_bytes(n_total)/2**30:.1f} GB "
+                      f"> budget {budget/2**30:.1f} GB)" if args.stream == "auto"
+                      else "streaming (forced)")
+            with trace_cm:
+                state, hist = fit_streaming(state, store, plan, train_cfg,
+                                            chunk_tiles=args.chunk_tiles or 4096,
+                                            epoch_fn=epoch_fn, cache=args.stream_cache,
+                                            cache_dtype=args.chunk_dtype,
+                                            tile_cache=args.tile_cache, **fit_common)
+            # a bounded test sample for the display artifacts (the whole
+            # test split may not fit); with --tile-cache from the test
+            # split's float32 tile cache, whatever the chunk dtype
+            x_test = None
+            if plan.n_tiles("test"):
+                if args.tile_cache:
+                    from specenh_torch.data.tilecache import open_or_build
+
+                    r_test = open_or_build(store, plan.test, args.tile_cache, "test",
+                                           PatchSpec(), "f32", verbose=not args.quiet)
+                    x_test = r_test.read_x(0, min(512, r_test.n))
+                else:
+                    chunk = next(_iter_chunks(store, plan.test, PatchSpec(), 512), None)
+                    x_test = chunk[0] if chunk is not None else None
+        else:
+            splits = assemble_from_store(
+                store, num_samples=args.num_shots, cfg=train_cfg, seed=args.seed
+            ).reshaped()
+            with trace_cm:
+                state, hist = _train.fit(
+                    state,
+                    splits.x_train, splits.y_train, splits.x_tune, splits.y_tune,
+                    train_cfg,
+                    epoch_fn=epoch_fn,
+                    **fit_common,
+                )
+            x_test = splits.x_test
         _train.save_model(state, os.path.join(args.out_dir, "model"), model_cfg)
         if not hist["val_loss"] or hist.get("new_epochs", 1) == 0:
             # resumed a finished run: nothing new to report
@@ -285,21 +319,41 @@ def cmd_train(args):
                     else sample_shot)
         t_predict = 0.0
         chns = store.channels_of(shot_key)
-        for i in chns:
-            d = store.read_channel(shot_key, i)
-            tiles = patch(torch.from_numpy(d["spec"][None]))[..., None]
+        # --tile-cache: the bench shot's tiles come from a float32
+        # <base>.bench.tiles cache, built once, so a repeated run reads no
+        # store data here (only the axes)
+        bench = None
+        if use_stream and args.tile_cache:
+            from specenh_torch.data.grain_pipeline import RecordSlice
+            from specenh_torch.data.tilecache import open_or_build
+
+            ks = [n_tiles_for(store.spec_shape(shot_key, i)[-1], PatchSpec()) for i in chns]
+            reader = open_or_build(store, [RecordSlice(shot_key, i, 0, k)
+                                           for i, k in zip(chns, ks)],
+                                   args.tile_cache, "bench", PatchSpec(), "f32",
+                                   verbose=not args.quiet)
+            offs = np.concatenate([[0], np.cumsum(ks)])
+            bench = [(int(offs[j]), int(offs[j + 1])) for j in range(len(chns))]
+        for j, i in enumerate(chns):
+            if bench is not None:
+                tiles = torch.from_numpy(reader.read_x(*bench[j]))
+            else:
+                d = store.read_channel(shot_key, i)
+                tiles = patch(torch.from_numpy(d["spec"][None]))[..., None]
             start = time.time()
             p = prod_predict(prod_params, tiles)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t_predict += time.time() - start
             if i in (10, 11, 12):
+                # label tiles read lazily: only these 3 channels plot them
+                pipe = (torch.from_numpy(reader.read_y(*bench[j])[..., 0]) if bench is not None
+                        else patch(torch.from_numpy(d["pipeline_out"][None])))
                 ax = store.read_axes(shot_key, i)
                 plt_spec_shot(
                     unpatch(tiles[..., 0], tiles_per_spec=k_tiles)[0].numpy(),
                     unpatch(p[..., 0].cpu(), tiles_per_spec=k_tiles)[0].numpy(),
-                    unpatch(patch(torch.from_numpy(d["pipeline_out"][None])),
-                            tiles_per_spec=k_tiles)[0].numpy(),
+                    unpatch(pipe, tiles_per_spec=k_tiles)[0].numpy(),
                     shot_key, i, os.path.join(args.out_dir, f"plot_chn_{i}.png"),
                     ax["f"], ax["t"],
                 )
@@ -454,11 +508,13 @@ def cmd_sweep(args):
 
     from specenh_torch.data.dataset import assemble_from_store
     from specenh_torch.io.store import SpectrogramStore
+    from specenh_torch.config import PatchSpec
     from specenh_torch.sweep import (config_pred_times, expand_grid_2layer,
                                      expand_grid_3layer, save_loss_comparisons,
-                                     sweep_fit, sweep_fit_serial)
+                                     sweep_fit, sweep_fit_serial, sweep_fit_serial_streamed)
     from specenh_torch.train import create_state, save_model
-    from specenh_torch.train_stream import estimate_resident_bytes, plan_stream_split
+    from specenh_torch.train_stream import (_iter_chunks, estimate_resident_bytes,
+                                            plan_stream_split)
 
     def _kers(s):
         return tuple((int(v), int(v)) for v in s.split(","))
@@ -487,11 +543,6 @@ def cmd_sweep(args):
         )
     if args.devices > 1:
         raise SystemExit(f"--devices > 1: multi-GPU sweeps are not ported yet ({_ITEM9})")
-    if args.chunk_tiles or args.chunk_dtype or args.tile_cache:
-        raise SystemExit("--chunk-tiles/--chunk-dtype/--tile-cache: the streamed sweep "
-                         f"is not ported yet ({_ITEM7})")
-    if args.stream == "always":
-        raise SystemExit(f"--stream always: the streamed sweep is not ported yet ({_ITEM7})")
     over = {}
     if args.kernel_vals:
         over["kernel_vals"] = _kers(args.kernel_vals)
@@ -526,34 +577,63 @@ def cmd_sweep(args):
     )
     os.makedirs(args.out_dir, exist_ok=True)
     dtype = torch.bfloat16 if args.bf16 else None
+    ckpt_dir = os.path.join(args.out_dir, "checkpoints") if args.checkpoints else None
     store = SpectrogramStore(args.dataset, "r")
     try:
-        # resident or streamed, from the store's metadata (as the JAX CLI)
+        # resident or streamed, from the store's metadata (as the JAX CLI);
+        # only the serial engine streams (one fit_streaming per config),
+        # the envelope needs the resident dataset
         plan = plan_stream_split(store, num_samples=args.num_shots, cfg=train_cfg,
                                  seed=args.seed)
         n_total = sum(plan.n_tiles(s) for s in ("train", "tune", "test"))
         budget = float(os.environ.get("SPECENH_HBM_BUDGET_GB", "12")) * 2**30
-        if args.stream == "auto" and estimate_resident_bytes(n_total) > budget:
+        use_stream = args.stream == "always" or (
+            args.stream == "auto" and estimate_resident_bytes(n_total) > budget
+        )
+        if use_stream and args.engine != "kernel":
             raise SystemExit(
-                f"this sweep's {n_total} tiles exceed the resident budget "
-                f"({budget / 2**30:g} GB, SPECENH_HBM_BUDGET_GB): the streamed sweep is "
-                f"not ported yet ({_ITEM7})")
-        splits = assemble_from_store(store, num_samples=args.num_shots, cfg=train_cfg,
-                                     seed=args.seed).reshaped()
+                "this sweep's dataset exceeds the resident budget (or --stream "
+                "always was given): streamed sweeps run per-config on the "
+                "serial engine — add --engine kernel (the vmapped envelope "
+                "needs the resident dataset)"
+            )
+        if (args.chunk_tiles or args.chunk_dtype or args.tile_cache) and not use_stream:
+            raise SystemExit(
+                "--chunk-tiles/--chunk-dtype/--tile-cache apply to the "
+                "streamed sweep only; this grid is resident — use --stream "
+                "always to force streaming"
+            )
+        if use_stream:
+            if not args.quiet:
+                print(f"streaming sweep: {plan.n_tiles('train')} train tiles "
+                      f"per config over {len(configs)} configs")
+            res = sweep_fit_serial_streamed(
+                configs, store, plan, train_cfg, epochs=args.epochs, dtype=dtype,
+                checkpoint_dir=ckpt_dir, resume=args.resume,
+                chunk_tiles=args.chunk_tiles or 4096, cache_dtype=args.chunk_dtype,
+                tile_cache=args.tile_cache, verbose=not args.quiet, device=args.device)
+            # pred_times on one bounded tune chunk, never the whole split
+            chunk = (next(_iter_chunks(store, plan.tune, PatchSpec(), 30), None)
+                     if not args.no_time_configs else None)
+            tile_batch = chunk[0][:30] if chunk is not None else None
+        else:
+            splits = assemble_from_store(store, num_samples=args.num_shots, cfg=train_cfg,
+                                         seed=args.seed).reshaped()
+            fit_fn = sweep_fit_serial if args.engine == "kernel" else sweep_fit
+            res = fit_fn(configs, splits.x_train, splits.y_train, splits.x_tune,
+                         splits.y_tune, train_cfg, epochs=args.epochs, dtype=dtype,
+                         checkpoint_dir=ckpt_dir, resume=args.resume,
+                         verbose=not args.quiet, device=args.device)
+            tile_batch = splits.x_tune[:30]
     finally:
         store.close()
-    ckpt_dir = os.path.join(args.out_dir, "checkpoints") if args.checkpoints else None
-    fit_fn = sweep_fit_serial if args.engine == "kernel" else sweep_fit
-    res = fit_fn(configs, splits.x_train, splits.y_train, splits.x_tune, splits.y_tune,
-                 train_cfg, epochs=args.epochs, dtype=dtype, checkpoint_dir=ckpt_dir,
-                 resume=args.resume, verbose=not args.quiet, device=args.device)
     np.save(os.path.join(args.out_dir, "val_losses.npy"), res.val_losses.reshape(grid_shape))
 
     # per-config inference time on the serving path (manual_scan.py:226-248)
     # on one channel's 30 tiles
     pred_times = np.zeros_like(res.val_losses)
-    if not args.no_time_configs:
-        pred_times = config_pred_times(res, splits.x_tune[:30], device=args.device)
+    if not args.no_time_configs and tile_batch is not None:
+        pred_times = config_pred_times(res, tile_batch, device=args.device)
     save_loss_comparisons(os.path.join(args.out_dir, "loss_comparisons.npz"),
                           res.val_losses, pred_times, grid_shape, names)
     best_cfg = res.configs[res.best_index]
@@ -716,15 +796,27 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--lr", type=float, default=1e-3,
                    help="Adam learning rate (reference/Keras default 1e-3)")
     t.add_argument("--chunk-tiles", type=int, default=None,
-                   help="streamed epoch only (not ported yet)")
+                   help="tiles per streamed chunk (default 4096 ~ 1.1 GB "
+                        "of device residency); streamed path only")
     t.add_argument("--chunk-dtype", choices=["f32", "bf16"], default=None,
-                   help="streamed epoch only (not ported yet)")
+                   help="streamed chunk storage/upload dtype: bf16 halves "
+                        "cache RAM and per-epoch host->device bytes, and is "
+                        "VALUE-EXACT with --engine kernel (the kernel casts "
+                        "its tile operands to bf16 anyway); ~1e-3 input "
+                        "quantization on the f32/bf16 engines")
     t.add_argument("--tile-cache", default=None, metavar="BASE",
-                   help="streamed epoch only (not ported yet)")
+                   help="persist the canonical tile stream pre-tiled on "
+                        "disk (<BASE>.<split>.tiles, fingerprinted against "
+                        "the exact slice plan): later runs over the same "
+                        "dataset memmap contiguous chunk slabs instead of "
+                        "re-reading + re-tiling HDF5")
     t.add_argument("--stream-cache", choices=["auto", "always", "never"],
                    default="auto",
-                   help="the streamed epoch's host-RAM chunk cache (not ported "
-                        "yet; a resident run does not read it)")
+                   help="host-RAM chunk cache for the streamed epoch: "
+                        "epochs after the first stream from memory instead "
+                        "of re-reading the store (~31 GB/epoch at reference "
+                        "scale).  auto = bounded by SPECENH_STREAM_CACHE_GB "
+                        "(default 60%% of MemAvailable)")
     t.add_argument("--patience", type=int, default=None,
                    help="early-stop after N epochs without val_loss "
                         "improvement (the reference's commented-out "
@@ -733,9 +825,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of training")
     t.add_argument("--stream", choices=["auto", "always", "never"], default="auto",
-                   help="streamed epochs are not ported yet (ROADMAP Queue 1 "
-                        "item 7): 'always', or 'auto' over the resident budget "
-                        "(SPECENH_HBM_BUDGET_GB, default 12), exits")
+                   help="host-stream the epoch when the tile tensors exceed "
+                        "the device budget (auto sizes from store metadata; "
+                        "budget via SPECENH_HBM_BUDGET_GB, default 12)")
     t.add_argument("--devices", type=int, default=0,
                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
     t.add_argument("--bf16", action="store_true",
@@ -819,16 +911,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "largest geometry (grouped convs on autograd); "
                         "kernel: one fit per config at its own geometry, on "
                         "the CUDA training kernels where they cover it")
-    w.add_argument("--stream", choices=["auto", "always", "never"], default="auto",
-                   help="streamed sweeps are not ported yet (ROADMAP Queue 1 "
-                        "item 7): 'always', or 'auto' over the resident budget "
-                        "(SPECENH_HBM_BUDGET_GB, default 12), exits")
+    w.add_argument("--stream", choices=["auto", "always", "never"],
+                   default="auto",
+                   help="host-stream each config's epochs when the tile "
+                        "tensors exceed the device budget (serial --engine "
+                        "kernel only; the 200-shot recipe's grid cannot "
+                        "assemble resident).  Same budget env as train.")
     w.add_argument("--chunk-tiles", type=int, default=None,
-                   help="streamed sweeps only (not ported yet)")
+                   help="tiles per streamed chunk (streamed sweeps only)")
     w.add_argument("--chunk-dtype", choices=["f32", "bf16"], default=None,
-                   help="streamed sweeps only (not ported yet)")
+                   help="streamed chunk dtype (see train --chunk-dtype)")
     w.add_argument("--tile-cache", default=None, metavar="BASE",
-                   help="streamed sweeps only (not ported yet)")
+                   help="pre-tiled on-disk tile cache: configs 2..N skip "
+                        "the HDF5 pass entirely (see train --tile-cache)")
     w.add_argument("--no-time-configs", action="store_true",
                    help="skip the per-config pred_times measurement")
     w.add_argument("--checkpoints", action="store_true",

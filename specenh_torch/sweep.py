@@ -3,13 +3,16 @@
 The reference sweeps as a SLURM array, one process per kernel size
 (VAE/hyperparam_scan.py:122-123), or as serial nested loops over (ker1,
 ker2, ker3, conv1, conv2) (VAE/manual_scan.py:183-252) and (ker, conv1,
-conv2, conv3) (VAE/manual_scan_3layers.py).  Two engines here:
+conv2, conv3) (VAE/manual_scan_3layers.py).  Three engines here:
 
 * ``sweep_fit_serial``: one ``train.fit`` per config, each at its own
   geometry's cost, on the CUDA training kernels (``kernel_epoch_for``)
   wherever a kernel family covers the geometry (``ae_kernel.kernel_depth``),
   else on the module's autograd engine in the sweep's dtype (the JAX
   package trains those configs on Flax);
+* ``sweep_fit_serial_streamed``: ``sweep_fit_serial`` over a streamed
+  store, one ``train_stream.fit_streaming`` per config, for grids whose
+  tiles the card cannot hold;
 * ``sweep_fit``, the envelope: every config embedded in the largest
   geometry of the grid (widest filters, largest kernels) with masked
   weights, all trained at once by grouped convolutions (one group per
@@ -59,6 +62,7 @@ __all__ = [
     "init_stacked_params",
     "sweep_fit",
     "sweep_fit_serial",
+    "sweep_fit_serial_streamed",
     "extract_config_params",
     "embed_config_params",
     "marginal_report",
@@ -528,6 +532,12 @@ def sweep_fit_serial(
         params = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
         finals.append(params)
         stacked = embed_config_params(stacked, ci, cfg, env, params)
+    return _serial_result(configs, env, tr_hist, va_hist, finals, stacked, masks)
+
+
+def _serial_result(configs, env, tr_hist, va_hist, finals, stacked, masks) -> SweepResult:
+    """The serial engines' result from each config's histories and final
+    parameters; the best config has the lowest final val loss."""
     val_losses = np.asarray([h[-1] for h in va_hist])
     best = int(np.argmin(val_losses))
     # per-config early stopping leaves ragged histories: a stopped config
@@ -548,6 +558,77 @@ def sweep_fit_serial(
         stacked_params=stacked,
         masks=masks,
     )
+
+
+def sweep_fit_serial_streamed(
+    configs: Sequence[ModelConfig],
+    store,
+    plan,
+    train_cfg: TrainConfig = TrainConfig(),
+    epochs: Optional[int] = None,
+    dtype=None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    mesh=None,
+    chunk_tiles: int = 4096,
+    cache_dtype: Optional[str] = None,
+    tile_cache: Optional[str] = None,
+    ps=None,
+    verbose: bool = False,
+    device="cuda",
+) -> SweepResult:
+    """``sweep_fit_serial`` over a streamed store: each config trains
+    through ``train_stream.fit_streaming`` (chunked epochs, the host-RAM
+    chunk cache, bf16 chunks and the on-disk tile cache, with which
+    configs 2..N read no store data), for sweeps at the reference's
+    largest recipe (the 200-shot ~31 GB tile set, manual_scan.py:137-156),
+    which the resident engines cannot hold.  As in ``sweep_fit_serial``
+    the geometry alone picks the CUDA training kernels or the module's
+    autograd engine; every config starts from ``init_stacked_params``'s
+    draws and checkpoints and resumes under ``cfg_<i>/``.  With
+    ``shuffle=False`` and ``chunk_tiles >= n`` each config's trajectory is
+    ``sweep_fit_serial``'s.  ``mesh`` (more than one device) raises: it is
+    not ported."""
+    from specenh_torch.config import PatchSpec
+    from specenh_torch.train_stream import fit_streaming
+
+    if mesh is not None:
+        raise NotImplementedError("streamed sweeps over a device mesh are not ported yet "
+                                  "(ROADMAP Queue 1 item 9, Multi-GPU)")
+    if plan.n_tiles("tune") == 0:
+        raise ValueError(
+            "sweep requires a non-empty tune split: final val_loss drives "
+            "model selection (manual_scan.py:216-224); this plan's tune "
+            "split has zero tiles — sample more shots or adjust split "
+            "fractions"
+        )
+    ps = PatchSpec() if ps is None else ps
+    epochs = train_cfg.epochs if epochs is None else epochs
+    dev = torch.device(device)
+    env = envelope_config(configs)
+    stacked, masks = init_stacked_params(configs, env, train_cfg.seed)
+    tr_hist, va_hist, finals = [], [], []
+    for ci, cfg in enumerate(configs):
+        state = create_state(cfg, train_cfg, device=dev, dtype=dtype)
+        state.model.load_state_dict(extract_config_params(stacked, ci, cfg, env))
+        epoch_fn = None
+        if supports(cfg) or supports3(cfg):
+            epoch_fn = kernel_epoch_for(cfg, train_cfg, dtype=dtype)
+        ckpt_i = os.path.join(checkpoint_dir, f"cfg_{ci:03d}") if checkpoint_dir else None
+        state, hist = fit_streaming(
+            state, store, plan, train_cfg, epochs=epochs, chunk_tiles=chunk_tiles, ps=ps,
+            epoch_fn=epoch_fn, cache_dtype=cache_dtype, tile_cache=tile_cache,
+            checkpoint_dir=ckpt_i, resume=resume, verbose=verbose,
+        )
+        if verbose:
+            print(f"config {ci + 1}/{len(configs)} ({'kernel' if epoch_fn else 'module'}, "
+                  f"streamed) val={hist['val_loss'][-1]:.5f}")
+        tr_hist.append(hist["loss"])
+        va_hist.append(hist["val_loss"])
+        params = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        finals.append(params)
+        stacked = embed_config_params(stacked, ci, cfg, env, params)
+    return _serial_result(configs, env, tr_hist, va_hist, finals, stacked, masks)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ tile a channel).
   here), ``--trace-dir``, ``--resume``;
 - ``serve --once`` and ``movie``: JAX's counts, frames and JSON keys; the
   untrained-model warning word for word;
-- every exit of a path not ported (ROADMAP Queue 1 items 7 and 9) and of
-  JAX's own checks, word for word."""
+- every exit of a path not ported (ROADMAP Queue 1 item 9) and of JAX's
+  own checks, word for word; ``--stream always`` and ``--stream auto`` over
+  the resident budget train streamed."""
 
 import contextlib
 import dataclasses
@@ -280,26 +281,18 @@ def test_movie_matches_jax(ws, trained, tmp_path, capfd):
     assert jline["frames"] == 2
 
 
-_ITEM7 = "(ROADMAP Queue 1 item 7, Out-of-core training)"
 _ITEM9 = "(ROADMAP Queue 1 item 9, Multi-GPU)"
+_STRAY = ("--chunk-tiles/--chunk-dtype/--tile-cache apply to the streamed epoch only; this run "
+          "is resident (dataset fits the HBM budget) — use --stream always to force streaming")
+# case -> (extra argv, the exit's message; None: the command streams the epoch)
 _EXITS = {
     "train-devices": (["--devices", "2"],
                       f"--devices > 1: multi-GPU training is not ported yet {_ITEM9}"),
-    "train-stream-always": (["--stream", "always"],
-                            f"--stream always: the streamed epoch is not ported yet {_ITEM7}"),
-    "train-chunk-tiles": (["--chunk-tiles", "8"],
-                          "--chunk-tiles/--chunk-dtype/--tile-cache: the streamed epoch is not "
-                          f"ported yet {_ITEM7}"),
-    "train-chunk-dtype": (["--chunk-dtype", "bf16"],
-                          "--chunk-tiles/--chunk-dtype/--tile-cache: the streamed epoch is not "
-                          f"ported yet {_ITEM7}"),
-    "train-tile-cache": (["--tile-cache", "tc"],
-                         "--chunk-tiles/--chunk-dtype/--tile-cache: the streamed epoch is not "
-                         f"ported yet {_ITEM7}"),
-    "train-over-budget": (["SPECENH_HBM_BUDGET_GB=1e-9"],
-                          "this run's 4 tiles exceed the resident budget (1e-09 GB, "
-                          "SPECENH_HBM_BUDGET_GB): the streamed epoch is not ported yet "
-                          f"{_ITEM7}"),
+    "train-stream-always": (["--stream", "always"], None),
+    "train-chunk-tiles": (["--chunk-tiles", "8"], _STRAY),
+    "train-chunk-dtype": (["--chunk-dtype", "bf16"], _STRAY),
+    "train-tile-cache": (["--tile-cache", "tc"], _STRAY),
+    "train-over-budget": (["SPECENH_HBM_BUDGET_GB=1e-9"], None),
     "train-kernel-geometry": (["--model", "narrow", "--engine", "kernel"],
                               "--engine kernel does not support the 'narrow' geometry; use "
                               "f32/bf16"),
@@ -312,10 +305,13 @@ _EXITS = {
 
 
 @pytest.mark.parametrize("case", sorted(_EXITS))
-def test_exits_word_for_word(ws, tmp_path, monkeypatch, case):
+def test_exits_word_for_word(ws, tmp_path, monkeypatch, case, capfd):
     """Each path not ported exits naming its ROADMAP item, and each of
-    JAX's own checks with JAX's words (``build-data --writers`` without
-    ``--binary`` is held against JAX's exit too)."""
+    JAX's own checks with JAX's words (the streaming flags of a resident
+    run and ``build-data --writers`` without ``--binary`` are held against
+    JAX's exits too).  ``--stream always``, and ``--stream auto`` over the
+    resident budget, no longer exit: they stream the epoch and write the
+    run's artifacts."""
     extra, message = _EXITS[case]
     cmd = case.split("-")[0] if not case.startswith("build-data") else "build-data"
     argv = {"train": ["train", "--dataset", str(ws / "t.hdf5"), "--out-dir", str(tmp_path),
@@ -329,9 +325,16 @@ def test_exits_word_for_word(ws, tmp_path, monkeypatch, case):
         extra = []
     monkeypatch.setitem(tcli.MODEL_PRESETS, "narrow", tcli.ModelConfig(
         filters=(8, 8), kernels=((3, 3), (3, 3)), out_kernel=(3, 3)))
+    if message is None:
+        tcli.main([*argv, *extra, *CPU])
+        assert np.isfinite(_last_json(capfd)["val_loss"])
+        with open(tmp_path / "metrics.jsonl") as fh:
+            assert [json.loads(ln)["streamed"] for ln in fh] == [True]
+        assert {"model", "t_pred.txt", "val_loss.txt"} <= set(os.listdir(tmp_path))
+        return
     with pytest.raises(SystemExit, match=f"^{re.escape(message)}$"):
         tcli.main([*argv, *extra, *CPU])
-    if cmd == "build-data":
+    if cmd == "build-data" or message == _STRAY:
         with pytest.raises(SystemExit, match=f"^{re.escape(message)}$"):
             jmain([*argv, *extra])
 

@@ -3,8 +3,8 @@
 2 channels x 6 tiles of 256 x 128, 24 tiles), a 2-config grid for one
 epoch on each engine: the same artifacts (names, shapes, keys), the same
 val losses (rtol 1e-4: float32, 2 Adam steps) and best config; the
-stray-axis exits word for word, and the flags of paths not ported yet
-exit naming their ROADMAP item."""
+stray-axis and streaming-flag exits word for word, more than one device
+exiting naming its ROADMAP item, and ``--stream always`` streaming."""
 
 import json
 import os
@@ -87,22 +87,45 @@ def test_stray_axis_exits_match_jax(store, tmp_path, case):
     assert msgs[0] == msgs[1] and "not an axis of --grid" in msgs[0]
 
 
+_STRAY = ("--chunk-tiles/--chunk-dtype/--tile-cache apply to the streamed sweep only; this "
+          "grid is resident — use --stream always to force streaming")
+_ENVELOPE = ("this sweep's dataset exceeds the resident budget (or --stream always was given): "
+             "streamed sweeps run per-config on the serial engine — add --engine kernel (the "
+             "vmapped envelope needs the resident dataset)")
+# case -> (flags, the exit's message, or "streams": the sweep streams)
 UNPORTED = {
-    "devices": (["--devices", "2"], "item 9"),
-    "stream-always": (["--stream", "always", "--engine", "kernel"], "item 7"),
-    "chunk-tiles": (["--chunk-tiles", "64"], "item 7"),
-    "chunk-dtype": (["--chunk-dtype", "bf16"], "item 7"),
-    "tile-cache": (["--tile-cache", "tc"], "item 7"),
-    "auto-over-budget": ([], "item 7"),
+    "devices": (["--devices", "2"], "ROADMAP Queue 1 item 9"),
+    "stream-always": (["--stream", "always", "--engine", "kernel"], "streams"),
+    "chunk-tiles": (["--chunk-tiles", "64"], _STRAY),
+    "chunk-dtype": (["--chunk-dtype", "bf16"], _STRAY),
+    "tile-cache": (["--tile-cache", "tc"], _STRAY),
+    "auto-over-budget": ([], _ENVELOPE),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_flags_exit(store, tmp_path, monkeypatch, case):
-    flags, item = UNPORTED[case]
+def test_unported_flags_exit(store, tmp_path, monkeypatch, capfd, case):
+    """More than one device exits naming ROADMAP item 9.  The streaming
+    flags of a resident grid, and a grid over the resident budget on the
+    envelope engine, exit with JAX's words.  ``--stream always --engine
+    kernel`` streams each config and writes the artifacts, pred_times
+    timed on one 30-tile tune chunk."""
+    flags, message = UNPORTED[case]
     if case == "auto-over-budget":
         monkeypatch.setenv("SPECENH_HBM_BUDGET_GB", "0.001")
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 {item}"):
-        tmain(["sweep", "--dataset", store, "--out-dir", str(tmp_path), *GRID, *flags,
-               "--device", "cpu"])
+    argv = ["sweep", "--dataset", store, "--out-dir", str(tmp_path), *GRID, *flags]
+    if message == "streams":
+        line = _run(tmain, store, tmp_path, capfd, *flags, "--device", "cpu")
+        assert line["n_configs"] == 2 and np.isfinite(line["best_val_loss"])
+        with np.load(tmp_path / "loss_comparisons.npz") as lc:
+            assert (lc["conv1_time"] > 0).all()
+        return
+    if message.startswith("ROADMAP"):
+        with pytest.raises(SystemExit, match=message):
+            tmain([*argv, "--device", "cpu"])
+    else:
+        for main, extra in ((tmain, ["--device", "cpu"]), (jmain, [])):
+            with pytest.raises(SystemExit) as e:
+                main([*argv, *extra])
+            assert str(e.value) == message
     assert not os.path.exists(tmp_path / "val_losses.npy")

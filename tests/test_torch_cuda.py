@@ -1070,3 +1070,97 @@ def test_serve_once_on_the_card_bit_for_bit(cuda, tmp_path):
         for c in range(20):
             spec, out = persisted[(f"enhanced_{176052 + s}", c + 1)]
             assert np.array_equal(spec, specs[c]) and np.array_equal(out, enhanced[c])
+
+
+class _MemStore:
+    """Records of (256, k x 128) in host memory, with the read protocol of
+    the streamed trainer."""
+
+    path = None
+
+    def __init__(self, n_shots=2, n_channels=2, tiles=4, seed=0):
+        rng = np.random.default_rng(seed)
+        self.recs = {(f"ece_{s}", c): rng.random((256, tiles * 128)).astype(np.float32)
+                     for s in range(n_shots) for c in range(1, n_channels + 1)}
+
+    def shots(self):
+        return sorted({s for s, _ in self.recs})
+
+    def channels_of(self, shot):
+        return sorted(c for s, c in self.recs if s == shot)
+
+    def iter_channels(self):
+        return iter(sorted(self.recs))
+
+    def spec_shape(self, shot, chn):
+        return self.recs[shot, chn].shape
+
+    def read_column_slice(self, shot, chn, lo, hi):
+        x = self.recs[shot, chn][:, lo:hi]
+        return x, np.clip(1.2 * x - 0.2, 0, 1)
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_streamed_fit_on_the_kernels_bit_for_bit(cuda, depth):
+    """K5 (depth 2) and K7 (depth 3): with shuffle off and one chunk the
+    streamed fit trains as the resident fit, losses and parameters bit for
+    bit (val_loss, the float32 module's, to rtol 1e-6); shuffled in chunks
+    of 4, bf16 chunks train to the float32 chunks' losses and parameters
+    bit for bit, every step on the kernels."""
+    from specenh_torch import TrainConfig, train as ttrain, train_stream as tts
+
+    cfg = ModelConfig() if depth == 2 else MODEL_PRESETS["deep3"]
+    store = _MemStore()
+    runs = {}
+    for tag, tc, kw in (("resident", TrainConfig(epochs=2, batch_size=4, shuffle=False), None),
+                        ("one chunk", TrainConfig(epochs=2, batch_size=4, shuffle=False), {}),
+                        ("f32", TrainConfig(epochs=2, batch_size=4), dict(chunk_tiles=4)),
+                        ("bf16", TrainConfig(epochs=2, batch_size=4),
+                         dict(chunk_tiles=4, cache_dtype="bf16"))):
+        plan = tts.plan_stream_split(store, num_samples=2, cfg=tc, seed=0)
+        state = ttrain.create_state(cfg, tc, generator=torch.Generator().manual_seed(0),
+                                    device=cuda)
+        epoch_fn = ttrain.kernel_epoch_for(cfg, tc)
+        if kw is None:
+            data = [a for split in ("train", "tune")
+                    for a in tts._read_chunk(store, getattr(plan, split), tts.PatchSpec())]
+            runs[tag] = ttrain.fit(state, *data, cfg=tc, epoch_fn=epoch_fn)
+        else:
+            before = ttk.TRAIN_LOSS.launches
+            runs[tag] = tts.fit_streaming(state, store, plan, tc, epoch_fn=epoch_fn, **kw)
+            assert ttk.TRAIN_LOSS.launches - before == 2 * -(-plan.n_tiles("train") // 4)
+
+    def same(a, b, val=True):
+        (sa, ha), (sb, hb) = runs[a], runs[b]
+        assert ha["loss"] == hb["loss"]
+        if val:  # the float32 module on cuDNN, whose algorithm may differ between runs
+            np.testing.assert_allclose(ha["val_loss"], hb["val_loss"], rtol=1e-6)
+        for u, v in zip(sa.model.state_dict().values(), sb.model.state_dict().values()):
+            assert torch.equal(u, v)
+
+    same("one chunk", "resident")
+    same("bf16", "f32", val=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pinned_upload_path(cuda, dtype):
+    """``_ChunkStream`` on the card: five host chunks through two pinned
+    staging buffers (each refilled after its upload's event) come out on
+    the card as float32, equal to the host chunks, in order; the reader
+    thread has ended."""
+    import threading
+
+    from specenh_torch import train_stream as tts
+
+    stream = tts._ChunkStream(cuda, 8, (256, 128), dtype)
+    assert all(s.x.is_pinned() and s.y.is_pinned() for s in stream.slots)
+    rng = np.random.default_rng(0)
+    host = [tuple(torch.from_numpy(rng.random((k, 256, 128, 1)).astype(np.float32)).to(dtype)
+                  for _ in range(2)) for k in (8, 8, 3, 8, 5)]
+    got = [(tag, x.clone(), y.clone())
+           for tag, x, y in stream.run((i, c) for i, c in enumerate(host))]
+    assert [t for t, _, _ in got] == list(range(5))
+    for (_, x, y), (hx, hy) in zip(got, host):
+        assert x.is_cuda and x.dtype == torch.float32
+        assert torch.equal(x.cpu(), hx[..., 0].float()) and torch.equal(y.cpu(), hy[..., 0].float())
+    assert not [t for t in threading.enumerate() if t.name == "stream-reader"]

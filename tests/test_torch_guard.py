@@ -2,8 +2,11 @@
 and trains without jax, flax, h5py or ``specenh``, also from a tree that
 has no ``specenh/``, where ``python -m specenh_torch.cli sweep`` runs too;
 h5py is imported only inside the calls that open a store, matplotlib only
-where a figure is drawn; its own copies of the JAX package's config,
-references, Q8.8 tables, STFT axes, host IO, record pipeline, plots,
+where a figure is drawn; the streamed trainer, the tile cache and the
+record readers run with none of jax, flax, ``specenh``, h5py or
+ml_dtypes loaded; its own copies of the JAX package's config,
+references, Q8.8 tables, STFT axes, host IO, record pipeline, chunk
+plans and reads, tile-cache lookup, plots,
 frame movie, metrics and metrics logger equal the originals; the
 watch-directory service runs with none of jax, flax, ``specenh``, h5py or
 matplotlib loaded; the native reader builds outside ``native/``;
@@ -224,7 +227,9 @@ def _top_level_source(path: Path, name: str) -> str:
 
 
 # module -> the JAX package's definitions it copies, in its order
-_COPIES = {"data/grain_pipeline": ["RecordSlice"],
+_COPIES = {"data/grain_pipeline": ["RecordSlice", "channel_records", "_patch_np",
+                                   "_read_slice_tiles", "iter_record_slices", "tile_dataset",
+                                   "iter_tile_batches"],
            "viz/plots": ["_axes", "display", "plt_spec_shot", "plot_stages", "plot_svd_compare",
                          "plot_frame_view", "plot_val_loss"],
            "viz/movie": ["dump_frames", "render_movie"],
@@ -246,6 +251,86 @@ def test_data_and_viz_copies_equal_jax_modules(module, name):
     assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
     defs = [n.name for n in ast.parse(port_path.read_text()).body if hasattr(n, "name")]
     assert defs == _COPIES[module] + _OWN.get(module, [])
+
+
+# the streamed trainer's host-side definitions copied from the JAX package
+# (their modules hold the port's own definitions around them)
+_STREAM_COPIES = {"train_stream": ["_iter_chunks", "_chunk_plans", "_read_chunk",
+                                   "_stream_cache_budget_bytes", "estimate_resident_bytes"],
+                  "data/tilecache": ["_paths", "plan_fingerprint", "open_or_build",
+                                     "open_tile_cache"]}
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in _STREAM_COPIES.items()
+                                         for n in names])
+def test_stream_copies_equal_jax_modules(module, name):
+    """The chunk plans and reads, the cache budget, the resident estimate
+    and the tile cache's paths, fingerprint and lookup are the JAX
+    package's code, docstrings aside."""
+    port = _top_level_source(ROOT / "specenh_torch" / f"{module}.py", name)
+    orig = _top_level_source(ROOT / "specenh" / f"{module}.py", name)
+    assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
+
+
+def test_streamed_training_runs_without_jax(tmp_path):
+    """``train_stream``, ``data.tilecache`` and the record readers import
+    and run with jax, flax, ``specenh``, h5py and ml_dtypes blocked, on an
+    in-memory store: the record readers, a bf16 tile-cache round trip and
+    a streamed fit from bf16 chunks on the CPU."""
+    code = textwrap.dedent("""
+        import sys
+        blocked = ("jax", "flax", "specenh", "h5py", "ml_dtypes", "matplotlib")
+        for name in blocked:
+            sys.modules[name] = None
+        import numpy as np, torch
+        from specenh_torch import ModelConfig, TrainConfig, train
+        from specenh_torch.config import PatchSpec
+        from specenh_torch.data import grain_pipeline as gp, tilecache as tc
+        from specenh_torch import train_stream as ts
+
+        class Store:
+            path = None
+            def __init__(self):
+                rng = np.random.default_rng(0)
+                self.recs = {(s, c): rng.random((32, 80)).astype(np.float32)
+                             for s in ("ece_1", "ece_2") for c in (1, 2)}
+            def shots(self):
+                return sorted({s for s, _ in self.recs})
+            def channels_of(self, shot):
+                return sorted(c for s, c in self.recs if s == shot)
+            def iter_channels(self):
+                return iter(sorted(self.recs))
+            def spec_shape(self, shot, chn):
+                return self.recs[shot, chn].shape
+            def read_column_slice(self, shot, chn, lo, hi):
+                x = self.recs[shot, chn][:, lo:hi]
+                return x, x * 0.5
+
+        ps = PatchSpec(32, 16, 16, 5)
+        st = Store()
+        tiles = list(gp.tile_dataset(st, ps=ps, seed=1))
+        assert len(tiles) == 4 and tiles[0][0].shape == (5, 32, 16, 1)
+        plan = ts.plan_stream_split(st, num_samples=2, ps=ps, seed=0)
+        r = tc.open_or_build(st, plan.train, "tc", "train", ps, "bf16", chunk_tiles=4)
+        x, y = r.read(0, r.n)
+        want = ts._read_chunk(st, plan.train, ps)
+        assert x.dtype == torch.bfloat16
+        assert torch.equal(x, torch.from_numpy(want[0]).to(torch.bfloat16))
+        cfg = TrainConfig(epochs=2, batch_size=4, seed=0)
+        mc = ModelConfig(filters=(4, 4), kernels=((3, 3), (3, 3)), input_shape=(32, 16, 1))
+        state = train.create_state(mc, cfg, device="cpu")
+        _, hist = ts.fit_streaming(state, st, plan, cfg, chunk_tiles=4, ps=ps,
+                                   cache_dtype="bf16", tile_cache="tc")
+        assert len(hist["loss"]) == 2 and np.isfinite(hist["val_loss"]).all()
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in blocked]
+        print("streamed")
+    """)
+    env = {**_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "streamed" in res.stdout
 
 
 def test_metrics_copies_give_jax_numbers():
