@@ -3,7 +3,7 @@ the reference's scripts as subcommands.
 
     python -m specenh_torch.cli build-data --data-dir RAW --out DATA.hdf5 [--binary]
     python -m specenh_torch.cli train --dataset DATA.hdf5 --out-dir OUT \\
-        [--model scan_k3] [--engine f32|bf16|kernel] [--device cuda]
+        [--model scan_k3] [--engine f32|bf16|kernel] [--device cuda] [--devices N]
     python -m specenh_torch.cli serve --watch-dir IN --out ENH.hdf5 \\
         [--model-dir OUT/model] [--once] [--writers 2] [--device cuda]
     python -m specenh_torch.cli sweep --dataset DATA.hdf5 --out-dir OUT \\
@@ -20,6 +20,7 @@ the reference's scripts as subcommands.
                     (``e2e.train_from_raw``: K1, the label pipeline, the
                     training kernels with ``--engine kernel``)
 ``serve``        -- the watch-directory enhancement service (``serve.py``)
+``import-keras`` -- a reference Keras model -> the port's model directory
 ``denoise``      <- denoising_by_svd.ipynb (SVD denoise one channel of a store)
 ``crosspower``   <- interferometer/crosspowerspec.py
 ``movie``        <- graphs.ipynb cells 18-19 (frame dump + mp4)
@@ -28,11 +29,15 @@ the reference's scripts as subcommands.
 
 Each has the JAX package's flags, defaults, artifacts and final JSON line.
 One flag is the port's own: ``--device`` (default ``cuda``; the CPU tests
-pass ``--device cpu``) on every command that computes.  More than one
-device (``--devices``) is not ported yet and exits naming its ROADMAP
-item.  The JAX CLI's ``bench`` and ``import-keras`` are not
-ported yet.  A model directory is the port's own (``train.save_model``:
-``params.pt`` and ``model_config.json``), not the JAX package's.
+pass ``--device cpu``) on every command that computes.  ``train --devices
+N`` trains data-parallel on N processes, one a GPU (gloo processes on the
+CPU with ``--device cpu``): on its own it starts them, under ``torchrun``
+each joins the launched group; rank 0 writes the artifacts.  More than one
+device anywhere else (a streamed epoch, ``train-raw``, ``sweep``,
+``serve``) is not ported yet and exits naming its ROADMAP item.  The JAX
+CLI's ``bench`` is not ported yet.  A model directory is the port's own
+(``train.save_model``: ``params.pt`` and ``model_config.json``), not the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -48,8 +53,8 @@ import numpy as np
 from specenh_torch.config import MODEL_PRESETS, Config, ModelConfig, SweepConfig, TrainConfig
 
 __all__ = ["build_parser", "cmd_build_data", "cmd_convert_bin", "cmd_crosspower", "cmd_denoise",
-           "cmd_merge_shards", "cmd_movie", "cmd_serve", "cmd_sweep", "cmd_synth_shots",
-           "cmd_train", "cmd_train_raw", "main"]
+           "cmd_import_keras", "cmd_merge_shards", "cmd_movie", "cmd_serve", "cmd_sweep",
+           "cmd_synth_shots", "cmd_train", "cmd_train_raw", "main"]
 
 
 def _cfg_from_args(args) -> Config:
@@ -61,7 +66,7 @@ def _cfg_from_args(args) -> Config:
     return cfg
 
 
-_ITEM9 = "ROADMAP Queue 1 item 9, Multi-GPU"
+_ITEM9B = "ROADMAP Queue 1 item 9b, Multi-GPU serving, time sharding and the rest"
 
 
 def _device(name: str):
@@ -161,6 +166,49 @@ def cmd_synth_shots(args):
         print(path)
 
 
+def _dist_timeout():
+    """Seconds a collective of ``train --devices`` may wait
+    (SPECENH_DIST_TIMEOUT_S; default: torch's)."""
+    v = os.environ.get("SPECENH_DIST_TIMEOUT_S")
+    return float(v) if v else None
+
+
+def _launch_workers(argv, n: int) -> None:
+    """Start ``n`` processes of this command, ranks 0..n-1 of one group
+    (torchrun's environment, a free port on 127.0.0.1), and wait for them;
+    the first that fails stops the others and exits."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), PYTHONPATH=path)
+            procs.append(subprocess.Popen([sys.executable, "-m", "specenh_torch.cli", *argv],
+                                          env=env))
+        while True:
+            codes = [p.poll() for p in procs]
+            for r, rc in enumerate(codes):
+                if rc not in (None, 0):
+                    raise SystemExit(f"train --devices {n}: rank {r} exited with code {rc}")
+            if all(rc == 0 for rc in codes):
+                return
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def cmd_train(args):
     """One config on a store (hyperparam_scan.py's recipe): the resident
     single-device ``fit``, or with ``--stream`` (``always``, or ``auto``
@@ -171,8 +219,13 @@ def cmd_train(args):
     ``plot_chn_{10,11,12}.png``, ``t_pred.txt`` timed on the serving
     path).  A streamed run's artifacts read a bounded test sample, and
     with ``--tile-cache`` the test and bench tiles come from float32 tile
-    caches (the JAX package reads them in the chunk dtype).  More than one
-    device exits naming its ROADMAP item."""
+    caches (the JAX package reads them in the chunk dtype).
+
+    ``--devices N`` (N > 1) trains resident with ``parallel.dp_fit`` (the
+    kernels through ``dp_kernel_epoch_for``) on N ranks: started here, one
+    a GPU (gloo processes with ``--device cpu``), or, under ``torchrun``,
+    the launched group this process joins; rank 0 writes the artifacts.
+    More GPUs than are visible, and a streamed epoch, exit."""
     import contextlib
 
     import torch
@@ -184,11 +237,10 @@ def cmd_train(args):
     from specenh_torch.data.tiles import n_tiles_for, patch, unpatch
     from specenh_torch.io.store import SpectrogramStore
     from specenh_torch.ops import ae_kernel
+    from specenh_torch.parallel.multihost import _launcher_env
     from specenh_torch.train_stream import (_iter_chunks, estimate_resident_bytes,
                                             fit_streaming, plan_stream_split)
 
-    if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9})")
     model_cfg = MODEL_PRESETS[args.model]
     engine = args.engine or ("bf16" if args.bf16 else "f32")
     if engine == "kernel" and not (ae_kernel.supports(model_cfg)
@@ -198,6 +250,17 @@ def cmd_train(args):
             "geometry; use f32/bf16"
         )
     device = _device(args.device)
+    devices = args.devices or 0
+    # a rank of a launched group (ours or torchrun's), or the launcher
+    ranked = devices > 1 and _launcher_env() is not None
+    lead = not ranked or int(os.environ.get("RANK", os.environ.get("SLURM_PROCID", "0"))) == 0
+    if devices > 1 and not ranked:
+        from specenh_torch.parallel.mesh import check_visible
+
+        try:
+            check_visible(devices, device)
+        except ValueError as e:
+            raise SystemExit(f"--devices {devices}: {e}") from e
     train_cfg = TrainConfig(
         epochs=args.epochs, seed=args.seed, split_by=args.split_by,
         batch_size=args.batch_size, learning_rate=args.lr,
@@ -221,6 +284,17 @@ def cmd_train(args):
         use_stream = args.stream == "always" or (
             args.stream == "auto" and estimate_resident_bytes(n_total) > budget
         )
+        if use_stream and devices > 1:
+            if args.stream == "auto" and estimate_resident_bytes(n_total) / devices <= budget:
+                # sharded over the ranks the dataset IS resident (each card
+                # holds its share of the tiles): the multi-GPU path asked for
+                use_stream = False
+                if not args.quiet and lead:
+                    print(f"dataset fits sharded over {devices} devices; "
+                          "using dp_fit instead of streaming")
+            else:
+                raise SystemExit("--devices > 1 with a streamed epoch: multi-GPU streaming "
+                                 f"is not ported yet ({_ITEM9B})")
         if (args.chunk_tiles or args.chunk_dtype or args.tile_cache) and not use_stream:
             # a knob the selected path never reads is an error, not a no-op
             raise SystemExit(
@@ -228,11 +302,32 @@ def cmd_train(args):
                 "epoch only; this run is resident (dataset fits the HBM budget) "
                 "— use --stream always to force streaming"
             )
+        if devices > 1 and not ranked:
+            _launch_workers(args.argv, devices)
+            return
+        mesh = None
+        if devices > 1:
+            from specenh_torch.parallel.mesh import default_backend, make_mesh
+            from specenh_torch.parallel.multihost import initialize_distributed
+
+            initialize_distributed(backend=default_backend(device), timeout=_dist_timeout())
+            try:
+                mesh = make_mesh(devices, device=device)
+            except ValueError as e:
+                raise SystemExit(f"--devices {devices}: {e}") from e
+            device = mesh.device
         state = _train.create_state(
             model_cfg, train_cfg, device=device,
             dtype=torch.bfloat16 if engine == "bf16" else None,
         )
-        epoch_fn = _train.kernel_epoch_for(model_cfg, train_cfg) if engine == "kernel" else None
+        epoch_fn = None
+        if engine == "kernel":
+            if mesh is not None:
+                from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+
+                epoch_fn = dp_kernel_epoch_for(model_cfg, train_cfg, mesh)
+            else:
+                epoch_fn = _train.kernel_epoch_for(model_cfg, train_cfg)
         fit_common = dict(
             metrics_path=os.path.join(args.out_dir, "metrics.jsonl"),
             checkpoint_dir=(os.path.join(args.out_dir, "checkpoints")
@@ -241,7 +336,7 @@ def cmd_train(args):
             verbose=not args.quiet,
         )
         trace_cm = contextlib.nullcontext()
-        if args.trace_dir:
+        if args.trace_dir and lead:
             from specenh_torch.utils.logging import profile_trace
 
             trace_cm = profile_trace(args.trace_dir)
@@ -271,6 +366,24 @@ def cmd_train(args):
                 else:
                     chunk = next(_iter_chunks(store, plan.test, PatchSpec(), 512), None)
                     x_test = chunk[0] if chunk is not None else None
+        elif mesh is not None:
+            from specenh_torch.parallel.data_parallel import dp_fit
+
+            splits = assemble_from_store(
+                store, num_samples=args.num_shots, cfg=train_cfg, seed=args.seed
+            ).reshaped()
+            with trace_cm:
+                state, hist = dp_fit(
+                    state, splits.x_train, splits.y_train, mesh,
+                    splits.x_tune, splits.y_tune,
+                    epochs=args.epochs, batch_size=train_cfg.batch_size,
+                    seed=args.seed, epoch_fn=epoch_fn,
+                    patience=train_cfg.patience, **fit_common,
+                )
+            x_test = splits.x_test
+            torch.distributed.destroy_process_group()
+            if not lead:
+                return
         else:
             splits = assemble_from_store(
                 store, num_samples=args.num_shots, cfg=train_cfg, seed=args.seed
@@ -380,7 +493,7 @@ def cmd_train_raw(args):
     from specenh_torch.train import kernel_epoch_for, save_model
 
     if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9})")
+        raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9B})")
     cfg = _cfg_from_args(args)
     model_cfg = MODEL_PRESETS[args.model]
     if args.engine == "kernel" and not (ae_kernel.supports(model_cfg)
@@ -418,6 +531,36 @@ def cmd_train_raw(args):
     os.makedirs(args.out_dir, exist_ok=True)
     save_model(state, os.path.join(args.out_dir, "model"), model_cfg)
     print(json.dumps({"val_loss": hist["val_loss"][-1], "channels": int(traces.shape[0])}))
+
+
+def cmd_import_keras(args):
+    """Convert a reference Keras SavedModel or ``.keras`` file (e.g. the
+    reference's missing VAE/best_model artifact) into the port's model
+    directory ``OUT_DIR/model`` (``params.pt``, ``model_config.json``),
+    which ``serve --model-dir`` and ``train.load_model`` read.  TensorFlow
+    is imported here only."""
+    os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
+    try:
+        from tensorflow import keras
+    except ImportError as e:
+        raise SystemExit(f"import-keras reads the Keras model with TensorFlow, which is not "
+                         f"installed: {e}") from e
+
+    from specenh_torch.models.keras_import import (model_config_from_keras_weights,
+                                                   params_from_keras_weights)
+    from specenh_torch.train import create_state, save_model
+
+    km = keras.models.load_model(args.saved_model, compile=False)
+    weights = km.get_weights()
+    cfg = model_config_from_keras_weights(weights, input_shape=(256, 128, 1))
+    state = create_state(cfg, TrainConfig(), device="cpu")
+    state.model.load_state_dict(params_from_keras_weights(weights, cfg))
+    save_model(state, os.path.join(args.out_dir, "model"), cfg)
+    print(json.dumps({
+        "filters": list(cfg.filters),
+        "kernels": [list(k) for k in cfg.kernels],
+        "out": os.path.join(args.out_dir, "model"),
+    }))
 
 
 def cmd_denoise(args):
@@ -542,7 +685,7 @@ def cmd_sweep(args):
             + ")"
         )
     if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU sweeps are not ported yet ({_ITEM9})")
+        raise SystemExit(f"--devices > 1: multi-GPU sweeps are not ported yet ({_ITEM9B})")
     over = {}
     if args.kernel_vals:
         over["kernel_vals"] = _kers(args.kernel_vals)
@@ -658,7 +801,7 @@ def cmd_serve(args):
     from specenh_torch.serve import EnhanceService, serve_forever
 
     if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU serving is not ported yet ({_ITEM9})")
+        raise SystemExit(f"--devices > 1: multi-GPU serving is not ported yet ({_ITEM9B})")
     cfg = _cfg_from_args(args)
     device = _device(args.device)
     params = None
@@ -829,7 +972,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the device budget (auto sizes from store metadata; "
                         "budget via SPECENH_HBM_BUDGET_GB, default 12)")
     t.add_argument("--devices", type=int, default=0,
-                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+                   help="more than 1: data-parallel training on that many ranks, "
+                        "one a GPU (gloo processes with --device cpu); started "
+                        "here, or joined under torchrun")
     t.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (parameters and Adam float32)")
     t.add_argument("--engine", choices=["f32", "bf16", "kernel"], default=None,
@@ -864,7 +1009,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(autograd, bfloat16 activations), kernel (the CUDA "
                          "training kernels, bf16)")
     tr.add_argument("--devices", type=int, default=0,
-                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9b)")
     tr.add_argument("--device", default="cuda",
                     help="the torch device training runs on (default cuda)")
     tr.add_argument("--quiet", action="store_true")
@@ -903,7 +1048,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(envelope: when every config is stale) after N "
                         "epochs without val improvement (default off)")
     w.add_argument("--devices", type=int, default=0,
-                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9b)")
     w.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (parameters and Adam float32)")
     w.add_argument("--engine", choices=["envelope", "kernel"], default="envelope",
@@ -966,7 +1111,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="trained model dir (overrides --model preset)")
     sv.add_argument("--channels", type=int, default=20)
     sv.add_argument("--devices", type=int, default=0,
-                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9)")
+                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9b)")
     sv.add_argument("--cut-shot", type=float, default=None)
     sv.add_argument("--poll", type=float, default=1.0)
     sv.add_argument("--max-shots", type=int, default=None)
@@ -979,6 +1124,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the torch device the service runs on (default cuda)")
     sv.add_argument("--quiet", action="store_true")
     sv.set_defaults(fn=cmd_serve)
+
+    ik = sub.add_parser("import-keras", help="reference Keras model -> the port's model dir")
+    ik.add_argument("--saved-model", required=True)
+    ik.add_argument("--out-dir", required=True)
+    ik.set_defaults(fn=cmd_import_keras)
 
     m = sub.add_parser("movie", help="frame dump + mp4 render")
     m.add_argument("--dataset", required=True)
@@ -996,7 +1146,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     try:
         args.fn(args)
     except FileNotFoundError as e:

@@ -24,6 +24,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
@@ -112,26 +113,33 @@ def run_probe(name: str, device="cuda", seed: int = 0) -> bool:
 
 
 def main(timeout: int = 180) -> Dict[str, str]:
-    """Build the probes, run each in a subprocess, report."""
+    """Build the probes, run each in a subprocess of its own, the three at
+    once, each given ``timeout`` seconds; report."""
     if not torch.cuda.is_available():
         raise RuntimeError("the probes need a CUDA device")
     build("probes")  # once, here: the subprocesses find it built
     root = str(Path(__file__).resolve().parent.parent)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
-    results = {}
-    for name in PROBES:
+    procs = {}
+    for name in PROBES:  # all three at once, each in its own process
         code = (f"from specenh_torch.probe_walls import run_probe\n"
                 f"print('RESULT_OK' if run_probe({name!r}) else 'RESULT_DIFFERS')\n")
+        procs[name] = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+    results = {}
+    deadline = time.monotonic() + timeout
+    for name, p in procs.items():
         try:
-            p = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                               timeout=timeout, text=True, env=env, cwd=root)
-            if p.returncode == 0 and "RESULT_OK" in p.stdout:
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 0.0))
+            if p.returncode == 0 and "RESULT_OK" in out:
                 results[name] = "OK"
             else:
-                err = (p.stderr or p.stdout).strip().splitlines()
-                results[name] = "FAIL: " + (err[-1][:160] if err else "?")
+                lines = (err or out).strip().splitlines()
+                results[name] = "FAIL: " + (lines[-1][:160] if lines else "?")
         except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
             results[name] = f"HANG (> {timeout}s, killed)"
         print(f"{name}: {results[name]}", flush=True)
     print(json.dumps(results))

@@ -13,7 +13,7 @@ campaign manifest), quarantine for corrupt shots, and JSONL latency
 metrics.  ``serve_once`` processes the current backlog and returns;
 ``serve_forever`` (the CLI's ``serve``) polls until interrupted or
 ``max_shots`` is reached.  The service runs on the card unless the caller
-asks for the CPU; one device only (more is ROADMAP Queue 1 item 9).
+asks for the CPU; one device only (more is ROADMAP Queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ class EnhanceService:
     ):
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh is not ported yet "
-                                      "(ROADMAP Queue 1 item 9, Multi-GPU)")
+                                      "(ROADMAP Queue 1 item 9b, Multi-GPU)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EnhanceService: no CUDA device (pass device='cpu' to serve "

@@ -207,7 +207,7 @@ def test_train_raw_exits(shots, tmp_path, monkeypatch):
     no kernel family covers exits with JAX's message; --device cuda where
     there is no card exits."""
     data = ["--data-dir", str(shots / "t" / "raw"), "--out-dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+    with pytest.raises(SystemExit, match="Queue 1 item 9b"):
         tcli.main(["train-raw", *data, "--devices", "2", "--device", "cpu"])
     monkeypatch.setitem(tcli.MODEL_PRESETS, "narrow",
                         ModelConfig(filters=(8, 8), kernels=((3, 3), (3, 3)), out_kernel=(3, 3)))

@@ -13,7 +13,7 @@ tile a channel).
   here), ``--trace-dir``, ``--resume``;
 - ``serve --once`` and ``movie``: JAX's counts, frames and JSON keys; the
   untrained-model warning word for word;
-- every exit of a path not ported (ROADMAP Queue 1 item 9) and of JAX's
+- every exit of a path not ported (ROADMAP Queue 1 item 9b) and of JAX's
   own checks, word for word; ``--stream always`` and ``--stream auto`` over
   the resident budget train streamed."""
 
@@ -281,13 +281,14 @@ def test_movie_matches_jax(ws, trained, tmp_path, capfd):
     assert jline["frames"] == 2
 
 
-_ITEM9 = "(ROADMAP Queue 1 item 9, Multi-GPU)"
+_ITEM9B = "(ROADMAP Queue 1 item 9b, Multi-GPU serving, time sharding and the rest)"
 _STRAY = ("--chunk-tiles/--chunk-dtype/--tile-cache apply to the streamed epoch only; this run "
           "is resident (dataset fits the HBM budget) — use --stream always to force streaming")
 # case -> (extra argv, the exit's message; None: the command streams the epoch)
 _EXITS = {
-    "train-devices": (["--devices", "2"],
-                      f"--devices > 1: multi-GPU training is not ported yet {_ITEM9}"),
+    "train-devices": (["--devices", "2", "--stream", "always"],
+                      "--devices > 1 with a streamed epoch: multi-GPU streaming is not "
+                      f"ported yet {_ITEM9B}"),
     "train-stream-always": (["--stream", "always"], None),
     "train-chunk-tiles": (["--chunk-tiles", "8"], _STRAY),
     "train-chunk-dtype": (["--chunk-dtype", "bf16"], _STRAY),
@@ -297,7 +298,7 @@ _EXITS = {
                               "--engine kernel does not support the 'narrow' geometry; use "
                               "f32/bf16"),
     "serve-devices": (["--devices", "2"],
-                      f"--devices > 1: multi-GPU serving is not ported yet {_ITEM9}"),
+                      f"--devices > 1: multi-GPU serving is not ported yet {_ITEM9B}"),
     "build-data-writers": (["--writers", "4"],
                            "--writers applies to the streaming (--binary) campaign; the pickle "
                            "path is the reference-parity synchronous loop"),

@@ -94,7 +94,7 @@ _ENVELOPE = ("this sweep's dataset exceeds the resident budget (or --stream alwa
              "vmapped envelope needs the resident dataset)")
 # case -> (flags, the exit's message, or "streams": the sweep streams)
 UNPORTED = {
-    "devices": (["--devices", "2"], "ROADMAP Queue 1 item 9"),
+    "devices": (["--devices", "2"], "ROADMAP Queue 1 item 9b"),
     "stream-always": (["--stream", "always", "--engine", "kernel"], "streams"),
     "chunk-tiles": (["--chunk-tiles", "64"], _STRAY),
     "chunk-dtype": (["--chunk-dtype", "bf16"], _STRAY),
@@ -105,7 +105,7 @@ UNPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_flags_exit(store, tmp_path, monkeypatch, capfd, case):
-    """More than one device exits naming ROADMAP item 9.  The streaming
+    """More than one device exits naming ROADMAP item 9b.  The streaming
     flags of a resident grid, and a grid over the resident budget on the
     envelope engine, exit with JAX's words.  ``--stream always --engine
     kernel`` streams each config and writes the artifacts, pred_times

@@ -1164,3 +1164,109 @@ def test_pinned_upload_path(cuda, dtype):
         assert x.is_cuda and x.dtype == torch.float32
         assert torch.equal(x.cpu(), hx[..., 0].float()) and torch.equal(y.cpu(), hy[..., 0].float())
     assert not [t for t in threading.enumerate() if t.name == "stream-reader"]
+
+
+def _dp_tiles(n: int, seed: int = 3):
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, 256, 128)).astype(np.float32)
+    return x, np.clip(0.8 * x + 0.1, 0, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_dp_world_of_one_over_nccl_bit_for_bit(cuda, depth):
+    """``dp_fit`` with ``dp_kernel_epoch_for`` on an NCCL world of one is
+    ``fit`` with ``kernel_epoch_for`` bit for bit (K5 at depth 2, K7 at
+    depth 3), its steps on the kernels."""
+    from specenh_torch import TrainConfig, train as ttrain
+    from specenh_torch.parallel.data_parallel import dp_fit
+    from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+    from specenh_torch.parallel.mesh import make_mesh
+
+    cfg = ModelConfig() if depth == 2 else MODEL_PRESETS["deep3"]
+    tc = TrainConfig(batch_size=8)
+    x, y = _dp_tiles(20)
+
+    def state():
+        return ttrain.create_state(cfg, tc, generator=torch.Generator().manual_seed(0),
+                                   device=cuda)
+
+    s1, h1 = ttrain.fit(state(), x, y, cfg=tc, epochs=2, epoch_fn=ttrain.kernel_epoch_for(cfg, tc))
+    mesh = make_mesh(1, device=cuda)
+    try:
+        assert mesh.backend == "nccl"
+        before = ttk.TRAIN_LOSS.launches
+        s2, h2 = dp_fit(state(), x, y, mesh, epochs=2, batch_size=8, seed=tc.seed,
+                        epoch_fn=dp_kernel_epoch_for(cfg, tc, mesh))
+        assert ttk.TRAIN_LOSS.launches - before == 2 * 3
+    finally:
+        mesh.close()
+    assert h1["loss"] == h2["loss"]
+    for u, v in zip(s1.model.state_dict().values(), s2.model.state_dict().values()):
+        assert torch.equal(u, v)
+
+
+def _gloo_rank(rank, port, x, y, out):
+    """One of two gloo ranks on the one card: 2 epochs of ``dp_fit`` on K5
+    from the seed's weights; puts (rank, losses, parameters) on ``out``."""
+    import traceback
+
+    try:
+        from specenh_torch import TrainConfig, train as ttrain
+        from specenh_torch.parallel.data_parallel import dp_fit
+        from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+        from specenh_torch.parallel.mesh import make_mesh
+        from specenh_torch.parallel.multihost import initialize_distributed
+
+        initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout=60)
+        mesh = make_mesh(2, device="cuda:0")
+        cfg, tc = ModelConfig(), TrainConfig(batch_size=8)
+        st = ttrain.create_state(cfg, tc, generator=torch.Generator().manual_seed(0),
+                                 device=mesh.device)
+        st, h = dp_fit(st, x, y, mesh, epochs=2, batch_size=8, seed=tc.seed,
+                       epoch_fn=dp_kernel_epoch_for(cfg, tc, mesh))
+        flat = torch.cat([p.detach().reshape(-1) for p in st.model.parameters()]).cpu().numpy()
+        out.put((rank, h["loss"], flat))
+        torch.distributed.destroy_process_group()
+    except Exception:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def test_dp_two_gloo_ranks_on_one_card(cuda):
+    """Two ranks on the one card over gloo (NCCL refuses a duplicate GPU):
+    20 tiles in batches of 8, so rank 1's block of each epoch's last batch
+    is all padding; both ranks end with the same parameters, the losses
+    finite and within 1e-4 relative of the one-rank ``fit``."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from specenh_torch import TrainConfig, train as ttrain
+
+    x, y = _dp_tiles(20)
+    tc = TrainConfig(batch_size=8)
+    _, ref = ttrain.fit(ttrain.create_state(ModelConfig(), tc,
+                                            generator=torch.Generator().manual_seed(0),
+                                            device=cuda), x, y, cfg=tc, epochs=2,
+                        epoch_fn=ttrain.kernel_epoch_for(ModelConfig(), tc))
+    torch.cuda.empty_cache()  # room for the children's contexts
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, x, y, q)) for r in (0, 1)]
+    for p in procs:
+        p.start()
+    try:
+        got = sorted((q.get(timeout=120) for _ in procs), key=lambda r: r[0])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert all(r[1] != "error" for r in got), [r[-1] for r in got]
+    (_, l0, p0), (_, l1, p1) = got
+    assert l0 == l1 and np.array_equal(p0, p1)
+    assert np.isfinite(l0).all() and np.isfinite(p0).all()
+    np.testing.assert_allclose(l0, ref["loss"], rtol=1e-4)

@@ -740,3 +740,72 @@ def test_wrappers_check_inputs(wts, case):
     call, exc = CASES[case]
     with pytest.raises(exc):
         call(wts)
+
+
+def test_cv_probe_copy_equals_jax_module():
+    """``utils/cv_probe.py`` is the JAX package's module, docstrings aside."""
+    port = (ROOT / "specenh_torch" / "utils" / "cv_probe.py").read_text()
+    orig = (ROOT / "specenh" / "utils" / "cv_probe.py").read_text()
+    assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
+
+
+@pytest.mark.parametrize("module,name", [("parallel/multihost", "merge_stores"),
+                                         ("models/keras_import", "_split_layers"),
+                                         ("models/keras_import",
+                                          "model_config_from_keras_weights")])
+def test_parallel_and_keras_copies_equal_jax_modules(module, name):
+    """The store merge and the Keras weight-list parsing are the JAX
+    package's code, docstrings aside."""
+    port = _top_level_source(ROOT / "specenh_torch" / f"{module}.py", name)
+    orig = _top_level_source(ROOT / "specenh" / f"{module}.py", name)
+    assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
+
+
+def test_parallel_and_keras_modules_run_without_jax():
+    """``parallel`` (mesh, data_parallel, dp_kernel, multihost),
+    ``models.keras_import`` and ``utils.cv_probe`` import with jax, flax,
+    ``specenh``, h5py and tensorflow blocked, and a gloo world of one trains
+    through ``dp_fit`` on both engines and imports a Keras weight list,
+    loading none of them."""
+    code = textwrap.dedent("""
+        import sys
+        blocked = ("jax", "flax", "specenh", "h5py", "tensorflow", "keras")
+        for name in blocked:
+            sys.modules[name] = None
+        import numpy as np, torch
+        import specenh_torch.parallel
+        import specenh_torch.utils.cv_probe
+        from specenh_torch import ModelConfig, TrainConfig, train
+        from specenh_torch.models.keras_import import (model_config_from_keras_weights,
+                                                       params_from_keras_weights)
+        from specenh_torch.parallel.data_parallel import dp_fit
+        from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+        from specenh_torch.parallel.mesh import make_mesh
+        from specenh_torch.parallel.multihost import host_shard, initialize_distributed
+        assert initialize_distributed(backend="gloo") == (0, 1)
+        assert host_shard([1, 2, 3]) == [1, 2, 3]
+        rng = np.random.default_rng(0)
+        mesh = make_mesh(device="cpu")
+        for cfg, fn, n in ((ModelConfig(filters=(4, 4), input_shape=(64, 32, 1)), None, 3),
+                           (ModelConfig(), dp_kernel_epoch_for, 2)):
+            x = rng.random((n, *cfg.input_shape[:2])).astype(np.float32)
+            st = train.create_state(cfg, TrainConfig(), device="cpu")
+            _, h = dp_fit(st, x, x, mesh, epochs=1, batch_size=2,
+                          epoch_fn=fn and fn(cfg, TrainConfig(), mesh))
+            assert np.isfinite(h["loss"]).all()
+        mesh.close()
+        w = [rng.random(s).astype(np.float32) for s in
+             ((3, 3, 1, 8), (8,), (3, 3, 8, 4), (4,), (3, 3, 4, 4), (4,), (3, 3, 8, 4), (8,),
+              (3, 3, 8, 1), (1,))]
+        cfg = model_config_from_keras_weights(w)
+        train.create_state(cfg, TrainConfig(), device="cpu").model.load_state_dict(
+            params_from_keras_weights(w, cfg))
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in blocked]
+        print("trained")
+    """)
+    env = {**_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "trained" in res.stdout

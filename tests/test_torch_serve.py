@@ -188,7 +188,7 @@ def test_service_raises_without_its_device():
     """More than one device (a mesh) is not ported: it raises naming its
     ROADMAP item; a CUDA device where there is none raises (no CPU
     fallback)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
         _service(mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

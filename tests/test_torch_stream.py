@@ -213,14 +213,14 @@ def test_streamed_sweep_equals_resident_sweep(store, tmp_path, monkeypatch):
 
 
 def test_mesh_and_bad_arguments_raise(store):
-    """``mesh`` raises naming ROADMAP item 9 (as ``EnhanceService``);
+    """``mesh`` raises naming ROADMAP item 9b (as ``EnhanceService``);
     the JAX package's argument checks, with its words."""
     jc, tc = _cfgs()
     _, tplan = _plans(store, jc, tc)
     st = _states(jc, tc)[1]
-    with pytest.raises(NotImplementedError, match="item 9, Multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 9b, Multi-GPU"):
         tts.fit_streaming(st, store, tplan, tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9, Multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 9b, Multi-GPU"):
         tsweep.sweep_fit_serial_streamed([ModelConfig(**TINY)], store, tplan, tc, mesh=object(),
                                          device="cpu")
     with pytest.raises(ValueError, match="cache must be"):
