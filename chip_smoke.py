@@ -208,6 +208,21 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    ``train --devices N --engine kernel`` with N above the visible GPUs
    exits with the device-count message.  The kernels line counts (a)-(c)'s
    launches.
+19. (run after phase 16) serving over a process-group mesh and the
+   time-sharded long shot (``parallel.timeshard``): (a) JAX's headline
+   4 s shot (1 998 848 samples, 61 tiles) on an NCCL world of one
+   ``("time",)`` mesh, the flagship in bf16 and float32 and deep3 in
+   bf16, as (T,) and (20, T): the spectrogram within 5e-5 of
+   ``ops.stft.spectrogram`` (its last column a copy), the labels within
+   1e-5 of ``classical_pipeline`` of it, the enhanced output bit for bit
+   the kernels on it and at SSIM >= 0.999 against the plain float32
+   module, one launch of each stage; ms a (T,) shot beside the unsharded
+   service plus the labels; (c) ``EnhanceService(mesh=)`` on an NCCL
+   world of one bit for bit the service at both depths; (b) two gloo
+   ranks on the one card, spawned once: the shot split two ways against
+   the world of one, the channel-sharded services within 1e-6 of the
+   single one, ``serve_once`` over 4 SPEC binaries on rank 0 while rank 1
+   follows.  The kernels line counts (a)-(c)'s launches.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -2954,6 +2969,366 @@ def dp_phase(dev, gpu, data) -> None:
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 19: the time-sharded long shot (JAX's headline shot, headline.py:276-313)
+LONGSHOT = SpecParams(cut_shot=4.0)
+LONGSHOT_ITERS = 48    # CUDA-event calls timed after warm-up, as the headline's 48
+TOL_TS_SPEC = 5e-5     # sharded spectrogram vs the unsharded one (JAX's tests/test_parallel.py)
+TOL_TS_LABELS = 1e-5   # sharded labels vs classical_pipeline (JAX's tests)
+TOL_MESH_SERVE = 1e-6  # the channel-sharded service vs the single one (JAX's tests)
+MESH_SHOTS = 4         # phase 19 (b): serve_once over this many SPEC binaries
+
+
+def profile_split(call, n: int) -> str:
+    """``call()`` n times under torch.profiler: the card's busy ms a call,
+    the collectives' share of it and the six device kernels with the most
+    time, by name (the profiler's own host cost makes its wall time no
+    measure of a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    busy, _ = device_busy(prof)
+    if busy is None:
+        return "device time not measured (the profiler recorded no device events)"
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            d = (e.time_range.end - e.time_range.start) / 1e3 / n
+            by_name[e.name] = by_name.get(e.name, 0.0) + d
+    nccl = sum(v for k, v in by_name.items() if "nccl" in k.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"the card busy {busy / n:.4f} ms a call, NCCL kernels {nccl:.4f} ms of it; the "
+            f"most device time: "
+            + "; ".join(f"{k[:60]} {v:.4f} ms" for k, v in top))
+
+
+@torch.no_grad()
+def longshot_gates(tag, fn, wts, model, x, k_tiles, gpu):
+    """Phase 19 (a), one input: the time-sharded shot ``fn`` on a world of
+    one, counted; spectrogram against ``ops.stft.spectrogram`` of ``x``
+    within TOL_TS_SPEC on its frames and its last column a copy, labels
+    against ``classical_pipeline`` of it within TOL_TS_LABELS, enhanced bit
+    for bit ``ae_kernel_enhance_specs`` of it and at SSIM >= 0.999 against
+    the plain float32 module on every channel.  Returns the launches."""
+    from specenh_torch.ops.stft import spectrogram
+
+    (spec, labels, enh), launches = counted(fn, wts, x)
+    ref = spectrogram(x, LONGSHOT)
+    nf = ref.shape[-1]
+    check(spec.shape[-1] == nf + 1 and labels.shape == enh.shape == spec.shape,
+          f"{tag}: shapes {tuple(spec.shape)}, {tuple(labels.shape)}, {tuple(enh.shape)}")
+    e_spec = max_err(spec[..., :nf], ref)
+    check(e_spec <= TOL_TS_SPEC and torch.equal(spec[..., -1], spec[..., -2]),
+          f"{tag}: spectrogram |err| {e_spec:.3g} or its last column")
+    e_lab = max_err(labels, EN.classical_pipeline(spec))
+    check(e_lab <= TOL_TS_LABELS, f"{tag}: labels |err| {e_lab:.3g}")
+    s3, e3 = (spec[None], enh[None]) if x.ndim == 1 else (spec, enh)
+    check(torch.equal(e3, AK.ae_kernel_enhance_specs(wts, s3, k_tiles)),
+          f"{tag}: enhanced differs from ae_kernel_enhance_specs of its spectrogram")
+    plain = torch.cat([AK.ae_kernel_enhance_specs_plain(model, s3[c:c + 1], k_tiles)
+                       for c in range(s3.shape[0])])
+    e_ssim = float(ssim_card(e3, plain).min())
+    check(e_ssim >= GATE_ENH_SSIM, f"{tag}: enhanced SSIM {e_ssim:.6f}")
+    log(f"[{gpu}] phase 19 (a) {tag}: spectrogram |err| {e_spec:.3g} (tol {TOL_TS_SPEC}), labels "
+        f"|err| {e_lab:.3g} (tol {TOL_TS_LABELS}), enhanced bit for bit the kernels on its "
+        f"spectrogram, SSIM vs the plain f32 module min over {s3.shape[0]} ch {e_ssim:.6f}")
+    return launches
+
+
+def mesh_rank(rank: int, port: int, inp: dict, out) -> None:
+    """Phase 19 (b), one of two ranks on the one card over gloo: the 4 s
+    shot split two ways (gathered, gated and timed on rank 0), the
+    channel-sharded flagship and deep3 services on a 20-channel shot, and
+    ``serve_once`` of ``inp["watch"]`` on rank 0 while rank 1 follows.
+    Puts (rank, results) or (rank, "error", traceback) on ``out``."""
+    import traceback
+
+    from specenh_torch.io.native import read_shot
+    from specenh_torch.io.store import CampaignManifest
+    from specenh_torch.parallel import timeshard as TS
+    from specenh_torch.parallel.mesh import make_mesh
+    from specenh_torch.parallel.multihost import initialize_distributed
+    from specenh_torch.serve import EnhanceService, serve_once
+    from specenh_torch.utils.logging import MetricsLogger
+
+    t_start = time.time()
+    try:
+        initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout=120)
+        tmesh = make_mesh(2, ("time",), device=inp["device"])
+        dmesh = make_mesh(2, ("data",), device=inp["device"])
+        dev = tmesh.device
+        res, launches = {"joined": time.time() - t_start}, {}
+
+        def model_of(cfg):
+            m = make_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+            m.load_state_dict(inp["sd"][cfg.depth])
+            return m.eval()
+
+        def tally(got, depth):
+            for kern, n in got.items():
+                launches[(kern.symbol, depth)] = launches.get((kern.symbol, depth), 0) + n
+
+        # the 4 s shot, two shards of 30 tiles
+        model = model_of(FLAGSHIP)
+        x = torch.from_numpy(inp["x2"]).to(dev)
+        fn = TS.make_sharded_enhance_shot(FLAGSHIP, LONGSHOT, tmesh, n_samples=x.shape[-1])
+        wts = fn.prepare(model)
+        local, got = counted(fn, wts, TS.shard_of(tmesh, x))
+        tally(got, 2)
+        spec, labels, enh = TS.gather_shards(tmesh, *local)
+        res["local"] = tuple(local[0].shape)
+        ms = time_cuda(fn, wts, TS.shard_of(tmesh, x), warmup=2, iters=LONGSHOT_ITERS)
+        if rank == 0:
+            ref_spec, ref_lab, ref_plain = (torch.from_numpy(a).to(dev) for a in inp["ref2"])
+            k = spec.shape[-1] // 128
+            res["shot"] = dict(
+                spec=max_err(spec, ref_spec), labels=max_err(labels, ref_lab),
+                equal=torch.equal(enh[None], AK.ae_kernel_enhance_specs(wts, spec[None], k)),
+                ssim=float(ssim_card(enh[None], ref_plain[None]).min()), ms=ms, k=k)
+        # the channel-sharded services, 10 channels a rank
+        traces = torch.from_numpy(inp["traces"]).to(dev)
+        res["service"] = {}
+        for cfg in (FLAGSHIP, DEEP3):
+            model = model_of(cfg)
+            fn = make_enhance_shot_fn(cfg, SpecParams(), device=dev, mesh=dmesh,
+                                      n_channels=N_CHANNELS)
+            wts = fn.prepare(model)
+            (specs, enh), got = counted(fn, wts, traces)
+            tally(got, cfg.depth)
+            ms = time_cuda(fn, wts, traces, warmup=1, iters=5)
+            if rank == 0:
+                single = make_enhance_shot_fn(cfg, SpecParams(), device=dev)
+                s1, e1 = single(single.prepare(model), traces)
+                res["service"][cfg.depth] = (max_err(specs, s1), max_err(enh, e1), ms)
+        # the mesh daemon: serve_once on rank 0, follow() on rank 1
+        service = EnhanceService(Config(), FLAGSHIP, model_of(FLAGSHIP), n_channels=N_CHANNELS,
+                                 device=dev, mesh=dmesh)
+        if rank == 0:
+            work = inp["work"]
+            manifest = CampaignManifest(os.path.join(work, "mesh.serve.jsonl"))
+            sink = MemorySink("mesh")
+            mpath = os.path.join(work, "mesh.metrics.jsonl")
+            with MetricsLogger(mpath) as metrics:
+                counts, got = counted(serve_once, service, inp["watch"],
+                                      StoreWriterPool.from_stores([sink]), manifest, metrics,
+                                      verbose=False)
+            service.close()
+            manifest.close()
+            with open(mpath) as fh:
+                batch = [e for e in map(json.loads, fh) if e["event"] == "serve_batch"][0]
+            single = EnhanceService(Config(), FLAGSHIP, model_of(FLAGSHIP),
+                                    n_channels=N_CHANNELS, device=dev)
+            worst = 0.0
+            for name in sorted(os.listdir(inp["watch"])):
+                t_ = read_shot(os.path.join(inp["watch"], name), N_CHANNELS,
+                               SpecParams().n_samples)
+                s1, e1 = single.fn(single.params, t_)
+                group = "enhanced_" + name[len("ece_"):-len(".bin")]
+                for c in range(N_CHANNELS):
+                    got_s, got_e = sink.channels[(group, c + 1)]
+                    worst = max(worst, float(np.abs(got_s - s1[c].cpu().numpy()).max()),
+                                float(np.abs(got_e - e1[c].cpu().numpy()).max()))
+            res["serve"] = dict(counts=counts, channels=len(sink.channels), worst=worst,
+                                shots_per_sec=batch["shots_per_sec"], seconds=batch["seconds"])
+        else:
+            res["followed"], got = counted(service.follow)
+        tally(got, 2)
+        res["launches"] = launches
+        out.put((rank, res))
+        torch.distributed.destroy_process_group()
+    except Exception:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+@torch.no_grad()
+def mesh_phase(dev, gpu) -> None:
+    """Phase 19: serving over a process-group mesh and the time-sharded
+    long shot.  (a) JAX's headline long shot (``SpecParams(cut_shot=4.0)``,
+    1 998 848 samples, 7808 frames, 61 tiles) through
+    ``parallel.timeshard.make_sharded_enhance_shot`` on an NCCL world of
+    one ``("time",)`` mesh: the flagship in bf16 and float32 and deep3 in
+    bf16, each as (T,) and (20, T), gated (``longshot_gates``) and
+    counted; ms a (T,) shot (CUDA events, 48 calls after warm-up) beside
+    the unsharded service at ``cut_shot=4.0`` plus ``classical_pipeline``.
+    (c) ``EnhanceService(mesh=)`` on an NCCL world of one ("data") is the
+    service without a mesh bit for bit at both depths.  (b) one spawn of
+    two gloo ranks on the one card (``mesh_rank``): the shot split two
+    ways (1 966 080 samples, 30 tiles a rank) against the world of one
+    (spectrogram 5e-5, labels 1e-5), the enhanced output bit for bit the
+    kernels on its gathered spectrogram and at SSIM >= 0.999 against the
+    plain float32 module; the channel-sharded flagship and deep3 services
+    on a 20 x 1e6 shot within 1e-6 of the single service; ``serve_once``
+    over 4 SPEC binaries, every persisted channel within 1e-6 of the
+    single service, shots/s.  The kernels line counts (a)-(c)'s launches."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from specenh_torch.parallel import timeshard as TS
+    from specenh_torch.parallel.mesh import make_mesh
+    from specenh_torch.serve import EnhanceService
+
+    t_phase = time.perf_counter()
+    sp = LONGSHOT
+    t1 = TS.usable_samples_tiled(sp.n_samples, 1, sp)
+    t2 = TS.usable_samples_tiled(sp.n_samples, 2, sp)
+    host = shot(sp, N_CHANNELS, SEED)
+    tmesh = make_mesh(1, ("time",), device=dev)
+    dmesh = make_mesh(1, ("data",), device=dev)
+    check(tmesh.backend == "nccl" and tmesh.shape == {"time": 1} and dmesh.shape == {"data": 1},
+          f"phase 19 meshes {tmesh}, {dmesh}")
+    sd, times = {}, []
+    for cfg, dtype in ((FLAGSHIP, torch.bfloat16), (FLAGSHIP, torch.float32),
+                       (DEEP3, torch.bfloat16)):
+        model = make_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+        sd[cfg.depth] = {k: v.cpu() for k, v in model.state_dict().items()}
+        fn = TS.make_sharded_enhance_shot(cfg, sp, tmesh, dtype=dtype, n_samples=t1)
+        wts = fn.prepare(model)
+        tag = f"depth-{cfg.depth} {str(dtype).split('.')[-1]}"
+        for x in (torch.from_numpy(host[0, :t1]).to(dev), torch.from_numpy(host[:, :t1]).to(dev)):
+            launches = longshot_gates(f"{tag} {tuple(x.shape)}", fn, wts, model, x, t1 // 256 // 128,
+                                      gpu)
+            want = {AK.TILE_IN: 1, AK.CONV_POOL: cfg.depth - 1, AK.CONVT: cfg.depth,
+                    AK.TILE_OUT: 1}
+            check(launches == want, f"phase 19 (a) {tag}: launches "
+                  f"{[(k.symbol, v) for k, v in launches.items()]}")
+            add_sweep_launches(launches, cfg.depth, serving=True, phase="19 (a)")
+        x = torch.from_numpy(host[0, :t1]).to(dev)
+        ms = time_cuda(fn, wts, x, warmup=2, iters=LONGSHOT_ITERS)
+        times.append(f"{tag} {ms:.4f} ms")
+        if (cfg, dtype) == (FLAGSHIP, torch.bfloat16):
+            log(f"[{gpu}] phase 19 (a) {tag} (T,) shot, 5 calls profiled: "
+                + profile_split(lambda: fn(wts, x), 5))
+            svc = make_enhance_shot_fn(cfg, sp, device=dev)
+            swts = svc.prepare(model)
+
+            def unsharded(t):
+                specs, enh = svc(swts, t)
+                return enh, EN.classical_pipeline(specs)
+
+            whole = torch.from_numpy(host[:1]).to(dev)  # (1, 2e6): the service takes 4 s
+            ms_svc = time_cuda(unsharded, whole, warmup=2, iters=LONGSHOT_ITERS)
+            ms_front = time_cuda(svc, swts, whole, warmup=2, iters=LONGSHOT_ITERS)
+            times.append(f"(the unsharded service at cut_shot=4.0 on (1, 2e6) plus "
+                         f"classical_pipeline {ms_svc:.4f} ms, the service alone {ms_front:.4f})")
+        del model, fn, wts
+    log(f"[{gpu}] phase 19 (a) ms a 4 s (T,) shot on an NCCL world of one, CUDA events, "
+        f"{LONGSHOT_ITERS} calls: " + "; ".join(times))
+
+    # (c) the mesh service on a world of one is the service without a mesh
+    traces = shot(SpecParams(), N_CHANNELS, SEED)
+    for cfg in (FLAGSHIP, DEEP3):
+        model = make_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+        service = EnhanceService(Config(), cfg, model, n_channels=N_CHANNELS, device=dev,
+                                 mesh=dmesh)
+        got, launches = counted(service.dispatch, traces)
+        service.close()
+        single = make_enhance_shot_fn(cfg, SpecParams(), device=dev)
+        want = single(single.prepare(model), traces)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"phase 19 (c) depth {cfg.depth}: the mesh service differs from the service")
+        add_serve_launches({k: launches.get(k, 0) for k in SERVE_KERNELS}, cfg.depth)
+        log(f"phase 19 (c) depth-{cfg.depth} EnhanceService(mesh=) on an NCCL world of one: "
+            f"bit for bit the service, launches "
+            + ", ".join(f"{k.symbol}={v}" for k, v in launches.items()))
+
+    # (b)'s references on the world of one: the shot at the two-way length
+    x2 = host[0, :t2]
+    model = make_model(FLAGSHIP, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    fn = TS.make_sharded_enhance_shot(FLAGSHIP, sp, tmesh, n_samples=t2)
+    spec, labels, _ = fn(fn.prepare(model), torch.from_numpy(x2).to(dev))
+    plain = AK.ae_kernel_enhance_specs_plain(model, spec[None], spec.shape[-1] // 128)[0]
+    ref2 = tuple(t.cpu().numpy() for t in (spec, labels, plain))
+    tmesh.close()
+    del model, fn, spec, labels, plain
+
+    with tempfile.TemporaryDirectory() as work:
+        watch = os.path.join(work, "watch")
+        os.makedirs(watch)
+        bins = synthetic_shot_batch(n_shots=MESH_SHOTS, n_channels=N_CHANNELS,
+                                    n_samples=SpecParams().n_samples, seed=3)
+        for s_, b in enumerate(bins):
+            write_shot_bin(os.path.join(watch, f"ece_{200000 + s_}.bin"), b)
+        del bins
+        inp = dict(sd=sd, x2=x2, ref2=ref2, traces=traces, watch=watch, work=work,
+                   device=str(dev))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # room for the children's contexts
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue()
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        procs = [ctx.Process(target=mesh_rank, args=(r, port, inp, q)) for r in (0, 1)]
+        for p in procs:
+            p.start()
+        results, deadline = {}, time.perf_counter() + 300
+        try:
+            while len(results) < len(procs):
+                try:
+                    r = q.get(timeout=2)
+                    results[r[0]] = r
+                except queue.Empty:
+                    gone = [k for k, p in enumerate(procs) if p.exitcode is not None
+                            and k not in results]
+                    check(not gone, f"phase 19 (b): rank(s) {gone} exited with no result "
+                          f"(exit codes {[procs[k].exitcode for k in gone]})")
+                    check(time.perf_counter() < deadline, "phase 19 (b): no result in 300 s")
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    for r in results.values():
+        check(r[1] != "error", f"phase 19 (b) rank {r[0]} failed:\n{r[-1]}")
+    r0, r1 = results[0][1], results[1][1]
+    sh = r0["shot"]
+    check(r0["local"] == r1["local"] == (256, t2 // 2 // sp.hop),
+          f"phase 19 (b) shards {r0['local']}")
+    check(sh["spec"] <= TOL_TS_SPEC and sh["labels"] <= TOL_TS_LABELS and sh["equal"]
+          and sh["ssim"] >= GATE_ENH_SSIM, f"phase 19 (b) the 2-way shot: {sh}")
+    for depth, (e_s, e_e, _) in r0["service"].items():
+        check(e_s <= TOL_MESH_SERVE and e_e <= TOL_MESH_SERVE,
+              f"phase 19 (b) depth-{depth} service |err| {e_s:.3g}, {e_e:.3g}")
+    for r in (r0, r1):
+        took = {sym for (sym, depth), n in r["launches"].items() if n and depth == 2}
+        check(took == {k.symbol for k in SERVE_KERNELS},
+              f"phase 19 (b): a rank's depth-2 launches {r['launches']}")
+    sv = r0["serve"]
+    check(sv["counts"] == {"done": MESH_SHOTS, "failed": 0} and r1["followed"] == MESH_SHOTS
+          and sv["channels"] == MESH_SHOTS * N_CHANNELS and sv["worst"] <= TOL_MESH_SERVE,
+          f"phase 19 (b) serve_once {sv}, rank 1 followed {r1['followed']}")
+    by_symbol = {kern.symbol: kern for kern in _build.KERNELS}
+    for (sym, depth), n_k in [*r0["launches"].items(), *r1["launches"].items()]:
+        kern = by_symbol[sym]
+        if kern is SF.STFT_KERNEL:
+            row(kern, "K1")["launches"] += n_k
+        else:
+            add_sweep_launches({kern: n_k}, depth, serving=True, phase="19 (b)")
+    log(f"[{gpu}] phase 19 (b) two gloo ranks on one card: the 4 s shot split 2 ways "
+        f"({t2} samples, {sh['k']} tiles gathered): spectrogram |err| {sh['spec']:.3g}, labels "
+        f"|err| {sh['labels']:.3g} vs the world of one, enhanced bit for bit the kernels on its "
+        f"spectrogram, SSIM vs the plain f32 module {sh['ssim']:.6f}; {sh['ms']:.4f} ms a shot "
+        f"(CUDA events on rank 0, {LONGSHOT_ITERS} calls); services on {N_CHANNELS} x 1e6, "
+        f"{N_CHANNELS // 2} ch a rank: "
+        + "; ".join(f"depth {d} |err| specs {e_s:.3g} enhanced {e_e:.3g}, {ms:.4f} ms a shot"
+                    for d, (e_s, e_e, ms) in sorted(r0["service"].items()))
+        + f"; serve_once of {MESH_SHOTS} shots: {sv['counts']}, rank 1 followed "
+        f"{r1['followed']}, persisted channels |err| {sv['worst']:.3g} vs the single service, "
+        f"{sv['shots_per_sec']:.3f} shots/s (drain {sv['seconds']:.3f} s); the ranks joined "
+        f"{r0['joined']:.1f} / {r1['joined']:.1f} s after their start; wall with the spawn "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3084,6 +3459,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         analyses_phase(dev, gpu, work)
         serve_phase(dev, gpu, work, secs)
+    mesh_phase(dev, gpu)
 
     out = []
     for (kern, kid), r in ROWS.items():

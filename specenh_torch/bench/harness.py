@@ -16,7 +16,7 @@ the float32 reference the service is gated against.
 from __future__ import annotations
 
 import statistics
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from specenh_torch.data.tiles import n_tiles_for
 from specenh_torch.models.autoencoder import ConvAutoencoder
 from specenh_torch.ops import ae_kernel, stft_fused
 from specenh_torch.ops.stft import spectrogram
+from specenh_torch.parallel.collectives import block_of, exchange_for, gather_blocks
 
 __all__ = ["make_enhance_shot_fn", "make_production_predict_fn", "enhance_shot_plain",
            "example_shot", "time_cuda", "STFT_MODES"]
@@ -115,6 +116,9 @@ def make_enhance_shot_fn(
     device="cuda",
     stft_mode: str = "auto",
     use_kernel: object = "auto",
+    mesh=None,
+    axis: str = "data",
+    n_channels: Optional[int] = None,
 ) -> Callable:
     """Returns ``fn(model_or_weights, traces) -> (specs, enhanced)``:
     traces (C, >= n_samples) -> specs (C, 256, n_frames) float32, enhanced
@@ -160,9 +164,26 @@ def make_enhance_shot_fn(
       float64 matmul, float32 out), then the AE stages; any STFT geometry.
 
     Any other value raises ``ValueError``.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh`` over ``axis``, or an
+    ``Exchange``) the channels are sharded over its ranks: every rank
+    calls ``fn`` with the whole ``traces``, computes the front and the AE
+    above on its block of channels (blocks as ``numpy.array_split``; the
+    service has no cross-channel coupling), and the blocks are gathered
+    into full arrays on rank 0; the other ranks get ``(None, None)``.  The
+    service runs on the mesh's device.  ``use_kernel=True`` needs the
+    channel count divisible by the mesh's size (``ValueError`` naming
+    "divisible", JAX's rule); ``"auto"`` and ``False`` serve uneven blocks
+    (JAX's ``"auto"`` takes its Flax route for them).  ``n_channels``:
+    where given, a call with another channel count raises
+    ``ValueError``.  A world of one is the service without a mesh bit for
+    bit.
     """
     dtype = torch.float32 if dtype is None else dtype
-    device = torch.device(device)
+    ex = None if mesh is None else exchange_for(mesh)
+    if ex is not None and axis not in ex.shape:
+        raise ValueError(f"the mesh's axis is {ex.axis_names[0]!r}, not {axis!r}")
+    device = torch.device(device) if ex is None else ex.device
     if stft_mode not in STFT_MODES:
         raise ValueError(f"stft_mode must be one of {STFT_MODES}: {stft_mode!r}")
     k_tiles = _k_tiles(sp, ps)
@@ -177,10 +198,11 @@ def make_enhance_shot_fn(
         raise NotImplementedError(
             "stft_mode='fused_ft' needs the kernels serving in bf16 with the "
             f"reference STFT geometry: {cfg}, {sp}, {dtype}, use_kernel={use_kernel!r}")
-    if depth is None:
-        return _module_route(sp, dtype, device, k_tiles)
-    matmul_front = stft_mode == "xla" or not stft_fused.supported(sp)
     prepare = _preparer(depth, dtype)
+    if depth is None:
+        return _served(_module_body(sp, dtype, k_tiles), prepare, device, ex, axis, False,
+                       n_channels)
+    matmul_front = stft_mode == "xla" or not stft_fused.supported(sp)
 
     def front(wts, traces):
         if stft_mode == "fused":
@@ -193,27 +215,44 @@ def make_enhance_shot_fn(
             specs = stft_fused.spectrogram_fused(traces, sp)
         return specs, ae_kernel.ae_kernel_enhance_specs(wts, specs, k_tiles)
 
+    return _served(front, prepare, device, ex, axis, use_kernel is True, n_channels)
+
+
+def _module_body(sp: SpecParams, dtype, k_tiles: int) -> Callable:
+    """The service's body on the ``nn.Module`` (JAX's Flax route): the
+    matmul STFT, then the module computing in ``dtype``."""
+    def body(model, traces):
+        specs = spectrogram(traces, sp)
+        return specs, ae_kernel.ae_kernel_enhance_specs_plain(model, specs, k_tiles, dtype)
+
+    return body
+
+
+def _served(body: Callable, prepare: Callable, device, ex, axis: str, even: bool,
+            n_channels: Optional[int]) -> Callable:
+    """``fn(model_or_weights, traces)``: ``body`` on the traces on
+    ``device``, or, over the exchange ``ex``, on this rank's block of
+    channels with the blocks gathered on rank 0 (``even``: the channel
+    count must divide by the mesh's size)."""
     def fn(model_or_weights, traces):
         wts = prepare(model_or_weights)
         traces = torch.as_tensor(traces, dtype=torch.float32, device=device)
+        if ex is None:
+            with torch.no_grad():
+                return body(wts, traces.contiguous())
+        c = traces.shape[0]
+        if n_channels is not None and c != n_channels:
+            raise ValueError(f"the service takes {n_channels} channels, got {c}")
+        if even and c % ex.size:
+            raise ValueError(
+                f"kernel serving over a mesh with use_kernel=True needs the channel "
+                f"count ({c}) divisible by the '{axis}' axis size ({ex.size}); "
+                "use_kernel='auto' serves uneven blocks on the kernels, False on the module")
+        if c < ex.size:
+            raise ValueError(f"{c} channels cannot be sharded over {ex.size} ranks")
         with torch.no_grad():
-            return front(wts, traces.contiguous())
-
-    fn.prepare = prepare
-    return fn
-
-
-def _module_route(sp: SpecParams, dtype, device, k_tiles: int) -> Callable:
-    """The service on the ``nn.Module`` (JAX's Flax route): the matmul
-    STFT, then the module computing in ``dtype``."""
-    prepare = _preparer(None, dtype)
-
-    def fn(model, traces):
-        model = prepare(model)
-        traces = torch.as_tensor(traces, dtype=torch.float32, device=device)
-        with torch.no_grad():
-            specs = spectrogram(traces.contiguous(), sp)
-            return specs, ae_kernel.ae_kernel_enhance_specs_plain(model, specs, k_tiles, dtype)
+            specs, enhanced = body(wts, block_of(ex, traces, 0).contiguous())
+        return gather_blocks(ex, specs, 0, c), gather_blocks(ex, enhanced, 0, c)
 
     fn.prepare = prepare
     return fn

@@ -5,7 +5,7 @@ the reference's scripts as subcommands.
     python -m specenh_torch.cli train --dataset DATA.hdf5 --out-dir OUT \\
         [--model scan_k3] [--engine f32|bf16|kernel] [--device cuda] [--devices N]
     python -m specenh_torch.cli serve --watch-dir IN --out ENH.hdf5 \\
-        [--model-dir OUT/model] [--once] [--writers 2] [--device cuda]
+        [--model-dir OUT/model] [--once] [--writers 2] [--device cuda] [--devices N]
     python -m specenh_torch.cli sweep --dataset DATA.hdf5 --out-dir OUT \\
         [--grid kernel|2layer|3layer] [--engine envelope|kernel] [--device cuda]
     python -m specenh_torch.cli train-raw --data-dir RAW --out-dir OUT \\
@@ -30,11 +30,13 @@ the reference's scripts as subcommands.
 Each has the JAX package's flags, defaults, artifacts and final JSON line.
 One flag is the port's own: ``--device`` (default ``cuda``; the CPU tests
 pass ``--device cpu``) on every command that computes.  ``train --devices
-N`` trains data-parallel on N processes, one a GPU (gloo processes on the
-CPU with ``--device cpu``): on its own it starts them, under ``torchrun``
-each joins the launched group; rank 0 writes the artifacts.  More than one
-device anywhere else (a streamed epoch, ``train-raw``, ``sweep``,
-``serve``) is not ported yet and exits naming its ROADMAP item.  The JAX
+N`` trains data-parallel and ``serve --devices N`` shards each shot's
+channels, on N processes, one a GPU (NCCL; gloo processes on the CPU with
+``--device cpu``): on its own the command starts them, under ``torchrun``
+each joins the launched group; rank 0 writes the artifacts (``serve``:
+rank 0 reads, persists and prints the totals).  More than one device
+anywhere else (a streamed epoch, ``train-raw``, ``sweep``) is not ported
+yet and exits naming its ROADMAP item.  The JAX
 CLI's ``bench`` is not ported yet.  A model directory is the port's own
 (``train.save_model``: ``params.pt`` and ``model_config.json``), not the
 JAX package's.
@@ -66,7 +68,7 @@ def _cfg_from_args(args) -> Config:
     return cfg
 
 
-_ITEM9B = "ROADMAP Queue 1 item 9b, Multi-GPU serving, time sharding and the rest"
+_ITEM9B = "ROADMAP Queue 1 item 9b part 3, multi-GPU streamed, raw and sweep training"
 
 
 def _device(name: str):
@@ -167,7 +169,7 @@ def cmd_synth_shots(args):
 
 
 def _dist_timeout():
-    """Seconds a collective of ``train --devices`` may wait
+    """Seconds a collective of ``train``/``serve --devices`` may wait
     (SPECENH_DIST_TIMEOUT_S; default: torch's)."""
     v = os.environ.get("SPECENH_DIST_TIMEOUT_S")
     return float(v) if v else None
@@ -198,7 +200,8 @@ def _launch_workers(argv, n: int) -> None:
             codes = [p.poll() for p in procs]
             for r, rc in enumerate(codes):
                 if rc not in (None, 0):
-                    raise SystemExit(f"train --devices {n}: rank {r} exited with code {rc}")
+                    raise SystemExit(f"{argv[0]} --devices {n}: rank {r} exited with "
+                                     f"code {rc}")
             if all(rc == 0 for rc in codes):
                 return
             time.sleep(0.1)
@@ -237,7 +240,6 @@ def cmd_train(args):
     from specenh_torch.data.tiles import n_tiles_for, patch, unpatch
     from specenh_torch.io.store import SpectrogramStore
     from specenh_torch.ops import ae_kernel
-    from specenh_torch.parallel.multihost import _launcher_env
     from specenh_torch.train_stream import (_iter_chunks, estimate_resident_bytes,
                                             fit_streaming, plan_stream_split)
 
@@ -251,16 +253,9 @@ def cmd_train(args):
         )
     device = _device(args.device)
     devices = args.devices or 0
-    # a rank of a launched group (ours or torchrun's), or the launcher
-    ranked = devices > 1 and _launcher_env() is not None
-    lead = not ranked or int(os.environ.get("RANK", os.environ.get("SLURM_PROCID", "0"))) == 0
-    if devices > 1 and not ranked:
-        from specenh_torch.parallel.mesh import check_visible
-
-        try:
-            check_visible(devices, device)
-        except ValueError as e:
-            raise SystemExit(f"--devices {devices}: {e}") from e
+    # the launcher, or rank 0 of a launched group (ours or torchrun's), prints
+    env = _launch_env(args, device) if devices > 1 else None
+    lead = env is None or env[0] == 0
     train_cfg = TrainConfig(
         epochs=args.epochs, seed=args.seed, split_by=args.split_by,
         batch_size=args.batch_size, learning_rate=args.lr,
@@ -302,19 +297,11 @@ def cmd_train(args):
                 "epoch only; this run is resident (dataset fits the HBM budget) "
                 "— use --stream always to force streaming"
             )
-        if devices > 1 and not ranked:
-            _launch_workers(args.argv, devices)
-            return
         mesh = None
         if devices > 1:
-            from specenh_torch.parallel.mesh import default_backend, make_mesh
-            from specenh_torch.parallel.multihost import initialize_distributed
-
-            initialize_distributed(backend=default_backend(device), timeout=_dist_timeout())
-            try:
-                mesh = make_mesh(devices, device=device)
-            except ValueError as e:
-                raise SystemExit(f"--devices {devices}: {e}") from e
+            mesh = _join_mesh(args, device, env)
+            if mesh is None:  # the launcher: its ranks have trained
+                return
             device = mesh.device
         state = _train.create_state(
             model_cfg, train_cfg, device=device,
@@ -794,16 +781,57 @@ def cmd_sweep(args):
     }))
 
 
+def _launch_env(args, device):
+    """``--devices N`` (N > 1): the launched group's (rank, world size,
+    address, port) in a rank of it (ours or torchrun's), or None in the
+    launcher, which exits first where fewer than N GPUs are visible."""
+    from specenh_torch.parallel.mesh import check_visible
+    from specenh_torch.parallel.multihost import _launcher_env
+
+    env = _launcher_env()
+    if env is None:
+        try:
+            check_visible(args.devices, device)
+        except ValueError as e:
+            raise SystemExit(f"--devices {args.devices}: {e}") from e
+    return env
+
+
+def _join_mesh(args, device, env):
+    """``--devices N`` (N > 1), ``env`` from ``_launch_env``: in a launched
+    rank, join the group and return its "data" mesh; in the launcher,
+    start N ranks of this command, wait for them and return None."""
+    from specenh_torch.parallel.mesh import default_backend, make_mesh
+    from specenh_torch.parallel.multihost import initialize_distributed
+
+    n = args.devices
+    if env is None:
+        _launch_workers(args.argv, n)
+        return None
+    try:
+        initialize_distributed(backend=default_backend(device), timeout=_dist_timeout())
+        return make_mesh(n, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--devices {n}: {e}") from e
+
+
 def cmd_serve(args):
-    """Watch a directory of SPEC .bin shots; enhance and persist each."""
+    """Watch a directory of SPEC .bin shots; enhance and persist each.
+    ``--devices N`` (N > 1) shards each shot's channels over N ranks:
+    rank 0 reads, dispatches, persists and prints the totals, the others
+    follow its shots."""
     import sys as _sys
 
     from specenh_torch.serve import EnhanceService, serve_forever
 
-    if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU serving is not ported yet ({_ITEM9B})")
     cfg = _cfg_from_args(args)
     device = _device(args.device)
+    mesh = None
+    if args.devices > 1:
+        mesh = _join_mesh(args, device, _launch_env(args, device))
+        if mesh is None:  # the launcher: its ranks have served
+            return
+        device = mesh.device
     params = None
     model_cfg = MODEL_PRESETS[args.model]
     if args.model_dir:
@@ -818,7 +846,11 @@ def cmd_serve(args):
             "meaningful denoisings",
             file=_sys.stderr,
         )
-    service = EnhanceService(cfg, model_cfg, params, n_channels=args.channels, device=device)
+    service = EnhanceService(cfg, model_cfg, params, n_channels=args.channels, device=device,
+                             mesh=mesh)
+    if not service.lead:
+        service.follow()
+        return
     totals = serve_forever(
         service, args.watch_dir, args.out,
         poll_s=args.poll, max_shots=args.max_shots, once=args.once,
@@ -1009,7 +1041,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(autograd, bfloat16 activations), kernel (the CUDA "
                          "training kernels, bf16)")
     tr.add_argument("--devices", type=int, default=0,
-                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9b)")
+                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9b part 3)")
     tr.add_argument("--device", default="cuda",
                     help="the torch device training runs on (default cuda)")
     tr.add_argument("--quiet", action="store_true")
@@ -1048,7 +1080,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(envelope: when every config is stale) after N "
                         "epochs without val improvement (default off)")
     w.add_argument("--devices", type=int, default=0,
-                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9b)")
+                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9b part 3)")
     w.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (parameters and Adam float32)")
     w.add_argument("--engine", choices=["envelope", "kernel"], default="envelope",
@@ -1111,7 +1143,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="trained model dir (overrides --model preset)")
     sv.add_argument("--channels", type=int, default=20)
     sv.add_argument("--devices", type=int, default=0,
-                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9b)")
+                    help="shard each shot's channels over N ranks, one a GPU (NCCL; gloo "
+                         "with --device cpu): started here, or joined under torchrun")
     sv.add_argument("--cut-shot", type=float, default=None)
     sv.add_argument("--poll", type=float, default=1.0)
     sv.add_argument("--max-shots", type=int, default=None)

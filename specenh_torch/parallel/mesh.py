@@ -2,9 +2,13 @@
 
 JAX's ``Mesh`` is one controller over many devices.  torch's idiom is one
 process per GPU in one ``torch.distributed`` process group: a ``Mesh`` here
-is that group seen from one rank, with this rank's device.  Only the
-``data`` axis exists (data-parallel training); the ``time`` and ``sweep``
-axes of the JAX package wait for ROADMAP Queue 1 item 9b.
+is that group seen from one rank, with this rank's device.  A mesh has one
+axis, named by its use: ``data`` (data-parallel training,
+``parallel.data_parallel``; the channel-sharded service,
+``bench.harness.make_enhance_shot_fn(mesh=)``) or ``time`` (the long-shot
+path, ``parallel.timeshard``).  The sweep's ``sweep`` axis waits for
+ROADMAP Queue 1 item 9b part 3.  ``parallel.collectives.GroupExchange``
+runs the sharded paths' collectives over it.
 
 A process group that is already initialized (``torchrun``,
 ``multihost.initialize_distributed``; NCCL for one GPU a rank, or gloo,
@@ -89,8 +93,8 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("dat
     axis_names = tuple(axis_names)
     if len(axis_names) != 1:
         raise NotImplementedError(
-            "only the 1-D 'data' mesh is ported; multi-axis meshes wait for "
-            "ROADMAP Queue 1 item 9b")
+            "a mesh has one axis ('data' or 'time'); multi-axis meshes are not "
+            "ported (ROADMAP Queue 1 item 9b part 3)")
     if dist.is_initialized():
         size = dist.get_world_size()
         if n_devices is not None and n_devices != size:

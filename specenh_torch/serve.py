@@ -13,11 +13,32 @@ campaign manifest), quarantine for corrupt shots, and JSONL latency
 metrics.  ``serve_once`` processes the current backlog and returns;
 ``serve_forever`` (the CLI's ``serve``) polls until interrupted or
 ``max_shots`` is reached.  The service runs on the card unless the caller
-asks for the CPU; one device only (more is ROADMAP Queue 1 item 9b).
+asks for the CPU.
+
+Over a mesh (``EnhanceService(mesh=)``, one process a GPU), rank 0 is the
+controller: it runs ``serve_once``/``serve_forever`` (the reader, the
+manifest, the writers and the store) and, for each shot it dispatches,
+broadcasts a header and the traces; every other rank runs ``follow()``,
+which computes its block of channels and joins the gather of each shot,
+until rank 0's stop (``close()``; ``serve_forever`` sends it when it
+returns, ``serve_once`` when it raises).  While the watch directory is
+empty, ``serve_forever`` broadcasts a keep-alive header at least every
+``KEEPALIVE_S`` seconds, so a quiet period never lets the followers' wait
+reach the collective timeout.  The collectives run on the dispatching
+threads only, so every rank meets them in the same order; a corrupt shot
+is quarantined on rank 0 and never dispatched.
+
+A failure inside a shot's computation leaves the ranks in different
+collectives, so no stop can reach the others: a rank that raises there
+sends nothing more, and the ranks still in the shot fail at the
+collective timeout (``SPECENH_DIST_TIMEOUT_S`` under the CLI).  The CLI's
+launcher, and ``torchrun``, stop every rank as soon as one exits with an
+error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import os
@@ -39,9 +60,15 @@ from specenh_torch.io.store import (
 )
 from specenh_torch.models.autoencoder import ConvAutoencoder, make_model
 from specenh_torch.ops.stft import spectrogram_freqs, spectrogram_times
+from specenh_torch.parallel.collectives import exchange_for
 from specenh_torch.utils.logging import MetricsLogger
 
-__all__ = ["EnhanceService", "serve_once", "serve_forever"]
+__all__ = ["EnhanceService", "serve_once", "serve_forever", "KEEPALIVE_S"]
+
+KEEPALIVE_S = 1.0  # longest an idle mesh daemon's followers wait for a header
+
+# the header's kinds: rank 0 stops the followers, sends a shot, or keeps them waiting
+_STOP, _SHOT, _KEEPALIVE = 0, 1, 2
 
 
 class EnhanceService:
@@ -53,7 +80,10 @@ class EnhanceService:
     (``make_enhance_shot_fn(model_cfg, cfg.spec, cfg.patch, dtype, device)``)
     and ``params`` what it serves: the kernels' weights where a kernel
     family covers ``model_cfg``, else the module.  A CUDA ``device``
-    without a card raises; ``mesh`` (more than one device) raises."""
+    without a card raises.  ``mesh`` (a ``parallel.mesh.Mesh`` over
+    "data", or an ``Exchange``, on ``device``'s type) shards the channels
+    over its ranks: rank 0 serves (``dispatch``, ``serve_once``), the
+    others ``follow()``; the service runs on the mesh's device."""
 
     def __init__(
         self,
@@ -65,17 +95,21 @@ class EnhanceService:
         dtype=torch.bfloat16,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("serving over a device mesh is not ported yet "
-                                      "(ROADMAP Queue 1 item 9b, Multi-GPU)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EnhanceService: no CUDA device (pass device='cpu' to serve "
                                "on the CPU)")
+        self._ex = None if mesh is None else exchange_for(mesh)
+        if self._ex is not None:
+            if self._ex.device.type != self.device.type:
+                raise ValueError(f"the mesh's device {self._ex.device} is not a "
+                                 f"{self.device.type} device")
+            self.device = self._ex.device
+        self._stopped = False
         self.cfg = cfg
         self.n_channels = n_channels
         self.fn = make_enhance_shot_fn(model_cfg, cfg.spec, cfg.patch, dtype=dtype,
-                                       device=self.device)
+                                       device=self.device, mesh=mesh, n_channels=n_channels)
         if isinstance(params, ConvAutoencoder):
             model = copy.deepcopy(params).to(self.device)  # the caller's module stays as it is
         else:
@@ -88,23 +122,87 @@ class EnhanceService:
         self._f = spectrogram_freqs(cfg.spec)
         self._t = spectrogram_times(cfg.spec)
 
+    @property
+    def lead(self) -> bool:
+        """Whether this process serves: no mesh, or rank 0 of it."""
+        return self._ex is None or self._ex.rank == 0
+
+    def _header(self, kind: int = _STOP, c: int = 0, t: int = 0) -> torch.Tensor:
+        return torch.tensor([kind, c, t], dtype=torch.int64, device=self.device)
+
+    def _check_lead(self) -> None:
+        if not self.lead or self._stopped:
+            raise RuntimeError("dispatch runs on rank 0 of a mesh service that is not closed")
+
+    def dispatch(self, traces):
+        """``fn`` on ``traces`` (C, n_samples): the full (specs, enhanced)
+        on the device.  Over a mesh (rank 0 only) the shot's header and
+        traces go to the other ranks' ``follow()`` first; if ``fn`` then
+        raises, the service is closed without a stop (the followers are
+        inside the shot's collectives: they fail at the collective
+        timeout)."""
+        if self._ex is None:
+            return self.fn(self.params, traces)
+        self._check_lead()
+        traces = torch.as_tensor(traces, dtype=torch.float32, device=self.device)
+        self._ex.broadcast(self._header(_SHOT, *traces.shape))
+        self._ex.broadcast(traces)
+        try:
+            return self.fn(self.params, traces)
+        except BaseException:
+            self._stopped = True
+            raise
+
+    def keepalive(self) -> None:
+        """Over a mesh, on rank 0: a header the followers skip, which ends
+        their wait before the collective timeout (nothing to do without a
+        mesh)."""
+        if self._ex is not None:
+            self._check_lead()
+            self._ex.broadcast(self._header(_KEEPALIVE))
+
+    def follow(self) -> int:
+        """The loop of a rank other than 0 of a mesh service: each shot
+        rank 0 dispatches, its block computed and gathered, until rank 0's
+        stop; returns the shots taken."""
+        if self.lead:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh service")
+        n = 0
+        while True:
+            kind, c, t = self._ex.broadcast(self._header()).tolist()
+            if kind == _STOP:
+                return n
+            if kind == _KEEPALIVE:
+                continue
+            traces = self._ex.broadcast(
+                torch.empty((c, t), dtype=torch.float32, device=self.device))
+            self.fn(self.params, traces)
+            n += 1
+
+    def close(self) -> None:
+        """Over a mesh, on rank 0: stop the other ranks' ``follow()`` (once;
+        nothing to do elsewhere, or after a shot failed on rank 0)."""
+        if self._ex is not None and self.lead and not self._stopped:
+            self._stopped = True
+            self._ex.broadcast(self._header())
+
     def warmup(self):
         traces = np.zeros((self.n_channels, self.cfg.spec.n_samples), np.float32)
-        _, enhanced = self.fn(self.params, traces)
+        _, enhanced = self.dispatch(traces)
         enhanced.ravel()[:1].cpu()
 
     def enhance(self, traces: np.ndarray):
         """(C, n_samples) -> (specs, enhanced) as numpy (host)."""
-        specs, enhanced = self.fn(self.params, traces)
+        specs, enhanced = self.dispatch(traces)
         return specs.cpu().numpy(), enhanced.cpu().numpy()
 
 
 def _dispatched(service: EnhanceService, traces):
-    """``service.fn`` on ``traces``, launched, and an event recorded after
-    its work on the current CUDA stream (None on the CPU): the writer
-    thread that copies the result waits on it, whichever stream it copies
-    on."""
-    result = service.fn(service.params, traces)
+    """``service.dispatch`` on ``traces``, launched, and an event recorded
+    after its work on the current CUDA stream (None on the CPU): the
+    writer thread that copies the result waits on it, whichever stream it
+    copies on."""
+    result = service.dispatch(traces)
     if service.device.type != "cuda":
         return result, None
     done = torch.cuda.Event()
@@ -139,7 +237,24 @@ def serve_once(
 
     Metrics per shot: ``read_s`` (disk) and ``latency_s`` (read start ->
     persisted, queueing included).  Per drain: a ``serve_batch`` event
-    with shots/s."""
+    with shots/s.
+
+    A mesh service serves on rank 0 (the other ranks run ``follow()``);
+    an exception here stops their loops before it propagates."""
+    if not service.lead:
+        raise RuntimeError("serve_once runs on rank 0 of a mesh service; the other ranks "
+                           "run follow()")
+    try:
+        return _serve_once(service, watch_dir, store, manifest, metrics, max_new, verbose)
+    except BaseException:
+        # the other ranks wait in follow() for rank 0's next header; where a
+        # collective failed (a rank gone), the stop fails too
+        with contextlib.suppress(RuntimeError):
+            service.close()
+        raise
+
+
+def _serve_once(service, watch_dir, store, manifest, metrics, max_new, verbose) -> dict:
     import queue
     import threading
 
@@ -265,6 +380,18 @@ def serve_once(
     return counts
 
 
+def _idle(service: EnhanceService, seconds: float) -> None:
+    """Sleep ``seconds``; over a mesh, with a keep-alive at least every
+    ``KEEPALIVE_S`` seconds."""
+    end = time.monotonic() + seconds
+    while True:
+        service.keepalive()
+        left = end - time.monotonic()
+        if left <= 0:
+            return
+        time.sleep(min(left, KEEPALIVE_S))
+
+
 def serve_forever(
     service: EnhanceService,
     watch_dir: str,
@@ -282,7 +409,11 @@ def serve_forever(
 
     ``writers > 1`` shards the persist stage over that many HDF5 writer
     threads and files (``StoreWriterPool``); readers see one union
-    store."""
+    store.  A mesh service serves on rank 0, keeps the other ranks'
+    ``follow()`` waiting between polls and stops it when this returns."""
+    if not service.lead:
+        raise RuntimeError("serve_forever runs on rank 0 of a mesh service; the other "
+                           "ranks run follow()")
     store = (
         StoreWriterPool(out_store, writers)
         if writers > 1 else SpectrogramStore(out_store)
@@ -290,14 +421,15 @@ def serve_forever(
     retire_stale_manifest(store, out_store + ".serve.jsonl")
     manifest = CampaignManifest(out_store + ".serve.jsonl")
     totals = {"done": 0, "failed": 0}
-    if not once:
-        # daemon mode: pay the first call (the kernels' build and load)
-        # before shots arrive; in drain mode the first shot pays it
-        service.warmup()
     try:
         with store, MetricsLogger(
             out_store + ".metrics.jsonl"
         ) as metrics:
+            if not once:
+                # daemon mode: pay the first call (the kernels' build and
+                # load) before shots arrive; in drain mode the first shot
+                # pays it
+                service.warmup()
             while True:
                 remaining = (
                     None if max_shots is None
@@ -313,10 +445,11 @@ def serve_forever(
                     break
                 if max_shots is not None and totals["done"] + totals["failed"] >= max_shots:
                     break
-                time.sleep(poll_s)
+                _idle(service, poll_s)
     except KeyboardInterrupt:
         if verbose:
             print("interrupted; shutting down cleanly")
     finally:
         manifest.close()
+        service.close()
     return totals

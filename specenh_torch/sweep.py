@@ -594,7 +594,7 @@ def sweep_fit_serial_streamed(
 
     if mesh is not None:
         raise NotImplementedError("streamed sweeps over a device mesh are not ported yet "
-                                  "(ROADMAP Queue 1 item 9b, Multi-GPU)")
+                                  "(ROADMAP Queue 1 item 9b, Multi-GPU, part 3)")
     if plan.n_tiles("tune") == 0:
         raise ValueError(
             "sweep requires a non-empty tune split: final val_loss drives "

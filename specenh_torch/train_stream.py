@@ -417,7 +417,7 @@ def fit_streaming(
     raises: it is not ported."""
     if mesh is not None:
         raise NotImplementedError("streaming over a device mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 9b, Multi-GPU)")
+                                  "(ROADMAP Queue 1 item 9b, Multi-GPU, part 3)")
     epochs = cfg.epochs if epochs is None else epochs
     dev = state.device
     n = plan.n_tiles("train")

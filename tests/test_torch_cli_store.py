@@ -281,10 +281,11 @@ def test_movie_matches_jax(ws, trained, tmp_path, capfd):
     assert jline["frames"] == 2
 
 
-_ITEM9B = "(ROADMAP Queue 1 item 9b, Multi-GPU serving, time sharding and the rest)"
+_ITEM9B = "(ROADMAP Queue 1 item 9b part 3, multi-GPU streamed, raw and sweep training)"
 _STRAY = ("--chunk-tiles/--chunk-dtype/--tile-cache apply to the streamed epoch only; this run "
           "is resident (dataset fits the HBM budget) — use --stream always to force streaming")
-# case -> (extra argv, the exit's message; None: the command streams the epoch)
+# case -> (extra argv, the exit's message; None: the command streams the epoch;
+# "launches": it starts its ranks)
 _EXITS = {
     "train-devices": (["--devices", "2", "--stream", "always"],
                       "--devices > 1 with a streamed epoch: multi-GPU streaming is not "
@@ -297,8 +298,7 @@ _EXITS = {
     "train-kernel-geometry": (["--model", "narrow", "--engine", "kernel"],
                               "--engine kernel does not support the 'narrow' geometry; use "
                               "f32/bf16"),
-    "serve-devices": (["--devices", "2"],
-                      f"--devices > 1: multi-GPU serving is not ported yet {_ITEM9B}"),
+    "serve-devices": (["--devices", "2"], "launches"),
     "build-data-writers": (["--writers", "4"],
                            "--writers applies to the streaming (--binary) campaign; the pickle "
                            "path is the reference-parity synchronous loop"),
@@ -312,7 +312,9 @@ def test_exits_word_for_word(ws, tmp_path, monkeypatch, case, capfd):
     run and ``build-data --writers`` without ``--binary`` are held against
     JAX's exits too).  ``--stream always``, and ``--stream auto`` over the
     resident budget, no longer exit: they stream the epoch and write the
-    run's artifacts."""
+    run's artifacts.  ``serve --devices 2`` no longer exits: it starts two
+    ranks of itself (recorded here; the ranks serve in
+    ``tests/test_torch_mesh_serve.py``)."""
     extra, message = _EXITS[case]
     cmd = case.split("-")[0] if not case.startswith("build-data") else "build-data"
     argv = {"train": ["train", "--dataset", str(ws / "t.hdf5"), "--out-dir", str(tmp_path),
@@ -326,6 +328,12 @@ def test_exits_word_for_word(ws, tmp_path, monkeypatch, case, capfd):
         extra = []
     monkeypatch.setitem(tcli.MODEL_PRESETS, "narrow", tcli.ModelConfig(
         filters=(8, 8), kernels=((3, 3), (3, 3)), out_kernel=(3, 3)))
+    if message == "launches":
+        started = []
+        monkeypatch.setattr(tcli, "_launch_workers", lambda a, n: started.append((a, n)))
+        tcli.main([*argv, *extra, *CPU])
+        assert started == [([*argv, *extra, *CPU], 2)]
+        return
     if message is None:
         tcli.main([*argv, *extra, *CPU])
         assert np.isfinite(_last_json(capfd)["val_loss"])

@@ -809,3 +809,80 @@ def test_parallel_and_keras_modules_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "trained" in res.stdout
+
+
+def test_mesh_paths_run_without_jax():
+    """``parallel.timeshard``, the channel-sharded service and
+    ``serve_once`` of a mesh service run on a gloo world of one with jax,
+    flax, ``specenh`` and h5py blocked (the daemon persisting into an
+    in-memory sink), loading none of them."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        blocked = ("jax", "flax", "specenh", "h5py")
+        for name in blocked:
+            sys.modules[name] = None
+        import numpy as np, torch
+        from specenh_torch import ModelConfig, SpecParams
+        from specenh_torch.bench.harness import make_enhance_shot_fn
+        from specenh_torch.config import Config
+        from specenh_torch.io.binfmt import write_shot_bin
+        from specenh_torch.io.store import CampaignManifest
+        from specenh_torch.parallel import timeshard as ts
+        from specenh_torch.parallel.mesh import make_mesh
+        from specenh_torch.serve import EnhanceService, serve_once
+
+        class Sink:
+            def __init__(self):
+                self.path, self.channels = "sink", {}
+            def write_channel(self, shot, chn, spec, f, t, out, prefix="ece"):
+                self.channels[(shot, chn)] = out
+            def flush(self):
+                pass
+            def close(self):
+                pass
+
+        tmesh = make_mesh(1, ("time",), device="cpu")
+        dmesh = make_mesh(1, ("data",), device="cpu")
+        sp = SpecParams(cut_shot=65536 / 5e5)
+        x = np.random.default_rng(0).standard_normal(65536).astype(np.float32)
+        fn = ts.make_sharded_enhance_shot(ModelConfig(), sp, tmesh)
+        model = EnhanceService(Config(spec=sp), n_channels=1, device="cpu").params
+        spec, labels, enh = ts.gather_shards(tmesh, *fn(model, ts.shard_of(tmesh, x)))
+        assert spec.shape == labels.shape == enh.shape == (256, 256)
+        svc = make_enhance_shot_fn(ModelConfig(), sp, device="cpu", mesh=dmesh)
+        assert svc(model, x[None])[1].shape == (1, 256, 128)
+        cfg = Config(spec=SpecParams(cut_shot=0.1))
+        tiny = ModelConfig(filters=(4, 4), kernels=((3, 3), (3, 3)))
+        service = EnhanceService(cfg, tiny, n_channels=2, device="cpu", mesh=dmesh)
+        with tempfile.TemporaryDirectory() as d:
+            write_shot_bin(os.path.join(d, "shot_1.bin"), np.ones((2, 50000), np.float32))
+            manifest = CampaignManifest(os.path.join(d, "m.jsonl"))
+            sink = Sink()
+            assert serve_once(service, d, sink, manifest, verbose=False) == {"done": 1,
+                                                                             "failed": 0}
+            manifest.close()
+        service.close()
+        assert len(sink.channels) == 2
+        tmesh.close()
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in blocked]
+        print("served")
+    """)
+    env = {**_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "served" in res.stdout
+
+
+def test_no_module_imports_the_test_exchange():
+    """The in-process lock-step exchange (``tests/_torch_exchange.py``) is a
+    test tool: no module of the port and not ``chip_smoke.py`` imports it
+    or anything of ``tests``."""
+    files = sorted((ROOT / "specenh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for n in names:
+                assert n.split(".")[0] != "tests" and "_torch_exchange" not in n, (f, n)

@@ -381,6 +381,23 @@ def test_mesh_refusals():
         make_mesh(axis_names=("data", "time"), device="cpu")
 
 
+@pytest.mark.parametrize("cmd", ["train", "serve"])
+def test_devices_beyond_the_visible_exit_first(tmp_path, monkeypatch, cmd):
+    """``train``/``serve --devices 2`` where one GPU is visible exit with
+    JAX's device-count message before they open a store or a directory
+    (the dataset here does not exist)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = {"train": ["train", "--dataset", str(tmp_path / "none.hdf5"), "--out-dir",
+                      str(tmp_path / "o"), "--engine", "kernel"],
+            "serve": ["serve", "--watch-dir", str(tmp_path / "none"), "--out",
+                      str(tmp_path / "e.hdf5")]}[cmd]
+    with pytest.raises(SystemExit) as e:
+        tcli.main([*argv, "--devices", "2", "--quiet"])
+    assert str(e.value) == "--devices 2: requested 2 devices but only 1 available"
+    assert os.listdir(tmp_path) == []
+
+
 @pytest.mark.parametrize("n,bs,size", [(10, 6, 2), (12, 4, 2), (7200, 128, 2), (40, 16, 4)])
 def test_data_placement_bound(n, bs, size):
     """Under "data" a rank holds the rows its blocks read in an epoch: at

@@ -185,10 +185,10 @@ def test_serve_forever_writers_cli_path(tmp_path):
 
 
 def test_service_raises_without_its_device():
-    """More than one device (a mesh) is not ported: it raises naming its
-    ROADMAP item; a CUDA device where there is none raises (no CPU
-    fallback)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
+    """A mesh that is not a ``parallel.mesh.Mesh`` (or an ``Exchange``)
+    raises (serving over a mesh: ``tests/test_torch_mesh_serve.py``); a
+    CUDA device where there is none raises (no CPU fallback)."""
+    with pytest.raises(TypeError, match="mesh must be a parallel.mesh.Mesh"):
         _service(mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
