@@ -223,6 +223,25 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    the world of one, the channel-sharded services within 1e-6 of the
    single one, ``serve_once`` over 4 SPEC binaries on rank 0 while rank 1
    follows.  The kernels line counts (a)-(c)'s launches.
+20. (run after phase 18, phase 7's tiles still on the card) multi-GPU
+   streamed, sweep and raw-to-model training: (a) on an NCCL world of one,
+   each against the unsharded call from the same weights, the training
+   losses and parameters bit for bit (val_loss within TOL_F32_REL):
+   ``fit_streaming(mesh=)`` on K5 over phase 17's records (``TileStore``,
+   read off the card), chunks of 2048, 2 epochs; ``sweep_fit_serial
+   (mesh=)`` of the kernel grid, 1 epoch; ``sweep_fit`` of that grid on a
+   "sweep" world of one (float32, cuDNN deterministic, 1024 tiles, every
+   history bit for bit); ``train_from_raw(mesh=)`` of phase 15 (c)'s 4
+   shots on K1 and K5, 2 epochs; s/epoch of each side; (b) one spawn of
+   two gloo ranks sharing the card (started before (a), released after
+   it, warmed up meanwhile): one streamed epoch within rtol 1e-5 of (a)'s
+   first (each parameter tensor within TOL_MESH_PARAMS of its norm), the
+   grid padded to 4 within rtol 1e-4 of the unsharded envelope (rank 1
+   returns None), ``train_from_raw`` over the two ranks within
+   TOL_DP_GLOO, the all-gather's bytes and the peak memory; (c)
+   ``train-raw`` and ``sweep --devices N`` above the visible GPUs exit
+   with the device-count message.  The kernels line counts (a) and (b)'s
+   launches.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -3329,6 +3348,457 @@ def mesh_phase(dev, gpu) -> None:
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 20: multi-GPU streamed, raw-to-model and sweep training
+MESH_TRAIN_EPOCHS = 2  # phase 20: the streamed fit's and train_from_raw's epochs
+# phase 20 (b): each parameter tensor after the two ranks' streamed epoch
+# against the world of one's, ||err|| / ||p||.  The bf16 kernels round the
+# float32 weights to bf16 every step, and the ranks' gradient sums, added
+# in another order, move a weight across a bf16 rounding edge now and
+# then; Adam's normalised steps carry it on, so over 57 steps the weights
+# part by up to 9.1e-4 of their norm (dec_deconvs.1, on an H100 80GB HBM3 at
+# 700 W) while the epoch's loss agrees to 1.1e-7.  A rank's missing half of a
+# batch moves the loss itself by far more than its 1e-5 gate.
+TOL_MESH_PARAMS = 1e-2
+
+
+class TileStore(MemoryStore):
+    """Phase 20's store: phase 17's records (``MemoryStore``), read straight
+    from the recipe's (N, 256, 128) tiles where they lie, a record its 30
+    tiles side by side, so the ranks of (b) share the card's one copy
+    through CUDA IPC; a read copies its columns to the host.  The tiles
+    come as the split's consecutive parts [(x, y), ...], each a whole
+    number of records."""
+
+    def __init__(self, parts, n_channels: int):
+        self.k = PatchSpec().tiles_per_spec
+        check(all(len(x) % self.k == 0 for x, _ in parts), "TileStore: a part cuts a record")
+        self.parts = parts
+        self.first = np.cumsum([0] + [len(x) // self.k for x, _ in parts])
+        self.n_channels = n_channels
+        self._shots = [f"ece_{100000 + s}" for s in range(self.first[-1] // n_channels)]
+        self.reads = 0
+
+    def spec_shape(self, shot, chn):
+        x = self.parts[0][0]
+        return (x.shape[1], self.k * x.shape[2])
+
+    def read_column_slice(self, shot, chn, lo, hi):
+        self.reads += 1
+        r = self._shots.index(shot) * self.n_channels + chn - 1
+        i = int(np.searchsorted(self.first, r, side="right")) - 1
+        w = self.parts[i][0].shape[2]
+        check(lo % w == 0 and hi % w == 0, f"TileStore: columns {lo}:{hi} cut a tile")
+        t0 = (r - self.first[i]) * self.k
+        return tuple(t[t0 + lo // w:t0 + hi // w].permute(1, 0, 2).reshape(t.shape[1], -1)
+                     .cpu().numpy() for t in self.parts[i])
+
+
+def raw_traces() -> np.ndarray:
+    """Phase 15 (c)'s 4 shots in memory: ``synth-shots --shots 4
+    --channels 20`` (its default seed and 1e6 samples) as the (80, 1e6)
+    float32 traces ``train-raw`` reads from their binaries, shot-major."""
+    sp = SpecParams()
+    b = synthetic_shot_batch(n_shots=RAW_SHOTS, n_channels=N_CHANNELS,
+                             n_samples=1_000_000, seed=0)
+    return np.ascontiguousarray(b.reshape(RAW_SHOTS * N_CHANNELS, -1)[:, :sp.n_samples])
+
+
+def mesh_train_rank(rank: int, port: int, inp: dict, go, out) -> None:
+    """Phase 20 (b), one of two ranks on the one card over gloo, once
+    ``go`` is set: one epoch of the streamed fit on K5
+    (``dp_kernel_epoch_for``) over the phase-17 records, the envelope's 3-config grid padded to 4 on a
+    "sweep" mesh, and ``train_from_raw`` of the raw shots on K1 and K5.
+    Puts (rank, results) or (rank, "error", traceback) on ``out``."""
+    import traceback
+
+    from specenh_torch import e2e
+    from specenh_torch import train_stream as TS
+    from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+    from specenh_torch.parallel.mesh import make_mesh
+    from specenh_torch.parallel.multihost import initialize_distributed
+
+    t_start = time.time()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout=120)
+        data = make_mesh(2, ("data",), device=inp["device"])
+        sweep = make_mesh(2, ("sweep",), device=inp["device"])
+        store = TileStore(inp["parts"], inp["n_channels"])
+        tc = TrainConfig()
+        plan = TS.plan_stream_split(store, num_samples=inp["n_shots"], cfg=tc, seed=inp["seed"])
+        # warm up while (a) runs: the kernels' modules, cuDNN's and the
+        # front's first calls load once, outside the timed work below
+        warm = TR.create_state(FLAGSHIP, tc, device=data.device)
+        xw, yw = inp["cut"][0][:2], inp["cut"][1][:2]
+        TK.loss_grad_sums(TK.build_train_weights(warm.model, torch.bfloat16, 2), xw, yw,
+                          torch.ones(2, device=data.device))
+        with torch.no_grad():
+            warm.model(xw, logits=True)
+            env_cfg = SW.envelope_config(inp["grid"])
+            p_w, m_w = SW.init_stacked_params(inp["grid"], env_cfg, 0, data.device)
+            SW._envelope_logits({k: p_w[k] * m_w[k] for k in p_w}, env_cfg, len(inp["grid"]),
+                                xw, torch.float32)
+        process_shot_fn(Config(), data.device)(inp["traces"][:1])
+        torch.cuda.synchronize()
+        del warm, p_w, m_w
+        joined = time.time()
+        go.wait()
+        t_go = time.perf_counter()
+        res = {"joined": joined, "secs": []}
+
+        def launches():
+            return {k.symbol: k.launches for k in _build.KERNELS if k.launches}
+
+        def zero():
+            for kern in _build.KERNELS:
+                kern.launches = 0
+
+        state = TR.create_state(FLAGSHIP, tc, device=data.device)
+        state.model.load_state_dict(inp["sd"])
+        zero()
+        with tempfile.TemporaryDirectory() as d:
+            m = os.path.join(d, "m.jsonl")
+            _, h = TS.fit_streaming(state, store, plan, tc, epochs=1,
+                                    chunk_tiles=inp["chunk"], mesh=data, metrics_path=m,
+                                    epoch_fn=dp_kernel_epoch_for(FLAGSHIP, tc, data))
+            torch.cuda.synchronize()
+            secs = [json.loads(ln)["sec"] for ln in open(m)] if rank == 0 else []
+        # numpy, not tensors: a tensor on the queue is shared through a file
+        # descriptor that dies with this process
+        res["stream"] = (h, {k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
+                         secs, launches())
+        del state, store
+        res["secs"].append(round(time.perf_counter() - t_go, 1))
+
+        t0 = time.perf_counter()
+        env = SW.sweep_fit(inp["grid"], *inp["cut"], tc, epochs=1, mesh=sweep)
+        torch.cuda.synchronize()
+        res["sweep"] = (None if env is None else (env.train_history, env.val_history),
+                        time.perf_counter() - t0)
+        res["secs"].append(round(time.perf_counter() - t_go, 1))
+
+        zero()
+        torch.cuda.reset_peak_memory_stats(data.device)
+        t0 = time.perf_counter()
+        st, h = e2e.train_from_raw(inp["traces"].cpu().numpy(), Config(), FLAGSHIP, tc,
+                                   epochs=inp["epochs"], mesh=data,
+                                   epoch_fn=dp_kernel_epoch_for(FLAGSHIP, tc, data))
+        torch.cuda.synchronize()
+        res["raw"] = (h, time.perf_counter() - t0, launches(),
+                      torch.cuda.max_memory_allocated(data.device),
+                      {k: v.cpu().numpy() for k, v in st.model.state_dict().items()})
+        res["secs"].append(round(time.perf_counter() - t_go, 1))
+        out.put((rank, res))
+        torch.distributed.destroy_process_group()
+    except Exception:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def mesh_train_phase(dev, gpu, data, raw_host: np.ndarray) -> None:
+    """Phase 20: multi-GPU streamed, raw-to-model and sweep training.
+    (a) on an NCCL world of one, each against the unsharded call on the
+    same weights and tiles, bit for bit in the training losses and
+    parameters (val_loss, the float32 module's, within TOL_F32_REL where
+    the dp eval sums it in another order), counted: ``fit_streaming(mesh=)``
+    on K5 (``dp_kernel_epoch_for``) over phase 17's records
+    (``TileStore``), chunks of STREAM_CHUNK, 2 epochs; ``sweep_fit_serial(mesh=)`` of the kernel
+    grid k3/k5/k7 on the recipe's tiles, 1 epoch on K5; ``sweep_fit`` of
+    that grid on a "sweep" world of one, float32 under cuDNN's
+    deterministic algorithms, N_CUT tiles and the stand-in labels, 1
+    epoch; ``train_from_raw(mesh=)`` of phase 15 (c)'s 4 shots on K1 and
+    K5, 2 epochs; s/epoch of each side.  (b) one spawn of two gloo ranks on
+    the one card (NCCL refuses two ranks on one GPU), their start overlapped
+    with (a), warmed up meanwhile: one epoch of the streamed fit (its
+    loss within rtol 1e-5 of (a)'s first, each parameter tensor within
+    TOL_MESH_PARAMS of its norm), the 3-config grid padded to 4 (rank 0's
+    histories within rtol 1e-4 of the unsharded run's; rank 1 returns
+    None) and ``train_from_raw`` over the two ranks (each its 40
+    channels; losses within TOL_DP_GLOO of (a)'s), with the bytes the
+    all-gather moved and the peak device memory.  (c) ``train-raw`` and
+    ``sweep --devices N`` above the visible GPUs exit with the device-count
+    message.  ``raw_host`` is ``raw_traces()``, drawn beside the build.  The
+    kernels line counts (a) and (b)'s launches."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from specenh_torch import cli as TCLI
+    from specenh_torch import e2e
+    from specenh_torch import train_stream as TS
+    from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+    from specenh_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    tc = TrainConfig()
+    grid = [ModelConfig(filters=(32, 32), kernels=(k, k), out_kernel=k)
+            for k in SweepConfig().kernel_vals]
+    xc, xvc = data.x_train[:N_CUT], data.x_tune[:N_CUT_TUNE]
+    cut = (xc, (0.8 * xc + 0.1).clamp(0, 1), xvc, (0.8 * xvc + 0.1).clamp(0, 1))
+    parts = [(data.x_train, data.y_train), (data.x_tune, data.y_tune),
+             (data.x_test, data.y_test)]
+    traces = torch.from_numpy(raw_host).to(dev)
+    sd = {k: v.cpu() for k, v in TR.create_state(
+        FLAGSHIP, tc, generator=torch.Generator().manual_seed(SEED),
+        device=dev).model.state_dict().items()}
+
+    # (b)'s ranks start first: their start-up overlaps (a), their work waits
+    torch.cuda.synchronize()
+    ctx = mp.get_context("spawn")
+    q, go = ctx.Queue(), ctx.Event()
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    inp = dict(parts=parts, cut=cut, grid=grid, traces=traces, sd=sd, device=str(dev),
+               n_channels=N_CHANNELS, n_shots=N_SHOTS, seed=SEED, chunk=STREAM_CHUNK,
+               epochs=MESH_TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t_phase
+    t_spawn, t_spawn_wall = time.perf_counter(), time.time()
+    procs = [ctx.Process(target=mesh_train_rank, args=(r, port, inp, go, q)) for r in (0, 1)]
+    # start() hands each child its inputs through a pipe the child reads only
+    # once it has imported this script: a thread waits for that, not (a)
+    starter = threading.Thread(target=lambda: [p.start() for p in procs])
+    starter.start()
+    try:
+        # (a) an NCCL world of one against the unsharded calls
+        t0 = time.perf_counter()
+        mesh = make_mesh(1, device=dev)
+        t_mesh = time.perf_counter() - t0
+        check(mesh.backend == "nccl", f"phase 20 mesh {mesh}")
+        store = TileStore(parts, N_CHANNELS)
+        plan = TS.plan_stream_split(store, num_samples=N_SHOTS, cfg=tc, seed=SEED)
+        n_all = sum(len(x) for x, _ in parts)
+        check((plan.n_tiles("train"), plan.n_tiles("tune")) ==
+              (int(n_all * 0.6), int(n_all * 0.85) - int(n_all * 0.6)),
+              f"phase 20 plan {plan.n_tiles('train')}, {plan.n_tiles('tune')} of {n_all}")
+        nb = -(-plan.n_tiles("train") // BATCH)
+
+        def state():
+            st = TR.create_state(FLAGSHIP, tc, device=dev)
+            st.model.load_state_dict(sd)
+            return st
+
+        def gate(tag, a, b, hist=("loss",), val=True):
+            """Training losses and parameters bit for bit; val_loss within
+            TOL_F32_REL."""
+            (sa, ha), (sb, hb) = a, b
+            check(all(ha[k] == hb[k] for k in hist) and same_state(sa, sb),
+                  f"phase 20 (a) {tag}: {ha} vs {hb}")
+            if val:
+                gap = max(abs(u - v) / v for u, v in zip(ha["val_loss"], hb["val_loss"]))
+                check(gap <= TOL_F32_REL, f"phase 20 (a) {tag}: val_loss {ha} vs {hb}")
+
+        log(f"phase 20 set-up: {time.perf_counter() - t_phase:.1f} s (inputs {t_data:.1f}, "
+            f"the NCCL world of one {t_mesh:.1f})")
+        a_runs, a_secs = {}, {}
+        with tempfile.TemporaryDirectory() as d:
+            ck = os.path.join(d, "ck")
+            for tag, kw in (("unsharded", dict(epoch_fn=TR.kernel_epoch_for(FLAGSHIP, tc))),
+                            ("mesh", dict(mesh=mesh, checkpoint_dir=ck,
+                                          epoch_fn=dp_kernel_epoch_for(FLAGSHIP, tc, mesh)))):
+                m = os.path.join(d, f"{tag}.jsonl")
+                a_runs[tag], tl = counted(TS.fit_streaming, state(), store, plan, tc,
+                                          epochs=MESH_TRAIN_EPOCHS, chunk_tiles=STREAM_CHUNK,
+                                          metrics_path=m, **kw)
+                with open(m) as fh:
+                    a_secs[tag] = [json.loads(ln)["sec"] for ln in fh]
+                check(tl.get(TK.TRAIN_LOSS, 0) == nb * MESH_TRAIN_EPOCHS,
+                      f"phase 20 (a) streamed {tag}: {tl.get(TK.TRAIN_LOSS, 0)} steps")
+                add_sweep_launches(tl, 2, serving=False, phase="20")
+            # (b) trains one epoch: it is held to the mesh run's first
+            epoch1 = torch.load(os.path.join(ck, "epoch_0000", "state.pt"),
+                                weights_only=True)["model"]
+        gate("fit_streaming(mesh=)", a_runs["mesh"], a_runs["unsharded"])
+        stream_hist = a_runs["mesh"][1]
+        stream_params = {k: v.cpu().numpy() for k, v in epoch1.items()}
+        log(f"[{gpu}] phase 20 (a) fit_streaming K5, NCCL world of one, {MESH_TRAIN_EPOCHS} "
+            f"epochs of {plan.n_tiles('train')} tiles in chunks of {STREAM_CHUNK}: losses "
+            f"{stream_hist['loss']} == the unsharded stream's, parameters bit for bit, val_loss "
+            f"{stream_hist['val_loss']} (unsharded {a_runs['unsharded'][1]['val_loss']}); "
+            f"s/epoch mesh {a_secs['mesh']} against unsharded {a_secs['unsharded']} (this run)")
+        del a_runs, store
+        log(f"phase 20 (a) streamed: {time.perf_counter() - t_phase:.1f} s")
+
+        ser, ser_s = {}, {}
+        for tag, kw in (("unsharded", dict(device=dev)), ("mesh", dict(mesh=mesh))):
+            t0 = time.perf_counter()
+            ser[tag], tl = counted(SW.sweep_fit_serial, grid, data.x_train, data.y_train,
+                                   data.x_tune, data.y_tune, tc, epochs=1, **kw)
+            ser_s[tag] = time.perf_counter() - t0
+            check(tl.get(TK.TRAIN_LOSS, 0) == len(grid) * -(-len(data.x_train) // BATCH),
+                  f"phase 20 (a) serial sweep {tag}: {tl.get(TK.TRAIN_LOSS, 0)} steps")
+            add_sweep_launches(tl, 2, serving=False, phase="20")
+        a, b = ser["mesh"], ser["unsharded"]
+        val_gap = float(np.max(np.abs(a.val_history - b.val_history) / b.val_history))
+        check(np.array_equal(a.train_history, b.train_history) and val_gap <= TOL_F32_REL
+              and all(torch.equal(a.stacked_params[k], v) for k, v in b.stacked_params.items()),
+              f"phase 20 (a) sweep_fit_serial(mesh=): {a.train_history} vs {b.train_history}")
+        log(f"[{gpu}] phase 20 (a) sweep_fit_serial(mesh=), k3/k5/k7 x 1 epoch on "
+            f"{len(data.x_train)} tiles, K5 bf16 through dp_fit: train losses and stacked "
+            f"parameters == the unsharded sweep's bit for bit, val_loss relative gap "
+            f"{val_gap:.3g}; s/epoch of the grid mesh {ser_s['mesh']:.3f} against unsharded "
+            f"{ser_s['unsharded']:.3f} (this run)")
+        del ser
+        log(f"phase 20 (a) serial sweep: {time.perf_counter() - t_phase:.1f} s")
+
+        mesh_s = make_mesh(1, ("sweep",), device=dev)
+        env, env_s = {}, {}
+        with cudnn_deterministic():
+            for tag, kw in (("unsharded", dict(device=dev)), ("mesh", dict(mesh=mesh_s))):
+                t0 = time.perf_counter()
+                env[tag], tl = counted(SW.sweep_fit, grid, *cut, tc, epochs=1, **kw)
+                env_s[tag] = time.perf_counter() - t0
+                check(not tl, f"phase 20 (a) envelope: launched {[k.symbol for k in tl]}")
+        a, b = env["mesh"], env["unsharded"]
+        check(np.array_equal(a.train_history, b.train_history)
+              and np.array_equal(a.val_history, b.val_history)
+              and all(torch.equal(a.stacked_params[k], v) for k, v in b.stacked_params.items()),
+              f"phase 20 (a) sweep_fit on a sweep mesh: {a.val_history} vs {b.val_history}")
+        log(f"[{gpu}] phase 20 (a) sweep_fit f32 (cuDNN deterministic) on a \"sweep\" world "
+            f"of one, k3/k5/k7 x 1 epoch on {N_CUT} tiles: histories and stacked parameters "
+            f"== the unsharded envelope's bit for bit (val_loss {b.val_losses.tolist()}); "
+            f"s/epoch mesh {env_s['mesh']:.3f} against unsharded {env_s['unsharded']:.3f}")
+
+        log(f"phase 20 (a) envelope: {time.perf_counter() - t_phase:.1f} s")
+        raw, raw_s = {}, {}
+        for tag, kw in (("unsharded", dict(device=dev,
+                                           epoch_fn=TR.kernel_epoch_for(FLAGSHIP, tc))),
+                        ("mesh", dict(mesh=mesh,
+                                      epoch_fn=dp_kernel_epoch_for(FLAGSHIP, tc, mesh)))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            raw[tag], tl = counted(e2e.train_from_raw, raw_host, Config(), FLAGSHIP, tc,
+                                   epochs=MESH_TRAIN_EPOCHS, **kw)
+            raw_s[tag] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) - base)
+            check(tl.pop(SF.STFT_KERNEL, 0) == 1, f"phase 20 (a) train_from_raw {tag}: K1")
+            row(SF.STFT_KERNEL, "K1")["launches"] += 1
+            n_train = int(RAW_SHOTS * N_CHANNELS * 30 * tc.split_fracs[0])
+            check(tl.get(TK.TRAIN_LOSS, 0) == MESH_TRAIN_EPOCHS * -(-n_train // BATCH),
+                  f"phase 20 (a) train_from_raw {tag}: {tl.get(TK.TRAIN_LOSS, 0)} steps")
+            add_sweep_launches(tl, 2, serving=False, phase="20")
+        gate("train_from_raw(mesh=)", raw["mesh"], raw["unsharded"])
+        n_tiles = RAW_SHOTS * N_CHANNELS * 30
+        gathered = 2 * n_tiles * 256 * 128 * 4
+        log(f"[{gpu}] phase 20 (a) train_from_raw(mesh=) of {RAW_SHOTS} shots x {N_CHANNELS} "
+            f"channels on K1 and K5, NCCL world of one, {MESH_TRAIN_EPOCHS} epochs: losses "
+            f"{raw['mesh'][1]['loss']} == the unsharded run's, parameters bit for bit, val_loss "
+            f"{raw['mesh'][1]['val_loss']}; wall {raw_s['mesh'][0]:.2f} s against "
+            f"{raw_s['unsharded'][0]:.2f} s (host clock, the front included); peak device "
+            f"memory {raw_s['mesh'][1] / 2**30:.3f} GiB above what was held (unsharded "
+            f"{raw_s['unsharded'][1] / 2**30:.3f}); the all-gather of {n_tiles} tile pairs "
+            f"({gathered / 1e9:.3f} GB) moves nothing between cards in a world of one")
+        mesh.close()
+
+        log(f"phase 20 (a): {time.perf_counter() - t_phase:.1f} s")
+
+        # (b) the two gloo ranks
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # room for the children's working sets
+        starter.join()
+        t_go = time.perf_counter()
+        go.set()
+        results, deadline = {}, time.perf_counter() + 300
+        while len(results) < len(procs):
+            try:
+                r = q.get(timeout=2)
+                results[r[0]] = r
+            except queue.Empty:
+                gone = [k for k, p in enumerate(procs) if p.exitcode is not None
+                        and k not in results]
+                check(not gone, f"phase 20 (b): rank(s) {gone} exited with no result "
+                      f"(exit codes {[procs[k].exitcode for k in gone]})")
+                check(time.perf_counter() < deadline, "phase 20 (b): no result in 300 s")
+    finally:
+        go.set()
+        starter.join()
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in results.values():
+        check(r[1] != "error", f"phase 20 (b) rank {r[0]} failed:\n{r[-1]}")
+    r0, r1 = results[0][1], results[1][1]
+    by_symbol = {kern.symbol: kern for kern in _build.KERNELS}
+
+    def count(launches, tag):
+        for sym, n_k in launches.items():
+            kern = by_symbol[sym]
+            if kern is SF.STFT_KERNEL:
+                row(kern, "K1")["launches"] += n_k
+            else:
+                add_sweep_launches({kern: n_k}, 2, serving=False, phase=f"20 (b) {tag}")
+
+    (h0, p0, secs, la0), (h1, p1, _, la1) = r0["stream"], r1["stream"]
+    check(h0["loss"] == h1["loss"] and all(np.array_equal(p0[k], p1[k]) for k in p0),
+          "phase 20 (b) streamed: the ranks differ")
+    rel = abs(h0["loss"][0] - stream_hist["loss"][0]) / stream_hist["loss"][0]
+    p_errs = {k: float(np.abs(p0[k] - v).max()) for k, v in stream_params.items()}
+    p_err = max(p_errs.values())
+    p_rel = {k: float(np.linalg.norm(p0[k] - v) / np.linalg.norm(v))
+             for k, v in stream_params.items()}
+    p_gate = max(p_rel.values())
+    log(f"phase 20 (b) streamed epoch: parameters' max |err| per tensor against (a)'s epoch 1 "
+        + ", ".join(f"{k} {e:.3g} (of max |p| {float(np.abs(stream_params[k]).max()):.3g}; "
+                    f"||err|| / ||p|| {p_rel[k]:.3g})" for k, e in p_errs.items()))
+    check(rel <= 1e-5 and p_gate <= TOL_MESH_PARAMS,
+          f"phase 20 (b) streamed loss {h0['loss']} vs {stream_hist['loss'][:1]}, parameters "
+          f"||err|| / ||p|| {p_gate:.3g}")
+    for la in (la0, la1):
+        count(la, "streamed")
+    log(f"phase 20 (b): ranks' seconds {r0['secs']} / {r1['secs']}")
+    (env0, env_t0), (env1, env_t1) = r0["sweep"], r1["sweep"]
+    check(env1 is None and env0 is not None, "phase 20 (b) sweep: rank 1 returned a result")
+    ref = env["unsharded"]
+    env_rel = max(float(np.max(np.abs(g - w) / w)) for g, w in
+                  zip(env0, (ref.train_history, ref.val_history)))
+    check(env0[0].shape == ref.train_history.shape and env_rel <= 1e-4,
+          f"phase 20 (b) sweep histories {env0} vs {ref.train_history}, {ref.val_history}")
+    (rh0, rt0, rl0, rm0, rp0), (rh1, rt1, rl1, rm1, rp1) = r0["raw"], r1["raw"]
+    raw_rel = max(abs(u - v) / v for u, v in zip(rh0["loss"], raw["mesh"][1]["loss"]))
+    check(rh0["loss"] == rh1["loss"] and all(np.array_equal(rp0[k], rp1[k]) for k in rp0)
+          and raw_rel <= TOL_DP_GLOO,
+          f"phase 20 (b) train_from_raw losses {rh0['loss']} vs {raw['mesh'][1]['loss']}")
+    for la in (rl0, rl1):
+        check(la.get(SF.STFT_KERNEL.symbol) == 1, f"phase 20 (b) train_from_raw K1 {la}")
+        count(la, "train_from_raw")
+    log(f"[{gpu}] phase 20 (b) two gloo ranks on one card (ready {r0['joined'] - t_spawn_wall:.1f}"
+        f" / {r1['joined'] - t_spawn_wall:.1f} s after the spawn, overlapped with (a)): the "
+        f"streamed fit, K5, "
+        f"1 epoch, loss {h0['loss']} (world of one {stream_hist['loss'][:1]}; relative "
+        f"{rel:.3g}, gate 1e-5), parameters ||err|| / ||p|| at most {p_gate:.3g} a tensor "
+        f"(gate {TOL_MESH_PARAMS:g}; max |err| {p_err:.3g}), "
+        f"s/epoch {secs}; the envelope's grid padded to 4, "
+        f"2 configs a rank: rank 0's histories within {env_rel:.3g} relative of the unsharded "
+        f"run (gate 1e-4), rank 1 None, {env_t0:.2f} / {env_t1:.2f} s; train_from_raw, "
+        f"{N_CHANNELS * RAW_SHOTS // 2} channels a rank: losses {rh0['loss']} (world of one "
+        f"{raw['mesh'][1]['loss']}; relative {raw_rel:.3g}, gate {TOL_DP_GLOO:g}), "
+        f"{rt0:.2f} / {rt1:.2f} s, the all-gather moved {gathered / 2 / 1e9:.3f} GB into each "
+        f"rank through the host (gloo), peak device memory {rm0 / 2**30:.3f} / "
+        f"{rm1 / 2**30:.3f} GiB; wall from go {time.perf_counter() - t_go:.1f} s, from the "
+        f"spawn {time.perf_counter() - t_spawn:.1f} s")
+
+    # (c) more devices than are visible: the device-count message
+    ask = max(2, torch.cuda.device_count() + 1)
+    want = (f"--devices {ask}: requested {ask} devices but only "
+            f"{torch.cuda.device_count()} available")
+    with tempfile.TemporaryDirectory() as d:
+        for argv in (["train-raw", "--data-dir", d, "--out-dir", d],
+                     ["sweep", "--dataset", os.path.join(d, "none.hdf5"), "--out-dir", d]):
+            try:
+                TCLI.main([*argv, "--devices", str(ask), "--quiet"])
+                raise AssertionError(f"phase 20 (c): {argv[0]} --devices did not exit")
+            except SystemExit as e:
+                check(str(e) == want, f"phase 20 (c): exit {e!r}, expected {want!r}")
+    log(f"phase 20 (c): train-raw and sweep --devices {ask} exit: {want}")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3364,6 +3834,7 @@ def main() -> int:
     for seed in (0, 1, 2):
         shot(sp, N_CHANNELS, seed)
     campaign = recipe_shots(sp)
+    raw = raw_traces()  # phase 20's
     t_shots = time.perf_counter() - laps[0]
     build_thread.join()
     if "error" in built:
@@ -3452,8 +3923,9 @@ def main() -> int:
     sweep_phase(dev, gpu, data)
     stream_phase(dev, gpu, data)
     dp_phase(dev, gpu, data)
+    mesh_train_phase(dev, gpu, data, raw)
     del data
-    lap("phases 14, 17 and 18 (b)-(e)")
+    lap("phases 14, 17, 18 (b)-(e) and 20")
     keras_phase(dev, sp)
     lap("phase 18 (a)")
     with tempfile.TemporaryDirectory() as work:

@@ -1,7 +1,8 @@
 """Host-side references of the port, in numpy, SciPy and OpenCV: the
 reference spectrogram recipe, the label pipeline's stages, the SVD
-denoiser's float64 recipes (denoising_by_svd.ipynb cell 1), and SSIM
-from ``utils.metrics`` (the counterparts of ``specenh.bench.reference_cpu``
+denoiser's float64 recipes (denoising_by_svd.ipynb cell 1), the reference
+recipe's wall clock (``time_reference_pipeline``), and SSIM from
+``utils.metrics`` (the counterparts of ``specenh.bench.reference_cpu``
 and ``specenh.utils.metrics.ssim``).
 
 The label stages call OpenCV where it imports, as the reference scripts
@@ -12,6 +13,7 @@ Gaussian taps from the port's ``ops.enhance``, rect min/max windows).
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Tuple
 
 import numpy as np
@@ -29,7 +31,8 @@ from specenh_torch.utils.metrics import ssim
 
 __all__ = ["spectrogram_ref", "rescale_ref", "quantfilt_ref", "gaussblr_ref",
            "meansub_ref", "morph_ref", "pipeline_ref", "pipeline_stages_ref",
-           "svd_denoise_ref", "svd_compute_signal_ref", "ssim", "HAS_CV2"]
+           "svd_denoise_ref", "svd_compute_signal_ref", "time_reference_pipeline", "ssim",
+           "HAS_CV2"]
 
 
 def spectrogram_ref(sig: np.ndarray, sp: SpecParams) -> np.ndarray:
@@ -171,3 +174,24 @@ def svd_compute_signal_ref(matrix: np.ndarray) -> np.ndarray:
     for idx in range(1, min(2 * num_sing, len(s))):
         out += s[idx] * np.outer(u[:, idx], vh[idx, :])
     return out
+
+
+def time_reference_pipeline(
+    signals: np.ndarray, sp: SpecParams, cfg: PipelineConfig, repeats: int = 1
+) -> Dict[str, float]:
+    """Wall-clock the reference CPU recipe: raw trace -> spectrogram ->
+    5-stage pipeline, per channel.  Returns seconds/channel stats."""
+    times = []
+    for _ in range(repeats):
+        for sig in np.atleast_2d(signals):
+            t0 = time.perf_counter()
+            s = spectrogram_ref(sig, sp)
+            pipeline_ref(s, cfg)
+            times.append(time.perf_counter() - t0)
+    arr = np.asarray(times)
+    return {
+        "sec_per_channel_mean": float(arr.mean()),
+        "sec_per_channel_min": float(arr.min()),
+        "channels_per_sec": float(1.0 / arr.mean()),
+        "n_timed": int(arr.size),
+    }

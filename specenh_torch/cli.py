@@ -7,9 +7,11 @@ the reference's scripts as subcommands.
     python -m specenh_torch.cli serve --watch-dir IN --out ENH.hdf5 \\
         [--model-dir OUT/model] [--once] [--writers 2] [--device cuda] [--devices N]
     python -m specenh_torch.cli sweep --dataset DATA.hdf5 --out-dir OUT \\
-        [--grid kernel|2layer|3layer] [--engine envelope|kernel] [--device cuda]
+        [--grid kernel|2layer|3layer] [--engine envelope|kernel] [--device cuda] \\
+        [--devices N]
     python -m specenh_torch.cli train-raw --data-dir RAW --out-dir OUT \\
-        [--binary] [--engine f32|bf16|kernel] [--model scan_k3] [--device cuda]
+        [--binary] [--engine f32|bf16|kernel] [--model scan_k3] [--device cuda] \\
+        [--devices N]
 
 ``build-data``   <- spec_denoising/pipeline_data.py (raw shots -> HDF5 store)
 ``merge-shards`` -- fold a writer pool's shard files into one store
@@ -29,15 +31,17 @@ the reference's scripts as subcommands.
 
 Each has the JAX package's flags, defaults, artifacts and final JSON line.
 One flag is the port's own: ``--device`` (default ``cuda``; the CPU tests
-pass ``--device cpu``) on every command that computes.  ``train --devices
-N`` trains data-parallel and ``serve --devices N`` shards each shot's
-channels, on N processes, one a GPU (NCCL; gloo processes on the CPU with
-``--device cpu``): on its own the command starts them, under ``torchrun``
-each joins the launched group; rank 0 writes the artifacts (``serve``:
-rank 0 reads, persists and prints the totals).  More than one device
-anywhere else (a streamed epoch, ``train-raw``, ``sweep``) is not ported
-yet and exits naming its ROADMAP item.  The JAX
-CLI's ``bench`` is not ported yet.  A model directory is the port's own
+pass ``--device cpu``) on every command that computes.  ``--devices N``
+runs a command on N processes, one a GPU (NCCL; gloo processes on the
+CPU with ``--device cpu``): on its own the command starts them, under
+``torchrun`` each joins the launched group; rank 0 writes the artifacts.
+``train`` trains data-parallel (resident, or ``--stream``: each rank
+uploads its block of every streamed batch), ``train-raw`` computes each
+rank's block of the channels and trains data-parallel, ``sweep`` trains
+each config data-parallel (``--engine kernel``, or streamed) or shards
+the envelope's configs, and ``serve`` shards each shot's channels (rank 0
+reads, persists and prints the totals).  The JAX CLI's ``bench`` is not
+ported yet.  A model directory is the port's own
 (``train.save_model``: ``params.pt`` and ``model_config.json``), not the
 JAX package's.
 """
@@ -66,9 +70,6 @@ def _cfg_from_args(args) -> Config:
 
         cfg = dataclasses.replace(cfg, spec=dataclasses.replace(cfg.spec, cut_shot=args.cut_shot))
     return cfg
-
-
-_ITEM9B = "ROADMAP Queue 1 item 9b part 3, multi-GPU streamed, raw and sweep training"
 
 
 def _device(name: str):
@@ -224,11 +225,13 @@ def cmd_train(args):
     with ``--tile-cache`` the test and bench tiles come from float32 tile
     caches (the JAX package reads them in the chunk dtype).
 
-    ``--devices N`` (N > 1) trains resident with ``parallel.dp_fit`` (the
-    kernels through ``dp_kernel_epoch_for``) on N ranks: started here, one
-    a GPU (gloo processes with ``--device cpu``), or, under ``torchrun``,
-    the launched group this process joins; rank 0 writes the artifacts.
-    More GPUs than are visible, and a streamed epoch, exit."""
+    ``--devices N`` (N > 1) trains data-parallel on N ranks (the kernels
+    through ``dp_kernel_epoch_for``): resident with ``parallel.dp_fit``,
+    or streamed with ``fit_streaming(mesh=)`` where the tiles exceed even
+    the N cards' budget (or ``--stream always``); the ranks are started
+    here, one a GPU (gloo processes with ``--device cpu``), or, under
+    ``torchrun``, are the launched group this process joins; rank 0 writes
+    the artifacts.  More GPUs than are visible exit."""
     import contextlib
 
     import torch
@@ -287,9 +290,10 @@ def cmd_train(args):
                 if not args.quiet and lead:
                     print(f"dataset fits sharded over {devices} devices; "
                           "using dp_fit instead of streaming")
-            else:
-                raise SystemExit("--devices > 1 with a streamed epoch: multi-GPU streaming "
-                                 f"is not ported yet ({_ITEM9B})")
+            elif not args.quiet and lead:
+                # too big even for the cards together: stream the chunks and
+                # train each one data-parallel
+                print(f"streaming chunks sharded over {devices} devices")
         if (args.chunk_tiles or args.chunk_dtype or args.tile_cache) and not use_stream:
             # a knob the selected path never reads is an error, not a no-op
             raise SystemExit(
@@ -328,7 +332,7 @@ def cmd_train(args):
 
             trace_cm = profile_trace(args.trace_dir)
         if use_stream:
-            if not args.quiet:
+            if not args.quiet and lead:
                 print(f"streaming {plan.n_tiles('train')} train tiles "
                       f"(resident estimate {estimate_resident_bytes(n_total)/2**30:.1f} GB "
                       f"> budget {budget/2**30:.1f} GB)" if args.stream == "auto"
@@ -336,9 +340,14 @@ def cmd_train(args):
             with trace_cm:
                 state, hist = fit_streaming(state, store, plan, train_cfg,
                                             chunk_tiles=args.chunk_tiles or 4096,
-                                            epoch_fn=epoch_fn, cache=args.stream_cache,
+                                            epoch_fn=epoch_fn, mesh=mesh,
+                                            cache=args.stream_cache,
                                             cache_dtype=args.chunk_dtype,
                                             tile_cache=args.tile_cache, **fit_common)
+            if mesh is not None:
+                torch.distributed.destroy_process_group()
+                if not lead:
+                    return
             # a bounded test sample for the display artifacts (the whole
             # test split may not fit); with --tile-cache from the test
             # split's float32 tile cache, whatever the chunk dtype
@@ -468,7 +477,9 @@ def cmd_train(args):
 
 def cmd_train_raw(args):
     """Raw shots -> trained model on the device, no HDF5 round-trip
-    (``e2e.train_from_raw``)."""
+    (``e2e.train_from_raw``).  ``--devices N`` (N > 1) runs it on N ranks,
+    as ``train --devices``: each computes its block of the channels and
+    trains data-parallel; rank 0 writes the model."""
     import glob as _glob
 
     import torch
@@ -479,8 +490,6 @@ def cmd_train_raw(args):
     from specenh_torch.ops import ae_kernel
     from specenh_torch.train import kernel_epoch_for, save_model
 
-    if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU training is not ported yet ({_ITEM9B})")
     cfg = _cfg_from_args(args)
     model_cfg = MODEL_PRESETS[args.model]
     if args.engine == "kernel" and not (ae_kernel.supports(model_cfg)
@@ -490,6 +499,12 @@ def cmd_train_raw(args):
             "geometry; use f32/bf16"
         )
     device = _device(args.device)
+    mesh = None
+    if args.devices > 1:
+        mesh = _join_mesh(args, device, _launch_env(args, device))
+        if mesh is None:  # the launcher: its ranks have trained
+            return
+        device = mesh.device
     traces = []
     if args.binary:
         for p in sorted(_glob.glob(os.path.join(args.data_dir, "*.bin"))):
@@ -505,16 +520,30 @@ def cmd_train_raw(args):
         batch_size=args.batch_size, learning_rate=args.lr,
         patience=args.patience,
     )
+    epoch_fn = None
+    if args.engine == "kernel":
+        if mesh is not None:
+            from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+
+            epoch_fn = dp_kernel_epoch_for(model_cfg, train_cfg, mesh)
+        else:
+            epoch_fn = kernel_epoch_for(model_cfg, train_cfg)
+    lead = mesh is None or mesh.rank == 0
     state, hist = train_from_raw(
         traces, cfg, model_cfg, train_cfg,
         # shot-major stacking above: each file contributed args.channels
         # traces, so the leak-free split groups them back into shots
         channels_per_shot=args.channels,
         dtype=torch.bfloat16 if args.engine == "bf16" else None,
-        epoch_fn=kernel_epoch_for(model_cfg, train_cfg) if args.engine == "kernel" else None,
-        verbose=not args.quiet,
+        epoch_fn=epoch_fn,
+        mesh=mesh,
+        verbose=not args.quiet and lead,
         device=device,
     )
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+        if not lead:
+            return
     os.makedirs(args.out_dir, exist_ok=True)
     save_model(state, os.path.join(args.out_dir, "model"), model_cfg)
     print(json.dumps({"val_loss": hist["val_loss"][-1], "channels": int(traces.shape[0])}))
@@ -634,6 +663,16 @@ def cmd_crosspower(args):
 
 
 def cmd_sweep(args):
+    """A grid of configs on a store (hyperparam_scan.py's kernel array,
+    manual_scan.py, manual_scan_3layers.py): the envelope (``sweep_fit``)
+    or, with ``--engine kernel``, one fit per config (``sweep_fit_serial``,
+    streamed with ``sweep_fit_serial_streamed``); then ``val_losses.npy``,
+    ``loss_comparisons.npz`` with the configs' serving times,
+    ``best_model/`` and ``best_val_loss.png``.  ``--devices N`` (N > 1)
+    runs on N ranks, as ``train --devices``: the kernel engine and the
+    streamed sweep train each config data-parallel (a "data" mesh), the
+    envelope shards its configs (a "sweep" mesh); rank 0 writes the
+    artifacts."""
     import torch
 
     from specenh_torch.data.dataset import assemble_from_store
@@ -671,8 +710,6 @@ def cmd_sweep(args):
             + ", ".join("--" + s.replace("_", "-") for s in sorted(applicable))
             + ")"
         )
-    if args.devices > 1:
-        raise SystemExit(f"--devices > 1: multi-GPU sweeps are not ported yet ({_ITEM9B})")
     over = {}
     if args.kernel_vals:
         over["kernel_vals"] = _kers(args.kernel_vals)
@@ -705,6 +742,8 @@ def cmd_sweep(args):
         epochs=args.epochs, seed=args.seed, split_by=args.split_by,
         batch_size=args.batch_size, learning_rate=args.lr, patience=args.patience,
     )
+    device = _device(args.device)
+    env = _launch_env(args, device) if args.devices > 1 else None
     os.makedirs(args.out_dir, exist_ok=True)
     dtype = torch.bfloat16 if args.bf16 else None
     ckpt_dir = os.path.join(args.out_dir, "checkpoints") if args.checkpoints else None
@@ -733,15 +772,24 @@ def cmd_sweep(args):
                 "streamed sweep only; this grid is resident — use --stream "
                 "always to force streaming"
             )
+        mesh, lead = None, True
+        if args.devices > 1:
+            # the serial engines train each config data-parallel, the
+            # envelope shards the grid's configs
+            mesh = _join_mesh(args, device, env,
+                              "data" if args.engine == "kernel" else "sweep")
+            if mesh is None:  # the launcher: its ranks have swept
+                return
+            device, lead = mesh.device, mesh.rank == 0
+        common = dict(epochs=args.epochs, dtype=dtype, checkpoint_dir=ckpt_dir,
+                      resume=args.resume, mesh=mesh, verbose=not args.quiet, device=device)
         if use_stream:
-            if not args.quiet:
+            if not args.quiet and lead:
                 print(f"streaming sweep: {plan.n_tiles('train')} train tiles "
                       f"per config over {len(configs)} configs")
             res = sweep_fit_serial_streamed(
-                configs, store, plan, train_cfg, epochs=args.epochs, dtype=dtype,
-                checkpoint_dir=ckpt_dir, resume=args.resume,
-                chunk_tiles=args.chunk_tiles or 4096, cache_dtype=args.chunk_dtype,
-                tile_cache=args.tile_cache, verbose=not args.quiet, device=args.device)
+                configs, store, plan, train_cfg, chunk_tiles=args.chunk_tiles or 4096,
+                cache_dtype=args.chunk_dtype, tile_cache=args.tile_cache, **common)
             # pred_times on one bounded tune chunk, never the whole split
             chunk = (next(_iter_chunks(store, plan.tune, PatchSpec(), 30), None)
                      if not args.no_time_configs else None)
@@ -751,23 +799,25 @@ def cmd_sweep(args):
                                          seed=args.seed).reshaped()
             fit_fn = sweep_fit_serial if args.engine == "kernel" else sweep_fit
             res = fit_fn(configs, splits.x_train, splits.y_train, splits.x_tune,
-                         splits.y_tune, train_cfg, epochs=args.epochs, dtype=dtype,
-                         checkpoint_dir=ckpt_dir, resume=args.resume,
-                         verbose=not args.quiet, device=args.device)
+                         splits.y_tune, train_cfg, **common)
             tile_batch = splits.x_tune[:30]
     finally:
         store.close()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+        if not lead:
+            return
     np.save(os.path.join(args.out_dir, "val_losses.npy"), res.val_losses.reshape(grid_shape))
 
     # per-config inference time on the serving path (manual_scan.py:226-248)
     # on one channel's 30 tiles
     pred_times = np.zeros_like(res.val_losses)
     if not args.no_time_configs and tile_batch is not None:
-        pred_times = config_pred_times(res, tile_batch, device=args.device)
+        pred_times = config_pred_times(res, tile_batch, device=device)
     save_loss_comparisons(os.path.join(args.out_dir, "loss_comparisons.npz"),
                           res.val_losses, pred_times, grid_shape, names)
     best_cfg = res.configs[res.best_index]
-    state = create_state(best_cfg, train_cfg, device=args.device)
+    state = create_state(best_cfg, train_cfg, device=device)
     state.model.load_state_dict(res.best_params)
     save_model(state, os.path.join(args.out_dir, "best_model"), best_cfg)
     from specenh_torch.viz.plots import plot_val_loss
@@ -797,10 +847,11 @@ def _launch_env(args, device):
     return env
 
 
-def _join_mesh(args, device, env):
+def _join_mesh(args, device, env, axis: str = "data"):
     """``--devices N`` (N > 1), ``env`` from ``_launch_env``: in a launched
-    rank, join the group and return its "data" mesh; in the launcher,
-    start N ranks of this command, wait for them and return None."""
+    rank, join the group and return its mesh over ``axis``; in the
+    launcher, start N ranks of this command, wait for them and return
+    None."""
     from specenh_torch.parallel.mesh import default_backend, make_mesh
     from specenh_torch.parallel.multihost import initialize_distributed
 
@@ -810,7 +861,7 @@ def _join_mesh(args, device, env):
         return None
     try:
         initialize_distributed(backend=default_backend(device), timeout=_dist_timeout())
-        return make_mesh(n, device=device)
+        return make_mesh(n, (axis,), device=device)
     except ValueError as e:
         raise SystemExit(f"--devices {n}: {e}") from e
 
@@ -1041,7 +1092,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(autograd, bfloat16 activations), kernel (the CUDA "
                          "training kernels, bf16)")
     tr.add_argument("--devices", type=int, default=0,
-                    help="more than 1: not ported yet (ROADMAP Queue 1 item 9b part 3)")
+                    help="more than 1: each rank computes its block of the channels "
+                         "and trains data-parallel, one rank a GPU (gloo processes "
+                         "with --device cpu); started here, or joined under torchrun")
     tr.add_argument("--device", default="cuda",
                     help="the torch device training runs on (default cuda)")
     tr.add_argument("--quiet", action="store_true")
@@ -1080,7 +1133,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(envelope: when every config is stale) after N "
                         "epochs without val improvement (default off)")
     w.add_argument("--devices", type=int, default=0,
-                   help="more than 1: not ported yet (ROADMAP Queue 1 item 9b part 3)")
+                   help="more than 1: --engine kernel (and a streamed sweep) trains "
+                        "each config data-parallel, the envelope shards the configs; "
+                        "one rank a GPU (gloo processes with --device cpu); started "
+                        "here, or joined under torchrun")
     w.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (parameters and Adam float32)")
     w.add_argument("--engine", choices=["envelope", "kernel"], default="envelope",

@@ -6,6 +6,10 @@ counterpart of ``specenh.e2e``):
       -> patch -> 60/25/15 split              [device]
       -> fit()                                [device]
 
+Over a ``parallel.mesh.Mesh`` each rank runs the front on its own block
+of the channels, on its own card, and the tiles move once (an all-gather)
+before data-parallel training (``parallel.dp_fit``).
+
 The front is the dataset build's (``pipeline.process_shot_fn``: K1 where
 ``stft_fused.supported`` admits the geometry, else the matmul STFT, then
 the label pipeline), so the tiles are the ones a store built by
@@ -45,6 +49,7 @@ def train_from_raw(
     epochs: Optional[int] = None,
     channels_per_shot: int = 1,
     dtype=None,
+    mesh=None,
     verbose: bool = False,
     device="cuda",
     **fit_kwargs,
@@ -61,11 +66,37 @@ def train_from_raw(
 
     ``dtype`` goes to ``create_state`` (bf16 autograd); engine swaps ride
     ``fit_kwargs`` (``epoch_fn=kernel_epoch_for(...)`` for the CUDA
-    training kernels: the CLI's ``train-raw --engine kernel``).
+    training kernels: the CLI's ``train-raw --engine kernel``; on a mesh
+    ``dp_kernel_epoch_for(...)``).
+
+    ``mesh`` (a "data" ``parallel.mesh.Mesh``; every rank passes the
+    whole ``traces``) runs the campaign on every rank's device: a rank
+    computes the tiles of its contiguous block of the channels, the
+    blocks are all-gathered (channel-major, so the split stays on global
+    tile indices), and training is ``parallel.dp_fit`` (global batch,
+    rank 0's initial parameters, rank 0 writes).  A channel count that
+    does not divide over the ranks raises.
     """
     model_cfg = model_cfg or cfg.model
     train_cfg = train_cfg or cfg.train
-    x, y = prepare_tiles_on_device(traces, cfg, device)
+    if mesh is None:
+        x, y = prepare_tiles_on_device(traces, cfg, device)
+    else:
+        from specenh_torch.parallel.collectives import exchange_for
+
+        if traces.shape[0] % mesh.size:
+            # padding the channel axis would train on synthetic all-zero
+            # channels (more tiles, shifted split boundaries)
+            raise ValueError(
+                f"train_from_raw(mesh=): {traces.shape[0]} channels do not "
+                f"divide over the {mesh.size}-device mesh; pass a channel count "
+                f"that is a multiple of {mesh.size}"
+            )
+        device = mesh.device
+        per = traces.shape[0] // mesh.size
+        mine = traces[mesh.rank * per:(mesh.rank + 1) * per]
+        ex = exchange_for(mesh)
+        x, y = (torch.cat(ex.all_gather(t)) for t in prepare_tiles_on_device(mine, cfg, device))
     n = x.shape[0]
     if train_cfg.split_by == "shot":
         n_ch = traces.shape[0]
@@ -88,5 +119,13 @@ def train_from_raw(
     else:
         a, b = int(n * train_cfg.split_fracs[0]), int(n * train_cfg.split_fracs[1])
     state = create_state(model_cfg, train_cfg, device=device, dtype=dtype)
-    return fit(state, x[:a], y[:a], x[a:b], y[a:b], train_cfg, epochs=epochs,
-               verbose=verbose, **fit_kwargs)
+    if mesh is None:
+        return fit(state, x[:a], y[:a], x[a:b], y[a:b], train_cfg, epochs=epochs,
+                   verbose=verbose, **fit_kwargs)
+    from specenh_torch.parallel.data_parallel import dp_fit
+
+    return dp_fit(state, x[:a], y[:a], mesh, x[a:b], y[a:b],
+                  epochs=train_cfg.epochs if epochs is None else epochs,
+                  batch_size=train_cfg.batch_size, seed=train_cfg.seed,
+                  shuffle=train_cfg.shuffle, patience=train_cfg.patience, verbose=verbose,
+                  **fit_kwargs)

@@ -42,6 +42,7 @@ __all__ = [
     "make_dp_eval_step",
     "make_dp_epoch_programs",
     "dp_fit",
+    "barrier",
 ]
 
 
@@ -203,6 +204,14 @@ def _agree(mesh: Mesh, names: str, *values: int) -> None:
         raise RuntimeError(
             f"the ranks disagree (max {hi}, min {[-x for x in neg_lo]} of {names}): "
             "each rank must hold the same dataset, seed and checkpoint directory")
+
+
+def barrier(mesh: Mesh) -> None:
+    """Return once every rank has reached it (one ``all_reduce``, read on
+    the host)."""
+    t = torch.zeros(1, device=_ctl_device(mesh))
+    dist.all_reduce(t, group=mesh.group)
+    t.item()
 
 
 @torch.no_grad()

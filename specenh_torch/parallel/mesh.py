@@ -5,10 +5,13 @@ process per GPU in one ``torch.distributed`` process group: a ``Mesh`` here
 is that group seen from one rank, with this rank's device.  A mesh has one
 axis, named by its use: ``data`` (data-parallel training,
 ``parallel.data_parallel``; the channel-sharded service,
-``bench.harness.make_enhance_shot_fn(mesh=)``) or ``time`` (the long-shot
-path, ``parallel.timeshard``).  The sweep's ``sweep`` axis waits for
-ROADMAP Queue 1 item 9b part 3.  ``parallel.collectives.GroupExchange``
-runs the sharded paths' collectives over it.
+``bench.harness.make_enhance_shot_fn(mesh=)``), ``time`` (the long-shot
+path, ``parallel.timeshard``) or ``sweep`` (the envelope sweep's config
+axis, ``sweep.sweep_fit(mesh=)``).  ``parallel.collectives.GroupExchange``
+runs the sharded paths' collectives over it.  ``local_size`` and
+``local_rank`` place a rank on its host (launcher's ``LOCAL_WORLD_SIZE``
+and ``LOCAL_RANK``), for what a host's ranks share: its RAM and its
+disk.
 
 A process group that is already initialized (``torchrun``,
 ``multihost.initialize_distributed``; NCCL for one GPU a rank, or gloo,
@@ -26,7 +29,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "check_visible", "default_backend"]
+__all__ = ["Mesh", "make_mesh", "check_visible", "default_backend", "local_size",
+           "local_rank"]
 
 
 def default_backend(device) -> str:
@@ -93,8 +97,8 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("dat
     axis_names = tuple(axis_names)
     if len(axis_names) != 1:
         raise NotImplementedError(
-            "a mesh has one axis ('data' or 'time'); multi-axis meshes are not "
-            "ported (ROADMAP Queue 1 item 9b part 3)")
+            f"a mesh has one axis ('data', 'time' or 'sweep'), not {axis_names}: "
+            "multi-axis meshes are not ported (no command builds one)")
     if dist.is_initialized():
         size = dist.get_world_size()
         if n_devices is not None and n_devices != size:
@@ -116,3 +120,15 @@ def make_mesh(n_devices: Optional[int] = None, axis_names: Sequence[str] = ("dat
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return Mesh(dist.group.WORLD, 0, 1, axis_names, _rank_device(device, 0), backend,
                 owns_group=True)
+
+
+def local_size(mesh: Mesh) -> int:
+    """The ranks of ``mesh`` on this rank's host: the launcher's
+    ``LOCAL_WORLD_SIZE`` (torchrun's, the CLI's), else the whole mesh."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE") or mesh.size)
+
+
+def local_rank(mesh: Mesh) -> int:
+    """This rank's index on its host: the launcher's ``LOCAL_RANK``, else
+    its rank."""
+    return int(os.environ.get("LOCAL_RANK") or mesh.rank)

@@ -22,6 +22,11 @@ conv2, conv3) (VAE/manual_scan_3layers.py).  Three engines here:
   ``torch.optim.Adam`` over the stacked tensors is per-config Adam and each
   config trains as it would alone.
 
+Over a ``parallel.mesh.Mesh`` the serial engines train each config
+data-parallel (a "data" mesh, ``parallel.dp_fit`` or
+``fit_streaming(mesh=)``) and the envelope shards its config axis (a
+"sweep" mesh: each rank trains its slice of the grid).
+
 Every config starts from the same glorot draws in both engines and in the
 JAX package (``init_stacked_params``: numpy, ``seed * 100_003 + i``).
 Parameters are the port's ``state_dict`` layout: the stacked envelope is a
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from specenh_torch.config import ModelConfig, SweepConfig, TrainConfig
 from specenh_torch.models.autoencoder import conv_transpose_same, make_model
 from specenh_torch.ops.ae_kernel import supports, supports3
+from specenh_torch.parallel.collectives import gather_blocks
 from specenh_torch.train import (_as_tiles, _epoch_batches, check_run_meta, create_state,
                                  fit, kernel_epoch_for, latest_checkpoint_epoch,
                                  weighted_epoch_mean, write_run_meta)
@@ -186,15 +192,17 @@ def _placed(big_shape, small, off):
 
 
 def init_stacked_params(configs: Sequence[ModelConfig], env: ModelConfig, seed: int = 0,
-                        device="cpu"):
+                        device="cpu", first: int = 0):
     """(stacked params, stacked masks), state_dict keys to tensors (n_cfg,
     ...): each config drawn at its own geometry (its glorot fan; the JAX
     package's numpy draws in HWIO), centred in the envelope's kernel
-    window, in its leading channels, zero elsewhere."""
+    window, in its leading channels, zero elsewhere.  ``configs`` are the
+    grid's from index ``first`` on (a rank's slice of a sharded grid): a
+    config's draws depend on its index in the whole grid."""
     env_geo = {g[0]: (g[1], g[2], g[3]) for g in _layer_geometry(env)}
     p_stack: Dict[str, List[np.ndarray]] = {}
     m_stack: Dict[str, List[np.ndarray]] = {}
-    for ci, cfg in enumerate(configs):
+    for ci, cfg in enumerate(configs, start=first):
         rng = np.random.default_rng(seed * 100_003 + ci)
         for name, k, cin, cout in _layer_geometry(cfg):
             ek, ecin, ecout = env_geo[name]
@@ -320,6 +328,36 @@ def _config_bce(z: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.T
     return (per * w).sum(dim=(0, 2, 3)) / (w.sum() * per[0, 0].numel())
 
 
+def _opt_slice(sd: dict, lo: int, hi: int) -> dict:
+    """An optimizer ``state_dict`` of stacked tensors cut to configs
+    ``lo:hi`` (every state tensor with a config axis)."""
+    state = {i: {k: (v[lo:hi] if torch.is_tensor(v) and v.ndim else v) for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+def _whole_grid(ex, params, tr_hist, va_hist, opt=None, masks=None) -> Optional[dict]:
+    """The whole grid's stacked parameters and histories (with ``opt``
+    Adam's state too: a checkpoint, as the unsharded sweep writes it; with
+    ``masks`` the masks): on a mesh every rank's slice gathered onto rank
+    0, None elsewhere."""
+    def whole(t, dim=0):
+        return t if ex is None else gather_blocks(ex, t.contiguous(), dim)
+
+    n_mine = next(iter(params.values())).shape[0]
+    out = {"params": {k: whole(p.detach()) for k, p in params.items()}}
+    if masks is not None:
+        out["masks"] = {k: whole(m) for k, m in masks.items()}
+    for key, h in (("tr_hist", tr_hist), ("va_hist", va_hist)):
+        out[key] = whole(torch.from_numpy(np.asarray(h, np.float64).reshape(len(h), n_mine)), 1)
+    if opt is not None:
+        sd = opt.state_dict()
+        state = {i: {k: whole(v) if torch.is_tensor(v) and v.ndim else v for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        out["optimizer"] = {"state": state, "param_groups": sd["param_groups"]}
+    return None if ex is not None and ex.rank else out
+
+
 def sweep_fit(
     configs: Sequence[ModelConfig],
     x_train,
@@ -328,33 +366,57 @@ def sweep_fit(
     y_val,
     train_cfg: TrainConfig = TrainConfig(),
     epochs: Optional[int] = None,
+    mesh=None,
+    sweep_axis: str = "sweep",
     dtype=None,
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
     verbose: bool = False,
     device="cuda",
-) -> SweepResult:
+) -> Optional[SweepResult]:
     """Train every config at once in the masked envelope (see the module
     docstring) on ``device``: one shuffle stream, batches of
     ``train_cfg.batch_size``, the loss the sum of the per-config masked
     BCEs, one Adam (Keras eps) over the stacked tensors; a batched
     validation pass per epoch.
 
+    ``mesh`` (a ``parallel.mesh.Mesh`` whose axis is ``sweep_axis``)
+    shards the config axis: a grid that does not divide over the ranks is
+    padded with copies of the last config (trained, then trimmed from the
+    result), and each rank trains its contiguous slice of the padded grid
+    at the whole grid's envelope, on its device, from the draws the
+    unsharded sweep gives those configs, replaying the same shuffle
+    stream.  Configs are independent, so a step needs no collective; the
+    ranks agree once an epoch whether every config is stale, and a
+    checkpoint gathers the whole grid onto rank 0, which writes it.  The
+    result is gathered onto rank 0; the other ranks return None.
+
     ``dtype=torch.bfloat16`` computes the envelope in bf16 (parameters and
     Adam float32), the ``--bf16`` mode.  With ``checkpoint_dir`` every
     epoch saves the stacked parameters, Adam's state and the histories
     (``epoch_NNNN/state.pt``) and ``run_meta.json`` (with the grid's
-    fingerprint); ``resume=True`` continues from the latest epoch with the
-    shuffle stream replayed.  ``train_cfg.patience`` stops the sweep when
-    every config has gone that many epochs without improving its own best
-    val loss."""
+    fingerprint; the padded grid's on a mesh); ``resume=True`` continues
+    from the latest epoch with the shuffle stream replayed, each rank from
+    its slice.  ``train_cfg.patience`` stops the sweep when every config
+    has gone that many epochs without improving its own best val loss."""
     _require_tune(x_val)
     epochs = train_cfg.epochs if epochs is None else epochs
     dtype = torch.float32 if dtype is None else dtype
-    dev = torch.device(device)
-    n_cfg = len(configs)
+    n_real = len(configs)
+    ex, lo, hi, lead, dev = None, 0, n_real, True, torch.device(device)
+    if mesh is not None:
+        from specenh_torch.parallel.collectives import exchange_for
+
+        if tuple(mesh.axis_names) != (sweep_axis,):
+            raise ValueError(f"sweep_fit shards its configs over a {sweep_axis!r} mesh, not "
+                             f"{tuple(mesh.axis_names)}")
+        ex = exchange_for(mesh)
+        configs = list(configs) + [configs[-1]] * ((-n_real) % ex.size)
+        per = len(configs) // ex.size
+        lo, hi, lead, dev = ex.rank * per, (ex.rank + 1) * per, ex.rank == 0, mesh.device
+    n_cfg, n_mine = len(configs), hi - lo
     env = envelope_config(configs)
-    params, masks = init_stacked_params(configs, env, train_cfg.seed, dev)
+    params, masks = init_stacked_params(configs[lo:hi], env, train_cfg.seed, dev, first=lo)
     for p in params.values():
         p.requires_grad_(True)
     opt = torch.optim.Adam(list(params.values()), lr=train_cfg.learning_rate,
@@ -390,26 +452,30 @@ def sweep_fit(
                             map_location=dev, weights_only=True)
             with torch.no_grad():
                 for k, p in params.items():
-                    p.copy_(ck["params"][k])
-            opt.load_state_dict(ck["optimizer"])
-            tr_hist = list(ck["tr_hist"].cpu().numpy())
-            va_hist = list(ck["va_hist"].cpu().numpy())
+                    p.copy_(ck["params"][k][lo:hi])
+            opt.load_state_dict(_opt_slice(ck["optimizer"], lo, hi))
+            tr_hist = list(ck["tr_hist"].cpu().numpy()[:, lo:hi])
+            va_hist = list(ck["va_hist"].cpu().numpy()[:, lo:hi])
             start_epoch = last + 1
             for _ in range(start_epoch):  # replay the shuffle stream
                 if train_cfg.shuffle:
                     rng.permutation(n)
-            if verbose:
+            if verbose and lead:
                 print(f"sweep resumed from epoch {last}")
-    if checkpoint_dir:
+    if ex is not None:
+        from specenh_torch.parallel.data_parallel import barrier
+
+        barrier(mesh)  # every rank has read the checkpoint directory before rank 0 writes
+    if checkpoint_dir and lead:
         write_run_meta(checkpoint_dir, run_meta)
 
     # opt-in early stopping: the envelope trains every config in lockstep,
     # so the sweep stops only when EVERY config has gone `patience` epochs
-    # without improving its own best val loss
+    # without improving its own best val loss (on a mesh, every rank's)
     if train_cfg.patience is not None:
         best_vals = (np.min(np.asarray(va_hist), axis=0) if va_hist
-                     else np.full(n_cfg, np.inf))
-        stales = np.zeros(n_cfg, int)
+                     else np.full(n_mine, np.inf))
+        stales = np.zeros(n_mine, int)
         if va_hist:
             stales = len(va_hist) - 1 - np.argmin(np.asarray(va_hist), axis=0)
 
@@ -424,7 +490,7 @@ def sweep_fit(
         losses = []
         for idx, m in zip(bi, bm):
             opt.zero_grad(set_to_none=True)
-            loss = _config_bce(_envelope_logits(masked(), env, n_cfg, x_train[idx], dtype),
+            loss = _config_bce(_envelope_logits(masked(), env, n_mine, x_train[idx], dtype),
                                y_train[idx], m)
             loss.sum().backward()
             opt.step()
@@ -432,42 +498,51 @@ def sweep_fit(
         tr_hist.append(weighted_epoch_mean(torch.stack(losses), batch_mask))
         with torch.no_grad():
             mp = masked()
-            v = torch.stack([_config_bce(_envelope_logits(mp, env, n_cfg, x_val[idx], dtype),
+            v = torch.stack([_config_bce(_envelope_logits(mp, env, n_mine, x_val[idx], dtype),
                                          y_val[idx], m)
                              for idx, m in zip(val_idx_t, val_mask_t)])
-        va_hist.append(weighted_epoch_mean(v, val_mask))  # (n_cfg,)
-        if verbose:
-            print(f"epoch {epoch + 1}/{epochs} val={np.array2string(va_hist[-1], precision=4)} "
-                  f"({time.perf_counter() - t0:.2f}s)")
+        va_hist.append(weighted_epoch_mean(v, val_mask))  # (n_mine,)
+        if verbose and lead:
+            mine = "" if ex is None else f" (configs {lo}-{hi - 1} of {n_cfg})"
+            print(f"epoch {epoch + 1}/{epochs} val={np.array2string(va_hist[-1], precision=4)}"
+                  f"{mine} ({time.perf_counter() - t0:.2f}s)")
         if checkpoint_dir:
-            d = os.path.join(checkpoint_dir, f"epoch_{epoch:04d}")
-            os.makedirs(d, exist_ok=True)
-            torch.save({"params": {k: p.detach() for k, p in params.items()},
-                        "optimizer": opt.state_dict(),
-                        "tr_hist": torch.from_numpy(np.asarray(tr_hist, np.float64)),
-                        "va_hist": torch.from_numpy(np.asarray(va_hist, np.float64))},
-                       os.path.join(d, "state.pt"))
+            ck = _whole_grid(ex, params, tr_hist, va_hist, opt)
+            if lead:
+                d = os.path.join(checkpoint_dir, f"epoch_{epoch:04d}")
+                os.makedirs(d, exist_ok=True)
+                torch.save(ck, os.path.join(d, "state.pt"))
         if train_cfg.patience is not None:
             v = np.asarray(va_hist[-1])
             improved = v < best_vals
             best_vals = np.minimum(best_vals, v)
             stales = np.where(improved, 0, stales + 1)
-            if (stales >= train_cfg.patience).all():
-                if verbose:
+            stop = bool((stales >= train_cfg.patience).all())
+            if ex is not None:  # one decision for the whole grid
+                stop = bool(ex.reduce(torch.tensor([float(stop)]), "min").item())
+            if stop:
+                if verbose and lead:
                     print(f"early stopping: every config stale for "
                           f"{train_cfg.patience} epochs")
                 break
 
-    stacked = {k: p.detach().cpu() for k, p in params.items()}
-    masks = {k: m.cpu() for k, m in masks.items()}
-    val_losses = np.asarray(va_hist[-1])
+    out = _whole_grid(ex, params, tr_hist, va_hist, masks=masks)
+    if not lead:
+        return None
+    # the grid's padding (copies of its last config) trimmed
+    stacked = {k: p[:n_real].cpu() for k, p in out["params"].items()}
+    masks = {k: m[:n_real].cpu() for k, m in out["masks"].items()}
+    configs = list(configs[:n_real])
+    train_history, val_history = (h.numpy()[:, :n_real] for h in (out["tr_hist"],
+                                                                   out["va_hist"]))
+    val_losses = val_history[-1]
     best = int(np.argmin(val_losses))
     return SweepResult(
-        configs=list(configs),
+        configs=configs,
         env=env,
         val_losses=val_losses,
-        train_history=np.asarray(tr_hist),
-        val_history=np.asarray(va_hist),
+        train_history=train_history,
+        val_history=val_history,
         best_index=best,
         best_params=extract_config_params(stacked, best, configs[best], env),
         stacked_params=stacked,
@@ -478,6 +553,19 @@ def sweep_fit(
 # ---------------------------------------------------------------------------
 # the serial engine
 # ---------------------------------------------------------------------------
+
+
+def _serial_engine(cfg: ModelConfig, train_cfg: TrainConfig, dtype, mesh):
+    """A config's epoch engine: the CUDA training kernels where a kernel
+    family covers its geometry (on a mesh ``dp_kernel_epoch_for``), else
+    None (the module's autograd engine)."""
+    if not (supports(cfg) or supports3(cfg)):
+        return None
+    if mesh is None:
+        return kernel_epoch_for(cfg, train_cfg, dtype=dtype)
+    from specenh_torch.parallel.dp_kernel import dp_kernel_epoch_for
+
+    return dp_kernel_epoch_for(cfg, train_cfg, mesh, dtype=dtype)
 
 
 def sweep_fit_serial(
@@ -491,6 +579,7 @@ def sweep_fit_serial(
     dtype=None,
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
+    mesh=None,
     verbose: bool = False,
     device="cuda",
 ) -> SweepResult:
@@ -502,29 +591,44 @@ def sweep_fit_serial(
     (``init_stacked_params``) and replays the same shuffle stream, so the
     trajectories follow ``sweep_fit``'s to the engines' precision.
 
+    ``mesh`` (a ``parallel.mesh.Mesh`` over the "data" axis) trains each
+    config data-parallel through ``parallel.dp_fit`` on the rank's device
+    (the kernels through ``dp_kernel_epoch_for``; the batch is global):
+    the complement of ``sweep_fit(mesh=)``, which shards the configs.
+    Every rank returns the result; rank 0 writes the checkpoints.
+
     With ``checkpoint_dir`` each config checkpoints and resumes its own fit
     under ``cfg_<i>/``.  Configs stopped early by ``train_cfg.patience``
     pad their histories with their last value.  The final parameters are
     embedded back into the stacked envelope."""
     _require_tune(x_val)
     epochs = train_cfg.epochs if epochs is None else epochs
-    dev = torch.device(device)
+    dev = torch.device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     env = envelope_config(configs)
     stacked, masks = init_stacked_params(configs, env, train_cfg.seed)
-    x_train, y_train = _as_tiles(x_train, dev), _as_tiles(y_train, dev)
-    x_val, y_val = _as_tiles(x_val, dev), _as_tiles(y_val, dev)
+    if mesh is None:
+        x_train, y_train = _as_tiles(x_train, dev), _as_tiles(y_train, dev)
+        x_val, y_val = _as_tiles(x_val, dev), _as_tiles(y_val, dev)
     tr_hist, va_hist, finals = [], [], []
     for ci, cfg in enumerate(configs):
         state = create_state(cfg, train_cfg, device=dev, dtype=dtype)
         state.model.load_state_dict(extract_config_params(stacked, ci, cfg, env))
-        epoch_fn = None
-        if supports(cfg) or supports3(cfg):
-            epoch_fn = kernel_epoch_for(cfg, train_cfg, dtype=dtype)
+        epoch_fn = _serial_engine(cfg, train_cfg, dtype, mesh)
         ckpt_i = os.path.join(checkpoint_dir, f"cfg_{ci:03d}") if checkpoint_dir else None
-        state, hist = fit(state, x_train, y_train, x_val, y_val, cfg=train_cfg,
-                          epochs=epochs, epoch_fn=epoch_fn, checkpoint_dir=ckpt_i,
-                          resume=resume, verbose=verbose)
-        if verbose:
+        if mesh is None:
+            state, hist = fit(state, x_train, y_train, x_val, y_val, cfg=train_cfg,
+                              epochs=epochs, epoch_fn=epoch_fn, checkpoint_dir=ckpt_i,
+                              resume=resume, verbose=verbose)
+        else:
+            from specenh_torch.parallel.data_parallel import dp_fit
+
+            state, hist = dp_fit(state, x_train, y_train, mesh, x_val, y_val, epochs=epochs,
+                                 batch_size=train_cfg.batch_size, seed=train_cfg.seed,
+                                 shuffle=train_cfg.shuffle, epoch_fn=epoch_fn,
+                                 checkpoint_dir=ckpt_i, resume=resume,
+                                 patience=train_cfg.patience, verbose=verbose)
+        if verbose and lead:
             print(f"config {ci + 1}/{len(configs)} ({'kernel' if epoch_fn else 'module'}) "
                   f"val={hist['val_loss'][-1]:.5f}")
         tr_hist.append(hist["loss"])
@@ -587,14 +691,13 @@ def sweep_fit_serial_streamed(
     autograd engine; every config starts from ``init_stacked_params``'s
     draws and checkpoints and resumes under ``cfg_<i>/``.  With
     ``shuffle=False`` and ``chunk_tiles >= n`` each config's trajectory is
-    ``sweep_fit_serial``'s.  ``mesh`` (more than one device) raises: it is
-    not ported."""
+    ``sweep_fit_serial``'s.  ``mesh`` (a "data" mesh) streams each config
+    data-parallel (``fit_streaming(mesh=)``, the kernels through
+    ``dp_kernel_epoch_for``), as ``train --stream --devices``; every rank
+    returns the result."""
     from specenh_torch.config import PatchSpec
     from specenh_torch.train_stream import fit_streaming
 
-    if mesh is not None:
-        raise NotImplementedError("streamed sweeps over a device mesh are not ported yet "
-                                  "(ROADMAP Queue 1 item 9b, Multi-GPU, part 3)")
     if plan.n_tiles("tune") == 0:
         raise ValueError(
             "sweep requires a non-empty tune split: final val_loss drives "
@@ -604,23 +707,22 @@ def sweep_fit_serial_streamed(
         )
     ps = PatchSpec() if ps is None else ps
     epochs = train_cfg.epochs if epochs is None else epochs
-    dev = torch.device(device)
+    dev = torch.device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     env = envelope_config(configs)
     stacked, masks = init_stacked_params(configs, env, train_cfg.seed)
     tr_hist, va_hist, finals = [], [], []
     for ci, cfg in enumerate(configs):
         state = create_state(cfg, train_cfg, device=dev, dtype=dtype)
         state.model.load_state_dict(extract_config_params(stacked, ci, cfg, env))
-        epoch_fn = None
-        if supports(cfg) or supports3(cfg):
-            epoch_fn = kernel_epoch_for(cfg, train_cfg, dtype=dtype)
+        epoch_fn = _serial_engine(cfg, train_cfg, dtype, mesh)
         ckpt_i = os.path.join(checkpoint_dir, f"cfg_{ci:03d}") if checkpoint_dir else None
         state, hist = fit_streaming(
             state, store, plan, train_cfg, epochs=epochs, chunk_tiles=chunk_tiles, ps=ps,
-            epoch_fn=epoch_fn, cache_dtype=cache_dtype, tile_cache=tile_cache,
+            epoch_fn=epoch_fn, mesh=mesh, cache_dtype=cache_dtype, tile_cache=tile_cache,
             checkpoint_dir=ckpt_i, resume=resume, verbose=verbose,
         )
-        if verbose:
+        if verbose and lead:
             print(f"config {ci + 1}/{len(configs)} ({'kernel' if epoch_fn else 'module'}, "
                   f"streamed) val={hist['val_loss'][-1]:.5f}")
         tr_hist.append(hist["loss"])

@@ -46,6 +46,11 @@ waits on; a staging buffer is refilled only after its copy's event has
 fired, device chunks are marked with ``record_stream`` for the compute
 stream, and at most two chunks are on the device at once.  The losses stay
 on the device until the split's epoch ends.
+
+Over a ``parallel.mesh.Mesh`` (``fit_streaming(mesh=)``) every rank
+streams the same chunks and draws the same shuffles, and uploads only the
+rows its block of each global batch reads; the data-parallel engines
+(``parallel.data_parallel``, ``parallel.dp_kernel``) sum the gradients.
 """
 
 from __future__ import annotations
@@ -270,11 +275,19 @@ class _Staging:
         self.y = torch.empty(shape, dtype=dtype, pin_memory=True)
         self.copied = torch.cuda.Event()
 
-    def fill(self, hx, hy) -> int:
+    def fill(self, hx, hy, rows=None) -> int:
+        """Copy a host chunk, or its ``rows`` (gathered straight into the
+        pinned buffer), into the buffers; returns the tiles copied."""
         self.copied.synchronize()  # its previous upload has read it
-        n = hx.shape[0]
-        self.x[:n].copy_(_host_tiles(hx))
-        self.y[:n].copy_(_host_tiles(hy))
+        if rows is None:
+            n = hx.shape[0]
+            self.x[:n].copy_(_host_tiles(hx))
+            self.y[:n].copy_(_host_tiles(hy))
+            return n
+        idx = torch.from_numpy(rows)
+        n = len(rows)
+        torch.index_select(_host_tiles(hx), 0, idx, out=self.x[:n])
+        torch.index_select(_host_tiles(hy), 0, idx, out=self.y[:n])
         return n
 
 
@@ -286,7 +299,10 @@ class _ChunkStream:
     side stream (``copy_(non_blocking=True)``) that the compute stream
     waits on, widens a bf16 chunk to float32 on the compute stream, and
     before uploading chunk k waits until the compute stream is done with
-    chunk k - 2, so at most two chunks are on the device."""
+    chunk k - 2, so at most two chunks are on the device.  A chunk given
+    as (x, y, rows) goes up as its ``rows`` alone (a rank's block on a
+    mesh), gathered on the host into the staging buffer: ``max_tiles``
+    bounds the rows."""
 
     def __init__(self, dev: torch.device, max_tiles: int, tile_shape, dtype):
         self.dev = dev
@@ -296,11 +312,16 @@ class _ChunkStream:
             self.slots = [_Staging((max_tiles, *tile_shape), dtype) for _ in range(2)]
 
     def run(self, chunks: Iterator) -> Iterator:
-        """(tag, device x, device y) for each (tag, (host x, host y)) of
-        ``chunks``; the generator must be run to its end or closed."""
+        """(tag, device x, device y) for each (tag, (host x, host y[,
+        rows])) of ``chunks``; the generator must be run to its end or
+        closed."""
         if self.dev.type != "cuda":
-            for tag, (hx, hy) in chunks:
-                yield tag, _host_tiles(hx).float(), _host_tiles(hy).float()
+            for tag, (hx, hy, *rows) in chunks:
+                hx, hy = _host_tiles(hx), _host_tiles(hy)
+                if rows and rows[0] is not None:
+                    idx = torch.from_numpy(rows[0])
+                    hx, hy = hx[idx], hy[idx]
+                yield tag, hx.float(), hy.float()
             return
         free: "queue.Queue" = queue.Queue()
         ready: "queue.Queue" = queue.Queue()
@@ -310,7 +331,7 @@ class _ChunkStream:
 
         def reader():
             try:
-                for tag, (hx, hy) in chunks:
+                for tag, (hx, hy, *rows) in chunks:
                     slot = None
                     while slot is None:
                         if stop.is_set():
@@ -319,7 +340,7 @@ class _ChunkStream:
                             slot = free.get(timeout=0.1)
                         except queue.Empty:
                             pass
-                    ready.put((tag, slot, slot.fill(hx, hy)))
+                    ready.put((tag, slot, slot.fill(hx, hy, *rows)))
                 ready.put(None)
             except BaseException as e:  # handed to the consumer, which raises it
                 ready.put(e)
@@ -361,10 +382,46 @@ class _ChunkStream:
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A small host array on ``dev``: on the card from pinned memory,
     non-blocking (a pageable copy would wait for the queued kernels)."""
-    t = torch.from_numpy(a)
+    t = torch.from_numpy(np.ascontiguousarray(a))
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t
+
+
+def _cache_budget(cache: str, mesh=None) -> float:
+    """Host RAM for one process's chunk cache: unbounded for 'always',
+    else ``_stream_cache_budget_bytes`` (a host's), shared equally by the
+    ranks of ``mesh`` on this host (``parallel.mesh.local_size``): each
+    rank caches the whole chunks it streams, in its own process."""
+    if cache == "always":
+        return float("inf")
+    budget = _stream_cache_budget_bytes()
+    if mesh is not None:
+        from specenh_torch.parallel.mesh import local_size
+
+        budget //= local_size(mesh)
+    return budget
+
+
+def _open_tile_cache(mesh, store, slices, base: str, split: str, ps: PatchSpec, dtype: str,
+                     verbose: bool):
+    """``data.tilecache.open_or_build``; on a mesh the host's local rank 0
+    builds a missing cache (one writer a file) while the host's other
+    ranks wait at a barrier, then open what it wrote."""
+    from specenh_torch.data.tilecache import open_or_build
+
+    if mesh is None:
+        return open_or_build(store, slices, base, split, ps, dtype, verbose=verbose)
+    from specenh_torch.parallel.data_parallel import barrier
+    from specenh_torch.parallel.mesh import local_rank
+
+    builds = local_rank(mesh) == 0
+    reader = open_or_build(store, slices, base, split, ps, dtype,
+                           verbose=verbose) if builds else None
+    barrier(mesh)
+    if reader is None:
+        reader = open_or_build(store, slices, base, split, ps, dtype, verbose=verbose)
+    return reader
 
 
 # ---------------------------------------------------------------------------
@@ -400,24 +457,36 @@ def fit_streaming(
     signature), run on each chunk; the validation pass is
     ``train.eval_epoch``.
 
+    ``mesh`` (a ``parallel.mesh.Mesh``, ``state`` on its rank's device)
+    trains data-parallel, every rank streaming the same chunks: the batch
+    is GLOBAL, rounded up to a multiple of the ranks (a short chunk's
+    batch too, its padding masked), and each rank uploads only its
+    contiguous block of every batch of a chunk, its rows gathered on the
+    host, so a card holds two chunks' blocks.  The engine is ``epoch_fn``
+    with ``make_dp_epoch_programs``' contract (``dp_kernel_epoch_for``),
+    else the dp autograd epoch; validation is the dp eval.  Parameters
+    start from rank 0's (one broadcast); rank 0 writes the metrics,
+    checkpoints and ``run_meta.json``.  A mesh of one trains the
+    unsharded stream bit for bit.
+
     ``cache``: 'auto' keeps chunks in host RAM while they fit
     ``SPECENH_STREAM_CACHE_GB`` (default 60 % of MemAvailable), so epochs
-    after the first stream from memory; 'always' ignores the budget;
-    'never' reshuffles records across chunk boundaries every epoch and
-    reads the store every epoch.  ``cache_dtype='bf16'`` holds and uploads
-    chunks as bfloat16 (module docstring).  ``tile_cache`` (a base path)
-    keeps the canonical tile stream on disk in the chunk dtype
+    after the first stream from memory; on a mesh that budget is a host's,
+    split equally among its ranks (``LOCAL_WORLD_SIZE``), each of which
+    caches the whole chunks in its own process; 'always' ignores the
+    budget; 'never' reshuffles records across chunk boundaries every epoch
+    and reads the store every epoch.  ``cache_dtype='bf16'`` holds and
+    uploads chunks as bfloat16 (module docstring).  ``tile_cache`` (a base
+    path) keeps the canonical tile stream on disk in the chunk dtype
     (``data.tilecache``): the first run builds ``<base>.<split>.tiles`` in
-    one pass over the store, later runs read contiguous slabs of it.
+    one pass over the store, later runs read contiguous slabs of it; on a
+    mesh one rank a host builds it while the host's others wait.
 
     With ``checkpoint_dir`` every epoch saves the state
     (``train._save_checkpoint``), ``history.json``, and ``run_meta.json``
-    with 'streamed', 'chunk_tiles' and 'devices' (1); ``resume=True``
-    continues from the latest epoch.  ``mesh`` (more than one device)
-    raises: it is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("streaming over a device mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 9b, Multi-GPU, part 3)")
+    with 'streamed', 'chunk_tiles' and 'devices' (the mesh's size, else
+    1); ``resume=True`` continues from the latest epoch, and a checkpoint
+    of another device count raises."""
     epochs = cfg.epochs if epochs is None else epochs
     dev = state.device
     n = plan.n_tiles("train")
@@ -425,10 +494,16 @@ def fit_streaming(
         raise ValueError("streaming plan has no training tiles")
     bs = min(cfg.batch_size, n)
     n_dev = 1
+    if mesh is not None:
+        if dev != mesh.device:
+            raise ValueError(f"the state is on {dev}, this rank's device is {mesh.device}")
+        n_dev = mesh.size
+        bs = max(bs, n_dev)
+        bs += (-bs) % n_dev
+    lead = mesh is None or mesh.rank == 0
     chunk_tiles = min(chunk_tiles, n)
     chunk_tiles += (-chunk_tiles) % bs
 
-    writer = open(metrics_path, "a") if metrics_path else None
     if checkpoint_dir:
         checkpoint_dir = os.path.abspath(checkpoint_dir)
 
@@ -438,23 +513,37 @@ def fit_streaming(
         "streamed": True, "devices": int(n_dev),
     }
     history: Dict[str, list] = {"loss": [], "val_loss": []}
+    # every read of the checkpoint directory happens before the ranks
+    # agree, every write (rank 0's) after it
     start_epoch = 0
-    if resume and checkpoint_dir:
-        last = latest_checkpoint_epoch(checkpoint_dir)
-        if last is not None:
-            check_run_meta(checkpoint_dir, run_meta, optional_keys=("devices",))
-            state = restore_checkpoint(state, checkpoint_dir, last)
-            start_epoch = last + 1
-            hpath = os.path.join(checkpoint_dir, "history.json")
-            if os.path.exists(hpath):
-                with open(hpath) as fh:
-                    saved = json.load(fh)
-                history["loss"] = list(saved.get("loss", []))[:start_epoch]
-                history["val_loss"] = list(saved.get("val_loss", []))[:start_epoch]
-            if verbose:
-                print(f"stream-resumed from epoch {last}")
-    if checkpoint_dir:
+    last = latest_checkpoint_epoch(checkpoint_dir) if resume and checkpoint_dir else None
+    if last is not None:
+        check_run_meta(checkpoint_dir, run_meta, optional_keys=("devices",))
+        state = restore_checkpoint(state, checkpoint_dir, last)
+        start_epoch = last + 1
+        hpath = os.path.join(checkpoint_dir, "history.json")
+        if os.path.exists(hpath):
+            with open(hpath) as fh:
+                saved = json.load(fh)
+            history["loss"] = list(saved.get("loss", []))[:start_epoch]
+            history["val_loss"] = list(saved.get("val_loss", []))[:start_epoch]
+        if verbose and lead:
+            print(f"stream-resumed from epoch {last}")
+    if mesh is not None:
+        from specenh_torch.parallel.data_parallel import (_agree, _block, _broadcast_params,
+                                                          _local_rows, make_dp_epoch_programs)
+
+        _agree(mesh, "[n, batch size, chunk tiles, seed, last checkpoint]", n, bs,
+               chunk_tiles, cfg.seed, -1 if last is None else last)
+        _broadcast_params(mesh, state.model)
+        dp_train, eval_fn = make_dp_epoch_programs(mesh)
+        train_fn = epoch_fn if epoch_fn is not None else dp_train
+    else:
+        train_fn = epoch_fn if epoch_fn is not None else train_epoch
+        eval_fn = eval_epoch
+    if checkpoint_dir and lead:
         write_run_meta(checkpoint_dir, run_meta)
+    writer = open(metrics_path, "a") if metrics_path and lead else None
 
     have_val = plan.n_tiles("tune") > 0
 
@@ -464,7 +553,7 @@ def fit_streaming(
         raise ValueError(f"cache_dtype must be None|'f32'|'bf16', got {cache_dtype!r}")
     bf16 = cache_dtype == "bf16"
     use_cache = cache != "never"
-    cache_budget = float("inf") if cache == "always" else _stream_cache_budget_bytes()
+    cache_budget = _cache_budget(cache, mesh)
     chunk_plans = (
         {"train": _chunk_plans(plan.train, chunk_tiles),
          "tune": _chunk_plans(plan.tune, chunk_tiles)}
@@ -481,20 +570,17 @@ def fit_streaming(
                 "tile_cache requires canonical chunk composition; it cannot "
                 "combine with cache='never' (per-epoch record reshuffle)"
             )
-        from specenh_torch.data.tilecache import open_or_build
-
         tc_dtype = "bf16" if bf16 else "f32"
         for split, slices in (("train", plan.train), ("tune", plan.tune)):
             if not slices:
                 continue
-            tile_readers[split] = open_or_build(
-                store, slices, tile_cache, split, ps, tc_dtype, verbose=verbose,
-            )
+            tile_readers[split] = _open_tile_cache(mesh, store, slices, tile_cache, split, ps,
+                                                   tc_dtype, verbose and lead)
             sizes = [sum(s.n_tiles for s in p) for p in chunk_plans[split]]
             chunk_offs[split] = np.concatenate([[0], np.cumsum(sizes)])
 
-    train_fn = epoch_fn if epoch_fn is not None else train_epoch
-    stream = _ChunkStream(dev, chunk_tiles, plan.tile_shape,
+    # a chunk's batches read at most chunk_tiles / n_dev of its rows on a rank
+    stream = _ChunkStream(dev, chunk_tiles // n_dev, plan.tile_shape,
                           torch.bfloat16 if bf16 else torch.float32)
 
     def host_chunks(split: str, slices, rng, train: bool):
@@ -536,6 +622,25 @@ def fit_streaming(
         chunks = _iter_chunks(store, list(slices), ps, chunk_tiles, order)
         return ((_bf16(x), _bf16(y)) for x, y in chunks) if bf16 else chunks
 
+    def batched(split: str, chunks, rng, train: bool):
+        """(tag, (x, y, rows)) for each host chunk: the tag holds the
+        chunk's global batches (drawn from ``rng`` in chunk order, as the
+        chunks arrive) and this rank's share of them; ``rows`` are the
+        chunk's rows its share reads (None: all, off a mesh)."""
+        for x, y in chunks:
+            nc = x.shape[0]
+            perm = rng.permutation(nc) if (train and cfg.shuffle) else np.arange(nc)
+            if mesh is None:
+                bi, bm = _epoch_batches(nc, min(bs, nc), perm)
+                yield (split, bm, bi, bm), (x, y, None)
+                continue
+            # the chunk's batch stays a device multiple (a short final
+            # chunk's may exceed nc: its padding is masked)
+            bi, bm = _epoch_batches(nc, min(bs, nc + (-nc) % n_dev), perm)
+            blk = _block(mesh, bi.shape[1])
+            rows, mine = _local_rows(bi[:, blk], bm[:, blk])
+            yield (split, bm, mine, bm[:, blk]), (x, y, rows)
+
     def run_epoch(epoch: int) -> Dict[str, float]:
         """Stream the epoch's train chunks, then its tune chunks, through
         the device in one pipeline; returns each split's mask-weighted
@@ -545,26 +650,24 @@ def fit_streaming(
         splits = [("train", plan.train, True)] + ([("tune", plan.tune, False)] if have_val
                                                    else [])
         rngs = {s: np.random.default_rng([cfg.seed, epoch]) for s, _, _ in splits}
-        sources = [(s, host_chunks(s, sl, rngs[s], tr)) for s, sl, tr in splits]
+        sources = [batched(s, host_chunks(s, sl, rngs[s], tr), rngs[s], tr)
+                   for s, sl, tr in splits]
         losses: Dict[str, list] = {s: [] for s, _, _ in splits}
         masks: Dict[str, list] = {s: [] for s, _, _ in splits}
-        for split, xd, yd in stream.run((s, c) for s, it in sources for c in it):
-            train = split == "train"
-            nc = xd.shape[0]
-            perm = rngs[split].permutation(nc) if (train and cfg.shuffle) else np.arange(nc)
-            bi, bm = _epoch_batches(nc, min(bs, nc), perm)
-            args = (xd, yd, _to_device(bi, dev), _to_device(bm, dev))
-            if train:
+        for (split, bm, bi, bm_mine), xd, yd in stream.run(c for it in sources for c in it):
+            args = (xd, yd, _to_device(bi, dev), _to_device(bm_mine, dev))
+            if split == "train":
                 state, out = train_fn(state, *args)
             else:
-                out = eval_epoch(state, *args)
+                out = eval_fn(state, *args)
             losses[split].append(out)  # left on the device
             masks[split].append(bm.sum(axis=1, keepdims=True))  # each batch's weight
         return {s: float(weighted_epoch_mean(torch.cat(losses[s]), np.concatenate(masks[s])))
                 for s in losses}
 
     # opt-in early stopping (cfg.patience, as train.fit): seeded from a
-    # restored history, so a resume counts stale epochs as the full run
+    # restored history, so a resume counts stale epochs as the full run;
+    # on a mesh val_loss is global, so every rank decides the same
     best_val = min(history["val_loss"], default=np.inf)
     stale = 0
     if cfg.patience is not None and history["val_loss"]:
@@ -583,7 +686,7 @@ def fit_streaming(
         if val is not None:
             history["val_loss"].append(val)
         dt = time.perf_counter() - t0
-        if verbose:
+        if verbose and lead:
             msg = f"epoch {epoch + 1}/{epochs} loss={epoch_loss:.5f}"
             if val is not None:
                 msg += f" val_loss={val:.5f}"
@@ -600,7 +703,7 @@ def fit_streaming(
                 "streamed": True, "devices": int(n_dev),
             }) + "\n")
             writer.flush()
-        if checkpoint_dir:
+        if checkpoint_dir and lead:
             _save_checkpoint(state, checkpoint_dir, epoch)
             with open(os.path.join(checkpoint_dir, "history.json"), "w") as fh:
                 json.dump(history, fh)
@@ -611,15 +714,19 @@ def fit_streaming(
                 stale += 1
             if stale >= cfg.patience:
                 history["stopped_epoch"] = epoch
-                if checkpoint_dir:
+                if checkpoint_dir and lead:
                     with open(os.path.join(checkpoint_dir, "history.json"), "w") as fh:
                         json.dump(history, fh)
-                if verbose:
+                if verbose and lead:
                     print(f"early stopping: val_loss stale for "
                           f"{cfg.patience} epochs (best {best_val:.5f})")
                 break
     if writer:
         writer.close()
+    if mesh is not None:
+        # no rank returns before rank 0's files are written
+        _agree(mesh, "[epochs in the history, stopped epoch]", len(history["loss"]),
+               history.get("stopped_epoch", -1))
     # as train.fit: 0 when resume found a finished run
     history["new_epochs"] = max(0, epochs - start_epoch)
     return state, history

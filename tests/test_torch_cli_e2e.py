@@ -203,12 +203,16 @@ def test_train_raw_kernel_engine_from_binaries(shots, tmp_path, capfd):
 
 
 def test_train_raw_exits(shots, tmp_path, monkeypatch):
-    """--devices > 1 names its ROADMAP item; --engine kernel on a geometry
-    no kernel family covers exits with JAX's message; --device cuda where
-    there is no card exits."""
+    """--devices 2 no longer exits: it starts two ranks of itself (recorded
+    here; the ranks train in ``tests/test_torch_mesh_train.py``); --engine
+    kernel on a geometry no kernel family covers exits with JAX's message;
+    --device cuda where there is no card exits."""
     data = ["--data-dir", str(shots / "t" / "raw"), "--out-dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="Queue 1 item 9b"):
-        tcli.main(["train-raw", *data, "--devices", "2", "--device", "cpu"])
+    started = []
+    monkeypatch.setattr(tcli, "_launch_workers", lambda a, n: started.append((a, n)))
+    argv = ["train-raw", *data, "--devices", "2", "--device", "cpu"]
+    tcli.main(argv)
+    assert started == [(argv, 2)] and os.listdir(tmp_path) == []
     monkeypatch.setitem(tcli.MODEL_PRESETS, "narrow",
                         ModelConfig(filters=(8, 8), kernels=((3, 3), (3, 3)), out_kernel=(3, 3)))
     with pytest.raises(SystemExit, match="--engine kernel does not support the 'narrow' "

@@ -13,9 +13,9 @@ tile a channel).
   here), ``--trace-dir``, ``--resume``;
 - ``serve --once`` and ``movie``: JAX's counts, frames and JSON keys; the
   untrained-model warning word for word;
-- every exit of a path not ported (ROADMAP Queue 1 item 9b) and of JAX's
-  own checks, word for word; ``--stream always`` and ``--stream auto`` over
-  the resident budget train streamed."""
+- every exit of JAX's own checks, word for word; ``--stream always`` and
+  ``--stream auto`` over the resident budget train streamed, and with
+  ``--devices 2`` start two ranks."""
 
 import contextlib
 import dataclasses
@@ -281,15 +281,12 @@ def test_movie_matches_jax(ws, trained, tmp_path, capfd):
     assert jline["frames"] == 2
 
 
-_ITEM9B = "(ROADMAP Queue 1 item 9b part 3, multi-GPU streamed, raw and sweep training)"
 _STRAY = ("--chunk-tiles/--chunk-dtype/--tile-cache apply to the streamed epoch only; this run "
           "is resident (dataset fits the HBM budget) — use --stream always to force streaming")
 # case -> (extra argv, the exit's message; None: the command streams the epoch;
 # "launches": it starts its ranks)
 _EXITS = {
-    "train-devices": (["--devices", "2", "--stream", "always"],
-                      "--devices > 1 with a streamed epoch: multi-GPU streaming is not "
-                      f"ported yet {_ITEM9B}"),
+    "train-devices": (["--devices", "2", "--stream", "always"], "launches"),
     "train-stream-always": (["--stream", "always"], None),
     "train-chunk-tiles": (["--chunk-tiles", "8"], _STRAY),
     "train-chunk-dtype": (["--chunk-dtype", "bf16"], _STRAY),
@@ -307,14 +304,15 @@ _EXITS = {
 
 @pytest.mark.parametrize("case", sorted(_EXITS))
 def test_exits_word_for_word(ws, tmp_path, monkeypatch, case, capfd):
-    """Each path not ported exits naming its ROADMAP item, and each of
-    JAX's own checks with JAX's words (the streaming flags of a resident
-    run and ``build-data --writers`` without ``--binary`` are held against
-    JAX's exits too).  ``--stream always``, and ``--stream auto`` over the
-    resident budget, no longer exit: they stream the epoch and write the
-    run's artifacts.  ``serve --devices 2`` no longer exits: it starts two
-    ranks of itself (recorded here; the ranks serve in
-    ``tests/test_torch_mesh_serve.py``)."""
+    """Each of JAX's own checks exits with JAX's words (the streaming
+    flags of a resident run and ``build-data --writers`` without
+    ``--binary`` are held against JAX's exits too).  ``--stream always``,
+    and ``--stream auto`` over the resident budget, no longer exit: they
+    stream the epoch and write the run's artifacts.  ``serve --devices 2``
+    and ``train --stream always --devices 2`` no longer exit: they start
+    two ranks of themselves (recorded here; the ranks serve in
+    ``tests/test_torch_mesh_serve.py`` and train in
+    ``tests/test_torch_mesh_train.py``)."""
     extra, message = _EXITS[case]
     cmd = case.split("-")[0] if not case.startswith("build-data") else "build-data"
     argv = {"train": ["train", "--dataset", str(ws / "t.hdf5"), "--out-dir", str(tmp_path),

@@ -3,8 +3,8 @@
 2 channels x 6 tiles of 256 x 128, 24 tiles), a 2-config grid for one
 epoch on each engine: the same artifacts (names, shapes, keys), the same
 val losses (rtol 1e-4: float32, 2 Adam steps) and best config; the
-stray-axis and streaming-flag exits word for word, more than one device
-exiting naming its ROADMAP item, and ``--stream always`` streaming."""
+stray-axis and streaming-flag exits word for word, ``--devices 2``
+starting two ranks, and ``--stream always`` streaming."""
 
 import json
 import os
@@ -94,7 +94,7 @@ _ENVELOPE = ("this sweep's dataset exceeds the resident budget (or --stream alwa
              "vmapped envelope needs the resident dataset)")
 # case -> (flags, the exit's message, or "streams": the sweep streams)
 UNPORTED = {
-    "devices": (["--devices", "2"], "ROADMAP Queue 1 item 9b"),
+    "devices": (["--devices", "2"], "launches"),
     "stream-always": (["--stream", "always", "--engine", "kernel"], "streams"),
     "chunk-tiles": (["--chunk-tiles", "64"], _STRAY),
     "chunk-dtype": (["--chunk-dtype", "bf16"], _STRAY),
@@ -105,7 +105,8 @@ UNPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_flags_exit(store, tmp_path, monkeypatch, capfd, case):
-    """More than one device exits naming ROADMAP item 9b.  The streaming
+    """``--devices 2`` starts two ranks of the command (recorded here; the
+    ranks sweep in ``tests/test_torch_mesh_train.py``).  The streaming
     flags of a resident grid, and a grid over the resident budget on the
     envelope engine, exit with JAX's words.  ``--stream always --engine
     kernel`` streams each config and writes the artifacts, pred_times
@@ -120,9 +121,14 @@ def test_unported_flags_exit(store, tmp_path, monkeypatch, capfd, case):
         with np.load(tmp_path / "loss_comparisons.npz") as lc:
             assert (lc["conv1_time"] > 0).all()
         return
-    if message.startswith("ROADMAP"):
-        with pytest.raises(SystemExit, match=message):
-            tmain([*argv, "--device", "cpu"])
+    if message == "launches":
+        from specenh_torch import cli as tcli
+
+        started = []
+        monkeypatch.setattr(tcli, "_launch_workers", lambda a, n: started.append((a, n)))
+        tmain([*argv, "--device", "cpu"])
+        assert started == [([*argv, "--device", "cpu"], 2)]
+        assert os.listdir(tmp_path) == []
     else:
         for main, extra in ((tmain, ["--device", "cpu"]), (jmain, [])):
             with pytest.raises(SystemExit) as e:

@@ -8,8 +8,9 @@ ml_dtypes loaded; its own copies of the JAX package's config,
 references, Q8.8 tables, STFT axes, host IO, record pipeline, chunk
 plans and reads, tile-cache lookup, plots,
 frame movie, metrics and metrics logger equal the originals; the
-watch-directory service runs with none of jax, flax, ``specenh``, h5py or
-matplotlib loaded; the native reader builds outside ``native/``;
+watch-directory service and the multi-rank trainers (on a gloo world of
+one) run with none of jax, flax, ``specenh``, h5py or matplotlib loaded;
+the native reader builds outside ``native/``;
 ``chip_smoke.py`` fails where there is no GPU; the kernel wrappers check
 their inputs before either path."""
 
@@ -331,6 +332,74 @@ def test_streamed_training_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "streamed" in res.stdout
+
+
+def test_mesh_trainers_run_without_jax(tmp_path):
+    """The multi-rank trainers — ``fit_streaming(mesh=)`` over an in-memory
+    store with a tile cache, ``sweep_fit`` on a "sweep" mesh,
+    ``sweep_fit_serial(mesh=)`` and ``train_from_raw(mesh=)`` — import and
+    run on a gloo world of one with jax, flax, ``specenh`` and h5py
+    blocked."""
+    code = textwrap.dedent("""
+        import sys
+        blocked = ("jax", "flax", "specenh", "h5py", "ml_dtypes", "matplotlib")
+        for name in blocked:
+            sys.modules[name] = None
+        import numpy as np, torch
+        from specenh_torch import Config, ModelConfig, SpecParams, TrainConfig
+        from specenh_torch import e2e, sweep, train, train_stream as ts
+        from specenh_torch.config import PatchSpec
+        from specenh_torch.parallel.mesh import make_mesh
+
+        class Store:
+            path = None
+            def __init__(self):
+                rng = np.random.default_rng(0)
+                self.recs = {(s, c): rng.random((32, 80)).astype(np.float32)
+                             for s in ("ece_1", "ece_2") for c in (1, 2)}
+            def shots(self):
+                return sorted({s for s, _ in self.recs})
+            def channels_of(self, shot):
+                return sorted(c for s, c in self.recs if s == shot)
+            def iter_channels(self):
+                return iter(sorted(self.recs))
+            def spec_shape(self, shot, chn):
+                return self.recs[shot, chn].shape
+            def read_column_slice(self, shot, chn, lo, hi):
+                x = self.recs[shot, chn][:, lo:hi]
+                return x, x * 0.5
+
+        ps = PatchSpec(32, 16, 16, 5)
+        tc = TrainConfig(epochs=1, batch_size=4, seed=0)
+        mc = ModelConfig(filters=(4, 4), kernels=((3, 3), (3, 3)), input_shape=(32, 16, 1))
+        mesh = make_mesh(device="cpu")
+        st = Store()
+        plan = ts.plan_stream_split(st, num_samples=2, ps=ps, seed=0)
+        _, h = ts.fit_streaming(train.create_state(mc, tc, device="cpu"), st, plan, tc,
+                                chunk_tiles=4, ps=ps, mesh=mesh, tile_cache="tc")
+        assert np.isfinite(h["val_loss"]).all()
+        x = np.random.default_rng(1).random((8, 32, 16, 1)).astype(np.float32)
+        res = sweep.sweep_fit_serial([mc], x, x, x[:4], x[:4], tc, mesh=mesh)
+        assert np.isfinite(res.val_losses).all()
+        mesh.close()
+        mesh = make_mesh(axis_names=("sweep",), device="cpu")
+        res = sweep.sweep_fit([mc, mc], x, x, x[:4], x[:4], tc, mesh=mesh)
+        assert res.val_history.shape == (1, 2)
+        sp = SpecParams(cut_shot=0.07)
+        traces = np.random.default_rng(2).standard_normal((2, sp.n_samples)).astype(np.float32)
+        _, h = e2e.train_from_raw(traces, Config(spec=sp), ModelConfig(filters=(4, 4)), tc,
+                                  mesh=mesh)
+        assert np.isfinite(h["val_loss"]).all()
+        mesh.close()
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in blocked]
+        print("meshes")
+    """)
+    env = {**_env(), "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "meshes" in res.stdout
 
 
 def test_metrics_copies_give_jax_numbers():

@@ -369,29 +369,37 @@ def test_initialize_distributed_guard(monkeypatch, env):
 
 
 def test_mesh_refusals():
-    """More GPUs than are visible: JAX's message; more than one rank with
-    no group, or a multi-axis mesh: refused."""
+    """More GPUs than are visible: JAX's message (a mesh on ``cuda`` with
+    no card too); more than one rank with no group, or a multi-axis mesh:
+    refused."""
     with pytest.raises(ValueError, match="^requested 2 devices but only 0 available$"):
         check_visible(2, "cuda")
     with pytest.raises(ValueError, match="^requested 2 devices but only 0 available$"):
         make_mesh(2, device="cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="^requested 1 devices but only 0 available$"):
+            make_mesh(axis_names=("sweep",), device="cuda")
     with pytest.raises(ValueError, match="2 processes"):
         make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="multi-axis meshes are not ported"):
         make_mesh(axis_names=("data", "time"), device="cpu")
 
 
-@pytest.mark.parametrize("cmd", ["train", "serve"])
+@pytest.mark.parametrize("cmd", ["train", "serve", "train-raw", "sweep"])
 def test_devices_beyond_the_visible_exit_first(tmp_path, monkeypatch, cmd):
-    """``train``/``serve --devices 2`` where one GPU is visible exit with
-    JAX's device-count message before they open a store or a directory
-    (the dataset here does not exist)."""
+    """``train``/``serve``/``train-raw``/``sweep --devices 2`` where one
+    GPU is visible exit with JAX's device-count message before they open a
+    store or a directory (the dataset here does not exist)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     argv = {"train": ["train", "--dataset", str(tmp_path / "none.hdf5"), "--out-dir",
                       str(tmp_path / "o"), "--engine", "kernel"],
             "serve": ["serve", "--watch-dir", str(tmp_path / "none"), "--out",
-                      str(tmp_path / "e.hdf5")]}[cmd]
+                      str(tmp_path / "e.hdf5")],
+            "train-raw": ["train-raw", "--data-dir", str(tmp_path / "none"), "--out-dir",
+                          str(tmp_path / "o")],
+            "sweep": ["sweep", "--dataset", str(tmp_path / "none.hdf5"), "--out-dir",
+                      str(tmp_path / "o")]}[cmd]
     with pytest.raises(SystemExit) as e:
         tcli.main([*argv, "--devices", "2", "--quiet"])
     assert str(e.value) == "--devices 2: requested 2 devices but only 1 available"

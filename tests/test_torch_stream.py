@@ -213,16 +213,21 @@ def test_streamed_sweep_equals_resident_sweep(store, tmp_path, monkeypatch):
 
 
 def test_mesh_and_bad_arguments_raise(store):
-    """``mesh`` raises naming ROADMAP item 9b (as ``EnhanceService``);
-    the JAX package's argument checks, with its words."""
+    """A ``mesh`` whose rank's device is not the state's raises before any
+    collective, and the envelope refuses a mesh not over its "sweep" axis
+    (the meshes train in ``tests/test_torch_mesh_train.py``); the JAX
+    package's argument checks, with its words."""
+    from specenh_torch.parallel.mesh import Mesh
+
     jc, tc = _cfgs()
     _, tplan = _plans(store, jc, tc)
     st = _states(jc, tc)[1]
-    with pytest.raises(NotImplementedError, match="item 9b, Multi-GPU"):
-        tts.fit_streaming(st, store, tplan, tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9b, Multi-GPU"):
-        tsweep.sweep_fit_serial_streamed([ModelConfig(**TINY)], store, tplan, tc, mesh=object(),
-                                         device="cpu")
+    away = Mesh(None, 0, 2, ("data",), torch.device("meta"), "gloo")
+    with pytest.raises(ValueError, match="this rank's device is meta"):
+        tts.fit_streaming(st, store, tplan, tc, mesh=away)
+    x = np.zeros((4, 32, 16, 1), np.float32)
+    with pytest.raises(ValueError, match="over a 'sweep' mesh, not \\('data',\\)"):
+        tsweep.sweep_fit([ModelConfig(**TINY)], x, x, x, x, tc, mesh=away)
     with pytest.raises(ValueError, match="cache must be"):
         tts.fit_streaming(st, store, tplan, tc, cache="sometimes")
     with pytest.raises(ValueError, match="canonical chunk composition"):
