@@ -236,12 +236,26 @@ Phases, each of which raises on failure (no CPU fallback, nothing caught):
    two gloo ranks sharing the card (started before (a), released after
    it, warmed up meanwhile): one streamed epoch within rtol 1e-5 of (a)'s
    first (each parameter tensor within TOL_MESH_PARAMS of its norm), the
+   same epoch on the float32 kernels against a float32 world of one's
+   (reported), both bit for bit the epoch with each batch's two blocks
+   summed on one card, the
    grid padded to 4 within rtol 1e-4 of the unsharded envelope (rank 1
    returns None), ``train_from_raw`` over the two ranks within
    TOL_DP_GLOO, the all-gather's bytes and the peak memory; (c)
    ``train-raw`` and ``sweep --devices N`` above the visible GPUs exit
    with the device-count message.  The kernels line counts (a) and (b)'s
    launches.
+
+21. (run after phase 19) the headline: ``python -m specenh_torch.cli
+   bench`` in process (``bench.headline``: the flagship bf16 service's
+   spectrograms/s behind its two gates, the training engines' s/epoch, the
+   SVD's specs/s behind its two gates, deep3's and the 4 s long shot's ms,
+   the streamed read from an in-memory store: the card has no h5py):
+   one JSON line with the JAX headline's 17 keys in its order, each number
+   finite and > 0, the four gates passed, ``vs_baseline`` from the cached
+   CPU baseline; each measure's launches counted (K1, the serving stages,
+   every K5 and K7 entry point); the line is printed after ``headline:``.
+   The kernels line counts these launches.
 
 Prints a JSON line of the kernels, one row per pair of CUDA entry point and
 TPU kernel it replaces, the card's name and power limit, then as its last
@@ -268,6 +282,7 @@ import torch
 import torch.nn.functional as F
 
 from specenh_torch import ModelConfig, SpecParams, TrainConfig, _build
+from specenh_torch.bench import headline as HL
 from specenh_torch.bench.harness import (enhance_shot_plain, example_shot,
                                          make_enhance_shot_fn, time_cuda)
 from specenh_torch.bench.reference import (HAS_CV2, pipeline_ref, spectrogram_ref, ssim,
@@ -276,6 +291,7 @@ from specenh_torch.config import MODEL_PRESETS, Config, PatchSpec, SweepConfig
 from specenh_torch.data.dataset import split_tiles, synthetic_shot_batch
 from specenh_torch.data.tiles import patch, unpatch
 from specenh_torch.io.binfmt import write_shot_bin
+from specenh_torch.io.memstore import MemoryStore, TileStore
 from specenh_torch.io.store import StoreWriterPool
 from specenh_torch.io.native import NativePrefetcher, native_available
 from specenh_torch.models.autoencoder import convt_pad_before, make_model
@@ -713,7 +729,7 @@ def run_service(dev, sp, cfg, model, n_channels):
     wts = fn.prepare(model)
     shots = [shot(sp, n_channels, seed) for seed in (0, 1, 2)]
     traces = [torch.from_numpy(s).to(dev) for s in shots]
-    refs = [(spectrogram_ref(host[0], sp), enhance_shot_plain(model, t, sp)[1].cpu().numpy())
+    refs = [(spectrogram_ref(host[0], sp)[0], enhance_shot_plain(model, t, sp)[1].cpu().numpy())
             for host, t in zip(shots, traces)]
     outs, launches = gated_run(fn, wts, traces, refs, f"depth-{cfg.depth} service",
                                SERVE_KERNELS)
@@ -733,7 +749,7 @@ def serve_module_route(dev, sp, gpu):
     check(fn.prepare(model) is model, "the module route's prepare must return the module")
     shots = [shot(sp, N_CHANNELS, seed) for seed in (0, 1, 2)]
     traces = [torch.from_numpy(s_).to(dev) for s_ in shots]
-    refs = [(spectrogram_ref(host[0], sp), enhance_shot_plain(model, t, sp)[1].cpu().numpy())
+    refs = [(spectrogram_ref(host[0], sp)[0], enhance_shot_plain(model, t, sp)[1].cpu().numpy())
             for host, t in zip(shots, traces)]
     gated_run(fn, model, traces, refs, "module route (16,32,128)/k5 bf16", (),
               absent=SERVE_KERNELS)
@@ -1948,40 +1964,6 @@ def sweep_phase(dev, gpu, data):
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
 
-class MemoryStore:
-    """Phase 17's store: phase 7's tiles as records of (256, 3840), one a
-    (shot, channel), in host memory, with the read protocol of the
-    streamed trainer (``shots``, ``channels_of``, ``spec_shape``,
-    ``read_column_slice``); the card has no h5py.  ``reads`` counts the
-    column reads."""
-
-    path = None  # no file: the tile cache's store identity is "None"
-
-    def __init__(self, x: torch.Tensor, y: torch.Tensor, n_channels: int):
-        self.x = unpatch(x).cpu().numpy()
-        self.y = unpatch(y).cpu().numpy()
-        self.n_channels = n_channels
-        self._shots = [f"ece_{100000 + s}" for s in range(len(self.x) // n_channels)]
-        self.reads = 0
-
-    def shots(self):
-        return list(self._shots)
-
-    def channels_of(self, shot):
-        return list(range(1, self.n_channels + 1))
-
-    def iter_channels(self):
-        return ((s, c) for s in self._shots for c in self.channels_of(s))
-
-    def spec_shape(self, shot, chn):
-        return self.x.shape[1:]
-
-    def read_column_slice(self, shot, chn, lo, hi):
-        self.reads += 1
-        r = self._shots.index(shot) * self.n_channels + chn - 1
-        return self.x[r, :, lo:hi], self.y[r, :, lo:hi]
-
-
 def host_rss() -> str:
     """This process's resident host memory and its peak (getrusage)."""
     import resource
@@ -2077,8 +2059,9 @@ def stream_phase(dev, gpu, data) -> None:
     t_phase = time.perf_counter()
     work = tempfile.mkdtemp(prefix="stream-")
     shuffled, ordered = TrainConfig(), TrainConfig(shuffle=False)
-    store = MemoryStore(torch.cat([data.x_train, data.x_tune, data.x_test]),
-                        torch.cat([data.y_train, data.y_tune, data.y_test]), N_CHANNELS)
+    store = MemoryStore(*(unpatch(torch.cat(t)).cpu().numpy() for t in
+                          ((data.x_train, data.x_tune, data.x_test),
+                           (data.y_train, data.y_tune, data.y_test))), N_CHANNELS)
     plan = TS.plan_stream_split(store, num_samples=N_SHOTS, cfg=shuffled, seed=SEED)
     n, nv = plan.n_tiles("train"), plan.n_tiles("tune")
     check((n, nv, plan.n_tiles("test")) == (7200, 3000, 1800),
@@ -2247,34 +2230,6 @@ def stream_phase(dev, gpu, data) -> None:
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
-def lowrank_batch(dev, n: int, seed: int) -> torch.Tensor:
-    """The headline's SVD test batch (headline.py:178-193), drawn with
-    numpy: 6 smooth modes x 3 plus 0.3 noise, (n, 256, 3905) float32."""
-    f_, t_, rank = 256, 3905, 6
-    rng = np.random.default_rng(seed)
-    ph_u, ph_v = rng.uniform(0, 6.28, (2, n, rank))
-    amps = rng.uniform(0.5, 1.0, (n, rank))
-    f = torch.linspace(0.0, 1.0, f_, device=dev)[None, :, None]
-    t = torch.linspace(0.0, 1.0, t_, device=dev)[None, None, :]
-    x = 0.3 * torch.from_numpy(rng.standard_normal((n, f_, t_), dtype=np.float32)).to(dev)
-    amps, ph_u, ph_v = (torch.from_numpy(a).float().to(dev)[..., None, None]
-                        for a in (amps, ph_u, ph_v))
-    for k in range(rank):
-        x += 3.0 * amps[:, k] * torch.sin(3.1 * (k + 1) * f + ph_u[:, k]) \
-            * torch.cos(2.3 * (k + 1) * t + ph_v[:, k])
-    return x
-
-
-def gate_matrix(seed: int) -> np.ndarray:
-    """A well-conditioned (256, 3905) float64 matrix, sigma_k = 100 x
-    0.93^k (headline.py:211-217): every component compute_signal keeps is
-    well determined."""
-    rng = np.random.default_rng(seed)
-    q1, _ = np.linalg.qr(rng.standard_normal((256, 256)))
-    q2, _ = np.linalg.qr(rng.standard_normal((3905, 256)))
-    return (q1 * (100.0 * 0.93 ** np.arange(256))) @ q2.T
-
-
 # phase 15 (a) splits the device time by kernel name: cuSOLVER's eigh (the
 # batched Jacobi kernels PyTorch calls for eigh and eigvalsh, or syevd's),
 # its QR (Householder panels and the forming of Q) and the products
@@ -2325,7 +2280,8 @@ def svd_phase(dev, sp, gpu) -> None:
     fns = {"denoise_signal": SVD.denoise_signal,
            "denoise_signal(use_optimal)": lambda x: SVD.denoise_signal(x, use_optimal=True),
            "compute_signal": SVD.compute_signal, "deflate_top1": SVD.deflate_top1}
-    for name, x in (("K1 spectrograms", specs), ("low-rank batch", lowrank_batch(dev, N_CHANNELS, 7))):
+    lowrank = HL.lowrank_batch(dev, N_CHANNELS, 7)
+    for name, x in (("K1 spectrograms", specs), ("low-rank batch", lowrank)):
         outs = {k: f(x) for k, f in fns.items()}
         for k, o in outs.items():
             check(o.shape == x.shape and bool(torch.isfinite(o).all()),
@@ -2392,7 +2348,7 @@ def svd_phase(dev, sp, gpu) -> None:
                 f"matrix); bound {b_ms:.4f} ms ({b_by}; {b * flops / 1e9:.3f} GFLOP, "
                 f"{PEAK[torch.float32][1]}), {ms / b_ms:.0f}x")
         del g, y
-    xg = gate_matrix(11)
+    xg = HL.gate_matrix(11)
     cs = SVD.compute_signal(torch.from_numpy(xg).float().to(dev)[None])[0]
     q = ssim(cs.cpu().numpy(), svd_compute_signal_ref(xg))
     log(f"[{gpu}] phase 15 (a) compute_signal on the gate matrix (sigma_k = 100 x 0.93^k) vs "
@@ -3350,47 +3306,16 @@ def mesh_phase(dev, gpu) -> None:
 
 # phase 20: multi-GPU streamed, raw-to-model and sweep training
 MESH_TRAIN_EPOCHS = 2  # phase 20: the streamed fit's and train_from_raw's epochs
-# phase 20 (b): each parameter tensor after the two ranks' streamed epoch
-# against the world of one's, ||err|| / ||p||.  The bf16 kernels round the
-# float32 weights to bf16 every step, and the ranks' gradient sums, added
-# in another order, move a weight across a bf16 rounding edge now and
-# then; Adam's normalised steps carry it on, so over 57 steps the weights
-# part by up to 9.1e-4 of their norm (dec_deconvs.1, on an H100 80GB HBM3 at
-# 700 W) while the epoch's loss agrees to 1.1e-7.  A rank's missing half of a
-# batch moves the loss itself by far more than its 1e-5 gate.
-TOL_MESH_PARAMS = 1e-2
-
-
-class TileStore(MemoryStore):
-    """Phase 20's store: phase 17's records (``MemoryStore``), read straight
-    from the recipe's (N, 256, 128) tiles where they lie, a record its 30
-    tiles side by side, so the ranks of (b) share the card's one copy
-    through CUDA IPC; a read copies its columns to the host.  The tiles
-    come as the split's consecutive parts [(x, y), ...], each a whole
-    number of records."""
-
-    def __init__(self, parts, n_channels: int):
-        self.k = PatchSpec().tiles_per_spec
-        check(all(len(x) % self.k == 0 for x, _ in parts), "TileStore: a part cuts a record")
-        self.parts = parts
-        self.first = np.cumsum([0] + [len(x) // self.k for x, _ in parts])
-        self.n_channels = n_channels
-        self._shots = [f"ece_{100000 + s}" for s in range(self.first[-1] // n_channels)]
-        self.reads = 0
-
-    def spec_shape(self, shot, chn):
-        x = self.parts[0][0]
-        return (x.shape[1], self.k * x.shape[2])
-
-    def read_column_slice(self, shot, chn, lo, hi):
-        self.reads += 1
-        r = self._shots.index(shot) * self.n_channels + chn - 1
-        i = int(np.searchsorted(self.first, r, side="right")) - 1
-        w = self.parts[i][0].shape[2]
-        check(lo % w == 0 and hi % w == 0, f"TileStore: columns {lo}:{hi} cut a tile")
-        t0 = (r - self.first[i]) * self.k
-        return tuple(t[t0 + lo // w:t0 + hi // w].permute(1, 0, 2).reshape(t.shape[1], -1)
-                     .cpu().numpy() for t in self.parts[i])
+# phase 20 (b): each parameter tensor after the two ranks' streamed epoch on
+# the bf16 kernels against the world of one's, ||err|| / ||p||.  The pair is
+# first held bit for bit to the same epoch with each batch's two blocks
+# summed on one card (two_block_epoch_for), in bf16 and in float32: the dp
+# sum is exact, and the gap to the world of one is the regrouped sums'
+# rounding, which Adam's normalised steps carry on over 57 steps.  It is
+# fixed by the code: 9.13e-4 of dec_deconvs.1's norm in each of three runs
+# on an H100 80GB HBM3 at 700 W (float32: 1.08e-5, enc_convs.0.bias), the
+# epoch's loss within 1.1e-7.  The gate is about twice it.
+TOL_MESH_PARAMS = 2e-3
 
 
 def raw_traces() -> np.ndarray:
@@ -3403,11 +3328,46 @@ def raw_traces() -> np.ndarray:
     return np.ascontiguousarray(b.reshape(RAW_SHOTS * N_CHANNELS, -1)[:, :sp.n_samples])
 
 
+def two_block_epoch_for(cfg: ModelConfig, dtype):
+    """``dp_kernel_epoch_for``'s epoch on two ranks, emulated on one card:
+    each half of a batch (a rank's block) through the training kernels,
+    the two packed sums added in float32 (what an all-reduce of two ranks
+    computes: one addition, which commutes), then the same scaling and
+    Adam step.  Two gloo ranks must give its parameters bit for bit."""
+    depth = AK.kernel_depth(cfg)
+    scale = float(TK.TILE_F * TK.TILE_T)
+
+    def epoch(state, x, y, batch_idx, batch_mask):
+        x, y = TK._tiles(x), TK._tiles(y)
+        named = list(state.model.named_parameters())
+        losses = []
+        for idx, m in zip(batch_idx, batch_mask):
+            state.optimizer.zero_grad(set_to_none=True)
+            tw = TK.build_train_weights(state.model, dtype, depth)
+            h, flat = len(idx) // 2, 0
+            for blk in (slice(0, h), slice(h, None)):
+                bce, msum, grads = TK.loss_grad_sums(tw, x[idx[blk]], y[idx[blk]], m[blk])
+                flat = flat + torch.cat([bce.reshape(1), msum.reshape(1),
+                                         *(grads[n].reshape(-1) for n, _ in named)])
+            denom = flat[1] * scale
+            g = torch.ones_like(denom) / denom
+            off = 2
+            for _, p in named:
+                p.grad = flat[off:off + p.numel()].view_as(p) * g
+                off += p.numel()
+            state.optimizer.step()
+            state.step += 1
+            losses.append(flat[0] / denom)
+        return state, torch.stack(losses)
+
+    return epoch
+
+
 def mesh_train_rank(rank: int, port: int, inp: dict, go, out) -> None:
     """Phase 20 (b), one of two ranks on the one card over gloo, once
     ``go`` is set: one epoch of the streamed fit on K5
-    (``dp_kernel_epoch_for``) over the phase-17 records, the envelope's 3-config grid padded to 4 on a
-    "sweep" mesh, and ``train_from_raw`` of the raw shots on K1 and K5.
+    (``dp_kernel_epoch_for``) over the phase-17 records, in bf16 and in
+    float32, the envelope's 3-config grid padded to 4 on a "sweep" mesh, and ``train_from_raw`` of the raw shots on K1 and K5.
     Puts (rank, results) or (rank, "error", traceback) on ``out``."""
     import traceback
 
@@ -3469,6 +3429,16 @@ def mesh_train_rank(rank: int, port: int, inp: dict, go, out) -> None:
         # descriptor that dies with this process
         res["stream"] = (h, {k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
                          secs, launches())
+        # the same epoch on the float32 kernels
+        state = TR.create_state(FLAGSHIP, tc, device=data.device)
+        state.model.load_state_dict(inp["sd"])
+        zero()
+        _, h = TS.fit_streaming(state, store, plan, tc, epochs=1, chunk_tiles=inp["chunk"],
+                                mesh=data, epoch_fn=dp_kernel_epoch_for(FLAGSHIP, tc, data,
+                                                                        dtype=torch.float32))
+        torch.cuda.synchronize()
+        res["stream32"] = (h, {k: v.cpu().numpy() for k, v in state.model.state_dict().items()},
+                           launches())
         del state, store
         res["secs"].append(round(time.perf_counter() - t_go, 1))
 
@@ -3512,7 +3482,10 @@ def mesh_train_phase(dev, gpu, data, raw_host: np.ndarray) -> None:
     the one card (NCCL refuses two ranks on one GPU), their start overlapped
     with (a), warmed up meanwhile: one epoch of the streamed fit (its
     loss within rtol 1e-5 of (a)'s first, each parameter tensor within
-    TOL_MESH_PARAMS of its norm), the 3-config grid padded to 4 (rank 0's
+    TOL_MESH_PARAMS of its norm; the same epoch on the float32 kernels
+    against a float32 world of one's, reported; each pair's parameters bit
+    for bit the epoch with each batch's two rank blocks summed on one card,
+    ``two_block_epoch_for``, run in (a)), the 3-config grid padded to 4 (rank 0's
     histories within rtol 1e-4 of the unsharded run's; rank 1 returns
     None) and ``train_from_raw`` over the two ranks (each its 40
     channels; losses within TOL_DP_GLOO of (a)'s), with the bytes the
@@ -3619,7 +3592,28 @@ def mesh_train_phase(dev, gpu, data, raw_host: np.ndarray) -> None:
             f"{stream_hist['loss']} == the unsharded stream's, parameters bit for bit, val_loss "
             f"{stream_hist['val_loss']} (unsharded {a_runs['unsharded'][1]['val_loss']}); "
             f"s/epoch mesh {a_secs['mesh']} against unsharded {a_secs['unsharded']} (this run)")
-        del a_runs, store
+        # (b)'s float32 epoch is held to a float32 world of one's
+        t0 = time.perf_counter()
+        (st32, h32), tl = counted(TS.fit_streaming, state(), store, plan, tc, epochs=1,
+                                  chunk_tiles=STREAM_CHUNK, mesh=mesh,
+                                  epoch_fn=dp_kernel_epoch_for(FLAGSHIP, tc, mesh,
+                                                               dtype=torch.float32))
+        check(tl.get(TK.TRAIN_LOSS, 0) == nb, f"phase 20 (a) float32 stream: "
+              f"{tl.get(TK.TRAIN_LOSS, 0)} steps")
+        add_sweep_launches(tl, 2, serving=False, phase="20")
+        stream32 = (h32["loss"], {k: v.cpu().numpy() for k, v in st32.model.state_dict().items()})
+        log(f"[{gpu}] phase 20 (a) fit_streaming on the float32 K5 kernels, NCCL world of one, "
+            f"1 epoch: loss {h32['loss']}, {time.perf_counter() - t0:.2f} s")
+        # and each dtype's two-rank epoch emulated on this card (two_block_epoch_for)
+        two_block = {}
+        for dt in (torch.bfloat16, torch.float32):
+            (st2, h2), tl = counted(TS.fit_streaming, state(), store, plan, tc, epochs=1,
+                                    chunk_tiles=STREAM_CHUNK,
+                                    epoch_fn=two_block_epoch_for(FLAGSHIP, dt))
+            add_sweep_launches(tl, 2, serving=False, phase="20")
+            two_block[dt] = (h2["loss"], {k: v.cpu().numpy()
+                                          for k, v in st2.model.state_dict().items()})
+        del a_runs, store, st32, st2
         log(f"phase 20 (a) streamed: {time.perf_counter() - t_phase:.1f} s")
 
         ser, ser_s = {}, {}
@@ -3734,22 +3728,45 @@ def mesh_train_phase(dev, gpu, data, raw_host: np.ndarray) -> None:
             else:
                 add_sweep_launches({kern: n_k}, 2, serving=False, phase=f"20 (b) {tag}")
 
-    (h0, p0, secs, la0), (h1, p1, _, la1) = r0["stream"], r1["stream"]
-    check(h0["loss"] == h1["loss"] and all(np.array_equal(p0[k], p1[k]) for k in p0),
-          "phase 20 (b) streamed: the ranks differ")
-    rel = abs(h0["loss"][0] - stream_hist["loss"][0]) / stream_hist["loss"][0]
-    p_errs = {k: float(np.abs(p0[k] - v).max()) for k, v in stream_params.items()}
-    p_err = max(p_errs.values())
-    p_rel = {k: float(np.linalg.norm(p0[k] - v) / np.linalg.norm(v))
-             for k, v in stream_params.items()}
-    p_gate = max(p_rel.values())
-    log(f"phase 20 (b) streamed epoch: parameters' max |err| per tensor against (a)'s epoch 1 "
-        + ", ".join(f"{k} {e:.3g} (of max |p| {float(np.abs(stream_params[k]).max()):.3g}; "
-                    f"||err|| / ||p|| {p_rel[k]:.3g})" for k, e in p_errs.items()))
-    check(rel <= 1e-5 and p_gate <= TOL_MESH_PARAMS,
-          f"phase 20 (b) streamed loss {h0['loss']} vs {stream_hist['loss'][:1]}, parameters "
-          f"||err|| / ||p|| {p_gate:.3g}")
-    for la in (la0, la1):
+    def stream_gap(tag, got, ref_loss, ref_params, tol=None):
+        """The two ranks' streamed epoch (equal on both) against the world
+        of one's: the loss within 1e-5 relative, each parameter tensor
+        within ``tol`` of its norm where given; returns (loss gap, worst
+        tensor gap, worst max |err|)."""
+        (h_0, p_0, *_), (h_1, p_1, *_) = got
+        check(h_0["loss"] == h_1["loss"] and all(np.array_equal(p_0[k], p_1[k]) for k in p_0),
+              f"phase 20 (b) {tag}: the ranks differ")
+        rel_ = abs(h_0["loss"][0] - ref_loss) / ref_loss
+        errs = {k: float(np.abs(p_0[k] - v).max()) for k, v in ref_params.items()}
+        p_rel = {k: float(np.linalg.norm(p_0[k] - v) / np.linalg.norm(v))
+                 for k, v in ref_params.items()}
+        log(f"phase 20 (b) {tag}: loss {h_0['loss']} (world of one {ref_loss}), parameters' "
+            f"max |err| per tensor against the world of one's epoch 1 " + ", ".join(
+                f"{k} {e:.3g} (of max |p| {float(np.abs(ref_params[k]).max()):.3g}; "
+                f"||err|| / ||p|| {p_rel[k]:.3g})" for k, e in errs.items()))
+        gap = max(p_rel.values())
+        check(rel_ <= 1e-5 and (tol is None or gap <= tol), f"phase 20 (b) {tag} loss "
+              f"{h_0['loss']} vs {ref_loss}, parameters ||err|| / ||p|| {gap:.3g} (gate {tol})")
+        return rel_, gap, max(errs.values())
+
+    h0, secs, la0, la1 = r0["stream"][0], r0["stream"][2], r0["stream"][3], r1["stream"][3]
+    for key, dt in (("stream", torch.bfloat16), ("stream32", torch.float32)):
+        (h_0, p_0, *_), (loss2, p2) = r0[key], two_block[dt]
+        diff = [k for k in p2 if not np.array_equal(p_0[k], p2[k])]
+        emu = {k: float(np.linalg.norm(p2[k] - v) / np.linalg.norm(v))
+               for k, v in (stream_params if key == "stream" else stream32[1]).items()}
+        log(f"phase 20 (b) {dt}: the pair against the two-block epoch on one card: loss "
+            f"{h_0['loss']} vs {loss2}, tensors differing {diff}; the two-block epoch against "
+            f"the world of one, ||err|| / ||p|| per tensor "
+            + ", ".join(f"{k} {v:.3g}" for k, v in emu.items()))
+        check(h_0["loss"] == loss2 and not diff,
+              f"phase 20 (b) {dt}: the gloo pair is not the two-block epoch bit for bit")
+    rel, p_gate, p_err = stream_gap("streamed epoch, bf16 kernels", (r0["stream"], r1["stream"]),
+                                    stream_hist["loss"][0], stream_params, TOL_MESH_PARAMS)
+    rel32, p_gate32, p_err32 = stream_gap("streamed epoch, float32 kernels",
+                                          (r0["stream32"], r1["stream32"]), stream32[0][0],
+                                          stream32[1])
+    for la in (la0, la1, r0["stream32"][2], r1["stream32"][2]):
         count(la, "streamed")
     log(f"phase 20 (b): ranks' seconds {r0['secs']} / {r1['secs']}")
     (env0, env_t0), (env1, env_t1) = r0["sweep"], r1["sweep"]
@@ -3772,7 +3789,10 @@ def mesh_train_phase(dev, gpu, data, raw_host: np.ndarray) -> None:
         f"streamed fit, K5, "
         f"1 epoch, loss {h0['loss']} (world of one {stream_hist['loss'][:1]}; relative "
         f"{rel:.3g}, gate 1e-5), parameters ||err|| / ||p|| at most {p_gate:.3g} a tensor "
-        f"(gate {TOL_MESH_PARAMS:g}; max |err| {p_err:.3g}), "
+        f"(gate {TOL_MESH_PARAMS:g}; max |err| {p_err:.3g}); on the float32 kernels against a "
+        f"float32 world of one, loss relative {rel32:.3g}, parameters ||err|| / ||p|| at most "
+        f"{p_gate32:.3g} a tensor (max |err| {p_err32:.3g}); both pairs bit for bit the "
+        f"two-block epoch on one card, "
         f"s/epoch {secs}; the envelope's grid padded to 4, "
         f"2 configs a rank: rank 0's histories within {env_rel:.3g} relative of the unsharded "
         f"run (gate 1e-4), rank 1 None, {env_t0:.2f} / {env_t1:.2f} s; train_from_raw, "
@@ -3797,6 +3817,145 @@ def mesh_train_phase(dev, gpu, data, raw_host: np.ndarray) -> None:
                 check(str(e) == want, f"phase 20 (c): exit {e!r}, expected {want!r}")
     log(f"phase 20 (c): train-raw and sweep --devices {ask} exit: {want}")
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+# phase 21: the headline benchmark through the CLI
+HEADLINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "train_s_per_epoch", "train_tiles_per_sec",
+    "train_s_per_epoch_f32", "train_s_per_epoch_bf16", "train_s_per_epoch_kernel",
+    "train3_s_per_epoch_f32", "train3_s_per_epoch_kernel", "svd_specs_per_sec",
+    "svd_compute_specs_per_sec", "serve3_ms_per_shot", "longshot4s_ms",
+    "stream_host_tiles_per_sec", "stream_host_gbps")  # the JAX headline's, in its order
+HEADLINE_GATES = ("# spectrogram SSIM vs CPU reference: ",
+                  "# enhanced-output SSIM vs f32 service: ",
+                  "# SVD denoise SSIM vs numpy reference: ",
+                  "# SVD compute_signal SSIM vs numpy reference: ")
+
+
+def headline_phase(dev, gpu) -> None:
+    """Phase 21: ``python -m specenh_torch.cli bench`` in process (the
+    parser, the dispatch and ``bench.headline.main`` on the card), its
+    stdout and stderr captured: one JSON line with the JAX headline's 17
+    keys in order, each number finite and > 0, the four gates' lines,
+    ``value`` and ``vs_baseline`` from ``measure_card``'s spectrograms/s
+    and the cached baseline; the launches of each measure, counted by
+    wrapping the module's functions (and each training kernel epoch by its
+    depth): the flagship service's 1 + 3 + 20 bf16 calls and 1 float32
+    call, deep3's 26, the long shot's 50 (its STFT is the matmul front),
+    the K5 and K7 epochs' steps, every K5 and K7 entry point, nothing else.
+    Prints the line after ``headline:``; the kernels line counts these
+    launches."""
+    from specenh_torch import cli as TCLI
+
+    t_phase = time.perf_counter()
+    per, results = {}, {}
+
+    def launched():
+        return {kern: kern.launches for kern in _build.KERNELS}
+
+    def tally(key, before):
+        now = launched()
+        acc = per.setdefault(key, {})
+        for kern, n in now.items():
+            if n > before[kern]:
+                acc[kern] = acc.get(kern, 0) + n - before[kern]
+
+    def wrapped(name, fn):
+        def call(*a, **kw):
+            before = launched()
+            results[name] = out = fn(*a, **kw)
+            tally(name, before)
+            return out
+        return call
+
+    def kernel_epoch_for(cfg, tc, *a, **kw):
+        epoch = saved["kernel_epoch_for"](cfg, tc, *a, **kw)
+
+        def counted_epoch(*args):
+            before = launched()
+            out = epoch(*args)
+            tally(f"train depth {cfg.depth}", before)
+            return out
+        return counted_epoch
+
+    names = ("measure_card", "measure_train", "measure_svd", "measure_deep3_serving",
+             "measure_longshot", "measure_stream_host")
+    saved = {n: getattr(HL, n) for n in (*names, "kernel_epoch_for")}
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        for n in names:
+            setattr(HL, n, wrapped(n, saved[n]))
+        HL.kernel_epoch_for = kernel_epoch_for
+        for kern in _build.KERNELS:
+            kern.launches = 0
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            TCLI.main(["bench"])
+        torch.cuda.synchronize()
+        total = {kern: kern.launches for kern in _build.KERNELS if kern.launches}
+    finally:
+        for n, f in saved.items():
+            setattr(HL, n, f)
+        for ln in err.getvalue().splitlines():
+            log(f"phase 21 stderr: {ln}")
+    wall = time.perf_counter() - t_phase
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 1, f"phase 21: cli bench printed {len(lines)} lines: {lines}")
+    rec = json.loads(lines[0])
+    check(tuple(rec) == HEADLINE_KEYS, f"phase 21: keys {list(rec)}")
+    nums = {k: v for k, v in rec.items() if k not in ("metric", "unit")}
+    check(all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0 for v in nums.values()),
+          f"phase 21: a value is not finite and > 0: {nums}")
+    for g in HEADLINE_GATES:
+        check(g in err.getvalue(), f"phase 21: no gate line {g!r}")
+    with open(HL.BASELINE_CACHE) as fh:
+        cpu = json.load(fh)["spectrograms_per_sec_cpu"]
+    card = results["measure_card"]
+    check(rec["value"] == round(card, 2) and rec["vs_baseline"] == round(card / cpu, 2),
+          f"phase 21: value {rec['value']}, vs_baseline {rec['vs_baseline']} from "
+          f"{card} spectrograms/s and the cached {cpu}")
+
+    # the launches: each measure's, all of them attributed
+    nb = -(-7200 // BATCH)
+
+    def stages(calls, depth):
+        return {AK.TILE_IN: calls, AK.CONV_POOL: calls * (depth - 1), AK.CONVT: calls * depth,
+                AK.TILE_OUT: calls}
+
+    want = {"measure_card": {SF.STFT_KERNEL: 25, **stages(25, 2)},
+            "measure_deep3_serving": {SF.STFT_KERNEL: 26, **stages(26, 3)},
+            "measure_longshot": stages(50, 2)}
+    for key, w in want.items():
+        check(per.get(key) == w, f"phase 21 {key}: launches "
+              f"{ {k.symbol: v for k, v in per.get(key, {}).items()} }, expected "
+              f"{ {k.symbol: v for k, v in w.items()} }")
+    for depth, epochs in ((2, 6), (3, 4)):
+        tl = per.get(f"train depth {depth}", {})
+        kerns = set(TK.TRAIN_KERNELS if depth == 2 else TRAIN3_KERNELS) - set(K5B_KERNELS)
+        check(set(tl) == kerns | {AK.CONVT} and tl[TK.TRAIN_LOSS] == epochs * nb
+              and tl[TK.TRAIN_SUM] == epochs * nb,
+              f"phase 21 training depth {depth}: {[(k.symbol, v) for k, v in tl.items()]}")
+    for key in ("measure_svd", "measure_stream_host"):
+        check(not per.get(key), f"phase 21 {key} launched {per.get(key)}")
+    check(per["measure_train"] == {k: per["train depth 2"].get(k, 0)
+                                   + per["train depth 3"].get(k, 0)
+                                   for k in per["measure_train"]},
+          "phase 21: measure_train launched outside its kernel epochs")
+    attributed = {}
+    for key in ("measure_card", "measure_deep3_serving", "measure_longshot", "measure_train"):
+        for kern, n in per[key].items():
+            attributed[kern] = attributed.get(kern, 0) + n
+    check(attributed == total, "phase 21: launches outside the measures")
+
+    for key, depth in (("measure_card", 2), ("measure_deep3_serving", 3),
+                       ("measure_longshot", 2)):
+        tl = dict(per[key])
+        row(SF.STFT_KERNEL, "K1")["launches"] += tl.pop(SF.STFT_KERNEL, 0)
+        add_sweep_launches(tl, depth, serving=True, phase="21")
+    for depth in (2, 3):
+        add_sweep_launches(per[f"train depth {depth}"], depth, serving=False, phase="21")
+    log(f"[{gpu}] phase 21 cli bench: 17 keys, the four gates passed, {wall:.1f} s; launches "
+        + "; ".join(f"{key}: " + ", ".join(f"{k.symbol}={v}" for k, v in tl.items())
+                    for key, tl in per.items() if tl))
+    log("headline: " + lines[0])
 
 
 def main() -> int:
@@ -3932,6 +4091,9 @@ def main() -> int:
         analyses_phase(dev, gpu, work)
         serve_phase(dev, gpu, work, secs)
     mesh_phase(dev, gpu)
+    lap("phases 15, 16, 19")
+    headline_phase(dev, gpu)
+    lap("phase 21")
 
     out = []
     for (kern, kid), r in ROWS.items():

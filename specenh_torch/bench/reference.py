@@ -35,19 +35,21 @@ __all__ = ["spectrogram_ref", "rescale_ref", "quantfilt_ref", "gaussblr_ref",
            "HAS_CV2"]
 
 
-def spectrogram_ref(sig: np.ndarray, sp: SpecParams) -> np.ndarray:
+def spectrogram_ref(sig: np.ndarray, sp: SpecParams
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The reference ``specgr`` for one channel (pipeline_data.py:31-36):
     SciPy's spectrogram, log(+eps), min-max over all freqs, then the
-    Nyquist row dropped: (256, n_frames)."""
+    Nyquist row dropped.  Returns (spec (256, n_frames), f (256,),
+    t (n_frames,)), as the JAX package's does."""
     sig = np.asarray(sig)[: sp.n_samples]
-    _, _, sxx = scipy.signal.spectrogram(
+    f, t, sxx = scipy.signal.spectrogram(
         sig, nperseg=sp.nperseg, noverlap=sp.noverlap, fs=sp.fs,
         window=sp.window, scaling=sp.scaling,
         detrend=sp.detrend if sp.detrend != "none" else False,
     )
     sxx = np.log(sxx + sp.eps)
     sxx = (sxx - sxx.min()) / (sxx.max() - sxx.min())
-    return sxx[:-1, :]
+    return sxx[:-1, :], f[:-1], t
 
 
 def rescale_ref(x: np.ndarray) -> np.ndarray:
@@ -185,7 +187,7 @@ def time_reference_pipeline(
     for _ in range(repeats):
         for sig in np.atleast_2d(signals):
             t0 = time.perf_counter()
-            s = spectrogram_ref(sig, sp)
+            s, _, _ = spectrogram_ref(sig, sp)
             pipeline_ref(s, cfg)
             times.append(time.perf_counter() - t0)
     arr = np.asarray(times)

@@ -12,6 +12,7 @@ the reference's scripts as subcommands.
     python -m specenh_torch.cli train-raw --data-dir RAW --out-dir OUT \\
         [--binary] [--engine f32|bf16|kernel] [--model scan_k3] [--device cuda] \\
         [--devices N]
+    python -m specenh_torch.cli bench [--trace-dir DIR]
 
 ``build-data``   <- spec_denoising/pipeline_data.py (raw shots -> HDF5 store)
 ``merge-shards`` -- fold a writer pool's shard files into one store
@@ -26,6 +27,7 @@ the reference's scripts as subcommands.
 ``denoise``      <- denoising_by_svd.ipynb (SVD denoise one channel of a store)
 ``crosspower``   <- interferometer/crosspowerspec.py
 ``movie``        <- graphs.ipynb cells 18-19 (frame dump + mp4)
+``bench``        -- the headline benchmark on the card (``bench.headline``)
 ``synth-shots``  -- synthetic raw campaign generator (ECE pickles)
 ``convert-bin``  -- pickle shots -> SPEC binaries (``--binary`` input)
 
@@ -40,8 +42,8 @@ uploads its block of every streamed batch), ``train-raw`` computes each
 rank's block of the channels and trains data-parallel, ``sweep`` trains
 each config data-parallel (``--engine kernel``, or streamed) or shards
 the envelope's configs, and ``serve`` shards each shot's channels (rank 0
-reads, persists and prints the totals).  The JAX CLI's ``bench`` is not
-ported yet.  A model directory is the port's own
+reads, persists and prints the totals).  ``bench`` runs on the card only.
+A model directory is the port's own
 (``train.save_model``: ``params.pt`` and ``model_config.json``), not the
 JAX package's.
 """
@@ -58,9 +60,9 @@ import numpy as np
 
 from specenh_torch.config import MODEL_PRESETS, Config, ModelConfig, SweepConfig, TrainConfig
 
-__all__ = ["build_parser", "cmd_build_data", "cmd_convert_bin", "cmd_crosspower", "cmd_denoise",
-           "cmd_import_keras", "cmd_merge_shards", "cmd_movie", "cmd_serve", "cmd_sweep",
-           "cmd_synth_shots", "cmd_train", "cmd_train_raw", "main"]
+__all__ = ["build_parser", "cmd_bench", "cmd_build_data", "cmd_convert_bin", "cmd_crosspower",
+           "cmd_denoise", "cmd_import_keras", "cmd_merge_shards", "cmd_movie", "cmd_serve",
+           "cmd_sweep", "cmd_synth_shots", "cmd_train", "cmd_train_raw", "main"]
 
 
 def _cfg_from_args(args) -> Config:
@@ -866,6 +868,13 @@ def _join_mesh(args, device, env, axis: str = "data"):
         raise SystemExit(f"--devices {n}: {e}") from e
 
 
+def cmd_bench(args):
+    """The headline benchmark (``bench.headline.main``): one JSON line."""
+    from specenh_torch.bench.headline import main as bench_main
+
+    bench_main(trace_dir=args.trace_dir)
+
+
 def cmd_serve(args):
     """Watch a directory of SPEC .bin shots; enhance and persist each.
     ``--devices N`` (N > 1) shards each shot's channels over N ranks:
@@ -1190,6 +1199,11 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--device", default="cuda",
                     help="the torch device the transform runs on (default cuda)")
     cp.set_defaults(fn=cmd_crosspower)
+
+    be = sub.add_parser("bench", help="spectrograms/sec/card benchmark")
+    be.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler trace of the measured region")
+    be.set_defaults(fn=cmd_bench)
 
     sv = sub.add_parser("serve", help="watch-dir enhancement service")
     sv.add_argument("--watch-dir", required=True)

@@ -10,7 +10,8 @@ plans and reads, tile-cache lookup, plots,
 frame movie, metrics and metrics logger equal the originals; the
 watch-directory service and the multi-rank trainers (on a gloo world of
 one) run with none of jax, flax, ``specenh``, h5py or matplotlib loaded;
-the native reader builds outside ``native/``;
+the native reader builds outside ``native/``; the headline benchmark and
+``cli bench`` load with none of jax, flax, ``specenh`` or h5py;
 ``chip_smoke.py`` fails where there is no GPU; the kernel wrappers check
 their inputs before either path."""
 
@@ -76,7 +77,7 @@ def test_port_serves_without_jax():
         specs, enhanced = fn(model, shot)
         assert enhanced.shape == (2, 256, 128), enhanced.shape
         assert torch.isfinite(enhanced).all()
-        assert ssim(specs[0].numpy(), spectrogram_ref(shot[0], sp)) > 0.99
+        assert ssim(specs[0].numpy(), spectrogram_ref(shot[0], sp)[0]) > 0.99
         loaded = [m for m, v in sys.modules.items() if v is not None]
         assert not [m for m in loaded if m.split(".")[0] in ("jax", "flax", "h5py", "specenh")]
         print("served")
@@ -182,10 +183,20 @@ def test_config_copy_equals_jax_config(name):
 
 
 def test_reference_copies_equal_jax_references():
-    """spectrogram_ref and ssim give exactly the JAX package's numbers."""
+    """spectrogram_ref (the JAX package's function: its spectrogram, f and
+    t) and ssim give exactly the JAX package's numbers."""
+    import inspect
+
+    port = textwrap.dedent(inspect.getsource(spectrogram_ref))
+    orig = textwrap.dedent(inspect.getsource(jspectrogram_ref))
+    assert _ast_without_docstrings(port, True) == _ast_without_docstrings(orig, False)
     sp = SpecParams(cut_shot=0.05)
     sig = np.random.default_rng(3).standard_normal(sp.n_samples + 11).astype(np.float32)
-    np.testing.assert_array_equal(spectrogram_ref(sig, sp), jspectrogram_ref(sig, sp)[0])
+    got, want = spectrogram_ref(sig, sp), jspectrogram_ref(sig, sp)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
     rng = np.random.default_rng(4)
     a, b = rng.random((40, 30)), rng.random((40, 30))
     assert ssim(a, b) == jssim(a, b)
@@ -332,6 +343,30 @@ def test_streamed_training_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "streamed" in res.stdout
+
+
+def test_headline_and_cli_bench_load_without_jax():
+    """``bench.headline`` imports, and ``cli bench --help`` runs, with jax,
+    flax, ``specenh`` and h5py blocked; none of them is loaded after."""
+    code = textwrap.dedent("""
+        import sys
+        blocked = ("jax", "flax", "specenh", "h5py")
+        for name in blocked:
+            sys.modules[name] = None
+        import specenh_torch.bench.headline
+        from specenh_torch import cli
+        try:
+            cli.main(["bench", "--help"])
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        loaded = [m for m, v in sys.modules.items() if v is not None]
+        assert not [m for m in loaded if m.split(".")[0] in blocked]
+        print("loaded")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "--trace-dir" in res.stdout and res.stdout.endswith("loaded\n")
 
 
 def test_mesh_trainers_run_without_jax(tmp_path):
