@@ -304,6 +304,7 @@ from specenh_torch.ops import stft_fused as SF
 from specenh_torch.ops import svd as SVD
 from specenh_torch.ops.stft import stft_psd
 from specenh_torch import probe_walls as PW
+from specenh_torch.bench import probe_split as PS
 from specenh_torch import sweep as SW
 from specenh_torch import train as TR
 from specenh_torch.pipeline import process_shot_fn
@@ -1006,7 +1007,10 @@ def run_probes(gpu):
     """Phase 12d: the three K11 probes in this process (counts set to 0
     just before, read just after), each equal to its twin, then
     ``python -m specenh_torch.probe_walls`` (a subprocess per probe) all
-    OK, then their times.  Returns the launches and the times."""
+    OK, then their times and their blocks, and for each probe and its
+    library call the split of ``bench/probe_split.py``: (a) the event
+    median of single calls, (b) the device time, (c) the rate in a burst.
+    Returns the launches and the times."""
     for kern in _build.KERNELS:
         kern.launches = 0
     for name in PW.PROBES:
@@ -1018,16 +1022,21 @@ def run_probes(gpu):
     check(all(v == "OK" for v in results.values()), f"probe_walls: {results}")
     xs = {name: torch.randn(shape, generator=torch.Generator().manual_seed(SEED)).cuda()
           for name, (_, _, shape) in PW.PROBES.items()}
-    library = {"sublane_offset1_slice": lambda x: torch.slice_copy(x, 0, 1, PW.FB + 1),
-               "in_kernel_transpose": lambda x: torch.transpose_copy(x, 0, 1),
-               "stride2_lane_slice": lambda x: torch.slice_copy(x, 1, 0, x.shape[1], 2)}
     entries = {}
-    for kern, (name, (fn, plain, _)) in zip(PROBE_KERNELS, PW.PROBES.items()):
+    for kern, (name, (fn, plain, shape)) in zip(PROBE_KERNELS, PW.PROBES.items()):
         x = xs[name]
         entries[kern] = (lambda f=fn, x=x: f(x), lambda p=plain, x=x: p(x),
-                         lambda lf=library[name], x=x: lf(x), 0.0,
+                         lambda lf=PS.LIBRARY[name], x=x: lf(x), 0.0,
                          nbytes(x) + nbytes(plain(x)))
-    return launches, time_entries(gpu, entries, torch.float32, " (launch-bound)")
+        gx, gy = PW.grid(name, shape)
+        log(f"K11 {kern.symbol}: {gx * gy} blocks ({gx} x {gy})")
+    times = time_entries(gpu, entries, torch.float32, " (launch-bound)")
+    for name, r in PS.split(PS.probe_functions(torch.device("cuda"), SEED)).items():
+        log(f"[{gpu}] K11 split, {name}: (a) {r['a_ms']:.4f} ms a call (turns "
+            f"{min(r['a_turns']):.4f}-{max(r['a_turns']):.4f}), (b) {r['b_ms']:.4f} "
+            f"device ms a call, (c) {r['c_ms']:.4f} ms a call in a burst of {PS.BURST} "
+            f"(host {r['host_ms']:.4f} ms a call)")
+    return launches, times
 
 
 def time_tile_in_norm(sp, gpu, traces, wts, model):

@@ -129,6 +129,13 @@ def conv_template_launches(name: str) -> Dict[str, int]:
     return dict(zip(CONV_TEMPLATES, out))
 
 
+def _current_stream() -> int:
+    """The handle of the current device's current CUDA stream, without
+    building a ``torch.cuda.Stream`` object, which costs the host more than
+    a launch."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 class CudaKernel:
     """One C entry point of a ``csrc`` library, with its launch count."""
 
@@ -146,7 +153,7 @@ class CudaKernel:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        err = self._fn(*args, _current_stream())
         if err != 0:
             msg = _library(self.source).specenh_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

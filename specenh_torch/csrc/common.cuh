@@ -28,3 +28,18 @@ template <typename T> __device__ __forceinline__ float sx_round(float v) {
   T t = sx_cast<T>(v);
   return sx_load(&t);
 }
+
+// 16 bytes from global to shared memory, asynchronously (cp.async.cg: L2
+// only); zeros where !full.  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for every committed group of this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}

@@ -8,24 +8,37 @@
 //                     (264, 256) float32 block (on the TPU, a sublane
 //                     offset; here a shared-memory read one row down)
 //   probe_transpose   an in-kernel transpose of a (256, 256) float32 block,
-//                     through padded shared memory (32 x 33 tiles)
+//                     through a padded shared-memory tile
 //   probe_stride2     a stride-2 slice along the fast axis: x[:, ::2] of a
-//                     (256, 512) float32 block
+//                     (256, 512) float32 block, read at stride 2 from
+//                     shared memory
 // A probe that compiles, launches and equals torch's slicing is OK.
 //
 // What bounds them on this card: each moves 0.27-0.52 MB, under a
-// microsecond at 3.35 TB/s; a launch costs more, so they are launch-bound.
-// Design: one block per 32-column strip (row slice, stride 2) or 32 x 32
-// tile (transpose), each staged whole in shared memory and written from
-// there, so the construct under probe is the shared-memory access pattern.
+// microsecond at 3.35 TB/s; a launch costs more, so they are launch-bound:
+// the time is the host's path to the launch and one round trip to memory.
+// Design: the row slice stages one 32-column strip a block.  The transpose
+// and the stride-2 slice spread over the card (256 blocks of 64 threads
+// for the probes' shapes, against 132 SMs), stage their input with 16-byte
+// cp.async copies (a warp's copies one run of contiguous bytes), and write
+// 16-byte float4s; their entries call the CUDA runtime only to launch and to
+// read the launch's error (static shared memory only).  probe_walls.py
+// mirrors the geometry (grid()).
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int S = 32;       // strip width / tile side
+constexpr int S = 32;       // the row slice's strip width
 constexpr int ROWS = 264;   // the row-slice probe's input rows (FB + 8)
-constexpr int OUT = 256;    // output rows / side
+constexpr int OUT = 256;    // its output rows
+constexpr int NT = 64;      // threads of a transpose or stride-2 block
+constexpr int T = 16;       // the transpose's tile side
+constexpr int TP = T + 4;   // its padded row: 16-byte rows for cp.async
+constexpr int S2_BAND = 4;  // the stride-2 slice's output rows a block
+constexpr int S2_W = 64;    // its output columns a block (128 input columns)
 
 // x (ROWS, ld) -> out (OUT, ld) = x[1 : OUT + 1]; block = one 32-column strip.
 __global__ void __launch_bounds__(256) row_slice_kernel(
@@ -39,29 +52,49 @@ __global__ void __launch_bounds__(256) row_slice_kernel(
     out[(long long)(e / S) * ld + c0 + e % S] = s[e / S + 1][e % S];
 }
 
-// x (n, n) -> out = x^T; block = one 32 x 32 tile, 32 x 8 threads.
-__global__ void __launch_bounds__(256) transpose_kernel(
+// x (n, n) -> out = x^T; block = one 16 x 16 tile, 64 threads.  Thread t
+// copies 16 bytes of tile row t / 4, then writes out row c = t % 16 at
+// columns 4 q .. 4 q + 3 (q = t / 16) from tile column c: with rows of 20
+// floats, a warp's column reads (c 0-15, q 0-1) fall in 32 distinct banks.
+__global__ void __launch_bounds__(NT) transpose_kernel(
     const float* __restrict__ x, float* __restrict__ out, int n) {
-  __shared__ float s[S][S + 1];  // +1: conflict-free column reads
-  const int r0 = blockIdx.y * S, c0 = blockIdx.x * S;
-  for (int r = threadIdx.y; r < S; r += blockDim.y)
-    s[r][threadIdx.x] = x[(long long)(r0 + r) * n + c0 + threadIdx.x];
+  __shared__ __align__(16) float s[T][TP];
+  const int r0 = blockIdx.y * T, c0 = blockIdx.x * T, t = threadIdx.x;
+  cp_async16(&s[t / 4][4 * (t % 4)], x + (long long)(r0 + t / 4) * n + c0 + 4 * (t % 4));
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  for (int r = threadIdx.y; r < S; r += blockDim.y)
-    out[(long long)(c0 + r) * n + r0 + threadIdx.x] = s[threadIdx.x][r];
+  const int c = t % T, q = t / T;
+  const float4 v = make_float4(s[4 * q][c], s[4 * q + 1][c], s[4 * q + 2][c], s[4 * q + 3][c]);
+  *reinterpret_cast<float4*>(out + (long long)(c0 + c) * n + r0 + 4 * q) = v;
 }
 
-// x (rows, 2 * w) -> out (rows, w) = x[:, ::2]; block = 32 output columns
-// (64 input columns) of every row.
-__global__ void __launch_bounds__(256) stride2_kernel(
-    const float* __restrict__ x, float* __restrict__ out, int rows, int w) {
-  extern __shared__ float s[];  // (rows, 2 * S)
-  const int c0 = blockIdx.x * S;
-  for (int e = threadIdx.x; e < rows * 2 * S; e += blockDim.x)
-    s[e] = x[(long long)(e / (2 * S)) * 2 * w + 2 * c0 + e % (2 * S)];
+// x (rows, 2 * w) -> out (rows, w) = x[:, ::2]; block = a band of 4 rows
+// by 64 output columns (128 input columns, 512 bytes a row: one warp's
+// copies).  Thread t writes output row t / 16 at columns 4 g .. 4 g + 3
+// (g = t % 16): the .x of the staged row's float2s 4 g .. 4 g + 3.
+__global__ void __launch_bounds__(NT) stride2_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int w) {
+  __shared__ __align__(16) float s[S2_BAND][2 * S2_W];
+  const int r0 = blockIdx.y * S2_BAND, c0 = blockIdx.x * S2_W;
+  const float* src = x + (long long)r0 * 2 * w + 2 * c0;
+#pragma unroll
+  for (int j = 0; j < S2_BAND * 2 * S2_W / 4 / NT; ++j) {
+    const int e = threadIdx.x + j * NT, r = e / (2 * S2_W / 4), q = e % (2 * S2_W / 4);
+    cp_async16(&s[r][4 * q], src + (long long)r * 2 * w + 4 * q);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  for (int e = threadIdx.x; e < rows * S; e += blockDim.x)
-    out[(long long)(e / S) * w + c0 + e % S] = s[(e / S) * 2 * S + 2 * (e % S)];
+  const int r = threadIdx.x / (S2_W / 4), g = threadIdx.x % (S2_W / 4);
+  const float2* row = reinterpret_cast<const float2*>(s[r]);
+  const float4 v = make_float4(row[4 * g].x, row[4 * g + 1].x, row[4 * g + 2].x,
+                               row[4 * g + 3].x);
+  *reinterpret_cast<float4*>(out + (long long)(r0 + r) * w + c0 + 4 * g) = v;
+}
+
+bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
 }
 
 }  // namespace
@@ -75,26 +108,23 @@ extern "C" int probe_row_slice(const float* x, float* out, int ld,
   return cudaGetLastError();
 }
 
-// x, out: (n, n) float32, n a multiple of 32.
+// x, out: (n, n) float32, n a multiple of 16, both 16-byte aligned.
 extern "C" int probe_transpose(const float* x, float* out, int n,
                                void* stream) {
-  if (n < S || n % S) return cudaErrorInvalidValue;
-  transpose_kernel<<<dim3(n / S, n / S), dim3(S, 8), 0,
-                     static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  if (n < T || n % T || n / T > 65535 || !aligned16(x, out)) return cudaErrorInvalidValue;
+  transpose_kernel<<<dim3(n / T, n / T), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, n);
   return cudaGetLastError();
 }
 
-// x: (rows, 2 * w) float32, out: (rows, w), w a multiple of 32; the block
-// stages rows x 64 floats (64 KB at rows = 256) in dynamic shared memory.
+// x: (rows, 2 * w) float32, out: (rows, w), w a multiple of 64, rows of 4,
+// both 16-byte aligned.
 extern "C" int probe_stride2(const float* x, float* out, int rows, int w,
                              void* stream) {
-  const size_t smem = sizeof(float) * rows * 2 * S;
-  if (w < S || w % S || rows < 1 || smem > 227 * 1024)
+  if (w < S2_W || w % S2_W || rows < S2_BAND || rows % S2_BAND ||
+      rows / S2_BAND > 65535 || !aligned16(x, out))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stride2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  stride2_kernel<<<w / S, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, out, rows, w);
+  stride2_kernel<<<dim3(w / S2_W, rows / S2_BAND), NT, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, out, w);
   return cudaGetLastError();
 }

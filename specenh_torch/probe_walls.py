@@ -32,7 +32,7 @@ import torch
 
 from specenh_torch._build import CudaKernel, build
 
-__all__ = ["PROBES", "row_slice", "transpose", "stride2", "row_slice_plain",
+__all__ = ["PROBES", "grid", "row_slice", "transpose", "stride2", "row_slice_plain",
            "transpose_plain", "stride2_plain", "run_probe", "main"]
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -42,11 +42,40 @@ STRIDE2 = CudaKernel("probes", "probe_stride2", [_p, _p, _i, _i])
 
 FB = 256  # the STFT block's rows; the row-slice probe's input has FB + 8
 
+# the launch geometry of csrc/probes.cu (its constants of the same meaning)
+STRIP = 32                  # the row slice: output columns a block
+THREADS = 64                # a transpose or stride-2 block's threads
+TILE = 16                   # the transpose: a block's tile side
+S2_BAND, S2_W = 4, 64       # the stride-2 slice: output rows x columns a block
+
 
 def _check(x: torch.Tensor, shape: Tuple[int, int]) -> None:
-    if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
+    if x.dtype != torch.float32 or x.shape != shape or not x.is_contiguous():
         raise ValueError(f"expected a contiguous float32 {shape}, got {x.dtype} "
                          f"{tuple(x.shape)}")
+
+
+def grid(name: str, shape: Tuple[int, int]) -> Tuple[int, int]:
+    """(blocks along the output's columns, blocks along its rows) of the
+    probe ``name``'s launch for an input of ``shape``, as its C entry in
+    ``csrc/probes.cu`` computes them; ValueError for a shape the entry
+    refuses."""
+    rows, cols = shape
+    if name == "sublane_offset1_slice":
+        if rows != FB + 8 or cols < STRIP or cols % STRIP:
+            raise ValueError(f"row slice: shape {shape}")
+        return cols // STRIP, 1
+    if name == "in_kernel_transpose":
+        if rows != cols or rows < TILE or rows % TILE or rows // TILE > 65535:
+            raise ValueError(f"transpose: shape {shape}")
+        return rows // TILE, rows // TILE
+    if name == "stride2_lane_slice":
+        w = cols // 2
+        if (cols % 2 or w < S2_W or w % S2_W or rows < S2_BAND or rows % S2_BAND
+                or rows // S2_BAND > 65535):
+            raise ValueError(f"stride 2: shape {shape}")
+        return w // S2_W, rows // S2_BAND
+    raise KeyError(name)
 
 
 def row_slice_plain(x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +102,7 @@ def row_slice(x: torch.Tensor) -> torch.Tensor:
 
 
 def transpose(x: torch.Tensor) -> torch.Tensor:
-    """(256, 256) float32 -> x.T, through padded shared memory."""
+    """(256, 256) float32 -> x.T, through a padded shared-memory tile."""
     _check(x, (256, 256))
     if not x.is_cuda:
         return transpose_plain(x)
@@ -88,7 +117,7 @@ def stride2(x: torch.Tensor) -> torch.Tensor:
     _check(x, (256, 512))
     if not x.is_cuda:
         return stride2_plain(x)
-    out = torch.empty(x.shape[0], x.shape[1] // 2, dtype=x.dtype, device=x.device)
+    out = x.new_empty(x.shape[0], x.shape[1] // 2)
     STRIDE2(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1] // 2)
     return out
 

@@ -378,6 +378,44 @@ def test_probe_matches_twin(cuda, name):
     assert kern.launches == before + 1
 
 
+@pytest.mark.parametrize("name", ["in_kernel_transpose", "stride2_lane_slice"])
+def test_redesigned_probe_one_launch_bit_for_bit(cuda, name):
+    """The transpose and the stride-2 slice (256 blocks each): one launch a
+    call, equal to the twin bit for bit, on two seeds."""
+    fn, plain, shape = probe_walls.PROBES[name]
+    kern = {"in_kernel_transpose": probe_walls.TRANSPOSE,
+            "stride2_lane_slice": probe_walls.STRIDE2}[name]
+    for seed in (1, 2):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(cuda)
+        before = kern.launches
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert torch.equal(got, plain(x))
+
+
+@pytest.mark.parametrize("name", ["in_kernel_transpose", "stride2_lane_slice"])
+def test_probe_entry_refuses_what_it_does_not_take(cuda, name):
+    """A size off the kernel's blocks, or a pointer off 16 bytes, sent to
+    the C entry: ``cudaErrorInvalidValue``, raised by the wrapper as
+    RuntimeError, and no launch counted."""
+    x = torch.zeros(256, 512, device=cuda)
+    out = torch.empty(256, 512, device=cuda)
+    if name == "in_kernel_transpose":
+        kern, calls = probe_walls.TRANSPOSE, [(x.data_ptr(), out.data_ptr(), 100),
+                                              (x.data_ptr() + 4, out.data_ptr(), 256)]
+    else:
+        kern, calls = probe_walls.STRIDE2, [(x.data_ptr(), out.data_ptr(), 256, 100),
+                                            (x.data_ptr(), out.data_ptr(), 254, 256),
+                                            (x.data_ptr(), out.data_ptr() + 8, 256, 256)]
+    before = kern.launches
+    for args in calls:
+        with pytest.raises(RuntimeError):
+            kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before
+
+
 # every layer kind of the weight gradient, Cin / Cout in {1, 16, 32, 48, 64},
 # K in {3, 5, 7}
 WGRAD_GEOMETRIES = [

@@ -49,6 +49,90 @@ def test_wrapper_checks_its_input(name):
         fn(torch.zeros(shape, dtype=torch.float64))
 
 
+def _emulate(name, x):
+    """The probe's kernel as ``csrc/probes.cu`` splits it, block by block
+    over ``pw.grid`` and thread by thread: what each thread stages in
+    shared memory and which output elements it writes from there.
+    Returns the output and how many times each element was written."""
+    rows, cols = x.shape
+    gx, gy = pw.grid(name, x.shape)
+    t = np.arange(pw.THREADS)
+    if name == "sublane_offset1_slice":
+        out, count = np.zeros((pw.FB, cols), x.dtype), np.zeros((pw.FB, cols), int)
+        for bx in range(gx):
+            c0 = bx * pw.STRIP
+            s = x[:, c0:c0 + pw.STRIP]                               # every row of the strip
+            out[:, c0:c0 + pw.STRIP] = s[1:pw.FB + 1]
+            count[:, c0:c0 + pw.STRIP] += 1
+        return out, count
+    if name == "in_kernel_transpose":
+        n, tile = rows, pw.TILE
+        out, count = np.zeros((n, n), x.dtype), np.zeros((n, n), int)
+        for by in range(gy):
+            for bx in range(gx):
+                r0, c0 = by * tile, bx * tile
+                s = np.full((tile, tile + 4), np.nan, x.dtype)       # the padded tile
+                for k in range(4):                                   # one 16-byte copy a thread
+                    s[t // 4, 4 * (t % 4) + k] = x[r0 + t // 4, c0 + 4 * (t % 4) + k]
+                c, q = t % tile, t // tile
+                for k in range(4):                                   # one float4 a thread
+                    out[c0 + c, r0 + 4 * q + k] = s[4 * q + k, c]
+                    np.add.at(count, (c0 + c, r0 + 4 * q + k), 1)
+        return out, count
+    w = cols // 2
+    out, count = np.zeros((rows, w), x.dtype), np.zeros((rows, w), int)
+    for by in range(gy):
+        for bx in range(gx):
+            r0, c0 = by * pw.S2_BAND, bx * pw.S2_W
+            s = np.full((pw.S2_BAND, 2 * pw.S2_W), np.nan, x.dtype)
+            for j in range(pw.S2_BAND * 2 * pw.S2_W // 4 // pw.THREADS):
+                e = t + j * pw.THREADS
+                r, q = e // (pw.S2_W // 2), e % (pw.S2_W // 2)
+                for k in range(4):
+                    s[r, 4 * q + k] = x[r0 + r, 2 * c0 + 4 * q + k]
+            r, g = t // (pw.S2_W // 4), t % (pw.S2_W // 4)
+            pairs = s.reshape(pw.S2_BAND, pw.S2_W, 2)                # the row's float2s
+            for i in range(4):
+                out[r0 + r, c0 + 4 * g + i] = pairs[r, 4 * g + i, 0]  # their .x
+                np.add.at(count, (r0 + r, c0 + 4 * g + i), 1)
+    return out, count
+
+
+@pytest.mark.parametrize("name", sorted(pw.PROBES))
+def test_launch_geometry_writes_every_output_once(name):
+    """The kernels' split over blocks and threads, emulated: every output
+    element written exactly once, with the twin's value; the transpose and
+    the stride-2 slice spread over at least the card's 132 SMs."""
+    shape = pw.PROBES[name][2]
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    out, count = _emulate(name, x)
+    assert (count == 1).all()
+    np.testing.assert_array_equal(out, NUMPY[name](x))
+    gx, gy = pw.grid(name, shape)
+    assert name == "sublane_offset1_slice" or gx * gy >= 132
+
+
+@pytest.mark.parametrize("name, shape", [
+    ("sublane_offset1_slice", (264, 200)), ("sublane_offset1_slice", (263, 256)),
+    ("in_kernel_transpose", (256, 128)), ("in_kernel_transpose", (200, 200)),
+    ("in_kernel_transpose", (8, 8)), ("stride2_lane_slice", (256, 500)),
+    ("stride2_lane_slice", (254, 512)), ("stride2_lane_slice", (256, 64)),
+])
+def test_launch_geometry_refuses_what_the_entry_refuses(name, shape):
+    with pytest.raises(ValueError):
+        pw.grid(name, shape)
+
+
+def test_launch_geometry_is_the_cuda_sources():
+    """``probe_walls``' copy of the geometry equals ``csrc/probes.cu``'s."""
+    src = (_build.CSRC / "probes.cu").read_text()
+    consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["S"] == pw.STRIP and consts["NT"] == pw.THREADS
+    assert consts["T"] == pw.TILE and consts["ROWS"] == pw.FB + 8 and consts["OUT"] == pw.FB
+    assert (consts["S2_BAND"], consts["S2_W"]) == (pw.S2_BAND, pw.S2_W)
+    assert "cudaFuncSetAttribute" not in src and "extern __shared__" not in src
+
+
 def test_shapes_are_the_mosaic_probes():
     """The port's copy of the shapes equals the inputs of
     ``scripts/probe_mosaic_walls.py``'s probes, by name."""
