@@ -17,13 +17,14 @@
 // What bounds them on this card: each moves 0.27-0.52 MB, under a
 // microsecond at 3.35 TB/s; a launch costs more, so they are launch-bound:
 // the time is the host's path to the launch and one round trip to memory.
-// Design: the row slice stages one 32-column strip a block.  The transpose
-// and the stride-2 slice spread over the card (256 blocks of 64 threads
-// for the probes' shapes, against 132 SMs), stage their input with 16-byte
-// cp.async copies (a warp's copies one run of contiguous bytes), and write
-// 16-byte float4s; their entries call the CUDA runtime only to launch and to
-// read the launch's error (static shared memory only).  probe_walls.py
-// mirrors the geometry (grid()).
+// Design: each probe spreads over the card (256 blocks of 64 threads for
+// the probes' shapes, against 132 SMs), stages its input with 16-byte
+// cp.async copies (a row's copies one run of contiguous bytes), and writes
+// 16-byte float4s; the row slice stages a band of 4 rows and the halo row
+// below it, and reads each output row from the staged row below.  The
+// entries call the CUDA runtime only to launch and to read the launch's
+// error (static shared memory only).  probe_walls.py mirrors the geometry
+// (grid()).
 
 #include <stdint.h>
 
@@ -31,25 +32,36 @@
 
 namespace {
 
-constexpr int S = 32;       // the row slice's strip width
-constexpr int ROWS = 264;   // the row-slice probe's input rows (FB + 8)
-constexpr int OUT = 256;    // its output rows
-constexpr int NT = 64;      // threads of a transpose or stride-2 block
-constexpr int T = 16;       // the transpose's tile side
-constexpr int TP = T + 4;   // its padded row: 16-byte rows for cp.async
-constexpr int S2_BAND = 4;  // the stride-2 slice's output rows a block
-constexpr int S2_W = 64;    // its output columns a block (128 input columns)
+constexpr int NT = 64;       // threads of a block, every probe
+constexpr int RS_OUT = 256;  // the row slice's output rows (its input has RS_OUT + 8)
+constexpr int RS_BAND = 4;   // its output rows a block (one halo row staged below)
+constexpr int RS_W = 64;     // its columns a block (256 bytes a row)
+constexpr int T = 16;        // the transpose's tile side
+constexpr int TP = T + 4;    // its padded row: 16-byte rows for cp.async
+constexpr int S2_BAND = 4;   // the stride-2 slice's output rows a block
+constexpr int S2_W = 64;     // its output columns a block (128 input columns)
 
-// x (ROWS, ld) -> out (OUT, ld) = x[1 : OUT + 1]; block = one 32-column strip.
-__global__ void __launch_bounds__(256) row_slice_kernel(
+// x (RS_OUT + 8, ld) -> out (RS_OUT, ld) = x[1 : RS_OUT + 1]; block = a
+// band of 4 output rows by 64 columns.  It stages input rows r0 .. r0 + 4
+// (the band and the halo row below it: 80 copies of 16 bytes, 16 a row);
+// thread t then writes output row r0 + t / 16 at columns 4 g .. 4 g + 3
+// (g = t % 16) from staged row t / 16 + 1: the read one row down, a float4
+// of a 256-byte row (every 8 threads' reads one conflict-free 128 bytes).
+__global__ void __launch_bounds__(NT) row_slice_kernel(
     const float* __restrict__ x, float* __restrict__ out, int ld) {
-  __shared__ float s[ROWS][S];
-  const int c0 = blockIdx.x * S;
-  for (int e = threadIdx.x; e < ROWS * S; e += blockDim.x)
-    s[e / S][e % S] = x[(long long)(e / S) * ld + c0 + e % S];
+  __shared__ __align__(16) float s[RS_BAND + 1][RS_W];
+  const int r0 = blockIdx.y * RS_BAND, c0 = blockIdx.x * RS_W;
+  const float* src = x + (long long)r0 * ld + c0;
+  for (int e = threadIdx.x; e < (RS_BAND + 1) * RS_W / 4; e += NT) {
+    const int r = e / (RS_W / 4), q = e % (RS_W / 4);
+    cp_async16(&s[r][4 * q], src + (long long)r * ld + 4 * q);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
-  for (int e = threadIdx.x; e < OUT * S; e += blockDim.x)
-    out[(long long)(e / S) * ld + c0 + e % S] = s[e / S + 1][e % S];
+  const int r = threadIdx.x / (RS_W / 4), g = threadIdx.x % (RS_W / 4);
+  *reinterpret_cast<float4*>(out + (long long)(r0 + r) * ld + c0 + 4 * g) =
+      *reinterpret_cast<const float4*>(&s[r + 1][4 * g]);
 }
 
 // x (n, n) -> out = x^T; block = one 16 x 16 tile, 64 threads.  Thread t
@@ -99,12 +111,13 @@ bool aligned16(const void* a, const void* b) {
 
 }  // namespace
 
-// x: (264, ld) float32, out: (256, ld), ld a multiple of 32.
+// x: (RS_OUT + 8, ld) float32, out: (RS_OUT, ld), ld a multiple of 64,
+// both 16-byte aligned.
 extern "C" int probe_row_slice(const float* x, float* out, int ld,
                                void* stream) {
-  if (ld < S || ld % S) return cudaErrorInvalidValue;
-  row_slice_kernel<<<ld / S, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, ld);
+  if (ld < RS_W || ld % RS_W || !aligned16(x, out)) return cudaErrorInvalidValue;
+  row_slice_kernel<<<dim3(ld / RS_W, RS_OUT / RS_BAND), NT, 0,
+                     static_cast<cudaStream_t>(stream)>>>(x, out, ld);
   return cudaGetLastError();
 }
 

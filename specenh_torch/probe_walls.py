@@ -43,8 +43,8 @@ STRIDE2 = CudaKernel("probes", "probe_stride2", [_p, _p, _i, _i])
 FB = 256  # the STFT block's rows; the row-slice probe's input has FB + 8
 
 # the launch geometry of csrc/probes.cu (its constants of the same meaning)
-STRIP = 32                  # the row slice: output columns a block
-THREADS = 64                # a transpose or stride-2 block's threads
+THREADS = 64                # a block's threads, every probe
+RS_BAND, RS_W = 4, 64       # the row slice: output rows x columns a block
 TILE = 16                   # the transpose: a block's tile side
 S2_BAND, S2_W = 4, 64       # the stride-2 slice: output rows x columns a block
 
@@ -62,9 +62,9 @@ def grid(name: str, shape: Tuple[int, int]) -> Tuple[int, int]:
     refuses."""
     rows, cols = shape
     if name == "sublane_offset1_slice":
-        if rows != FB + 8 or cols < STRIP or cols % STRIP:
+        if rows != FB + 8 or cols < RS_W or cols % RS_W:
             raise ValueError(f"row slice: shape {shape}")
-        return cols // STRIP, 1
+        return cols // RS_W, FB // RS_BAND
     if name == "in_kernel_transpose":
         if rows != cols or rows < TILE or rows % TILE or rows // TILE > 65535:
             raise ValueError(f"transpose: shape {shape}")
@@ -91,12 +91,13 @@ def stride2_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def row_slice(x: torch.Tensor) -> torch.Tensor:
-    """(264, 256) float32 -> x[1:257], through a shared-memory read one row
-    down."""
+    """(264, 256) float32 -> x[1:257]: each block stages a band of rows
+    and the halo row below it in shared memory and reads its output one
+    row down."""
     _check(x, (FB + 8, 256))
     if not x.is_cuda:
         return row_slice_plain(x)
-    out = torch.empty(FB, x.shape[1], dtype=x.dtype, device=x.device)
+    out = x.new_empty(FB, x.shape[1])
     ROW_SLICE(x.data_ptr(), out.data_ptr(), x.shape[1])
     return out
 

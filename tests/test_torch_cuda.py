@@ -378,12 +378,14 @@ def test_probe_matches_twin(cuda, name):
     assert kern.launches == before + 1
 
 
-@pytest.mark.parametrize("name", ["in_kernel_transpose", "stride2_lane_slice"])
+@pytest.mark.parametrize("name", sorted(probe_walls.PROBES))
 def test_redesigned_probe_one_launch_bit_for_bit(cuda, name):
-    """The transpose and the stride-2 slice (256 blocks each): one launch a
-    call, equal to the twin bit for bit, on two seeds."""
+    """The row slice, the transpose and the stride-2 slice (256 blocks
+    each): one launch a call, equal to the twin bit for bit, on two
+    seeds."""
     fn, plain, shape = probe_walls.PROBES[name]
-    kern = {"in_kernel_transpose": probe_walls.TRANSPOSE,
+    kern = {"sublane_offset1_slice": probe_walls.ROW_SLICE,
+            "in_kernel_transpose": probe_walls.TRANSPOSE,
             "stride2_lane_slice": probe_walls.STRIDE2}[name]
     for seed in (1, 2):
         x = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(cuda)
@@ -394,14 +396,17 @@ def test_redesigned_probe_one_launch_bit_for_bit(cuda, name):
         assert torch.equal(got, plain(x))
 
 
-@pytest.mark.parametrize("name", ["in_kernel_transpose", "stride2_lane_slice"])
+@pytest.mark.parametrize("name", sorted(probe_walls.PROBES))
 def test_probe_entry_refuses_what_it_does_not_take(cuda, name):
     """A size off the kernel's blocks, or a pointer off 16 bytes, sent to
     the C entry: ``cudaErrorInvalidValue``, raised by the wrapper as
     RuntimeError, and no launch counted."""
-    x = torch.zeros(256, 512, device=cuda)
-    out = torch.empty(256, 512, device=cuda)
-    if name == "in_kernel_transpose":
+    x = torch.zeros(264, 512, device=cuda)
+    out = torch.empty(264, 512, device=cuda)
+    if name == "sublane_offset1_slice":
+        kern, calls = probe_walls.ROW_SLICE, [(x.data_ptr(), out.data_ptr(), 96),
+                                              (x.data_ptr() + 4, out.data_ptr(), 256)]
+    elif name == "in_kernel_transpose":
         kern, calls = probe_walls.TRANSPOSE, [(x.data_ptr(), out.data_ptr(), 100),
                                               (x.data_ptr() + 4, out.data_ptr(), 256)]
     else:

@@ -1,6 +1,8 @@
 """The K11 toolchain probes (specenh_torch.probe_walls): the plain twins
-against numpy slicing, the wrappers on CPU, the shapes against the repo's
-Mosaic probes, and the runner's refusal without a CUDA device."""
+against numpy slicing and against the repo's Mosaic probes' own Pallas
+kernels (``scripts/probe_mosaic_walls.py``, in interpret mode on the CPU),
+the wrappers on CPU, the launch geometry, the shapes, and the runner's
+refusal without a CUDA device."""
 
 import ast
 import os
@@ -9,9 +11,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from specenh_torch import _build
 from specenh_torch import probe_walls as pw
@@ -58,12 +62,25 @@ def _emulate(name, x):
     gx, gy = pw.grid(name, x.shape)
     t = np.arange(pw.THREADS)
     if name == "sublane_offset1_slice":
+        band, w = pw.RS_BAND, pw.RS_W
         out, count = np.zeros((pw.FB, cols), x.dtype), np.zeros((pw.FB, cols), int)
-        for bx in range(gx):
-            c0 = bx * pw.STRIP
-            s = x[:, c0:c0 + pw.STRIP]                               # every row of the strip
-            out[:, c0:c0 + pw.STRIP] = s[1:pw.FB + 1]
-            count[:, c0:c0 + pw.STRIP] += 1
+        for by in range(gy):
+            for bx in range(gx):
+                r0, c0 = by * band, bx * w
+                s = np.full((band + 1, w), np.nan, x.dtype)          # the band and its halo row
+                staged = np.zeros((band + 1, w), int)
+                n = (band + 1) * w // 4                              # 80 copies of 16 bytes
+                for e0 in range(0, n, pw.THREADS):                   # the kernel's strided loop
+                    e = (e0 + t)[e0 + t < n]
+                    r, q = e // (w // 4), e % (w // 4)
+                    for k in range(4):
+                        s[r, 4 * q + k] = x[r0 + r, c0 + 4 * q + k]
+                        np.add.at(staged, (r, 4 * q + k), 1)
+                assert (staged == 1).all()
+                r, g = t // (w // 4), t % (w // 4)
+                for k in range(4):                                   # one float4 a thread
+                    out[r0 + r, c0 + 4 * g + k] = s[r + 1, 4 * g + k]  # from the row below
+                    np.add.at(count, (r0 + r, c0 + 4 * g + k), 1)
         return out, count
     if name == "in_kernel_transpose":
         n, tile = rows, pw.TILE
@@ -101,19 +118,20 @@ def _emulate(name, x):
 @pytest.mark.parametrize("name", sorted(pw.PROBES))
 def test_launch_geometry_writes_every_output_once(name):
     """The kernels' split over blocks and threads, emulated: every output
-    element written exactly once, with the twin's value; the transpose and
-    the stride-2 slice spread over at least the card's 132 SMs."""
+    element written exactly once, with the twin's value; each probe
+    spreads over at least the card's 132 SMs."""
     shape = pw.PROBES[name][2]
     x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
     out, count = _emulate(name, x)
     assert (count == 1).all()
     np.testing.assert_array_equal(out, NUMPY[name](x))
     gx, gy = pw.grid(name, shape)
-    assert name == "sublane_offset1_slice" or gx * gy >= 132
+    assert gx * gy >= 132
 
 
 @pytest.mark.parametrize("name, shape", [
     ("sublane_offset1_slice", (264, 200)), ("sublane_offset1_slice", (263, 256)),
+    ("sublane_offset1_slice", (264, 96)), ("sublane_offset1_slice", (264, 32)),
     ("in_kernel_transpose", (256, 128)), ("in_kernel_transpose", (200, 200)),
     ("in_kernel_transpose", (8, 8)), ("stride2_lane_slice", (256, 500)),
     ("stride2_lane_slice", (254, 512)), ("stride2_lane_slice", (256, 64)),
@@ -127,23 +145,58 @@ def test_launch_geometry_is_the_cuda_sources():
     """``probe_walls``' copy of the geometry equals ``csrc/probes.cu``'s."""
     src = (_build.CSRC / "probes.cu").read_text()
     consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    assert consts["S"] == pw.STRIP and consts["NT"] == pw.THREADS
-    assert consts["T"] == pw.TILE and consts["ROWS"] == pw.FB + 8 and consts["OUT"] == pw.FB
+    assert consts["NT"] == pw.THREADS and consts["T"] == pw.TILE
+    assert consts["RS_OUT"] == pw.FB and (consts["RS_BAND"], consts["RS_W"]) == (pw.RS_BAND, pw.RS_W)
     assert (consts["S2_BAND"], consts["S2_W"]) == (pw.S2_BAND, pw.S2_W)
     assert "cudaFuncSetAttribute" not in src and "extern __shared__" not in src
+
+
+def _mosaic_sources():
+    """{probe name: its source} of ``scripts/probe_mosaic_walls.py``'s
+    ``PROBES``, by AST (the script is not imported)."""
+    tree = ast.parse((ROOT / "scripts" / "probe_mosaic_walls.py").read_text())
+    probes = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+                  and getattr(n.targets[0], "id", "") == "PROBES")
+    return {k.value: v.value for k, v in zip(probes.keys, probes.values)}
+
+
+def _mosaic_kernel(src):
+    """The kernel ``k`` and the ``out_shape`` of one Mosaic probe's source:
+    its imports, constants and kernel executed, its ``pallas_call``'s
+    ``out_shape`` evaluated; its input and its call left out."""
+    tree = ast.parse(src)
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "attr", "") == "pallas_call")
+    out_shape = next(kw.value for kw in call.keywords if kw.arg == "out_shape")
+    keep = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom, ast.FunctionDef))
+            or (isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant))]
+    ns = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), "<mosaic probe>", "exec"), ns)
+    return ns["k"], eval(compile(ast.Expression(out_shape), "<mosaic probe>", "eval"), ns)
 
 
 def test_shapes_are_the_mosaic_probes():
     """The port's copy of the shapes equals the inputs of
     ``scripts/probe_mosaic_walls.py``'s probes, by name."""
-    tree = ast.parse((ROOT / "scripts" / "probe_mosaic_walls.py").read_text())
-    probes = next(n.value for n in tree.body if isinstance(n, ast.Assign)
-                  and getattr(n.targets[0], "id", "") == "PROBES")
-    sources = {k.value: v.value for k, v in zip(probes.keys, probes.values)}
+    sources = _mosaic_sources()
     assert set(sources) == set(pw.PROBES)
     for name, src in sources.items():
         shape = re.search(r"x = jnp\.ones\((\(.*\)), jnp\.float32\)", src).group(1)
         assert eval(shape, {"FB": pw.FB}) == pw.PROBES[name][2], name
+
+
+@pytest.mark.parametrize("name", sorted(pw.PROBES))
+def test_twin_and_wrapper_match_the_mosaic_kernel(name):
+    """The Mosaic probe's own kernel body through ``pl.pallas_call(...,
+    interpret=True)`` on seeded input: the twin and the wrapper (on a CPU
+    tensor) equal its output bit for bit (tolerance 0: these are copies)."""
+    k, out_shape = _mosaic_kernel(_mosaic_sources()[name])
+    fn, plain, shape = pw.PROBES[name]
+    x = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    want = np.asarray(pl.pallas_call(k, out_shape=out_shape, interpret=True)(jnp.asarray(x)))
+    assert want.shape == tuple(out_shape.shape)
+    np.testing.assert_array_equal(plain(torch.from_numpy(x)).numpy(), want)
+    np.testing.assert_array_equal(fn(torch.from_numpy(x)).numpy(), want)
 
 
 def test_probes_are_built_with_the_other_kernels():
