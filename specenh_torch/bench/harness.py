@@ -27,6 +27,7 @@ from specenh_torch.models.autoencoder import ConvAutoencoder
 from specenh_torch.ops import ae_kernel, stft_fused
 from specenh_torch.ops.stft import spectrogram
 from specenh_torch.parallel.collectives import block_of, exchange_for, gather_blocks
+from specenh_torch.utils.logging import span
 
 __all__ = ["make_enhance_shot_fn", "make_production_predict_fn", "enhance_shot_plain",
            "example_shot", "time_cuda", "STFT_MODES"]
@@ -178,6 +179,11 @@ def make_enhance_shot_fn(
     where given, a call with another channel count raises
     ``ValueError``.  A world of one is the service without a mesh bit for
     bit.
+
+    Each call records the spans ``shot.stft`` (K1 or the matmul STFT and
+    the normalization), ``shot.ae`` (the stages) and, over a mesh,
+    ``shot.exchange`` (the block and the gathers), while
+    ``utils.logging.recording()`` is on.
     """
     dtype = torch.float32 if dtype is None else dtype
     ex = None if mesh is None else exchange_for(mesh)
@@ -206,14 +212,18 @@ def make_enhance_shot_fn(
 
     def front(wts, traces):
         if stft_mode == "fused":
-            raw, mn, mx = stft_fused.stft_tf_log(traces, sp)
-            return (stft_fused.normalized_specs(raw, mn, mx, sp.n_frames),
-                    ae_kernel.ae_kernel_enhance_raw(wts, raw, mn, mx, k_tiles, "tf"))
-        if matmul_front:
-            specs = spectrogram(traces, sp)
-        else:
-            specs = stft_fused.spectrogram_fused(traces, sp)
-        return specs, ae_kernel.ae_kernel_enhance_specs(wts, specs, k_tiles)
+            with span("shot.stft"):
+                raw, mn, mx = stft_fused.stft_tf_log(traces, sp)
+                specs = stft_fused.normalized_specs(raw, mn, mx, sp.n_frames)
+            with span("shot.ae"):
+                return specs, ae_kernel.ae_kernel_enhance_raw(wts, raw, mn, mx, k_tiles, "tf")
+        with span("shot.stft"):
+            if matmul_front:
+                specs = spectrogram(traces, sp)
+            else:
+                specs = stft_fused.spectrogram_fused(traces, sp)
+        with span("shot.ae"):
+            return specs, ae_kernel.ae_kernel_enhance_specs(wts, specs, k_tiles)
 
     return _served(front, prepare, device, ex, axis, use_kernel is True, n_channels)
 
@@ -222,8 +232,10 @@ def _module_body(sp: SpecParams, dtype, k_tiles: int) -> Callable:
     """The service's body on the ``nn.Module`` (JAX's Flax route): the
     matmul STFT, then the module computing in ``dtype``."""
     def body(model, traces):
-        specs = spectrogram(traces, sp)
-        return specs, ae_kernel.ae_kernel_enhance_specs_plain(model, specs, k_tiles, dtype)
+        with span("shot.stft"):
+            specs = spectrogram(traces, sp)
+        with span("shot.ae"):
+            return specs, ae_kernel.ae_kernel_enhance_specs_plain(model, specs, k_tiles, dtype)
 
     return body
 
@@ -250,9 +262,12 @@ def _served(body: Callable, prepare: Callable, device, ex, axis: str, even: bool
                 "use_kernel='auto' serves uneven blocks on the kernels, False on the module")
         if c < ex.size:
             raise ValueError(f"{c} channels cannot be sharded over {ex.size} ranks")
+        with span("shot.exchange"):
+            block = block_of(ex, traces, 0).contiguous()
         with torch.no_grad():
-            specs, enhanced = body(wts, block_of(ex, traces, 0).contiguous())
-        return gather_blocks(ex, specs, 0, c), gather_blocks(ex, enhanced, 0, c)
+            specs, enhanced = body(wts, block)
+        with span("shot.exchange"):
+            return gather_blocks(ex, specs, 0, c), gather_blocks(ex, enhanced, 0, c)
 
     fn.prepare = prepare
     return fn

@@ -54,6 +54,7 @@ from specenh_torch._build import CudaKernel
 from specenh_torch.models.autoencoder import ConvAutoencoder, convt_pad_before
 from specenh_torch.ops import ae_kernel as AK
 from specenh_torch.ops.ae_kernel import kernel_depth, supports
+from specenh_torch.utils.logging import span
 
 __all__ = [
     "TrainWeights", "supports", "kernel_depth", "build_train_weights",
@@ -981,18 +982,24 @@ def make_kernel_train_step(cfg: ModelConfig, dtype=torch.bfloat16,
     """``step(state, x, y, mask) -> (state, loss)``: the stage kernels'
     forward and backward, then the state's optimizer (Adam); the drop-in
     for ``train.train_step`` on the geometries ``kernel_depth`` accepts (of
-    ``depth``, if given)."""
+    ``depth``, if given).  Spans: ``train.step`` keyed by ``state.step``,
+    and in it ``step.weights``, ``step.loss`` (forward and backward) and
+    ``step.adam`` (``optimizer.step``)."""
     depth = kernel_depth(cfg, depth)
     _check_pre(depth, pre)
 
     def step(state, x, y, mask):
-        state.optimizer.zero_grad(set_to_none=True)
-        tw = build_train_weights(state.model, dtype, depth)
-        loss = (bce_sum(tw, state.model, x, y, mask, pre)
-                / (mask.sum() * float(TILE_F * TILE_T)))
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
+        with span("train.step", key=state.step):
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("step.weights"):
+                tw = build_train_weights(state.model, dtype, depth)
+            with span("step.loss"):
+                loss = (bce_sum(tw, state.model, x, y, mask, pre)
+                        / (mask.sum() * float(TILE_F * TILE_T)))
+                loss.backward()
+            with span("step.adam"):
+                state.optimizer.step()
+            state.step += 1
         return state, loss.detach()
 
     return step

@@ -61,7 +61,7 @@ from specenh_torch.io.store import (
 from specenh_torch.models.autoencoder import ConvAutoencoder, make_model
 from specenh_torch.ops.stft import spectrogram_freqs, spectrogram_times
 from specenh_torch.parallel.collectives import exchange_for
-from specenh_torch.utils.logging import MetricsLogger
+from specenh_torch.utils.logging import MetricsLogger, span
 
 __all__ = ["EnhanceService", "serve_once", "serve_forever", "KEEPALIVE_S"]
 
@@ -106,6 +106,7 @@ class EnhanceService:
                                  f"{self.device.type} device")
             self.device = self._ex.device
         self._stopped = False
+        self._shots = 0  # dispatched so far: the key of each shot's spans
         self.cfg = cfg
         self.n_channels = n_channels
         self.fn = make_enhance_shot_fn(model_cfg, cfg.spec, cfg.patch, dtype=dtype,
@@ -140,18 +141,21 @@ class EnhanceService:
         traces go to the other ranks' ``follow()`` first; if ``fn`` then
         raises, the service is closed without a stop (the followers are
         inside the shot's collectives: they fail at the collective
-        timeout)."""
-        if self._ex is None:
-            return self.fn(self.params, traces)
-        self._check_lead()
-        traces = torch.as_tensor(traces, dtype=torch.float32, device=self.device)
-        self._ex.broadcast(self._header(_SHOT, *traces.shape))
-        self._ex.broadcast(traces)
-        try:
-            return self.fn(self.params, traces)
-        except BaseException:
-            self._stopped = True
-            raise
+        timeout).  Recorded as the span ``serve.dispatch``, keyed by the
+        count of shots dispatched before it."""
+        with span("serve.dispatch", key=self._shots):
+            self._shots += 1
+            if self._ex is None:
+                return self.fn(self.params, traces)
+            self._check_lead()
+            traces = torch.as_tensor(traces, dtype=torch.float32, device=self.device)
+            self._ex.broadcast(self._header(_SHOT, *traces.shape))
+            self._ex.broadcast(traces)
+            try:
+                return self.fn(self.params, traces)
+            except BaseException:
+                self._stopped = True
+                raise
 
     def keepalive(self) -> None:
         """Over a mesh, on rank 0: a header the followers skip, which ends

@@ -34,6 +34,7 @@ import torch
 
 from specenh_torch.config import ModelConfig, TrainConfig
 from specenh_torch.models.autoencoder import ConvAutoencoder, make_model
+from specenh_torch.utils.logging import span
 
 __all__ = [
     "TrainState", "create_state", "bce_from_logits", "train_step",
@@ -89,12 +90,15 @@ def bce_from_logits(logits: torch.Tensor, targets: torch.Tensor,
 def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                mask: torch.Tensor):
     """One autograd step of the module; returns (state, loss)."""
-    state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss = bce_from_logits(state.model(x, logits=True), y, mask)
-    loss.backward()
-    state.optimizer.step()
-    state.step += 1
+    with span("train.step", key=state.step):
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("step.loss"):
+            loss = bce_from_logits(state.model(x, logits=True), y, mask)
+            loss.backward()
+        with span("step.adam"):
+            state.optimizer.step()
+        state.step += 1
     return state, loss.detach()
 
 
@@ -244,7 +248,20 @@ def fit(state: TrainState, x_train, y_train, x_val=None, y_val=None,
     With ``checkpoint_dir`` and ``resume=True`` training continues from
     the latest saved epoch, the shuffle stream replayed.  ``epoch_fn``
     swaps the engine (same signature as ``train_epoch``), e.g.
-    ``kernel_epoch_for(...)``."""
+    ``kernel_epoch_for(...)``.
+
+    Spans (recorded while ``utils.logging.recording()`` is on): ``fit``;
+    ``fit.epoch`` keyed by the epoch, and in it ``fit.batches`` (the
+    shuffle and the batches' upload), ``fit.steps`` (the engine's
+    ``train.step`` spans), ``fit.loss_sync``, ``fit.validate`` and
+    ``fit.record`` (history, metrics line, checkpoint)."""
+    with span("fit"):
+        return _fit(state, x_train, y_train, x_val, y_val, cfg, epochs, metrics_path,
+                    checkpoint_dir, resume, epoch_fn, verbose)
+
+
+def _fit(state, x_train, y_train, x_val, y_val, cfg, epochs, metrics_path, checkpoint_dir,
+         resume, epoch_fn, verbose):
     epochs = cfg.epochs if epochs is None else epochs
     dev = state.device
     x_train, y_train = _as_tiles(x_train, dev), _as_tiles(y_train, dev)
@@ -291,47 +308,53 @@ def fit(state: TrainState, x_train, y_train, x_val=None, y_val=None,
             start_epoch = epochs
 
     for epoch in range(start_epoch, epochs):
-        t0 = time.perf_counter()
-        perm = rng.permutation(n) if cfg.shuffle else np.arange(n)
-        batch_idx, batch_mask = _epoch_batches(n, bs, perm)
-        state, losses = (epoch_fn or train_epoch)(
-            state, x_train, y_train, torch.from_numpy(batch_idx).to(dev),
-            torch.from_numpy(batch_mask).to(dev))
-        epoch_loss = float(weighted_epoch_mean(losses, batch_mask))
-        history["loss"].append(epoch_loss)
+        with span("fit.epoch", key=epoch):
+            t0 = time.perf_counter()
+            with span("fit.batches"):
+                perm = rng.permutation(n) if cfg.shuffle else np.arange(n)
+                batch_idx, batch_mask = _epoch_batches(n, bs, perm)
+                idx_d = torch.from_numpy(batch_idx).to(dev)
+                mask_d = torch.from_numpy(batch_mask).to(dev)
+            with span("fit.steps"):
+                state, losses = (epoch_fn or train_epoch)(state, x_train, y_train, idx_d, mask_d)
+            with span("fit.loss_sync"):
+                epoch_loss = float(weighted_epoch_mean(losses, batch_mask))
+            history["loss"].append(epoch_loss)
 
-        val = None
-        if x_val is not None and len(x_val):
-            val = evaluate(state, x_val, y_val, bs)
-            history["val_loss"].append(val)
-        dt = time.perf_counter() - t0
-        if verbose:
-            msg = f"epoch {epoch + 1}/{epochs} loss={epoch_loss:.5f}"
-            if val is not None:
-                msg += f" val_loss={val:.5f}"
-            print(msg + f" ({dt:.2f}s)")
-        if writer:
-            writer.write(json.dumps({"epoch": epoch, "loss": epoch_loss,
-                                     "val_loss": val, "sec": dt}) + "\n")
-            writer.flush()
-        if checkpoint_dir:
-            _save_checkpoint(state, checkpoint_dir, epoch)
-            with open(os.path.join(checkpoint_dir, "history.json"), "w") as fh:
-                json.dump(history, fh)
-        if cfg.patience is not None and val is not None:
-            if val < best_val:
-                best_val, stale = val, 0
-            else:
-                stale += 1
-            if stale >= cfg.patience:
-                history["stopped_epoch"] = epoch
+            val = None
+            if x_val is not None and len(x_val):
+                with span("fit.validate"):
+                    val = evaluate(state, x_val, y_val, bs)
+                history["val_loss"].append(val)
+            with span("fit.record"):
+                dt = time.perf_counter() - t0
+                if verbose:
+                    msg = f"epoch {epoch + 1}/{epochs} loss={epoch_loss:.5f}"
+                    if val is not None:
+                        msg += f" val_loss={val:.5f}"
+                    print(msg + f" ({dt:.2f}s)")
+                if writer:
+                    writer.write(json.dumps({"epoch": epoch, "loss": epoch_loss,
+                                             "val_loss": val, "sec": dt}) + "\n")
+                    writer.flush()
                 if checkpoint_dir:
+                    _save_checkpoint(state, checkpoint_dir, epoch)
                     with open(os.path.join(checkpoint_dir, "history.json"), "w") as fh:
                         json.dump(history, fh)
-                if verbose:
-                    print(f"early stopping: val_loss stale for {cfg.patience} "
-                          f"epochs (best {best_val:.5f})")
-                break
+                if cfg.patience is not None and val is not None:
+                    if val < best_val:
+                        best_val, stale = val, 0
+                    else:
+                        stale += 1
+                    if stale >= cfg.patience:
+                        history["stopped_epoch"] = epoch
+                        if checkpoint_dir:
+                            with open(os.path.join(checkpoint_dir, "history.json"), "w") as fh:
+                                json.dump(history, fh)
+                        if verbose:
+                            print(f"early stopping: val_loss stale for {cfg.patience} "
+                                  f"epochs (best {best_val:.5f})")
+                        break
     if writer:
         writer.close()
     history["new_epochs"] = max(0, epochs - start_epoch)

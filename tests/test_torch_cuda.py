@@ -1313,3 +1313,32 @@ def test_dp_two_gloo_ranks_on_one_card(cuda):
     assert l0 == l1 and np.array_equal(p0, p1)
     assert np.isfinite(l0).all() and np.isfinite(p0).all()
     np.testing.assert_allclose(l0, ref["loss"], rtol=1e-4)
+
+
+def test_span_holds_its_kernel_and_launch_in_the_trace(cuda):
+    """A program span around a ``torch.cuda._sleep`` launch and a
+    synchronize holds, on its ``time.time_ns()`` stamps, the kernel's
+    device interval and its launch call (tied by correlation id) in a
+    profiler trace of the device's activity only: the clock on which the
+    benchmark joins the port's spans to the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from specenh_torch.utils.logging import recording, span
+
+    torch.cuda._sleep(1000)  # the spin kernel's module loaded outside the trace
+    torch.cuda.synchronize()
+    with recording() as rec, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with span("sleep"):
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+    (s,) = rec.spans()
+    events = prof.profiler.kineto_results.events()
+    (kernel,) = [e for e in events
+                 if e.device_type() == DeviceType.CUDA and "spin_kernel" in e.name()]
+    (launch,) = [e for e in events
+                 if e.device_type() != DeviceType.CUDA and e.name().startswith("cudaLaunchKernel")
+                 and e.correlation_id() == kernel.correlation_id()]
+    assert kernel.duration_ns() > 0
+    for e in (launch, kernel):
+        assert s.start_ns <= e.start_ns() <= e.start_ns() + e.duration_ns() <= s.end_ns

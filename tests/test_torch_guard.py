@@ -246,15 +246,17 @@ _COPIES = {"data/grain_pipeline": ["RecordSlice", "channel_records", "_patch_np"
                          "plot_frame_view", "plot_val_loss"],
            "viz/movie": ["dump_frames", "render_movie"],
            "utils/metrics": ["_uniform_filter", "ssim", "psnr"],
-           "utils/logging": ["MetricsLogger", "SpanTimer"]}
+           "utils/logging": ["MetricsLogger"]}
 # module -> its own definitions after the copies (where it has any)
-_OWN = {"utils/logging": ["_SpanHandle", "_cuda_devices", "span", "profile_trace", "nan_guard"]}
+_OWN = {"utils/logging": ["_cuda_devices", "SpanRecord", "_Thread", "SpanRecorder", "recording",
+                          "_Span", "span", "profile_trace", "_trace_base_ns",
+                          "_write_chrome_spans", "nan_guard"]}
 
 
 @pytest.mark.parametrize("module,name", [(m, n) for m, names in _COPIES.items() for n in names])
 def test_data_and_viz_copies_equal_jax_modules(module, name):
     """The streamed split plan's unit (``RecordSlice``), the figures, the
-    frame movie, SSIM and PSNR, and the metrics logger and span timer are
+    frame movie, SSIM and PSNR, and the metrics logger are
     the JAX package's code, docstrings aside; each copy module holds the
     definitions it copies and, after them, its own listed in ``_OWN``."""
     port_path = ROOT / "specenh_torch" / f"{module}.py"

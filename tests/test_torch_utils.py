@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from specenh.data import tiles as jtiles
 from specenh.viz.movie import dump_frames as jdump_frames
 from specenh_torch.data import tiles
-from specenh_torch.utils import MetricsLogger, SpanTimer, nan_guard, profile_trace, psnr, span, ssim
+from specenh_torch.utils import MetricsLogger, nan_guard, profile_trace, psnr, span, ssim
 
 
 def test_metrics_logger_jsonl(tmp_path):
@@ -28,16 +28,6 @@ def test_metrics_logger_jsonl(tmp_path):
     lines = [json.loads(line) for line in open(p)]
     assert lines[0]["event"] == "epoch" and lines[0]["loss"] == 0.5
     assert "time" in lines[1]
-
-
-def test_span_timer():
-    t = SpanTimer()
-    for name in ("a", "a", "b"):
-        with t(name):
-            pass
-    rep = t.report()
-    assert rep["a"]["count"] == 2 and rep["b"]["count"] == 1
-    assert rep["a"]["total_s"] >= 0
 
 
 def test_span_logs_and_syncs(tmp_path):
